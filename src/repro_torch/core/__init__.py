@@ -1,0 +1,32 @@
+"""The paper's contribution: cascaded hybrid optimization for async VFL."""
+from repro_torch.core.adapters import ModelAdapter, tabular_adapter
+from repro_torch.core.draws import DrawSource, TorchDraws
+from repro_torch.core.partition import merge_params, split_params, tree_dim
+from repro_torch.core.zoo import (
+    grad_from_losses,
+    perturb,
+    phi_factor,
+    sample_direction,
+    sample_directions,
+    stack_lanes,
+    two_point_grad,
+    zoo_gradient,
+)
+
+__all__ = [
+    "DrawSource",
+    "ModelAdapter",
+    "TorchDraws",
+    "grad_from_losses",
+    "merge_params",
+    "perturb",
+    "phi_factor",
+    "sample_direction",
+    "sample_directions",
+    "split_params",
+    "stack_lanes",
+    "tabular_adapter",
+    "tree_dim",
+    "two_point_grad",
+    "zoo_gradient",
+]

@@ -1,0 +1,112 @@
+"""Draw sources: every random number the engine consumes, behind one seam.
+
+The JAX package draws with threefry keys (schedule and batch indices at
+the start of a run, then per round: directions for each activated block
+row, the ZOO server's or the synchronous global directions, and the DP
+noise on the loss downlink). PyTorch cannot reproduce those streams, so
+the port's engine asks a draw source for each of them instead:
+
+* ``schedule(steps, n_clients, probs, block_size)`` -> (T, block) int64
+* ``sample_indices(steps, batch, n)``               -> (T, batch) int64
+* ``client_directions(t, template, n_rows, q)``     -> tree of raw N(0, 1)
+  leaves (n_rows, q, *leaf) for round t's block rows
+* ``server_directions(t, template, q)``             -> (q, *leaf) leaves,
+  the zoo-vfl server's own ZOO draw
+* ``global_directions(t, template, q)``             -> (q, *leaf) leaves,
+  the synchronous syn-zoo draw over every party's parameters
+* ``noise(t, n_rows, n)``                           -> (n_rows, n) N(0, 1)
+  for the DP channel on round t's loss downlinks
+
+``template`` is a parameter tree; its leaves give the shapes, in sorted
+key order. :class:`TorchDraws` serves a run from one ``torch.Generator``
+on the run's device; the parity tests inject a source that replays the
+JAX package's threefry draws through the same methods.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Protocol, Sequence
+
+import torch
+
+from repro_torch.core.partition import tree_leaves, tree_unflatten
+
+
+class DrawSource(Protocol):
+    def schedule(self, steps: int, n_clients: int,
+                 probs: Optional[Sequence[float]],
+                 block_size: int) -> torch.Tensor: ...
+
+    def sample_indices(self, steps: int, batch: int,
+                       n: int) -> torch.Tensor: ...
+
+    def client_directions(self, t: int, template, n_rows: int,
+                          q: int): ...
+
+    def server_directions(self, t: int, template, q: int): ...
+
+    def global_directions(self, t: int, template, q: int): ...
+
+    def noise(self, t: int, n_rows: int, n: int) -> torch.Tensor: ...
+
+
+def make_schedule(generator: torch.Generator, steps: int, n_clients: int,
+                  probs: Optional[Sequence[float]] = None,
+                  block_size: int = 1) -> torch.Tensor:
+    """Activation sequence m_t — independent draws (assumption IV.6).
+
+    block_size > 1 draws that many DISTINCT clients per round; returns
+    (steps,) for block_size == 1, else (steps, block_size)."""
+    device = generator.device
+    p = (torch.full((n_clients,), 1.0 / n_clients, device=device)
+         if probs is None
+         else torch.as_tensor(probs, dtype=torch.float32, device=device))
+    if block_size == 1:
+        return torch.multinomial(p, steps, replacement=True,
+                                 generator=generator)
+    return torch.multinomial(p.expand(steps, n_clients).contiguous(),
+                             block_size, replacement=False,
+                             generator=generator)
+
+
+class TorchDraws:
+    """A run's draws from one ``torch.Generator(device)`` seeded with
+    ``seed``. Draws are taken in call order, and the engine calls in a
+    fixed order, so one seed fixes a run (on one device type)."""
+
+    def __init__(self, seed: int, device) -> None:
+        self.device = torch.device(device)
+        self.generator = torch.Generator(self.device)
+        self.generator.manual_seed(int(seed))
+
+    def schedule(self, steps, n_clients, probs=None, block_size=1):
+        s = make_schedule(self.generator, steps, n_clients, probs,
+                          block_size)
+        return s.reshape(steps, block_size)
+
+    def sample_indices(self, steps, batch, n):
+        return torch.randint(0, n, (steps, batch), generator=self.generator,
+                             device=self.device)
+
+    def _normals(self, template, lead):
+        """One randn for every leaf of ``template``, each (*lead, *leaf)."""
+        leaves = tree_leaves(template)
+        sizes = [math.prod(lead) * leaf.numel() for leaf in leaves]
+        flat = torch.randn(sum(sizes), generator=self.generator,
+                           device=self.device)
+        return tree_unflatten(template, [
+            part.view(*lead, *leaf.shape)
+            for part, leaf in zip(flat.split(sizes), leaves)])
+
+    def client_directions(self, t, template, n_rows, q):
+        return self._normals(template, (n_rows, q))
+
+    def server_directions(self, t, template, q):
+        return self._normals(template, (q,))
+
+    def global_directions(self, t, template, q):
+        return self._normals(template, (q,))
+
+    def noise(self, t, n_rows, n):
+        return torch.randn((n_rows, n), generator=self.generator,
+                           device=self.device)

@@ -1,0 +1,100 @@
+"""The wire as a first-class object.
+
+Every byte that crosses the party boundary — embeddings up, scalar losses
+(or, for the leaky FOO baselines, partial derivatives) down — is owned by
+a :class:`Transport`: it resolves the protocol's canonical method name
+once (``repro_torch.core.methods``), builds the q-aware
+:class:`privacy.Ledger` for a run, and exposes the ONE mutation point the
+protocol allows on the downlink: a pluggable noise hook on the
+scalar-loss channel (:class:`repro_torch.core.privacy.GaussianLossChannel`).
+
+``Transport`` is a frozen value object and :meth:`downlink` is pure
+(identity when no channel is configured); its noise normals come from
+the run's draw source.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.analysis import tags
+from repro_torch.core.methods import (SYNC_METHODS, ZOO_WIRE_METHODS,
+                                      canonical_method)
+from repro_torch.core.privacy import GaussianLossChannel, Ledger
+
+
+@dataclasses.dataclass(frozen=True)
+class Transport:
+    """Wire protocol of one federation: canonical method + noise hook."""
+    method: str = "cascaded"
+    noise: Optional[GaussianLossChannel] = None
+
+    def __post_init__(self) -> None:
+        object.__setattr__(self, "method", canonical_method(self.method))
+        if self.noise is not None:
+            if self.method not in ZOO_WIRE_METHODS:
+                raise ValueError(
+                    f"the DP loss channel applies to the scalar-loss "
+                    f"downlink of ZOO-wire methods; {self.method!r} sends "
+                    "partial derivatives down (nothing to clip+noise)")
+            if self.method in SYNC_METHODS:
+                raise ValueError(
+                    f"the sync simulation of {self.method!r} shares one "
+                    "global ZOO draw across parties — per-client downlink "
+                    "noise is only meaningful for the asynchronous methods")
+
+    # ------------------------------------------------------- wire shape --
+    @property
+    def zoo_wire(self) -> bool:
+        return self.method in ZOO_WIRE_METHODS
+
+    # ---------------------------------------------------------- downlink --
+    @tags.wire("down", accounted_by="Transport.account", kind="loss",
+               reason="the one legal downlink: scalar losses, DP-noised "
+                      "when a channel is configured")
+    def downlink(self, losses: torch.Tensor,
+                 normals: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The scalar-loss downlink hook (server -> client).
+
+        Identity when no noise channel is configured; otherwise clips +
+        noises every scalar crossing down, with ``normals`` (N(0, 1),
+        shaped like ``losses``) from the run's draw source."""
+        if self.noise is None:
+            return losses
+        if normals is None:
+            raise ValueError("a noised downlink needs its N(0, 1) draws")
+        return self.noise.apply(losses, normals)
+
+    # --------------------------------------------------------- accounting --
+    @tags.accounting
+    def account(self, *, batch: int, embed: int, zoo_queries: int = 1,
+                n_clients: int = 1, n_rounds: int = 1,
+                ledger: Optional[Ledger] = None) -> Ledger:
+        """Build (or extend) the run's wire ledger — the Transport owns
+        accounting."""
+        ledger = Ledger() if ledger is None else ledger
+        ledger.log_round(self.method, batch, embed,
+                         zoo_queries=zoo_queries if self.zoo_wire else 1,
+                         n_clients=n_clients, n_rounds=n_rounds)
+        return ledger
+
+    def releases(self, *, n_rounds: int, n_clients: int = 1,
+                 zoo_queries: int = 1) -> int:
+        """Gaussian-mechanism releases in a run: each activated client
+        receives (1 clean + q perturbed) noised scalars per round. The
+        single source of truth for the accountant's composition count."""
+        if not self.zoo_wire:
+            return 0
+        return n_rounds * n_clients * (1 + zoo_queries)
+
+    def privacy_spent(self, n_releases: int) -> Tuple[float, float]:
+        """Total (ε, δ) after ``n_releases`` noised downlink scalars.
+
+        (inf, 0) without a channel: the wire is structurally safe (§V)
+        but carries no formal DP guarantee."""
+        if self.noise is None:
+            return math.inf, 0.0
+        return self.noise.spent(n_releases)
