@@ -6,20 +6,31 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
 
 1. device and build: the card's name and power limit, and the hand-written
-   kernels built from ``src/repro_torch/kernels/*/csrc`` by ``nvcc`` (their
-   ``-Xptxas -v`` register/spill report);
-2. every kernel entry point against its plain PyTorch version on the card,
-   at the main path's shapes and a ragged one, f32 (TF32 off, 1e-4) and
-   bf16 (1.5e-1), then its time (CUDA graph of many launches), the plain
-   version's, one PyTorch library call's, and the bound from its bytes and
-   operations;
-3. the main path at the paper's width: cascaded hybrid VFL (ZOO clients
-   through the fused kernel, FOO server) over an MNIST-sized stand-in, 500
-   rounds, with the kernel's launch count read around the run; a profile
-   of 50 rounds; agreement with the plain lanes on the CPU on the same
-   draws; the other four methods and a q = 4, block = 3 cascaded run; the
-   quickstart's accuracy;
-4. a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
+   kernels built from ``src/repro_torch/kernels/*/csrc`` by ``nvcc``, one
+   process per source, all at once (their ``-Xptxas -v`` register/spill
+   report);
+2. every kernel entry point against its plain PyTorch version on the card:
+   the fused ZOO fan-out at the tabular main path's shapes and a ragged
+   one, f32 (TF32 off, 1e-4) and bf16 (1.5e-1); flash attention over head
+   dims 64/96/128, causal, window 64, non-causal Sq != Skv, q_offset 0 and
+   576 over a 1152-slot cache, ragged Sq and GQA, and RMSNorm at M = 8,
+   4608, 50 and d = 3072, 128, f32 (1e-4 / 1e-5) and bf16 (2e-2 plus a
+   relative 2e-2); then each one's time, its plain version's, one PyTorch
+   library call's, and the bound from its bytes and operations;
+3. the tabular main path at the paper's width: cascaded hybrid VFL (ZOO
+   clients through the fused kernel, FOO server) over an MNIST-sized
+   stand-in, 500 rounds, with the kernel's launch count read around the
+   run; a profile of 50 rounds; agreement with the plain lanes on the CPU
+   on the same draws; the other four methods and a q = 4, block = 3
+   cascaded run; the quickstart's accuracy;
+4. the split serve path at Phi-3-mini's full width (32 layers, d_model
+   3072, bf16, random weights from a seed): ``launch.serve.serve`` of
+   8 requests of 1024 prompt + 128 generated tokens over 2 client parties,
+   with the flash-attention and RMSNorm launch counts read around the run,
+   the wire bytes against the serve ledger's formula, the kernels held to
+   their plain versions on the inputs they saw in layers 0 and 31 (both
+   prefill chunks, one decode step), and a profile of decode steps;
+5. a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 
 It needs one card, and builds into ``build/`` at first use.
 """
@@ -62,6 +73,30 @@ KERNELS = {
     "zoo_dual_matmul": "src/repro/kernels/zoo_dual_matmul/kernel.py:38",
 }
 SOURCE = "src/repro_torch/kernels/zoo_dual_matmul/csrc/zoo_dual_matmul.cu"
+
+# the serve path: Phi-3-mini at full width, 8 requests of 1024 + 128 tokens
+# over 2 client parties (seq_len 1152, span 576, prefill chunks of 576 and
+# 448 query rows)
+SERVE = dict(batch=8, prompt_len=1024, gen_len=128, n_clients=2)
+SERVE_TOL = (2e-2, 2e-2)          # bf16 (atol, rtol): one bf16 step
+SERVE_ROWS = {
+    "flash_attention": (
+        "src/repro/kernels/flash_attention/kernel.py:81",
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"),
+    "rmsnorm": ("src/repro/kernels/rmsnorm/kernel.py:28",
+                "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu"),
+}
+# (B, Sq, Skv, Hq, Hkv, d, causal, window, q_offset)
+FLASH_CASES = [(2, 576, 1152, 4, 4, 96, True, 0, 0),
+               (2, 448, 1152, 4, 4, 96, True, 0, 576),
+               (2, 576, 1152, 4, 4, 96, True, 0, 576),
+               (2, 50, 1152, 4, 2, 64, True, 0, 576),
+               (2, 448, 1152, 4, 2, 128, True, 64, 576),
+               (2, 256, 256, 4, 4, 64, True, 64, 0),
+               (2, 128, 256, 4, 4, 128, False, 0, 0),
+               (2, 50, 50, 2, 2, 96, True, 0, 0)]
+FLASH_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: SERVE_TOL}
+RMS_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: SERVE_TOL}
 
 
 def log(msg: str) -> None:
@@ -218,6 +253,366 @@ def check_kernels(ops, ref):
     return rows
 
 
+def event_ms(fn, n: int = 20) -> float:
+    """Device time per call for calls that each take long enough to keep
+    the queue full: ``n`` eager calls between CUDA events."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def flash_work(Sq, Skv, causal, window, q_offset):
+    """(visible (query, key) pairs, KV rows read) of one (batch, head)."""
+    qpos = q_offset + torch.arange(Sq)[:, None]
+    kpos = torch.arange(Skv)[None, :]
+    mask = torch.ones(Sq, Skv, dtype=torch.bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    return int(mask.sum()), int(mask.any(0).sum())
+
+
+def flash_bound(q, k, causal, window, q_offset):
+    """Least time (ms) for one flash call: q and o once, the KV rows the
+    masks need once; 4 d operations per visible pair at the dtype's peak."""
+    B, Sq, Hq, d = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    pairs, kv_rows = flash_work(Sq, Skv, causal, window, q_offset)
+    es = q.element_size()
+    nbytes = 2 * q.numel() * es + 2 * B * kv_rows * Hkv * d * es
+    t_ops = 4 * d * pairs * B * Hq / PEAK_OPS[q.dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+
+
+def rms_bound(x):
+    """Least time (ms) for one RMSNorm call: x and scale read, y written;
+    4 operations an element."""
+    M, d = x.shape
+    nbytes = 2 * x.numel() * x.element_size() + 4 * d
+    t_ops = 4 * M * d / PEAK_OPS[x.dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+
+
+def _err_ok(got, want, tol):
+    err = float((got.float() - want.float()).abs().max())
+    ok = torch.allclose(got.float(), want.float(), atol=tol[0], rtol=tol[1])
+    return err, ok
+
+
+def sdpa_call(q, k, v, causal, window, q_offset):
+    """The library yardstick: scaled_dot_product_attention with the same
+    (offset, window) mask given explicitly."""
+    Sq, Skv = q.shape[1], k.shape[1]
+    qpos = q_offset + torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones(Sq, Skv, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask)
+
+
+def rms_library_call(x, scale):
+    rms_norm = getattr(torch.nn.functional, "rms_norm", None)
+    if rms_norm is None:
+        return None
+    w = scale.to(x.dtype)
+    return lambda: rms_norm(x, (x.shape[1],), weight=w, eps=1e-6)
+
+
+def check_serve_kernels(flash_ops, flash_ref, rms_ops, rms_ref):
+    """Phase 2, serve kernels: flash attention and RMSNorm against their
+    plain versions on the card; then their times at the serve path's
+    shapes. Returns the two kernel rows (launches filled in later)."""
+    g = torch.Generator("cuda").manual_seed(2)
+    errs = {"flash_attention": 0.0, "rmsnorm": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, Sq, Skv, Hq, Hkv, d, causal, window, off in FLASH_CASES:
+            q = torch.randn(B, Sq, Hq, d, device="cuda", generator=g)
+            k = torch.randn(B, Skv, Hkv, d, device="cuda", generator=g)
+            v = torch.randn(B, Skv, Hkv, d, device="cuda", generator=g)
+            k[:, off + Sq:], v[:, off + Sq:] = 0, 0   # unwritten cache slots
+            q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+            kw = dict(causal=causal, window=window, q_offset=off)
+            got = flash_ops.flash_attention_bshd(q, k, v, **kw)
+            want = flash_ref.flash_attention_bshd_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err, ok = _err_ok(got, want, FLASH_TOL[dtype])
+            log(f"check flash_attention {str(dtype)[6:]} B={B} Sq={Sq} "
+                f"Skv={Skv} Hq={Hq} Hkv={Hkv} d={d} causal={causal} "
+                f"window={window} q_offset={off}: max_abs_err {err:.3e} "
+                f"(tol {FLASH_TOL[dtype]}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("flash_attention disagrees with its "
+                                     "plain version")
+            if dtype == torch.bfloat16:
+                errs["flash_attention"] = max(errs["flash_attention"], err)
+        # the (BH, S, d) entry point of the TPU kernel's layout
+        q = torch.randn(6, 200, 64, device="cuda", generator=g).to(dtype)
+        got = flash_ops.flash_attention(q, q, q, window=64)
+        want = flash_ref.flash_attention_ref(q, q, q, window=64)
+        torch.cuda.synchronize()
+        err, ok = _err_ok(got, want, FLASH_TOL[dtype])
+        log(f"check flash_attention (BH, S, d) {str(dtype)[6:]}: "
+            f"max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("flash_attention (BH layout) disagrees")
+        for M in (8, 4608, 50):
+            for d in (3072, 128):
+                x = torch.randn(M, d, device="cuda", generator=g).to(dtype)
+                sc = torch.randn(d, device="cuda", generator=g)
+                got, want = rms_ops.rmsnorm(x, sc), rms_ref.rmsnorm_ref(x, sc)
+                torch.cuda.synchronize()
+                err, ok = _err_ok(got, want, RMS_TOL[dtype])
+                log(f"check rmsnorm {str(dtype)[6:]} M={M} d={d}: "
+                    f"max_abs_err {err:.3e} (tol {RMS_TOL[dtype]}) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError("rmsnorm disagrees with its plain "
+                                         "version")
+                if dtype == torch.bfloat16:
+                    errs["rmsnorm"] = max(errs["rmsnorm"], err)
+
+    # times at the serve path's shapes (bf16): one layer's two prefill
+    # chunks for flash attention, the prefill rows for RMSNorm
+    bf = torch.bfloat16
+    rows = {}
+    chunks = [(576, 0), (448, 576)]
+    kern_ms = plain_ms = lib_ms = bound_ms = 0.0
+    ops_t = bytes_t = 0.0
+    k = torch.randn(8, 1152, 32, 96, device="cuda", generator=g).to(bf)
+    v = torch.randn(8, 1152, 32, 96, device="cuda", generator=g).to(bf)
+    for Sq, off in chunks:
+        q = torch.randn(8, Sq, 32, 96, device="cuda", generator=g).to(bf)
+        kw = dict(causal=True, window=0, q_offset=off)
+        km = event_ms(lambda: flash_ops.flash_attention_bshd(q, k, v, **kw))
+        pm = event_ms(lambda: flash_ref.flash_attention_bshd_ref(q, k, v,
+                                                                 **kw), 5)
+        lm = event_ms(sdpa_call(q, k, v, True, 0, off))
+        b_ms, b_by = flash_bound(q, k, True, 0, off)
+        log(f"time flash_attention bf16 chunk Sq={Sq} q_offset={off} "
+            f"(B=8, H=32, d=96, Skv=1152): kernel {km:.5f} ms, plain "
+            f"{pm:.5f} ms, library (SDPA, explicit mask) {lm:.5f} ms, "
+            f"bound {b_ms:.6f} ms ({b_by})")
+        kern_ms, plain_ms, lib_ms = kern_ms + km, plain_ms + pm, lib_ms + lm
+        bound_ms += b_ms
+        ops_t += b_ms if b_by == "operations" else 0.0
+        bytes_t += b_ms if b_by == "bytes" else 0.0
+    rows["flash_attention"] = {
+        "ms": kern_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "operations" if ops_t >= bytes_t else "bytes",
+        "unit": "one layer's prefill: chunks of 576 (q_offset 0) and 448 "
+                "(q_offset 576) query rows, B=8, H=32, d=96, Skv=1152, bf16"}
+    for M in (4608, 3584, 8):
+        x = torch.randn(M, 3072, device="cuda", generator=g).to(bf)
+        sc = torch.randn(3072, device="cuda", generator=g)
+        timer = graph_ms if M == 8 else event_ms
+        km = timer(lambda: rms_ops.rmsnorm(x, sc))
+        pm = timer(lambda: rms_ref.rmsnorm_ref(x, sc))
+        lib = rms_library_call(x, sc)
+        lm = timer(lib) if lib is not None else None
+        b_ms, b_by = rms_bound(x)
+        log(f"time rmsnorm bf16 M={M} d=3072: kernel {km:.5f} ms, plain "
+            f"{pm:.5f} ms, library (F.rms_norm) "
+            f"{'none' if lm is None else f'{lm:.5f} ms'}, bound "
+            f"{b_ms:.6f} ms ({b_by})")
+        if M == 4608:
+            rows["rmsnorm"] = {
+                "ms": km, "plain_ms": pm, "library_ms": lm,
+                "bound_ms": b_ms, "bound_by": b_by,
+                "unit": "one call at the first prefill chunk's rows, "
+                        "M=4608, d=3072, bf16"}
+    for name, (replaces, source) in SERVE_ROWS.items():
+        rows[name] = {"name": name, "route": "cuda", "source": source,
+                      "replaces": replaces, "launches": 0,
+                      "max_abs_err": errs[name], **rows[name]}
+    return rows
+
+
+class Capture:
+    """Wrap a kernel entry point (at the script's level, by replacing the
+    ``ops`` module's attribute for one run) and keep copies of the inputs
+    of the calls whose 0-based index is in ``keep``."""
+
+    def __init__(self, module, attr, keep):
+        self.module, self.attr, self.keep = module, attr, set(keep)
+        self.inner = getattr(module, attr)
+        self.calls = 0
+        self.inputs = {}
+
+    def __call__(self, *args, **kw):
+        if self.calls in self.keep:
+            self.inputs[self.calls] = ([a.clone() for a in args], dict(kw))
+        self.calls += 1
+        return self.inner(*args, **kw)
+
+    def __enter__(self):
+        setattr(self.module, self.attr, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.inner)
+
+
+def profile_decode(fed, params, serving, steps: int = 8) -> None:
+    """Where a full-width decode step's time goes: torch.profiler over
+    ``steps`` one-token steps (sampling included) against the 1152-slot
+    cache, after two warm-up steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    B, seq = SERVE["batch"], fed.seq_len
+    caches = serving.zero_caches(fed.adapter, B, seq, fed.device)
+    step = fed.serve_step()
+    tok = torch.zeros(B, 1, dtype=torch.int32, device=fed.device)
+    t = SERVE["prompt_len"]
+    vocab = fed.model_cfg.vocab_size
+
+    def run(n):
+        nonlocal tok, t, caches
+        for _ in range(n):
+            logits, caches = step(params, tok, caches, t)
+            tok = serving.sample_token(logits, t, 0.0, vocab)[:, None]
+            t += 1
+        torch.cuda.synchronize()
+    run(2)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(steps)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    busy = sum(dev_us(e) for e in kernels)
+    if not busy:
+        log("serve profile: the profiler saw no CUDA kernel time; device "
+            "busy share not measured")
+        return
+    log(f"serve profile, {steps} full-width decode steps (B={B}, cache "
+        f"{seq}) under torch.profiler: wall {wall_us / steps:.1f} us per "
+        f"step, device busy {busy / steps:.1f} us per step "
+        f"({busy / wall_us:.2%} of wall), "
+        f"{sum(e.count for e in kernels) / steps:.1f} kernel launches per "
+        f"step")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
+        log(f"  {dev_us(e) / steps:9.2f} us/step  x{e.count / steps:6.2f}"
+            f"  {e.key[:90]}")
+
+
+def serve_phase(rows, zoo_ops, flash_ops, flash_ref, rms_ops, rms_ref):
+    """Phase 4: the split serve path at Phi-3-mini's full width."""
+    from repro_torch.configs import get_config
+    from repro_torch.federation import Transport, serving
+    from repro_torch.launch import serve as serve_mod
+
+    L = get_config("phi3-mini-3.8b").n_layers            # 32
+    per_fwd = 2 * L + 1                                   # ln1, ln2, final
+    # flash: layer 0 and L-1 of both prefill chunks; RMSNorm: ln1 and ln2
+    # of layers 0 and L-1 in both prefill chunks and the first decode step
+    flash_keep = [0, L - 1, L, 2 * L - 1]
+    rms_keep = [f * per_fwd + j for f in (0, 1, 2)
+                for j in (0, 1, 2 * L - 2, 2 * L - 1)]
+    for ops in (zoo_ops, flash_ops, rms_ops):
+        ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with Capture(flash_ops, "flash_attention_bshd", flash_keep) as fcap, \
+            Capture(rms_ops, "rmsnorm", rms_keep) as rcap:
+        t0 = time.perf_counter()
+        res = serve_mod.serve("phi3-mini-3.8b", use_reduced=False,
+                              temperature=0.0, **SERVE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {**zoo_ops.launches, **flash_ops.launches, **rms_ops.launches}
+    n_fwd = 2 + SERVE["gen_len"]          # two prefill chunks + each step
+    want = {"flash_attention": L * 2, "rmsnorm": per_fwd * n_fwd}
+    log(f"serve path: phi3-mini-3.8b full width, batch {SERVE['batch']}, "
+        f"prompt {SERVE['prompt_len']} + {SERVE['gen_len']} generated, "
+        f"{SERVE['n_clients']} client parties (seq_len {res['seq_len']}): "
+        f"prefill {res['prefill_s']:.4f} s, decode {res['decode_s']:.4f} s "
+        f"= {res['decode_tok_per_s']:.1f} tokens/s, first-use build "
+        f"{res['compile_s']:.2f} s, whole call {wall:.2f} s (weights drawn "
+        f"on the card included), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; final "
+        f"logits max |.| {res['final_logits_absmax']:.4g} (finite); sample "
+        f"{res['sample_output']}; launches {launches}")
+    if {k: launches[k] for k in want} != want or any(
+            launches[k] for k in zoo_ops.launches):
+        raise AssertionError(f"serve launches {launches}, want {want} and "
+                             "no ZOO kernel")
+    B, d = SERVE["batch"], 3072
+    steps = SERVE["prompt_len"] + SERVE["gen_len"]
+    formula = steps * B * d * 4 + SERVE["gen_len"] * B * 4
+    ledger = Transport().account_serve(batch=B, embed=d, n_steps=steps,
+                                       n_gen=SERVE["gen_len"]).total_bytes
+    log(f"serve wire: {res['wire_bytes']} B; formula {steps} steps x "
+        f"{B} x {d} f32 up + {SERVE['gen_len']} x {B} int32 down = "
+        f"{formula} B; Transport.account_serve {ledger} B; gradients on "
+        f"the wire: {res['wire_has_gradients']}")
+    if not res["wire_bytes"] == formula == ledger:
+        raise AssertionError("serve wire bytes differ from the formula")
+
+    # the kernels against their plain versions on the serve path's own
+    # inputs (launches here come after the counts were read)
+    serve_err = {"flash_attention": 0.0, "rmsnorm": 0.0}
+    for i, ((q, k, v), kw) in sorted(fcap.inputs.items()):
+        got = flash_ops.flash_attention_bshd(q, k, v, **kw)
+        want_o = flash_ref.flash_attention_bshd_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err, ok = _err_ok(got, want_o, SERVE_TOL)
+        serve_err["flash_attention"] = max(serve_err["flash_attention"], err)
+        log(f"serve tensors: flash call {i} (layer {i % L}, chunk {i // L},"
+            f" q {tuple(q.shape)}, q_offset {kw.get('q_offset')}): "
+            f"max_abs_err {err:.3e}, output max |.| "
+            f"{float(want_o.float().abs().max()):.4g} (tol {SERVE_TOL}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("flash_attention disagrees on the serve "
+                                 "path's tensors")
+    for i, ((x, sc), kw) in sorted(rcap.inputs.items()):
+        got = rms_ops.rmsnorm(x, sc, **kw)
+        want_y = rms_ref.rmsnorm_ref(x, sc, **kw)
+        torch.cuda.synchronize()
+        err, ok = _err_ok(got, want_y, SERVE_TOL)
+        serve_err["rmsnorm"] = max(serve_err["rmsnorm"], err)
+        log(f"serve tensors: rmsnorm call {i} (forward {i // per_fwd}, "
+            f"norm {i % per_fwd}, x {tuple(x.shape)}, input max |.| "
+            f"{float(x.float().abs().max()):.4g}): max_abs_err {err:.3e} "
+            f"(tol {SERVE_TOL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("rmsnorm disagrees on the serve path's "
+                                 "tensors")
+    if len(fcap.inputs) != len(flash_keep) or len(rcap.inputs) != len(
+            rms_keep):
+        raise AssertionError("the serve run missed a captured call")
+    for name in want:
+        rows[name]["launches"] = launches[name]
+        rows[name]["serve_max_abs_err"] = serve_err[name]
+    del fcap, rcap
+
+    fed, params = serve_mod.build_session(
+        get_config("phi3-mini-3.8b"), n_clients=SERVE["n_clients"],
+        prompt_len=SERVE["prompt_len"], gen_len=SERVE["gen_len"], seed=0)
+    profile_decode(fed, fed.params_from_global(params), serving)
+
+
 def profile_rounds(fed, params, x_parts, y) -> None:
     """Where a main-path round's time goes: torch.profiler over a 50-round
     run (its set-up included), the device's busy share and its kernels."""
@@ -283,6 +678,10 @@ def main() -> int:
     from repro_torch.data import make_classification, vertical_partition
     from repro_torch.federation import Federation
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm import ref as rms_ref
     from repro_torch.kernels.zoo_dual_matmul import ops, ref
     from repro_torch.models import tabular
 
@@ -305,8 +704,9 @@ def main() -> int:
 
     # ---- phase 2: kernels against their plain versions -----------------
     rows = check_kernels(ops, ref)
+    rows.update(check_serve_kernels(flash_ops, flash_ref, rms_ops, rms_ref))
 
-    # ---- phase 3: the main path at the paper's width -------------------
+    # ---- phase 3: the tabular main path at the paper's width -----------
     cfg = PaperMLPConfig()
     X, y = make_classification(seed=0, n=60000, n_features=cfg.n_features,
                                n_classes=cfg.n_classes)
@@ -325,7 +725,8 @@ def main() -> int:
     fed_warm = build("cascaded", 20, use_lanes=True)
     fed_warm.run(params, x_parts, y_dev)               # cuBLAS/allocator warm-up
 
-    ops.reset_launches()
+    for counter in (ops, flash_ops, rms_ops):
+        counter.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = fed.run(params, x_parts, y_dev)
@@ -347,7 +748,9 @@ def main() -> int:
     if launches != {"zoo_dual_matmul_stacked_bias_relu": 500,
                     "zoo_dual_matmul_stacked": 0, "zoo_dual_matmul": 0}:
         raise AssertionError(f"kernel launches {launches} != one per round")
-    for name in rows:
+    if flash_ops.launches["flash_attention"] or rms_ops.launches["rmsnorm"]:
+        raise AssertionError("the tabular path launched an LM kernel")
+    for name in KERNELS:
         rows[name]["launches"] = launches[name]
     profile_rounds(build("cascaded", 50, use_lanes=True), params, x_parts,
                    y_dev)
@@ -416,7 +819,10 @@ def main() -> int:
     if not acc > 0.9:
         raise AssertionError(f"quickstart accuracy {acc} <= 0.9")
 
-    # ---- phase 4: the record -------------------------------------------
+    # ---- phase 4: the split serve path at Phi-3-mini's full width ------
+    serve_phase(rows, ops, flash_ops, flash_ref, rms_ops, rms_ref)
+
+    # ---- phase 5: the record -------------------------------------------
     log(card)
     log(json.dumps({"kernels": list(rows.values())}))
     log(json.dumps({"ok": True, "device": {

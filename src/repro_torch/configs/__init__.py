@@ -1,7 +1,54 @@
-"""Configs of the port: the paper's tabular MLP and the VFL protocol."""
-from repro_torch.configs import paper_mlp
-from repro_torch.configs.base import VFLConfig
+"""Configs of the port: the paper's tabular MLP, the VFL protocol, and the
+registry of LM architectures (``get_config(arch_id)`` / ``--arch``), the
+same entries as the JAX package's."""
+from __future__ import annotations
+
+from repro_torch.configs import (
+    deepseek_v3_671b,
+    granite_20b,
+    internlm2_20b,
+    internvl2_26b,
+    nemotron4_15b,
+    paper_mlp,
+    phi3_mini_3p8b,
+    qwen3_moe_30b_a3b,
+    rwkv6_7b,
+    whisper_medium,
+    zamba2_2p7b,
+)
+from repro_torch.configs.base import ModelConfig, VFLConfig, reduced
+
+ARCH_REGISTRY: dict[str, ModelConfig] = {
+    m.CONFIG.arch_id: m.CONFIG
+    for m in (
+        internvl2_26b,
+        zamba2_2p7b,
+        qwen3_moe_30b_a3b,
+        deepseek_v3_671b,
+        internlm2_20b,
+        granite_20b,
+        rwkv6_7b,
+        whisper_medium,
+        phi3_mini_3p8b,
+        nemotron4_15b,
+    )
+}
 
 PAPER_MLP = paper_mlp.CONFIG
 
-__all__ = ["PAPER_MLP", "VFLConfig"]
+
+def list_archs() -> list[str]:
+    return sorted(ARCH_REGISTRY)
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    try:
+        return ARCH_REGISTRY[arch_id]
+    except KeyError:
+        raise KeyError(
+            f"unknown arch {arch_id!r}; available: {', '.join(list_archs())}"
+        ) from None
+
+
+__all__ = ["ARCH_REGISTRY", "ModelConfig", "PAPER_MLP", "VFLConfig",
+           "get_config", "list_archs", "reduced"]

@@ -5,8 +5,10 @@ needs three things from a model: a per-client feature extractor, a
 server loss over the stacked client embeddings, and (optionally) a fused
 "lanes" forward that evaluates the clean + q ZOO-perturbed client
 forwards in one pass. Packaging those as a :class:`ModelAdapter` lets the
-same engine drive any client/server pair; this slice ships the paper's
-tabular MLP.
+same engine drive any client/server pair: the paper's tabular MLP, and
+(via :func:`from_model_config`) the serve plane of a registered
+decoder-only ``ModelConfig`` — the clients own the embedding, the server
+the transformer backbone plus head.
 
 Where the JAX engine ``vmap``-ed an adapter's hooks over the activated
 client block, the port calls them once with the block written out as
@@ -20,9 +22,12 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.analysis import tags
+from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.paper_mlp import PaperMLPConfig
+from repro_torch.core.partition import LM_CLIENT_KEYS, split_params
 from repro_torch.kernels.zoo_dual_matmul.ops import zoo_dual_matmul_stacked
-from repro_torch.models import common, tabular
+from repro_torch.models import common, model_api, tabular, transformer
+from repro_torch.models.layers import apply_norm, embed_lookup, unembed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +47,21 @@ class ModelAdapter:
     * ``row_mask(client_blk, x_blk)`` (optional) -> 0/1 row-mask tree
       matching the client params, each leaf (R, rows): restricts the ZOO
       perturbation to the rows a batch actually touches.
+
+    Serve plane (optional — set by :func:`from_model_config`; tabular
+    adapters have no decode concept and leave them ``None``):
+
+    * ``client_embed(client_m, tokens)``  -> (bs, S, d): the owning party
+      embeds its tokens — one call covers a single decode token (S = 1)
+      or a whole prompt span (chunked prefill), its only serve-time
+      uplink.
+    * ``server_decode(server, x, caches, cur_pos)`` -> (logits, caches):
+      backbone + head over the uploaded embedding; KV caches and logits
+      never leave the server (the caches are updated in place).
+    * ``server_prefill(server, x, caches, t0)`` -> (logits, caches):
+      consume a whole (bs, chunk, d) span upload in one pass (positions
+      t0 .. t0 + chunk) — the chunked-prefill hook.
+    * ``cache_specs(batch, max_seq)``     -> decode-state spec tree.
     """
     name: str
     client_forward: Callable
@@ -49,6 +69,10 @@ class ModelAdapter:
     param_specs: Callable
     client_lanes: Optional[Callable] = None
     row_mask: Optional[Callable] = None
+    client_embed: Optional[Callable] = None
+    server_decode: Optional[Callable] = None
+    server_prefill: Optional[Callable] = None
+    cache_specs: Optional[Callable] = None
 
     def init_params(self, generator: torch.Generator, device=None):
         return common.materialize(self.param_specs(), generator,
@@ -106,4 +130,86 @@ def tabular_adapter(cfg: Optional[PaperMLPConfig] = None,
         server_loss=server_loss,
         param_specs=lambda: tabular.param_specs(cfg),
         client_lanes=client_lanes,
+    )
+
+
+# ================================================= ModelConfig bridge =====
+
+def from_model_config(cfg: ModelConfig, *, n_clients: int = 2,
+                      seq_len: int = 32) -> ModelAdapter:
+    """Derive the serve plane of a decoder-only ``ModelConfig``.
+
+    The vertical split follows the paper's LM experiments: each of the M
+    client parties owns a disjoint span of ``seq_len / M`` token positions
+    plus its own copy of the embedding table (the bottom layer), and the
+    server owns the transformer backbone, final norm and LM head. The
+    serve hooks are the exact post-embedding half of
+    ``transformer.forward``'s decode path, so split decode equals global
+    decode. The training hooks (``client_forward``, ``client_lanes``,
+    ``server_loss``, ``row_mask``) belong to the LM training slice and
+    raise ``NotImplementedError``.
+    """
+    transformer.check_family(cfg)
+    if n_clients < 1 or seq_len % n_clients:
+        raise ValueError(
+            f"seq_len={seq_len} must split evenly over "
+            f"n_clients={n_clients} token spans")
+    model = model_api.build_model(cfg, max_seq=seq_len)
+    client_spec, server_spec = split_params(model.param_specs,
+                                            LM_CLIENT_KEYS)
+
+    def training_hook(*_args):
+        raise NotImplementedError(
+            "LM training through the async engine is not ported yet "
+            "(ROADMAP.md, Queue 1 item 4); this adapter serves only")
+
+    def param_specs():
+        return {"clients": common.stack_layer_specs(client_spec, n_clients,
+                                                    axis_name="clients"),
+                "server": server_spec}
+
+    @tags.party("client")
+    def client_embed(client_m, tokens):
+        """tokens (bs, S) int -> (bs, S, d) — the serve-time uplink. S = 1
+        per decode step; S = chunk for a whole prompt span."""
+        return embed_lookup(client_m["embed"], tokens, iota=cfg.iota_embed)
+
+    def _decode_tail(server, x, caches, cur_pos, positions):
+        if "pos_embed" in server:
+            pos_table = server["pos_embed"]
+            pe = pos_table[positions.clamp(0, pos_table.shape[0] - 1)]
+            x = x + pe.to(x.dtype)
+        h, new_caches, _ = transformer.backbone_apply(
+            cfg, server, x, positions=positions, caches=caches,
+            cur_pos=cur_pos)
+        h = apply_norm(cfg, server["final_norm"], h)
+        return unembed(server["lm_head"], h), new_caches
+
+    @tags.party("server")
+    def server_decode(server, x, caches, cur_pos):
+        positions = torch.full((1,), int(cur_pos), device=x.device)
+        return _decode_tail(server, x, caches, cur_pos, positions)
+
+    @tags.party("server")
+    def server_prefill(server, x, caches, t0):
+        """x (bs, chunk, d): one party's whole span upload, consumed in a
+        single pass — the same post-embedding ops as ``server_decode`` per
+        position."""
+        positions = int(t0) + torch.arange(x.shape[1], device=x.device)
+        return _decode_tail(server, x, caches, t0, positions)
+
+    def cache_specs(batch, max_seq):
+        return model_api.build_cache_specs(cfg, batch, max_seq)
+
+    return ModelAdapter(
+        name=f"lm-{cfg.arch_id}-m{n_clients}-s{seq_len}",
+        client_forward=training_hook,
+        server_loss=training_hook,
+        param_specs=param_specs,
+        client_lanes=training_hook,
+        row_mask=training_hook,
+        client_embed=client_embed,
+        server_decode=server_decode,
+        server_prefill=server_prefill,
+        cache_specs=cache_specs,
     )

@@ -5,41 +5,29 @@ The cascade's party boundary is a functional split of the parameter tree:
 FOO. For the paper's tabular experiments the clients are a stacked
 (M, ...) tree of per-client feature extractors.
 
-A tree here is a nested ``dict`` whose leaves are tensors. Every traversal
-visits keys in sorted order, the order in which JAX flattens a dict, so a
-leaf's position (which the draw sources rely on) is the same in both
-packages.
+For an LM config the clients own the token embedding (``LM_CLIENT_KEYS``)
+and the server everything else; :func:`lm_engine_params` maps a global
+model tree into that engine layout.
+
+A tree here is a nested ``dict`` whose leaves are tensors
+(``repro_torch.tree``: sorted-key traversal, as JAX flattens a dict).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
-def tree_leaves(tree) -> List[Any]:
-    """Leaves in sorted-key order."""
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
-    return [tree]
+__all__ = ["LM_CLIENT_KEYS", "lm_engine_params", "merge_params",
+           "split_params", "tree_dim", "tree_flat_norm", "tree_leaves",
+           "tree_map", "tree_unflatten"]
 
-
-def tree_map(fn: Callable, tree, *rest):
-    """``fn`` over matching leaves of ``tree`` and ``rest``."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
-                for k in sorted(tree)}
-    return fn(tree, *rest)
-
-
-def tree_unflatten(template, leaves: List[Any]):
-    """Rebuild ``template``'s structure from leaves in sorted-key order."""
-    it = iter(leaves)
-    out = tree_map(lambda _: next(it), template)
-    if next(it, None) is not None:
-        raise ValueError("more leaves than the template has")
-    return out
+# top-level param keys forming the ZOO client partition of an LM config
+# (matches model_api.Model.client_keys for the supported families)
+LM_CLIENT_KEYS = ("embed",)
 
 
 def split_params(params: Dict, client_keys: Tuple[str, ...]
@@ -63,3 +51,18 @@ def tree_dim(tree) -> int:
 def tree_flat_norm(tree) -> torch.Tensor:
     sq = sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree))
     return torch.sqrt(sq)
+
+
+def lm_engine_params(global_params: Dict, n_clients: int) -> Dict:
+    """Map a global ``build_model`` parameter tree into the engine layout.
+
+    Every client party receives the same copy of the embedding table (the
+    replicated bottom layer), stacked along a leading (M,) clients axis;
+    the server keeps everything else (minus the token-consuming MTP head)
+    as the same tensors, uncopied."""
+    client, server = split_params(global_params, LM_CLIENT_KEYS)
+    clients = tree_map(
+        lambda w: w.unsqueeze(0).repeat((n_clients,) + (1,) * w.ndim),
+        client)
+    server = {k: v for k, v in server.items() if k != "mtp"}
+    return {"clients": clients, "server": server}

@@ -1,0 +1,251 @@
+"""The serve plane: split inference with the training party split.
+
+Training never merges the parties — and neither does serving. The OWNING
+client party (position ``t`` belongs to client ``t // span``, the same
+span split the training adapter uses) embeds tokens on its own
+parameters and uploads embeddings; the server holds the backbone, head
+and every KV cache, and returns only sampled token ids. Logits, caches
+and activations never cross the wire, and every step's uplink/downlink
+lands in the session's :class:`repro_torch.core.privacy.Ledger` through
+the ``Transport``.
+
+Ported from the JAX package's ``federation/serving.py``:
+
+* **decode loop** — the JAX package's one compiled ``lax.scan`` becomes a
+  Python loop that samples on the device, keeps the sampled tokens on the
+  device, and transfers them to the host once at the end;
+* **chunked prefill** — each owning client embeds its WHOLE span of the
+  prompt in one ``client_embed`` call and the server consumes the
+  ``(B, chunk, d_model)`` upload through the adapter's ``server_prefill``
+  hook; on the card each chunk runs the flash-attention kernel once per
+  layer;
+* the KV cache is updated in place (the JAX package donates it to
+  ``dynamic_update_slice``).
+
+The JAX package's ahead-of-time compilation cache has no counterpart:
+``compile_s`` reports the first-use build of the card's kernels that fell
+inside the call (0.0 when they were built earlier, or on the CPU), and
+``prefill_s``/``decode_s`` are host-clock times that end in a
+``torch.cuda.synchronize()``.
+
+Sampling at temperature > 0 is ``argmax(logits / T + g)`` with Gumbel
+noise ``g`` — what ``jax.random.categorical`` computes — taken from a
+draw source (:class:`TorchGumbel` by default), so tests can hand the port
+the JAX package's own noise. Greedy decoding draws nothing.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import List, Optional, Protocol, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.analysis import tags
+from repro_torch.core.adapters import ModelAdapter
+from repro_torch.core.privacy import Ledger
+from repro_torch.kernels import _build
+from repro_torch.models.common import torch_dtype
+from repro_torch.tree import tree_map
+
+# the kernels the serve plane's models launch on the card
+SERVE_KERNELS = ("flash_attention", "rmsnorm")
+
+
+@dataclasses.dataclass
+class ServeResult:
+    """One ``Federation.decode`` call: generated tokens + wire totals."""
+    tokens: np.ndarray              # (B, gen_len) sampled token ids
+    logits: torch.Tensor            # final-step logits (B, 1, vocab) —
+                                    # server-side state, exposed for tests
+    ledger: Ledger
+    prefill_s: float = 0.0          # host clock, ends in a synchronize
+    decode_s: float = 0.0           # host clock, ends in the token fetch
+    compile_s: float = 0.0          # first-use kernel build in this call
+
+    @property
+    def wire_bytes(self) -> int:
+        return self.ledger.total_bytes
+
+    @property
+    def transmits_gradients(self) -> bool:
+        return self.ledger.transmits_gradients
+
+
+class GumbelSource(Protocol):
+    def gumbel(self, t: int, shape: Tuple[int, ...],
+               device: torch.device) -> torch.Tensor:
+        """Standard Gumbel noise (f32) for the token sampled at position
+        ``t``."""
+
+
+class TorchGumbel:
+    """Gumbel noise from a seeded ``torch.Generator`` on the run's
+    device: ``-log(-log(u))``, u uniform on [tiny, 1) as JAX draws it."""
+
+    def __init__(self, seed: int, device) -> None:
+        self.generator = torch.Generator(device).manual_seed(seed)
+
+    def gumbel(self, t, shape, device):
+        u = torch.rand(shape, generator=self.generator, device=device)
+        u = u.clamp_min(torch.finfo(torch.float32).tiny)
+        return -torch.log(-torch.log(u))
+
+
+def _require_serve_plane(adapter: ModelAdapter):
+    if adapter.client_embed is None or adapter.server_decode is None:
+        raise ValueError(
+            f"adapter {adapter.name!r} has no serve plane (client_embed/"
+            "server_decode hooks); build the session from a ModelConfig "
+            "to serve split inference")
+
+
+def _client(params, m: int):
+    return tree_map(lambda a: a[m], params["clients"])
+
+
+# ===================================================== one-token step ======
+
+def make_serve_step(adapter: ModelAdapter, n_clients: int, seq_len: int):
+    """One-token split-inference step.
+
+    ``step(params, tok, caches, t)``: the client owning position ``t``
+    embeds ``tok`` (the other parties' tables are never read), the server
+    decodes against its caches (updated in place)."""
+    _require_serve_plane(adapter)
+    span = seq_len // n_clients
+
+    @tags.wire("up", accounted_by="Transport.account_serve", kind="embedding",
+               reason="split-inference uplink: the owning client's one-token "
+                      "embedding; logits and caches stay server-side")
+    def step(params, tok, caches, t: int):
+        e = adapter.client_embed(_client(params, t // span), tok)
+        return adapter.server_decode(params["server"], e, caches, t)
+
+    return step
+
+
+@tags.wire("up", accounted_by="Transport.account_serve", kind="embedding",
+           reason="chunked-prefill uplink: one whole span embedding per "
+                  "chunk; prefill carries no downlink")
+def prefill_chunk(adapter: ModelAdapter, params, toks, caches, t0: int,
+                  m: int):
+    """Client ``m`` embeds its whole ``(B, chunk)`` span slice in ONE call
+    and the server consumes the upload through ``server_prefill``.
+    Returns only the last position's logits (the decode seed)."""
+    if adapter.server_prefill is None:
+        raise ValueError(
+            f"adapter {adapter.name!r} has no server_prefill hook; use the "
+            "per-token step loop")
+    e = adapter.client_embed(_client(params, m), toks)
+    logits, caches = adapter.server_prefill(params["server"], e, caches, t0)
+    return logits[:, -1:], caches
+
+
+def prefill_plan(prompt_len: int, span: int) -> List[Tuple[int, int, int]]:
+    """Span-aligned chunk schedule ``[(t0, t1, owner_m)]`` covering the
+    prompt: each chunk lies inside exactly one client party's span, so
+    one party embeds it in one call."""
+    plan = []
+    t0 = 0
+    while t0 < prompt_len:
+        m = t0 // span
+        t1 = min((m + 1) * span, prompt_len)
+        plan.append((t0, t1, m))
+        t0 = t1
+    return plan
+
+
+def zero_caches(adapter: ModelAdapter, batch: int, max_seq: int, device):
+    return tree_map(
+        lambda s: torch.zeros(s.shape, dtype=torch_dtype(s.dtype),
+                              device=device),
+        adapter.cache_specs(batch, max_seq))
+
+
+def sample_token(logits, t: int, temperature: float, vocab_size: int,
+                 draws: Optional[GumbelSource] = None):
+    """THE serve-plane sampler: greedy, or categorical as
+    ``argmax(logits / T + gumbel)`` with the noise for position ``t`` from
+    ``draws``. Token ids are clamped into the unpadded vocabulary."""
+    lg = logits[:, -1].float()
+    if temperature > 0:
+        if draws is None:
+            raise ValueError("sampling at temperature > 0 needs a Gumbel "
+                             "draw source")
+        nxt = torch.argmax(
+            lg / temperature + draws.gumbel(t, tuple(lg.shape), lg.device),
+            dim=-1)
+    else:
+        nxt = torch.argmax(lg, dim=-1)
+    return torch.clamp(nxt, max=vocab_size - 1).to(torch.int32)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+# ============================================================ run_decode ===
+
+def run_decode(adapter: ModelAdapter, transport, *, n_clients: int,
+               seq_len: int, embed_dim: int, vocab_size: int, params,
+               prompts, gen_len: int, device: torch.device,
+               temperature: float = 0.0,
+               draws: Optional[GumbelSource] = None,
+               ledger: Optional[Ledger] = None,
+               chunked_prefill: bool = True) -> ServeResult:
+    """Prefill + decode through the split serve plane (the
+    ``Federation.decode`` engine). ``chunked_prefill=False`` prefills
+    with the per-token step loop (the equivalence oracle)."""
+    if not isinstance(prompts, torch.Tensor):
+        prompts = torch.from_numpy(np.array(prompts))
+    prompts = prompts.to(device=device, dtype=torch.int32)
+    B, prompt_len = prompts.shape
+    max_seq = prompt_len + gen_len
+    if max_seq > seq_len:
+        raise ValueError(
+            f"prompt_len + gen_len = {max_seq} exceeds the session "
+            f"seq_len {seq_len} (the party span split is sized to it)")
+    compile_s = (_build.ensure_loaded(SERVE_KERNELS)
+                 if device.type == "cuda" else 0.0)
+    span = seq_len // n_clients
+    step = make_serve_step(adapter, n_clients, seq_len)
+    caches = zero_caches(adapter, B, max_seq, device)
+
+    # ------------------------------------------------------- prefill ----
+    tic = time.perf_counter()
+    logits = None
+    if chunked_prefill and adapter.server_prefill is not None:
+        for t0, t1, m in prefill_plan(prompt_len, span):
+            logits, caches = prefill_chunk(adapter, params,
+                                           prompts[:, t0:t1], caches, t0, m)
+    else:
+        for t in range(prompt_len):
+            logits, caches = step(params, prompts[:, t:t + 1], caches, t)
+    _sync(device)
+    prefill_s = time.perf_counter() - tic
+
+    # -------------------------------------------------------- decode ----
+    # the serve plane's only downlink: one sampled token id per step to
+    # the owning client (never the logits); tokens stay on the device
+    # until the one fetch after the loop
+    tic = time.perf_counter()
+    out = torch.empty((B, gen_len), dtype=torch.int32, device=device)
+    for i, t in enumerate(range(prompt_len, max_seq)):
+        nxt = sample_token(logits, t, temperature, vocab_size, draws)
+        out[:, i] = nxt
+        logits, caches = step(params, nxt[:, None], caches, t)
+    out_tokens = out.cpu().numpy()
+    _sync(device)
+    decode_s = time.perf_counter() - tic
+
+    # every step uploads one embedding; only the gen_len sampled tokens
+    # cross back down (the clients already hold the prompt)
+    ledger = transport.account_serve(batch=B, embed=embed_dim,
+                                     n_steps=max_seq, n_gen=gen_len,
+                                     ledger=ledger)
+    return ServeResult(tokens=out_tokens, logits=logits, ledger=ledger,
+                       prefill_s=prefill_s, decode_s=decode_s,
+                       compile_s=compile_s)

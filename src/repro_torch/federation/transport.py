@@ -1,7 +1,8 @@
 """The wire as a first-class object.
 
 Every byte that crosses the party boundary — embeddings up, scalar losses
-(or, for the leaky FOO baselines, partial derivatives) down — is owned by
+(or, for the leaky FOO baselines, partial derivatives) down, and at serve
+time embeddings up and sampled token ids down — is owned by
 a :class:`Transport`: it resolves the protocol's canonical method name
 once (``repro_torch.core.methods``), builds the q-aware
 :class:`privacy.Ledger` for a run, and exposes the ONE mutation point the
@@ -23,7 +24,8 @@ import torch
 from repro_torch.analysis import tags
 from repro_torch.core.methods import (SYNC_METHODS, ZOO_WIRE_METHODS,
                                       canonical_method)
-from repro_torch.core.privacy import GaussianLossChannel, Ledger
+from repro_torch.core.privacy import (GaussianLossChannel, Ledger,
+                                      serve_messages)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +82,37 @@ class Transport:
                          zoo_queries=zoo_queries if self.zoo_wire else 1,
                          n_clients=n_clients, n_rounds=n_rounds)
         return ledger
+
+    @tags.accounting
+    def account_serve(self, *, batch: int, embed: int, n_steps: int = 1,
+                      n_gen: Optional[int] = None,
+                      ledger: Optional[Ledger] = None) -> Ledger:
+        """Log ``n_steps`` split-inference steps: per step the owning
+        client uploads one (batch, d_model) embedding, and on the
+        ``n_gen`` generation steps (all of them if not given) the server
+        returns the sampled token ids — prefill steps carry no downlink
+        (the clients already own the prompt). Serve traffic lands in the
+        same ledger as training, so a session's lifetime wire is one
+        total."""
+        n_gen = n_steps if n_gen is None else n_gen
+        if not 0 <= n_gen <= n_steps:
+            raise ValueError(f"n_gen={n_gen} outside [0, n_steps={n_steps}]")
+        ledger = Ledger() if ledger is None else ledger
+        ledger.messages.extend(
+            serve_messages(batch, embed, with_token=False)
+            * (n_steps - n_gen))
+        ledger.messages.extend(serve_messages(batch, embed) * n_gen)
+        return ledger
+
+    @tags.accounting
+    def account_serve_step(self, *, batch: int, embed: int,
+                           gen: bool = True,
+                           ledger: Optional[Ledger] = None) -> Ledger:
+        """One split-inference step for one request: the continuous
+        scheduler's metering grain, so a request's total equals what a
+        solo decode of the same request logs."""
+        return self.account_serve(batch=batch, embed=embed, n_steps=1,
+                                  n_gen=1 if gen else 0, ledger=ledger)
 
     def releases(self, *, n_rounds: int, n_clients: int = 1,
                  zoo_queries: int = 1) -> int:

@@ -8,7 +8,11 @@ Each kernel package ships:
   takes the plain version for CPU tensors, counts launches
 * ``ref.py``    — the plain PyTorch version of the same function
 """
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     flash_attention_bshd)
+from repro_torch.kernels.rmsnorm.ops import rmsnorm
 from repro_torch.kernels.zoo_dual_matmul.ops import (
     zoo_dual_matmul, zoo_dual_matmul_stacked)
 
-__all__ = ["zoo_dual_matmul", "zoo_dual_matmul_stacked"]
+__all__ = ["flash_attention", "flash_attention_bshd", "rmsnorm",
+           "zoo_dual_matmul", "zoo_dual_matmul_stacked"]

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
@@ -25,8 +26,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 SOURCES: Dict[str, Path] = {
-    "zoo_dual_matmul": _KERNELS / "zoo_dual_matmul" / "csrc"
-    / "zoo_dual_matmul.cu",
+    name: _KERNELS / name / "csrc" / f"{name}.cu"
+    for name in ("zoo_dual_matmul", "flash_attention", "rmsnorm")
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -89,3 +90,18 @@ def load(name: str) -> ctypes.CDLL:
         build_all([name])
         lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+def ensure_loaded(names: Iterable[str]) -> float:
+    """Build (all together) and load every named library not loaded yet;
+    returns the seconds this took, 0.0 when all were loaded already. A
+    caller that times its own work calls this first, so a first-use build
+    is reported apart from the run."""
+    missing = [name for name in names if name not in _LIBS]
+    if not missing:
+        return 0.0
+    t0 = time.perf_counter()
+    build_all(missing)
+    for name in missing:
+        load(name)
+    return time.perf_counter() - t0

@@ -1,0 +1,44 @@
+"""ctypes binding of the CUDA kernel in ``csrc/flash_attention.cu``.
+
+One launch covers every batch row, query head and query tile. The library
+is built and loaded at the first launch, never at import. Callers go
+through ``ops.py``, which validates shapes, dtypes, devices and contiguity
+before a pointer is taken here."""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.cache
+def _launcher():
+    fn = _build.load("flash_attention").flash_attention_launch
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
+                   i32, i32, i32, ctypes.c_float, ptr]
+    fn.restype = i32
+    return fn
+
+
+def launch(q, k, v, o, *, causal: bool, window: int, q_offset: int) -> None:
+    """q (B, Sq, Hq, d), k/v (B, Skv, Hkv, d) -> writes o (B, Sq, Hq, d) on
+    the current stream. Raises if the launch is refused."""
+    B, Sq, Hq, d = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _launcher()(
+            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), B, Hq, Hkv, Sq, Skv, d, int(causal), int(window),
+            int(q_offset), float(d ** -0.5), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention kernel launch failed with CUDA error {err} "
+            f"(B={B}, Sq={Sq}, Skv={Skv}, Hq={Hq}, Hkv={Hkv}, d={d}, "
+            f"dtype={q.dtype})")

@@ -1,0 +1,96 @@
+"""Public wrappers: the CUDA kernel for CUDA tensors, the plain version
+(``ref.py``) for CPU tensors.
+
+A CUDA tensor always goes to the kernel or raises: there is no fallback
+when ``nvcc`` or the library is missing. ``launches`` counts kernel
+launches (the CPU path launches nothing and counts nothing), so a run can
+show that its main path went through the kernel."""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels.flash_attention import kernel
+from repro_torch.kernels.flash_attention.ref import flash_attention_bshd_ref
+
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+MAX_HEAD_DIM = 128
+
+launches: Dict[str, int] = {"flash_attention": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _validate(q, k, v, window: int, q_offset: int) -> bool:
+    """Check a model-layout call; True for CUDA tensors, False for CPU."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError(
+            f"expected q (B, Sq, Hq, d), k/v (B, Skv, Hkv, d); got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, Sq, Hq, d = q.shape
+    _, Skv, Hkv, _ = k.shape
+    if min(B, Sq, Hq, d, Skv, Hkv) < 1:
+        raise ValueError(f"empty operand: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}")
+    if tuple(v.shape) != tuple(k.shape) or k.shape[0] != B or k.shape[3] != d:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if Hq % Hkv:
+        raise ValueError(f"query heads {Hq} are not a multiple of KV "
+                         f"heads {Hkv}")
+    if d % 16 or d > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d}: the kernel takes multiples of 16 "
+                         f"up to {MAX_HEAD_DIM}")
+    if window < 0 or q_offset < 0:
+        raise ValueError(f"window {window} and q_offset {q_offset} must be "
+                         ">= 0")
+    if q.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"q dtype {q.dtype} not in {KERNEL_DTYPES}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"k and v must share q's dtype {q.dtype}, got "
+                         f"{k.dtype}, {v.dtype}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("q, k and v must be contiguous")
+    devices = {q.device, k.device, v.device}
+    if len(devices) != 1:
+        raise ValueError(
+            f"operands on several devices: {sorted(map(str, devices))}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+    if q.device.type == "cuda" and (Sq + 63) // 64 > 65535:
+        raise ValueError(f"grid too large for the kernel: Sq={Sq}")
+    return q.device.type == "cuda"
+
+
+def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0,
+                         q_offset: int = 0):
+    """Attention in the model's layout: q (B, Sq, Hq, d), k/v (B, Skv, Hkv,
+    d) -> (B, Sq, Hq, d), scale d^-1/2. GQA reads KV head h // (Hq / Hkv)
+    in place; query row i sits at position ``q_offset`` + i for the causal
+    and sliding-window masks (the chunked-prefill form)."""
+    if not _validate(q, k, v, window, q_offset):
+        return flash_attention_bshd_ref(q, k, v, causal=causal,
+                                        window=window, q_offset=q_offset)
+    o = torch.empty_like(q)
+    kernel.launch(q, k, v, o, causal=causal, window=window,
+                  q_offset=q_offset)
+    launches["flash_attention"] += 1
+    return o
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0):
+    """The TPU kernel's layout: q (BH, Sq, d), k/v (BH, Skv, d), heads
+    pre-flattened -> (BH, Sq, d). One launch, as the Hq = Hkv = 1 case of
+    :func:`flash_attention_bshd`."""
+    if q.ndim != 3 or k.ndim != 3 or v.ndim != 3:
+        raise ValueError(f"expected (BH, S, d) operands; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    return flash_attention_bshd(
+        q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2), causal=causal,
+        window=window, q_offset=q_offset).squeeze(2)

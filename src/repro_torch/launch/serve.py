@@ -1,0 +1,204 @@
+"""Serving driver: batched prefill + decode with KV caches, on the card.
+
+Decoder-only archs serve SPLIT by default — the ``Federation`` session's
+serve plane (``fed.decode``) keeps the training party split at inference:
+client parties embed their token spans, the server owns backbone + head +
+caches, and every step's wire traffic (one embedding up, token ids down)
+lands in the Transport's ledger. ``n_clients=0`` is the global path (one
+party, prefill token by token through the decode step), the oracle the
+split path equals on replicated client tables.
+
+Ported from the JAX package's ``launch/serve.py`` for the dense attention
+families; continuous batching (``--continuous``) belongs to the scheduler
+slice and raises. ``--reduced`` / ``--no-reduced`` picks the smoke-size
+variant or the full published width (the JAX package's flag cannot turn
+reduction off).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b \\
+        --batch 8 --prompt-len 1024 --gen-len 128 --no-reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+
+from repro_torch.configs import get_config, list_archs, reduced
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.federation import serving
+from repro_torch.models import common
+from repro_torch.models.model_api import build_cache_specs, build_model
+from repro_torch.tree import tree_map
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _prompts(cfg, batch: int, prompt_len: int, seed: int, device):
+    gen = torch.Generator(device).manual_seed(seed + 1)
+    return torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                         generator=gen, device=device, dtype=torch.int32)
+
+
+def _zero_caches(cfg, batch: int, seq: int, device):
+    return tree_map(lambda s: torch.zeros(s.shape, device=device,
+                                          dtype=common.torch_dtype(s.dtype)),
+                    build_cache_specs(cfg, batch, seq))
+
+
+def _check_logits(logits) -> float:
+    """Raise unless the final logits are finite; returns their max |.|."""
+    if not bool(torch.isfinite(logits.float()).all()):
+        raise RuntimeError("the served model's final logits are not finite")
+    return float(logits.float().abs().max())
+
+
+def serve(arch: str, *, batch: int = 4, prompt_len: int = 16,
+          gen_len: int = 16, use_reduced: bool = True, seed: int = 0,
+          temperature: float = 0.0, n_clients: int = 0,
+          continuous: bool = False, device: DeviceLike = None) -> dict:
+    """``n_clients >= 1`` routes through the session's split serve plane;
+    ``n_clients=0`` is the global decode, equal to the split path on
+    replicated client tables. Weights are random, drawn from ``seed`` on
+    the run's device (the card unless ``device="cpu"``)."""
+    if continuous:
+        raise NotImplementedError(
+            "continuous batching is not ported yet (ROADMAP.md, Queue 1 "
+            "item 6: paging.py, scheduler.py)")
+    cfg = get_config(arch)
+    if use_reduced:
+        cfg = reduced(cfg, remat=False)
+    device = resolve_device(device)
+    if n_clients:
+        return _serve_federated(arch, cfg, batch=batch,
+                                prompt_len=prompt_len, gen_len=gen_len,
+                                seed=seed, temperature=temperature,
+                                n_clients=n_clients, device=device)
+    return _serve_global(arch, cfg, batch=batch, prompt_len=prompt_len,
+                         gen_len=gen_len, seed=seed,
+                         temperature=temperature, device=device)
+
+
+# ------------------------------------------------- split (session) path ---
+
+def build_session(cfg, *, n_clients: int, prompt_len: int, gen_len: int,
+                  seed: int, device: DeviceLike = None):
+    """(fed, params) for a serving run — the party span split is rounded
+    up to cover the full served window; global params drawn from
+    ``seed``."""
+    from repro_torch.federation import Federation
+    max_seq = prompt_len + gen_len
+    seq_len = -(-max_seq // n_clients) * n_clients
+    fed = Federation.build(cfg, n_clients=n_clients, seq_len=seq_len,
+                           device=device)
+    params = common.materialize(
+        fed.model.param_specs,
+        torch.Generator(fed.device).manual_seed(seed), device=fed.device)
+    return fed, params
+
+
+def _serve_federated(arch: str, cfg, *, batch: int, prompt_len: int,
+                     gen_len: int, seed: int, temperature: float,
+                     n_clients: int, device: torch.device) -> dict:
+    fed, params = build_session(cfg, n_clients=n_clients,
+                                prompt_len=prompt_len, gen_len=gen_len,
+                                seed=seed, device=device)
+    toks = _prompts(cfg, batch, prompt_len, seed, fed.device)
+    res = fed.decode(params, toks, gen_len=gen_len, temperature=temperature,
+                     seed=seed)
+    if res.tokens.shape != (batch, gen_len):
+        raise RuntimeError(f"generated {res.tokens.shape}, want "
+                           f"{(batch, gen_len)}")
+    absmax = _check_logits(res.logits)
+    return {
+        "arch": arch, "batch": batch, "mode": "federated",
+        "clients": n_clients, "seq_len": fed.seq_len,
+        "prompt_len": prompt_len, "gen_len": gen_len,
+        "device": str(fed.device),
+        "prefill_s": res.prefill_s, "decode_s": res.decode_s,
+        "compile_s": res.compile_s,
+        "decode_tok_per_s": batch * gen_len / max(res.decode_s, 1e-9),
+        "wire_bytes": res.wire_bytes,
+        "wire_has_gradients": res.transmits_gradients,
+        "final_logits_absmax": absmax,
+        "sample_output": res.tokens[0, :8].tolist(),
+    }
+
+
+# ------------------------------------------------------------ global path ---
+
+def _serve_global(arch: str, cfg, *, batch: int, prompt_len: int,
+                  gen_len: int, seed: int, temperature: float,
+                  device: torch.device) -> dict:
+    max_seq = prompt_len + gen_len
+    model = build_model(cfg, max_seq=max_seq)
+    params = common.materialize(
+        model.param_specs, torch.Generator(device).manual_seed(seed),
+        device=device)
+    toks = _prompts(cfg, batch, prompt_len, seed, device)
+    caches = _zero_caches(cfg, batch, max_seq, device)
+    draws = serving.TorchGumbel(seed, device) if temperature > 0 else None
+
+    # prefill: feed prompt tokens through the decode path one at a time
+    t0 = time.perf_counter()
+    logits = None
+    for t in range(prompt_len):
+        logits, caches = model.decode_fn(params, {"tokens": toks[:, t:t + 1]},
+                                         caches, t)
+    _sync(device)
+    t_prefill = time.perf_counter() - t0
+
+    out = torch.empty((batch, gen_len), dtype=torch.int32, device=device)
+    t0 = time.perf_counter()
+    for i, t in enumerate(range(prompt_len, max_seq)):
+        nxt = serving.sample_token(logits, t, temperature, cfg.vocab_size,
+                                   draws)
+        out[:, i] = nxt
+        logits, caches = model.decode_fn(params, {"tokens": nxt[:, None]},
+                                         caches, t)
+    gen = out.cpu().numpy()
+    _sync(device)
+    t_decode = time.perf_counter() - t0
+    absmax = _check_logits(logits)
+    return {
+        "arch": arch, "batch": batch, "mode": "global",
+        "prompt_len": prompt_len, "gen_len": gen_len,
+        "device": str(device),
+        "prefill_s": t_prefill, "decode_s": t_decode,
+        "decode_tok_per_s": batch * gen_len / max(t_decode, 1e-9),
+        "final_logits_absmax": absmax,
+        "sample_output": gen[0, :8].tolist(),
+    }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="phi3-mini-3.8b", choices=list_archs())
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen-len", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
+                    default=True)
+    # 0 = the global path; >= 1 serves split via fed.decode
+    ap.add_argument("--clients", type=int, default=2)
+    ap.add_argument("--continuous", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="default: the CUDA card; 'cpu' for the CPU")
+    args = ap.parse_args(argv)
+    print(json.dumps(serve(args.arch, batch=args.batch,
+                           prompt_len=args.prompt_len, gen_len=args.gen_len,
+                           temperature=args.temperature, seed=args.seed,
+                           use_reduced=args.reduced, n_clients=args.clients,
+                           continuous=args.continuous, device=args.device),
+                     indent=2))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,216 @@
+"""Attention: GQA/MQA/MHA, causal/sliding-window, KV-cache decode.
+
+Ported from the JAX package's ``models/attention.py`` (the non-MLA part):
+
+* :func:`mha_chunked` — plain attention over query chunks (a full
+  softmax per chunk), the JAX package's XLA path;
+* :func:`decode_attend` — one new token against the cache, a masked
+  einsum over the full cache (plain PyTorch, as the JAX package has no
+  kernel for it);
+* :func:`attention_apply` — the sub-layer, with its no-cache, decode
+  (S = 1) and chunked-prefill (S > 1 with a cache) branches. On a CUDA
+  tensor the no-cache and chunked-prefill branches run the hand-written
+  flash-attention kernel (``repro_torch.kernels.flash_attention``); on the
+  CPU they run :func:`mha_chunked`.
+
+The KV cache is updated in place (the JAX package returns a new cache
+through ``dynamic_update_slice`` with donation). MLA, the paged-pool
+branch and cross-attention (``kv_override``) belong to later slices
+(``ROADMAP.md``) and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models.common import ParamSpec
+from repro_torch.models.layers import apply_rope, rms_norm_simple
+
+NEG_INF = -1e30
+
+
+def _later_slice(what: str):
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md, Queue 1: the scheduler and "
+        "model-family slices)")
+
+
+# ------------------------------------------------------------ param specs --
+
+def attention_specs(cfg, d: Optional[int] = None):
+    if cfg.use_mla:
+        raise _later_slice("MLA attention")
+    d = d or cfg.d_model
+    hd = cfg.resolved_head_dim
+    pd = cfg.param_dtype
+    sp = {
+        "wq": ParamSpec((d, cfg.n_heads * hd), pd, ("embed", "heads_out"), "scaled"),
+        "wk": ParamSpec((d, cfg.n_kv_heads * hd), pd, ("embed", "kv_out"), "scaled"),
+        "wv": ParamSpec((d, cfg.n_kv_heads * hd), pd, ("embed", "kv_out"), "scaled"),
+        "wo": ParamSpec((cfg.n_heads * hd, d), pd, ("heads_out", "embed"), "scaled"),
+    }
+    if cfg.qk_norm:
+        sp["q_norm"] = ParamSpec((hd,), "float32", (None,), "ones")
+        sp["k_norm"] = ParamSpec((hd,), "float32", (None,), "ones")
+    return sp
+
+
+def cache_specs(cfg, batch: int, seq: int, dtype="bfloat16"):
+    """Abstract KV-cache layout for decode shapes."""
+    if cfg.use_mla:
+        raise _later_slice("the MLA latent cache")
+    hd = cfg.resolved_head_dim
+    return {
+        "k": ParamSpec((cfg.n_layers, batch, seq, cfg.n_kv_heads, hd), dtype,
+                       ("layers", "cache_batch", "cache_seq", "cache_heads", None)),
+        "v": ParamSpec((cfg.n_layers, batch, seq, cfg.n_kv_heads, hd), dtype,
+                       ("layers", "cache_batch", "cache_seq", "cache_heads", None)),
+    }
+
+
+# ------------------------------------------------- chunked full attention --
+
+def mha_chunked(q, k, v, *, causal: bool = True, window: int = 0,
+                q_chunk: int = 512, logit_softcap: float = 0.0,
+                q_offset: int = 0, scale: Optional[float] = None):
+    """q: (B, Sq, Hq, hd), k/v: (B, Skv, Hkv, hd). GQA via head grouping.
+
+    Loops over query chunks; each chunk materializes (B, H, qc, Skv) f32
+    scores. ``window`` > 0 enables sliding-window masking (keys older than
+    ``window`` are masked out); query row i sits at ``q_offset`` + i.
+    """
+    B, Sq, Hq, hd = q.shape
+    _, Skv, Hkv, _ = k.shape
+    vd = v.shape[-1]
+    G = Hq // Hkv
+    scale = hd ** -0.5 if scale is None else scale
+    qc = min(q_chunk, Sq)
+    kpos = torch.arange(Skv, device=q.device)
+    kf, vf = k.float(), v.float()
+    outs = []
+    for c0 in range(0, Sq, qc):
+        qch = q[:, c0:c0 + qc]
+        n = qch.shape[1]
+        qpos = q_offset + c0 + torch.arange(n, device=q.device)
+        s = torch.einsum("bqhgd,bkhd->bhgqk",
+                         qch.float().reshape(B, n, Hkv, G, hd) * scale, kf)
+        if logit_softcap > 0.0:
+            s = logit_softcap * torch.tanh(s / logit_softcap)
+        mask = torch.ones((n, Skv), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if window > 0:
+            mask &= kpos[None, :] > (qpos[:, None] - window)
+        s = s.masked_fill(~mask, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
+        outs.append(o.to(q.dtype))
+    return torch.cat(outs, dim=1).reshape(B, Sq, Hq, vd)
+
+
+def _attend(cfg, q, k, v, *, causal: bool, window: int, q_offset: int = 0):
+    """Full (or chunk-against-cache) attention: the flash kernel on a CUDA
+    tensor, :func:`mha_chunked` on the CPU."""
+    if not q.is_cuda:
+        return mha_chunked(q, k, v, causal=causal, window=window,
+                           logit_softcap=cfg.attn_logit_softcap,
+                           q_offset=q_offset)
+    if cfg.attn_logit_softcap > 0.0:
+        raise NotImplementedError(
+            "the flash-attention kernel has no logit softcap (no registered "
+            "config uses one)")
+    if k.dtype != q.dtype:           # an f32 model over the bf16 cache: the
+        k, v = k.to(q.dtype), v.to(q.dtype)   # exact widening mha_chunked does
+    return flash_ops.flash_attention_bshd(q, k, v, causal=causal,
+                                          window=window, q_offset=q_offset)
+
+
+# ------------------------------------------------------------ decode path --
+
+def decode_attend(q, k_cache, v_cache, cur_pos: int, *, window: int = 0,
+                  logit_softcap: float = 0.0, window_gather: bool = False,
+                  scale: Optional[float] = None):
+    """One-token decode. q: (B, 1, Hq, hd); caches: (B, S, Hkv, hd).
+
+    Reads the full cache with a position mask. With ``window_gather`` and
+    window > 0, slices only the live window (same result, fewer bytes).
+    """
+    B, _, Hq, hd = q.shape
+    _, S, Hkv, _ = k_cache.shape
+    vd = v_cache.shape[-1]
+    G = Hq // Hkv
+    scale = hd ** -0.5 if scale is None else scale
+    cur_pos = int(cur_pos)
+    qr = q.reshape(B, Hkv, G, hd).float() * scale
+
+    if window_gather and 0 < window < S:
+        start = min(max(cur_pos + 1 - window, 0), S - window)
+        k_cache = k_cache[:, start:start + window]
+        v_cache = v_cache[:, start:start + window]
+        kpos = start + torch.arange(window, device=q.device)
+    else:
+        kpos = torch.arange(S, device=q.device)
+
+    s = torch.einsum("bhgd,bkhd->bhgk", qr, k_cache.float())
+    if logit_softcap > 0.0:
+        s = logit_softcap * torch.tanh(s / logit_softcap)
+    mask = kpos <= cur_pos
+    if window > 0:
+        mask &= kpos > (cur_pos - window)
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    return o.reshape(B, 1, Hq, vd).to(q.dtype)
+
+
+# -------------------------------------------------------------- GQA block --
+
+def attention_apply(cfg, p, x, *, positions, cache=None, cur_pos=None,
+                    window: int = 0, kv_override=None, causal=True,
+                    paging=None):
+    """Full attention sub-layer. Returns (out, cache).
+
+    cache: dict(k=(B, S, Hkv, hd), v=...) for this layer, or None; this
+    step's k/v are written into it in place at ``cur_pos`` (a Python int)
+    and the same dict is returned.
+    """
+    if paging is not None:
+        raise _later_slice("paged attention (the continuous scheduler)")
+    if kv_override is not None:
+        raise _later_slice("cross-attention (kv_override)")
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    dt = x.dtype
+
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, hd)
+    k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
+    v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm_simple(q, p["q_norm"])
+        k = rms_norm_simple(k, p["k_norm"])
+    if cfg.pos == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    if cache is not None:
+        # write this step's k/v at cur_pos, attend over the cache
+        cur_pos = int(cur_pos)
+        k_cache, v_cache = cache["k"], cache["v"]
+        k_cache[:, cur_pos:cur_pos + S] = k.to(k_cache.dtype)
+        v_cache[:, cur_pos:cur_pos + S] = v.to(v_cache.dtype)
+        if S == 1:
+            o = decode_attend(q, k_cache, v_cache, cur_pos, window=window,
+                              logit_softcap=cfg.attn_logit_softcap)
+        else:
+            # chunked prefill: the whole S-token chunk attends causally
+            # over the updated cache in one pass. The causal mask offset
+            # by cur_pos hides both the future and the not-yet-written
+            # (zero) cache slots past cur_pos + S.
+            o = _attend(cfg, q, k_cache, v_cache, causal=True, window=window,
+                        q_offset=cur_pos)
+    else:
+        o = _attend(cfg, q, k, v, causal=causal, window=window)
+    out = (o.reshape(B, S, cfg.n_heads * hd) @ p["wo"]).to(dt)
+    return out, cache

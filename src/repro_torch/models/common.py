@@ -16,7 +16,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.partition import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,13 +72,35 @@ def param_count(tree) -> int:
     return int(sum(math.prod(s.shape) for s in tree_leaves(tree)))
 
 
+def param_bytes(tree) -> int:
+    return int(sum(math.prod(s.shape) * torch_dtype(s.dtype).itemsize
+                   for s in tree_leaves(tree)))
+
+
+def stack_layer_specs(layer_tree, n_layers: int, axis_name: str = "layers"):
+    """Prepend a stacked leading dim to every leaf of a single-layer tree.
+
+    ``axis_name`` is the logical name of the new axis: "layers" for the
+    transformer stack, "clients" for the VFL party plane. A stacked
+    ``scaled`` leaf takes its fan-in from the new leading dim, as in the
+    JAX package (``materialize`` reads ``shape[0]``)."""
+    def one(s: ParamSpec):
+        logical = s.logical if s.logical else (None,) * len(s.shape)
+        return ParamSpec((n_layers,) + tuple(s.shape), s.dtype,
+                         (axis_name,) + tuple(logical), s.init, s.scale)
+    return tree_map(one, layer_tree)
+
+
 def params_from_numpy(tree, device=None):
     """numpy (or any ``np.asarray``-able) leaves -> tensors on ``device``.
-    bfloat16 arrays (ml_dtypes) cross as their 16-bit pattern."""
+    bfloat16 arrays (``ml_dtypes``, as ``np.asarray`` of a JAX bf16 array
+    gives) cross as their 16-bit pattern: numpy's view as int16, torch's
+    view back as bfloat16. The check reads the dtype's name, so it needs
+    no ``ml_dtypes`` import."""
     def one(a):
         a = np.asarray(a)
-        if a.dtype.name == "bfloat16":
-            t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+        if str(a.dtype) == "bfloat16":
+            t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
         else:
             t = torch.from_numpy(np.array(a, copy=True))
         return t.to(device)

@@ -11,14 +11,17 @@ import pytest
 import torch
 
 from repro.analysis import tags as j_tags
+from repro import configs as j_configs
+from repro.configs.base import ModelConfig as JModelConfig
 from repro.configs.base import VFLConfig as JVFLConfig
 from repro.configs.paper_mlp import PaperMLPConfig as JPaperMLPConfig
 from repro.core import methods as j_methods
 from repro.core import privacy as j_privacy
 from repro.data import synthetic as j_synthetic
 from repro.federation.transport import Transport as JTransport
+from repro_torch import configs
 from repro_torch.analysis import tags
-from repro_torch.configs.base import VFLConfig
+from repro_torch.configs.base import ModelConfig, VFLConfig
 from repro_torch.configs.paper_mlp import PaperMLPConfig
 from repro_torch.core import methods, privacy
 from repro_torch.data import synthetic
@@ -54,7 +57,8 @@ def test_method_tables_equal():
 
 
 @pytest.mark.parametrize("ours,theirs", [(VFLConfig, JVFLConfig),
-                                         (PaperMLPConfig, JPaperMLPConfig)])
+                                         (PaperMLPConfig, JPaperMLPConfig),
+                                         (ModelConfig, JModelConfig)])
 def test_config_fields_and_defaults_equal(ours, theirs):
     def fields(cls):
         return [(f.name, str(f.type), f.default)
@@ -62,6 +66,35 @@ def test_config_fields_and_defaults_equal(ours, theirs):
     assert fields(ours) == fields(theirs)
     assert dataclasses.asdict(ours()) == dataclasses.asdict(theirs())
     assert ours.__dataclass_params__.frozen
+
+
+def _model_cfg_view(cfg):
+    """Every field and every derived size of a ModelConfig."""
+    return (dataclasses.asdict(cfg), cfg.resolved_head_dim, cfg.padded_vocab,
+            cfg.is_attention_free, cfg.supports_long_decode,
+            cfg.n_ssm_heads, cfg.n_rwkv_heads, cfg.param_count(),
+            cfg.active_param_count())
+
+
+def test_arch_registry_equal():
+    assert configs.list_archs() == j_configs.list_archs()
+    assert configs.PAPER_MLP == PaperMLPConfig()
+    with pytest.raises(KeyError, match="unknown arch"):
+        configs.get_config("gpt-5")
+
+
+@pytest.mark.parametrize("arch", sorted(j_configs.ARCH_REGISTRY))
+def test_model_configs_and_reduced_equal(arch):
+    """Each registry entry, its reduced() variant and a reduced() with
+    overrides, field for field and in every derived size."""
+    ours, theirs = configs.get_config(arch), j_configs.get_config(arch)
+    assert _model_cfg_view(ours) == _model_cfg_view(theirs)
+    assert (_model_cfg_view(configs.reduced(ours))
+            == _model_cfg_view(j_configs.reduced(theirs)))
+    kw = dict(d_model=64, n_heads=2, n_kv_heads=1, d_ff=128, vocab_size=256,
+              remat=False, param_dtype="float32")
+    assert (_model_cfg_view(configs.reduced(ours, **kw))
+            == _model_cfg_view(j_configs.reduced(theirs, **kw)))
 
 
 def test_paper_mlp_config_properties_equal():

@@ -3,17 +3,26 @@ package, its modules import on a machine without CUDA, ``nvcc`` or
 ``triton``, and its entry points run on the card unless asked for the
 CPU."""
 import ast
+import contextlib
 import os
 import pathlib
 import shutil
 import subprocess
 import sys
 
+import types
+
 import pytest
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.kernels.zoo_dual_matmul import kernel as zoo_kernel
+from repro_torch.kernels.zoo_dual_matmul import ops as zoo_ops
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -87,3 +96,80 @@ def test_kernel_build_location_and_nvcc():
     else:
         with pytest.raises(RuntimeError, match="nvcc"):
             _build.nvcc_path()
+
+
+def test_every_module_imports_first_in_a_fresh_process():
+    """Each module imports as the first module of the package (no import
+    cycle: ``import repro_torch.models.common`` on its own used to fail
+    through core/__init__ -> adapters -> models.common)."""
+    code = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+for name in names:
+    for k in [k for k in sys.modules if k.startswith("repro_torch")]:
+        del sys.modules[k]
+    importlib.import_module(name)
+print(len(names))
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 40
+
+
+def _fake_card(monkeypatch, tmp_path, ops, kernel):
+    """Make a wrapper take its CUDA branch with the kernel library missing
+    and ``nvcc`` absent: it must raise, never fall back to plain."""
+    monkeypatch.setattr(ops, "_validate", lambda *a: True)
+    monkeypatch.setattr(torch.cuda, "device", contextlib.nullcontext)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *a: types.SimpleNamespace(cuda_stream=0))
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+    monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    kernel._launcher.cache_clear()
+
+
+@pytest.mark.parametrize("which", ["flash_attention", "flash_bh", "rmsnorm",
+                                   "zoo_dual_matmul"])
+def test_wrappers_raise_on_the_card_without_their_build(monkeypatch,
+                                                        tmp_path, which):
+    x = torch.ones(2, 4, 2, 16)
+    calls = {
+        "flash_attention": (flash_ops, flash_kernel,
+                            lambda: flash_ops.flash_attention_bshd(x, x, x)),
+        "flash_bh": (flash_ops, flash_kernel,
+                     lambda: flash_ops.flash_attention(x[0], x[0], x[0])),
+        "rmsnorm": (rms_ops, rms_kernel,
+                    lambda: rms_ops.rmsnorm(x[0, 0], torch.ones(16))),
+        "zoo_dual_matmul": (zoo_ops, zoo_kernel,
+                            lambda: zoo_ops.zoo_dual_matmul_stacked(
+                                x[0], x[0, :, :, :4], x[:1, :, :, :4], 1e-3)),
+    }
+    ops, kernel, call = calls[which]
+    before = dict(ops.launches)
+    _fake_card(monkeypatch, tmp_path, ops, kernel)
+    try:
+        with pytest.raises(RuntimeError, match="nvcc"):
+            call()
+    finally:
+        kernel._launcher.cache_clear()
+    assert ops.launches == before
+
+
+def test_serve_runs_on_the_card_unless_asked_for_the_cpu():
+    from repro_torch.launch.serve import serve
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: serve() would run on it")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve("phi3-mini-3.8b", n_clients=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve("phi3-mini-3.8b", n_clients=0)

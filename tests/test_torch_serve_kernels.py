@@ -1,0 +1,224 @@
+"""The port's flash-attention and RMSNorm kernels
+(``repro_torch.kernels.flash_attention`` / ``.rmsnorm``) against the JAX
+package's: their plain versions (the wrappers' CPU path) against
+``repro``'s ``ref.py`` oracles and ``repro``'s Pallas kernels in interpret
+mode, at ``tests/test_kernels.py``'s shapes plus Phi-3's head dim 96, GQA,
+ragged lengths and the chunked-prefill ``q_offset`` (held against
+``mha_chunked(q_offset=)``); the wrappers' argument checks; and, on a CUDA
+card only, the hand-written kernels against their plain versions.
+
+Tolerances: f32 2e-5 (f32 math both sides, summed in other orders); bf16
+2e-2 absolute (``tests/test_kernels.py``'s). On the card, bf16 adds a
+relative 2e-2: the kernel and the plain version round their f32 results
+to bf16 separately, and one bf16 step is 2^-8 of the value."""
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ops as j_flash_ops
+from repro.kernels.flash_attention import ref as j_flash_ref
+from repro.kernels.rmsnorm import ops as j_rms_ops
+from repro.kernels.rmsnorm import ref as j_rms_ref
+from repro.models.layers import apply_norm as j_apply_norm
+from repro.models.attention import mha_chunked as j_mha_chunked
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention import ref as flash_ref
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.kernels.rmsnorm import ref as rms_ref
+from test_torch_support import to_numpy
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# (atol, rtol) of the kernels against their plain versions on the card
+RMS_CARD_TOL = {"float32": (1e-5, 0.0), "bfloat16": (2e-2, 2e-2)}
+
+
+def _arrays(seed, shapes, dtype):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    return ([torch.from_numpy(a).to(tdt) for a in arrs],
+            [jnp.asarray(a, jdt) for a in arrs])
+
+
+def _close(ours, theirs, dtype):
+    np.testing.assert_allclose(to_numpy(ours), to_numpy(theirs),
+                               atol=TOL[dtype], rtol=0)
+
+
+# ------------------------------------------------------ flash attention --
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("BH,S,d", [(2, 128, 64), (4, 256, 64), (1, 256, 128),
+                                    (2, 128, 96)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0)])
+def test_flash_plain_matches_reference(BH, S, d, dtype, causal, window):
+    """The wrapper's CPU path (the plain version) against repro's oracle
+    and its Pallas kernel in interpret mode, in the TPU layout."""
+    (q, k, v), (jq, jk, jv) = _arrays(S + d + BH, [(BH, S, d)] * 3, dtype)
+    ours = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert ours.shape == q.shape and ours.dtype == q.dtype
+    np.testing.assert_array_equal(
+        to_numpy(ours), to_numpy(flash_ref.flash_attention_ref(
+            q, k, v, causal=causal, window=window)))
+    _close(ours, j_flash_ref.flash_attention_ref(jq, jk, jv, causal=causal,
+                                                 window=window), dtype)
+    _close(ours, j_flash_ops.flash_attention(jq, jk, jv, causal=causal,
+                                             window=window, bq=64, bk=64),
+           dtype)
+
+
+def test_flash_cross_lengths():
+    """Sq != Skv, non-causal (tests/test_kernels.py's cross case)."""
+    (q, k, v), (jq, jk, jv) = _arrays(0, [(2, 128, 64), (2, 256, 64),
+                                          (2, 256, 64)], "float32")
+    ours = flash_ops.flash_attention(q, k, v, causal=False)
+    _close(ours, j_flash_ops.flash_attention(jq, jk, jv, causal=False,
+                                             bq=64, bk=64), "float32")
+    _close(ours, j_flash_ref.flash_attention_ref(jq, jk, jv, causal=False),
+           "float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Skv,q_offset,window,Hq,Hkv", [
+    (24, 48, 24, 0, 4, 4),      # the second prefill chunk of a 48-slot cache
+    (18, 48, 24, 0, 4, 2),      # ragged chunk, GQA (G = 2)
+    (24, 48, 0, 0, 2, 2),       # first chunk: zero cache slots past 24
+    (50, 50, 0, 16, 4, 1),      # causal sliding window, MQA
+    (7, 40, 30, 8, 2, 1),       # window with an offset
+])
+def test_flash_model_layout_matches_mha_chunked(Sq, Skv, q_offset, window,
+                                                Hq, Hkv, dtype):
+    """The model-layout wrapper (GQA in place, ``q_offset``) against
+    repro's ``mha_chunked(q_offset=)``, its chunked-prefill attention; the
+    cache past q_offset + Sq is zero, as the serve plane leaves it."""
+    d = 96
+    (q, k, v), (jq, jk, jv) = _arrays(
+        Sq + Skv + Hkv, [(2, Sq, Hq, d), (2, Skv, Hkv, d), (2, Skv, Hkv, d)],
+        dtype)
+    end = q_offset + Sq
+    k[:, end:], v[:, end:] = 0, 0
+    jk, jv = jk.at[:, end:].set(0), jv.at[:, end:].set(0)
+    ours = flash_ops.flash_attention_bshd(q, k, v, causal=True, window=window,
+                                          q_offset=q_offset)
+    assert ours.shape == q.shape and ours.dtype == q.dtype
+    _close(ours, j_mha_chunked(jq, jk, jv, causal=True, window=window,
+                               q_offset=q_offset), dtype)
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take():
+    (q, k, v), _ = _arrays(1, [(2, 8, 4, 32), (2, 8, 2, 32), (2, 8, 2, 32)],
+                           "float32")
+    bad = [
+        (q, k, v[:, :4], {}),                        # k/v mismatch
+        (q, k[:1], v[:1], {}),                       # batch mismatch
+        (q[..., :16], k, v, {}),                     # head dim mismatch
+        (q[:, :, :3], k, v, {}),                     # heads not a multiple
+        (q.double(), k.double(), v.double(), {}),    # dtype the kernel lacks
+        (q, k.to(torch.bfloat16), v, {}),            # mixed dtypes
+        (q.transpose(1, 2).contiguous().transpose(1, 2), k, v, {}),
+        (q[:, :0], k, v, {}),                        # empty
+        (q, k, v, {"window": -1}),
+        (q, k, v, {"q_offset": -1}),
+        (q[..., 0], k[..., 0], v[..., 0], {}),       # wrong rank
+    ]
+    for qq, kk, vv, kw in bad:
+        with pytest.raises(ValueError):
+            flash_ops.flash_attention_bshd(qq, kk, vv, **kw)
+    (q, k, v), _ = _arrays(2, [(2, 8, 4, 24)] * 3, "float32")
+    with pytest.raises(ValueError, match="multiples of 16"):
+        flash_ops.flash_attention_bshd(q, k, v)
+    with pytest.raises(ValueError):
+        flash_ops.flash_attention(q, k, v)           # 4-d in the TPU layout
+
+
+# ----------------------------------------------------------------- RMSNorm --
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,d", [(128, 256), (256, 512), (64, 1024), (8, 96),
+                                 (50, 128)])
+def test_rmsnorm_plain_matches_reference(M, d, dtype):
+    """tests/test_kernels.py's shapes, the decode step's M = 8 and a ragged
+    M = 50 (which the TPU kernel's row tiling rejects, so its Pallas form
+    is checked at the tiled shapes only), against repro's oracle, its
+    model function ``layers.apply_norm`` and its Pallas kernel."""
+    (x, sc), (jx, jsc) = _arrays(M + d, [(M, d), (d,)], dtype)
+    sc, jsc = sc.float(), jsc.astype(jnp.float32)
+    ours = rms_ops.rmsnorm(x, sc)
+    assert ours.shape == x.shape and ours.dtype == x.dtype
+    np.testing.assert_array_equal(to_numpy(ours),
+                                  to_numpy(rms_ref.rmsnorm_ref(x, sc)))
+    _close(ours, j_rms_ref.rmsnorm_ref(jx, jsc), dtype)
+    _close(ours, j_apply_norm(types.SimpleNamespace(norm="rmsnorm"),
+                              {"scale": jsc}, jx), dtype)
+    if M % 64 == 0:
+        _close(ours, j_rms_ops.rmsnorm(jx, jsc, bm=64), dtype)
+
+
+def test_rmsnorm_wrapper_rejects_what_the_kernel_does_not_take():
+    (x, sc), _ = _arrays(3, [(4, 8), (8,)], "float32")
+    bad = [(x[None], sc), (x, sc[:4]), (x, sc[None]), (x[:0], sc),
+           (x.double(), sc), (x, sc.to(torch.bfloat16)), (x.t(), sc[:4]),
+           (x[:, ::2], sc[:4]), (x.to("meta"), sc.to("meta"))]
+    for xx, ss in bad:
+        with pytest.raises(ValueError):
+            rms_ops.rmsnorm(xx, ss)
+
+
+def test_cpu_paths_launch_nothing():
+    (q, k, v), _ = _arrays(4, [(2, 8, 4, 32), (2, 8, 2, 32), (2, 8, 2, 32)],
+                           "float32")
+    (x, sc), _ = _arrays(5, [(4, 32), (32,)], "float32")
+    before = dict(flash_ops.launches), dict(rms_ops.launches)
+    flash_ops.flash_attention_bshd(q, k, v, q_offset=0)
+    flash_ops.flash_attention(*(t[:, :, 0].contiguous() for t in (q, k, v)))
+    rms_ops.rmsnorm(x, sc)
+    assert (flash_ops.launches, rms_ops.launches) == before
+
+
+# ------------------------------------------------------------- on the card --
+
+@pytest.mark.gpu
+def test_cuda_kernels_match_plain_versions():
+    """The hand-written kernels against their plain versions on the card:
+    head dims 64/96/128, causal, window 64, non-causal with Sq != Skv,
+    q_offset 0 and 576 over a 1152-slot cache, ragged Sq, GQA; RMSNorm at
+    M = 8, 4608 and 50."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU form")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flash_ops.reset_launches()
+    rms_ops.reset_launches()
+    tols = {"float32": (1e-4, 0.0), "bfloat16": (2e-2, 2e-2)}
+    cases = [(1, 128, 128, 2, 2, 64, True, 0, 0),
+             (1, 576, 1152, 2, 2, 96, True, 0, 576),
+             (1, 448, 1152, 4, 2, 96, True, 0, 576),
+             (1, 50, 50, 2, 2, 128, True, 64, 0),
+             (2, 128, 256, 2, 2, 64, False, 0, 0)]
+    n = 0
+    for dtype, (atol, rtol) in tols.items():
+        for B, Sq, Skv, Hq, Hkv, d, causal, window, off in cases:
+            (q, k, v), _ = _arrays(Sq + d, [(B, Sq, Hq, d), (B, Skv, Hkv, d),
+                                            (B, Skv, Hkv, d)], dtype)
+            q, k, v = q.cuda(), k.cuda(), v.cuda()
+            got = flash_ops.flash_attention_bshd(
+                q, k, v, causal=causal, window=window, q_offset=off)
+            want = flash_ref.flash_attention_bshd_ref(
+                q, k, v, causal=causal, window=window, q_offset=off)
+            torch.cuda.synchronize()
+            np.testing.assert_allclose(to_numpy(got), to_numpy(want),
+                                       atol=atol, rtol=rtol)
+            n += 1
+        for M, d in ((8, 3072), (4608, 3072), (50, 128)):
+            (x, sc), _ = _arrays(M, [(M, d), (d,)], dtype)
+            x, sc = x.cuda(), sc.float().cuda()
+            got = rms_ops.rmsnorm(x, sc)
+            want = rms_ref.rmsnorm_ref(x, sc)
+            torch.cuda.synchronize()
+            ratol, rrtol = RMS_CARD_TOL[dtype]
+            np.testing.assert_allclose(to_numpy(got), to_numpy(want),
+                                       atol=ratol, rtol=rrtol)
+    assert flash_ops.launches == {"flash_attention": n}
+    assert rms_ops.launches == {"rmsnorm": 6}
