@@ -15,25 +15,35 @@ and prints no result):
    dims 64/96/128, causal, window 64, non-causal Sq != Skv, q_offset 0 and
    576 over a 1152-slot cache, ragged Sq and GQA, and RMSNorm at M = 8,
    4608, 50 and d = 3072, 128, f32 (1e-4 / 1e-5) and bf16 (2e-2 plus a
+   relative 2e-2); the SSD chunked scan at the TPU test's shapes, at the
+   hybrid serve path's (B = 8, H = 80, P = N = 64; 576 rows at chunk 96
+   and 448 at chunk 112, from a non-zero initial state, y and the final
+   state) and at a ragged chunk of 7, f32 (1e-4) and bf16 (2e-2 plus a
    relative 2e-2); then each one's time, its plain version's, one PyTorch
-   library call's, and the bound from its bytes and operations;
+   library call's where one exists, and the bound from its bytes and
+   operations;
 3. the tabular main path at the paper's width: cascaded hybrid VFL (ZOO
    clients through the fused kernel, FOO server) over an MNIST-sized
    stand-in, 500 rounds, with the kernel's launch count read around the
    run; a profile of 50 rounds; agreement with the plain lanes on the CPU
    on the same draws; the other four methods and a q = 4, block = 3
    cascaded run; the quickstart's accuracy;
-4. the split serve path at Phi-3-mini's full width (32 layers, d_model
-   3072, bf16, random weights from a seed): ``launch.serve.serve`` of
-   8 requests of 1024 prompt + 128 generated tokens over 2 client parties,
-   with the flash-attention and RMSNorm launch counts read around the run,
-   the wire bytes against the serve ledger's formula, the kernels held to
-   their plain versions on the inputs they saw in layers 0 and 31 (both
-   prefill chunks, one decode step), and a profile of decode steps;
+4. the split serve path of two models at full width and depth (bf16,
+   random weights from a seed), each through ``launch.serve.serve`` of
+   8 requests of 1024 prompt + 128 generated tokens over 2 client parties:
+   Phi-3-mini (32 layers, d_model 3072) and Zamba2-2.7B (54 Mamba2 layers
+   and a shared attention block at 9 sites, d_model 2560). For each, the
+   launch counts of flash attention, RMSNorm and the SSD scan read around
+   the run and held to the counts derived from the config, the wire bytes
+   against the serve ledger's formula, the kernels held to their plain
+   versions on the inputs they saw in the first and last layer of both
+   prefill chunks (and, for RMSNorm, one decode step), and a profile of
+   decode steps;
 5. a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 
 It needs one card, and builds into ``build/`` at first use.
 """
+import contextlib
 import json
 import re
 import subprocess
@@ -74,9 +84,9 @@ KERNELS = {
 }
 SOURCE = "src/repro_torch/kernels/zoo_dual_matmul/csrc/zoo_dual_matmul.cu"
 
-# the serve path: Phi-3-mini at full width, 8 requests of 1024 + 128 tokens
-# over 2 client parties (seq_len 1152, span 576, prefill chunks of 576 and
-# 448 query rows)
+# the serve path of each model in SERVE_ARCHS at full width: 8 requests of
+# 1024 + 128 tokens over 2 client parties (seq_len 1152, span 576, prefill
+# chunks of 576 and 448 query rows)
 SERVE = dict(batch=8, prompt_len=1024, gen_len=128, n_clients=2)
 SERVE_TOL = (2e-2, 2e-2)          # bf16 (atol, rtol): one bf16 step
 SERVE_ROWS = {
@@ -85,7 +95,10 @@ SERVE_ROWS = {
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"),
     "rmsnorm": ("src/repro/kernels/rmsnorm/kernel.py:28",
                 "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu"),
+    "ssd_chunk": ("src/repro/kernels/ssd_chunk/kernel.py:64",
+                  "src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk.cu"),
 }
+SERVE_ARCHS = ("phi3-mini-3.8b", "zamba2-2.7b")
 # (B, Sq, Skv, Hq, Hkv, d, causal, window, q_offset)
 FLASH_CASES = [(2, 576, 1152, 4, 4, 96, True, 0, 0),
                (2, 448, 1152, 4, 4, 96, True, 0, 576),
@@ -97,6 +110,16 @@ FLASH_CASES = [(2, 576, 1152, 4, 4, 96, True, 0, 0),
                (2, 50, 50, 2, 2, 96, True, 0, 0)]
 FLASH_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: SERVE_TOL}
 RMS_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: SERVE_TOL}
+# the SSD scan: repro's f32 tolerance (1e-4, absolute and relative); bf16
+# outputs round separately on both sides: one bf16 step, SERVE_TOL
+SSD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: SERVE_TOL}
+# (BH, S, P, N, chunk): repro's kernel test shapes, the TPU contract
+SSD_TPU_CASES = [(2, 64, 32, 16, 16), (3, 128, 32, 16, 32),
+                 (1, 128, 64, 32, 64)]
+# (B, S, H, P, N, chunk) in the model's layout, from a non-zero state: the
+# hybrid serve path's two prefill chunks and a ragged chunk
+SSD_MODEL_CASES = [(8, 576, 80, 64, 64, 96), (8, 448, 80, 64, 64, 112),
+                   (2, 56, 4, 64, 64, 7)]
 
 
 def log(msg: str) -> None:
@@ -437,11 +460,129 @@ def check_serve_kernels(flash_ops, flash_ref, rms_ops, rms_ref):
                 "bound_ms": b_ms, "bound_by": b_by,
                 "unit": "one call at the first prefill chunk's rows, "
                         "M=4608, d=3072, bf16"}
-    for name, (replaces, source) in SERVE_ROWS.items():
+    for name in ("flash_attention", "rmsnorm"):
+        replaces, source = SERVE_ROWS[name]
         rows[name] = {"name": name, "route": "cuda", "source": source,
                       "replaces": replaces, "launches": 0,
                       "max_abs_err": errs[name], **rows[name]}
     return rows
+
+
+def ssd_inputs(g, B, S, H, P, N, dtype):
+    """SSD operands in the model's layout as repro's kernel test draws
+    them (x, B, C scaled by 0.5; a in (0.05, 0.95); dt softplus of a
+    normal), and a non-zero f32 initial state."""
+    x = (torch.randn(B, S, H, P, device="cuda", generator=g) * 0.5).to(dtype)
+    a = torch.sigmoid(torch.randn(B, S, H, device="cuda", generator=g))
+    a = a * 0.9 + 0.05
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, H, device="cuda", generator=g))
+    bm = (torch.randn(B, S, N, device="cuda", generator=g) * 0.5).to(dtype)
+    cm = (torch.randn(B, S, N, device="cuda", generator=g) * 0.5).to(dtype)
+    s0 = torch.randn(B, H, P, N, device="cuda", generator=g)
+    return x, a, dt, bm, cm, s0
+
+
+def ssd_bound(x, bm, chunk, y_dtype, with_state):
+    """Least time (ms) for one SSD call: x, a, dt, B, C and y once, the
+    states in and out once; the multiply-adds of the lower-triangle chunk
+    products, the inter-chunk term and the state update (2 operations
+    each), 4 per visible pair for the decay weights, at x's dtype's peak."""
+    B, S, H, P = x.shape
+    N = bm.shape[-1]
+    pairs = chunk * (chunk + 1) // 2
+    n_chunks = S // chunk
+    es, ys = x.element_size(), torch.empty((), dtype=y_dtype).element_size()
+    nbytes = (x.numel() * es + 2 * B * S * H * 4 + 2 * B * S * N * es
+              + x.numel() * ys + (2 if with_state else 0) * B * H * P * N * 4)
+    ops = B * H * n_chunks * (2 * (pairs * (N + P) + 2 * chunk * P * N)
+                              + 4 * pairs)
+    t_ops = ops / PEAK_OPS[x.dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+
+
+def ssd_tol(want, tol):
+    """SSD tolerance on the serve path's own tensors: its atol is taken
+    relative to the largest |want| (at least 1): with full-width random
+    weights the scan's outputs and states reach the thousands, and two f32
+    sums in other orders differ there by a few 1e-7 of the largest term,
+    also where terms cancel to a small value."""
+    return (tol[0] * max(1.0, float(want.float().abs().max())), tol[1])
+
+
+def check_ssd_kernel(ssd_ops, ssd_ref):
+    """Phase 2, the SSD scan against its plain version (the per-token
+    recurrence) on the card, then its time at the serve path's shapes.
+    Returns its kernel row (launches filled in later)."""
+    g = torch.Generator("cuda").manual_seed(3)
+    err_max = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for BH, S, P, N, chunk in SSD_TPU_CASES:
+            x, a, dt, bm, cm, _ = ssd_inputs(g, BH, S, 1, P, N, dtype)
+            x, a, dt = x[:, :, 0].contiguous(), a[:, :, 0].contiguous(), \
+                dt[:, :, 0].contiguous()
+            got = ssd_ops.ssd_chunk(x, a, dt, bm, cm, chunk=chunk)
+            want = ssd_ref.ssd_chunk_ref(x, a, dt, bm, cm)
+            torch.cuda.synchronize()
+            err, ok = _err_ok(got, want, SSD_TOL[dtype])
+            log(f"check ssd_chunk (BH, S, P) {str(dtype)[6:]} BH={BH} S={S} "
+                f"P={P} N={N} chunk={chunk}: max_abs_err {err:.3e} (tol "
+                f"{SSD_TOL[dtype]}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("ssd_chunk disagrees with its plain "
+                                     "version")
+            err_max = max(err_max, err)
+        for B, S, H, P, N, chunk in SSD_MODEL_CASES:
+            x, a, dt, bm, cm, s0 = ssd_inputs(g, B, S, H, P, N, dtype)
+            y, s1 = ssd_ops.ssd_chunk_bshp(x, a, dt, bm, cm, chunk=chunk,
+                                           state0=s0)
+            yr, sr = ssd_ref.ssd_states_ref(x, a, dt, bm, cm, state0=s0)
+            torch.cuda.synchronize()
+            # y and the state are f32 whatever x's type: f32 tolerance
+            (ey, oky), (es, oks) = (_err_ok(y, yr, SSD_TOL[torch.float32]),
+                                    _err_ok(s1, sr, SSD_TOL[torch.float32]))
+            log(f"check ssd_chunk (B, S, H, P) {str(dtype)[6:]} B={B} S={S} "
+                f"H={H} P={P} N={N} chunk={chunk}, state in and out: y "
+                f"max_abs_err {ey:.3e} (max |y| "
+                f"{float(yr.abs().max()):.4g}), state max_abs_err {es:.3e} "
+                f"(tol {SSD_TOL[torch.float32]}) "
+                f"{'ok' if oky and oks else 'FAIL'}")
+            if not (oky and oks):
+                raise AssertionError("ssd_chunk (model layout) disagrees "
+                                     "with its plain version")
+            err_max = max(err_max, ey, es)
+
+    # times at the serve path's shapes: one Mamba2 layer's two prefill
+    # chunks (bf16 x, B, C; f32 y; state in and out)
+    kern_ms = plain_ms = bound_ms = ops_t = bytes_t = 0.0
+    for B, S, H, P, N, chunk in SSD_MODEL_CASES[:2]:
+        x, a, dt, bm, cm, s0 = ssd_inputs(g, B, S, H, P, N, torch.bfloat16)
+        km = event_ms(lambda: ssd_ops.ssd_chunk_bshp(x, a, dt, bm, cm,
+                                                     chunk=chunk, state0=s0))
+        pm = event_ms(lambda: ssd_ref.ssd_states_ref(x, a, dt, bm, cm,
+                                                     state0=s0), 3)
+        b_ms, b_by = ssd_bound(x, bm, chunk, torch.float32, True)
+        log(f"time ssd_chunk bf16 S={S} chunk={chunk} (B={B}, H={H}, P={P}, "
+            f"N={N}, state in and out): kernel {km:.5f} ms, plain (per-token "
+            f"recurrence) {pm:.5f} ms, library none (no single PyTorch call "
+            f"computes the SSD scan), bound {b_ms:.6f} ms ({b_by})")
+        kern_ms, plain_ms, bound_ms = kern_ms + km, plain_ms + pm, \
+            bound_ms + b_ms
+        ops_t += b_ms if b_by == "operations" else 0.0
+        bytes_t += b_ms if b_by == "bytes" else 0.0
+    name = "ssd_chunk"
+    replaces, source = SERVE_ROWS[name]
+    return {name: {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": 0, "max_abs_err": err_max,
+        "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "operations" if ops_t >= bytes_t else "bytes",
+        "library_ms": None,
+        "unit": "one Mamba2 layer's prefill: chunks of 576 rows (chunk 96) "
+                "and 448 rows (chunk 112), B=8, H=80, P=N=64, x/B/C bf16, y "
+                "f32, state in and out; no PyTorch library call computes "
+                "the SSD scan"}}
 
 
 class Capture:
@@ -457,7 +598,10 @@ class Capture:
 
     def __call__(self, *args, **kw):
         if self.calls in self.keep:
-            self.inputs[self.calls] = ([a.clone() for a in args], dict(kw))
+            self.inputs[self.calls] = (
+                [a.clone() for a in args],
+                {k: v.clone() if isinstance(v, torch.Tensor) else v
+                 for k, v in kw.items()})
         self.calls += 1
         return self.inner(*args, **kw)
 
@@ -517,34 +661,66 @@ def profile_decode(fed, params, serving, steps: int = 8) -> None:
             f"  {e.key[:90]}")
 
 
-def serve_phase(rows, zoo_ops, flash_ops, flash_ref, rms_ops, rms_ref):
-    """Phase 4: the split serve path at Phi-3-mini's full width."""
+def serve_plan(cfg):
+    """What one serve call launches, derived from the config: per forward
+    pass the attention sites and Mamba2 layers (dense: every layer is an
+    attention block; hybrid: n_layers // attn_every super-blocks of
+    attn_every Mamba2 layers and one shared attention block) and the
+    norms (ln1 and ln2 of each attention block, ln1 of each Mamba2 layer,
+    the final norm). Each prefill chunk runs flash attention once per
+    attention site and the SSD scan once per Mamba2 layer; decode steps
+    run neither (plain decode attention; the S = 1 state step)."""
+    if cfg.family == "hybrid":
+        sites = cfg.n_layers // cfg.attn_every
+        mamba = sites * cfg.attn_every
+    else:
+        sites, mamba = cfg.n_layers, 0
+    n_chunks = 2                    # prompt 1024 over spans of 576
+    per_fwd = 2 * sites + mamba + 1
+    n_fwd = n_chunks + SERVE["gen_len"]    # two prefill chunks + each step
+    return dict(sites=sites, mamba=mamba, per_fwd=per_fwd, launches={
+        "flash_attention": sites * n_chunks, "rmsnorm": per_fwd * n_fwd,
+        "ssd_chunk": mamba * n_chunks})
+
+
+def serve_phase(rows, arch, zoo_ops, kernels):
+    """Phase 4: the split serve path of ``arch`` at full width and depth.
+    ``kernels`` maps each serve kernel's name to its (ops, ref) modules."""
     from repro_torch.configs import get_config
     from repro_torch.federation import Transport, serving
     from repro_torch.launch import serve as serve_mod
 
-    L = get_config("phi3-mini-3.8b").n_layers            # 32
-    per_fwd = 2 * L + 1                                   # ln1, ln2, final
-    # flash: layer 0 and L-1 of both prefill chunks; RMSNorm: ln1 and ln2
-    # of layers 0 and L-1 in both prefill chunks and the first decode step
-    flash_keep = [0, L - 1, L, 2 * L - 1]
-    rms_keep = [f * per_fwd + j for f in (0, 1, 2)
-                for j in (0, 1, 2 * L - 2, 2 * L - 1)]
-    for ops in (zoo_ops, flash_ops, rms_ops):
+    cfg = get_config(arch)
+    plan = serve_plan(cfg)
+    A, M, per_fwd = plan["sites"], plan["mamba"], plan["per_fwd"]
+    # the first and last attention site and Mamba2 layer of both prefill
+    # chunks; the first two norms and the last two before the final norm
+    # of both prefill chunks and the first decode step
+    entries = {"flash_attention": "flash_attention_bshd",
+               "rmsnorm": "rmsnorm", "ssd_chunk": "ssd_chunk_bshp"}
+    keep = {"flash_attention": [0, A - 1, A, 2 * A - 1],
+            "rmsnorm": [f * per_fwd + j for f in (0, 1, 2)
+                        for j in (0, 1, per_fwd - 3, per_fwd - 2)],
+            "ssd_chunk": [0, M - 1, M, 2 * M - 1] if M else []}
+    for ops in [zoo_ops] + [ops for ops, _ in kernels.values()]:
         ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    with Capture(flash_ops, "flash_attention_bshd", flash_keep) as fcap, \
-            Capture(rms_ops, "rmsnorm", rms_keep) as rcap:
+    with contextlib.ExitStack() as stack:
+        caps = {name: stack.enter_context(
+                    Capture(kernels[name][0], entries[name], keep[name]))
+                for name in kernels}
         t0 = time.perf_counter()
-        res = serve_mod.serve("phi3-mini-3.8b", use_reduced=False,
-                              temperature=0.0, **SERVE)
+        res = serve_mod.serve(arch, use_reduced=False, temperature=0.0,
+                              **SERVE)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = {**zoo_ops.launches, **flash_ops.launches, **rms_ops.launches}
-    n_fwd = 2 + SERVE["gen_len"]          # two prefill chunks + each step
-    want = {"flash_attention": L * 2, "rmsnorm": per_fwd * n_fwd}
-    log(f"serve path: phi3-mini-3.8b full width, batch {SERVE['batch']}, "
-        f"prompt {SERVE['prompt_len']} + {SERVE['gen_len']} generated, "
+    launches = dict(zoo_ops.launches)
+    for ops, _ in kernels.values():
+        launches.update(ops.launches)
+    want = plan["launches"]
+    log(f"serve path: {arch} full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}), batch {SERVE['batch']}, prompt "
+        f"{SERVE['prompt_len']} + {SERVE['gen_len']} generated, "
         f"{SERVE['n_clients']} client parties (seq_len {res['seq_len']}): "
         f"prefill {res['prefill_s']:.4f} s, decode {res['decode_s']:.4f} s "
         f"= {res['decode_tok_per_s']:.1f} tokens/s, first-use build "
@@ -552,12 +728,12 @@ def serve_phase(rows, zoo_ops, flash_ops, flash_ref, rms_ops, rms_ref):
         f"on the card included), peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; final "
         f"logits max |.| {res['final_logits_absmax']:.4g} (finite); sample "
-        f"{res['sample_output']}; launches {launches}")
+        f"{res['sample_output']}; launches {launches}, derived {want}")
     if {k: launches[k] for k in want} != want or any(
             launches[k] for k in zoo_ops.launches):
         raise AssertionError(f"serve launches {launches}, want {want} and "
                              "no ZOO kernel")
-    B, d = SERVE["batch"], 3072
+    B, d = SERVE["batch"], cfg.d_model
     steps = SERVE["prompt_len"] + SERVE["gen_len"]
     formula = steps * B * d * 4 + SERVE["gen_len"] * B * 4
     ledger = Transport().account_serve(batch=B, embed=d, n_steps=steps,
@@ -571,46 +747,64 @@ def serve_phase(rows, zoo_ops, flash_ops, flash_ref, rms_ops, rms_ref):
 
     # the kernels against their plain versions on the serve path's own
     # inputs (launches here come after the counts were read)
-    serve_err = {"flash_attention": 0.0, "rmsnorm": 0.0}
-    for i, ((q, k, v), kw) in sorted(fcap.inputs.items()):
-        got = flash_ops.flash_attention_bshd(q, k, v, **kw)
-        want_o = flash_ref.flash_attention_bshd_ref(q, k, v, **kw)
-        torch.cuda.synchronize()
-        err, ok = _err_ok(got, want_o, SERVE_TOL)
-        serve_err["flash_attention"] = max(serve_err["flash_attention"], err)
-        log(f"serve tensors: flash call {i} (layer {i % L}, chunk {i // L},"
-            f" q {tuple(q.shape)}, q_offset {kw.get('q_offset')}): "
-            f"max_abs_err {err:.3e}, output max |.| "
-            f"{float(want_o.float().abs().max()):.4g} (tol {SERVE_TOL}) "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError("flash_attention disagrees on the serve "
-                                 "path's tensors")
-    for i, ((x, sc), kw) in sorted(rcap.inputs.items()):
-        got = rms_ops.rmsnorm(x, sc, **kw)
-        want_y = rms_ref.rmsnorm_ref(x, sc, **kw)
-        torch.cuda.synchronize()
-        err, ok = _err_ok(got, want_y, SERVE_TOL)
-        serve_err["rmsnorm"] = max(serve_err["rmsnorm"], err)
-        log(f"serve tensors: rmsnorm call {i} (forward {i // per_fwd}, "
-            f"norm {i % per_fwd}, x {tuple(x.shape)}, input max |.| "
-            f"{float(x.float().abs().max()):.4g}): max_abs_err {err:.3e} "
-            f"(tol {SERVE_TOL}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError("rmsnorm disagrees on the serve path's "
-                                 "tensors")
-    if len(fcap.inputs) != len(flash_keep) or len(rcap.inputs) != len(
-            rms_keep):
-        raise AssertionError("the serve run missed a captured call")
-    for name in want:
-        rows[name]["launches"] = launches[name]
-        rows[name]["serve_max_abs_err"] = serve_err[name]
-    del fcap, rcap
+    serve_err = {}
+    for name, cap in caps.items():
+        ops, ref = kernels[name]
+        serve_err[name] = 0.0
+        if len(cap.inputs) != len(keep[name]):
+            raise AssertionError(f"the serve run missed a captured {name} "
+                                 "call")
+        for i, (args, kw) in sorted(cap.inputs.items()):
+            if name == "flash_attention":
+                got = [ops.flash_attention_bshd(*args, **kw)]
+                want_o = [ref.flash_attention_bshd_ref(*args, **kw)]
+                where = (f"site {i % A}, chunk {i // A}, q "
+                         f"{tuple(args[0].shape)}, q_offset "
+                         f"{kw.get('q_offset')}")
+                tols = [SERVE_TOL]
+            elif name == "rmsnorm":
+                got = [ops.rmsnorm(*args, **kw)]
+                want_o = [ref.rmsnorm_ref(*args, **kw)]
+                where = (f"forward {i // per_fwd}, norm {i % per_fwd}, x "
+                         f"{tuple(args[0].shape)}, input max |.| "
+                         f"{float(args[0].float().abs().max()):.4g}")
+                tols = [SERVE_TOL]
+            else:
+                got = list(ops.ssd_chunk_bshp(*args, **kw))
+                want_o = list(ref.ssd_states_ref(*args,
+                                                 state0=kw.get("state0")))
+                where = (f"Mamba2 layer {i % M}, chunk {i // M}, x "
+                         f"{tuple(args[0].shape)}, chunk length "
+                         f"{kw['chunk']}")
+                tols = [ssd_tol(w, SSD_TOL[torch.float32]) for w in want_o]
+            torch.cuda.synchronize()
+            checks = [_err_ok(g_, w_, t_)
+                      for g_, w_, t_ in zip(got, want_o, tols)]
+            err = max(e for e, _ in checks)
+            ok = all(o for _, o in checks)
+            serve_err[name] = max(serve_err[name], err)
+            log(f"serve tensors: {name} call {i} ({where}): max_abs_err "
+                f"{err:.3e}, output max |.| "
+                f"{max(float(w_.float().abs().max()) for w_ in want_o):.4g} "
+                f"(tol {tols}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} disagrees on the serve path's "
+                                     "tensors")
+    for name in kernels:
+        if want[name]:
+            rows[name]["launches"] += launches[name]
+            rows[name].setdefault("launches_by_path", {})[arch] = \
+                launches[name]
+            rows[name].setdefault("serve_max_abs_err", {})[arch] = \
+                serve_err[name]
+    del caps
 
     fed, params = serve_mod.build_session(
-        get_config("phi3-mini-3.8b"), n_clients=SERVE["n_clients"],
-        prompt_len=SERVE["prompt_len"], gen_len=SERVE["gen_len"], seed=0)
+        cfg, n_clients=SERVE["n_clients"], prompt_len=SERVE["prompt_len"],
+        gen_len=SERVE["gen_len"], seed=0)
     profile_decode(fed, fed.params_from_global(params), serving)
+    del fed, params
+    torch.cuda.empty_cache()
 
 
 def profile_rounds(fed, params, x_parts, y) -> None:
@@ -682,6 +876,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ref as flash_ref
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.rmsnorm import ref as rms_ref
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+    from repro_torch.kernels.ssd_chunk import ref as ssd_ref
     from repro_torch.kernels.zoo_dual_matmul import ops, ref
     from repro_torch.models import tabular
 
@@ -705,6 +901,7 @@ def main() -> int:
     # ---- phase 2: kernels against their plain versions -----------------
     rows = check_kernels(ops, ref)
     rows.update(check_serve_kernels(flash_ops, flash_ref, rms_ops, rms_ref))
+    rows.update(check_ssd_kernel(ssd_ops, ssd_ref))
 
     # ---- phase 3: the tabular main path at the paper's width -----------
     cfg = PaperMLPConfig()
@@ -725,7 +922,7 @@ def main() -> int:
     fed_warm = build("cascaded", 20, use_lanes=True)
     fed_warm.run(params, x_parts, y_dev)               # cuBLAS/allocator warm-up
 
-    for counter in (ops, flash_ops, rms_ops):
+    for counter in (ops, flash_ops, rms_ops, ssd_ops):
         counter.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -748,7 +945,8 @@ def main() -> int:
     if launches != {"zoo_dual_matmul_stacked_bias_relu": 500,
                     "zoo_dual_matmul_stacked": 0, "zoo_dual_matmul": 0}:
         raise AssertionError(f"kernel launches {launches} != one per round")
-    if flash_ops.launches["flash_attention"] or rms_ops.launches["rmsnorm"]:
+    if (flash_ops.launches["flash_attention"] or rms_ops.launches["rmsnorm"]
+            or ssd_ops.launches["ssd_chunk"]):
         raise AssertionError("the tabular path launched an LM kernel")
     for name in KERNELS:
         rows[name]["launches"] = launches[name]
@@ -819,8 +1017,12 @@ def main() -> int:
     if not acc > 0.9:
         raise AssertionError(f"quickstart accuracy {acc} <= 0.9")
 
-    # ---- phase 4: the split serve path at Phi-3-mini's full width ------
-    serve_phase(rows, ops, flash_ops, flash_ref, rms_ops, rms_ref)
+    # ---- phase 4: the split serve path at full width -------------------
+    serve_kernels = {"flash_attention": (flash_ops, flash_ref),
+                     "rmsnorm": (rms_ops, rms_ref),
+                     "ssd_chunk": (ssd_ops, ssd_ref)}
+    for arch in SERVE_ARCHS:
+        serve_phase(rows, arch, ops, serve_kernels)
 
     # ---- phase 5: the record -------------------------------------------
     log(card)

@@ -142,7 +142,8 @@ def from_model_config(cfg: ModelConfig, *, n_clients: int = 2,
     The vertical split follows the paper's LM experiments: each of the M
     client parties owns a disjoint span of ``seq_len / M`` token positions
     plus its own copy of the embedding table (the bottom layer), and the
-    server owns the transformer backbone, final norm and LM head. The
+    server owns the backbone (for the hybrid family the Mamba2 trunk and
+    the shared attention block), final norm and LM head. The
     serve hooks are the exact post-embedding half of
     ``transformer.forward``'s decode path, so split decode equals global
     decode. The training hooks (``client_forward``, ``client_lanes``,

@@ -18,9 +18,10 @@ Ported from the JAX package's ``federation/serving.py``:
   prompt in one ``client_embed`` call and the server consumes the
   ``(B, chunk, d_model)`` upload through the adapter's ``server_prefill``
   hook; on the card each chunk runs the flash-attention kernel once per
-  layer;
-* the KV cache is updated in place (the JAX package donates it to
-  ``dynamic_update_slice``).
+  attention layer and, for the hybrid family, the SSD kernel once per
+  Mamba2 layer;
+* the caches (KV, and the hybrid family's SSM and conv states) are
+  updated in place (the JAX package donates them).
 
 The JAX package's ahead-of-time compilation cache has no counterpart:
 ``compile_s`` reports the first-use build of the card's kernels that fell
@@ -50,7 +51,7 @@ from repro_torch.models.common import torch_dtype
 from repro_torch.tree import tree_map
 
 # the kernels the serve plane's models launch on the card
-SERVE_KERNELS = ("flash_attention", "rmsnorm")
+SERVE_KERNELS = ("flash_attention", "rmsnorm", "ssd_chunk")
 
 
 @dataclasses.dataclass

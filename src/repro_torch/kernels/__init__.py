@@ -11,8 +11,10 @@ Each kernel package ships:
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_bshd)
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
+from repro_torch.kernels.ssd_chunk.ops import ssd_chunk, ssd_chunk_bshp
 from repro_torch.kernels.zoo_dual_matmul.ops import (
     zoo_dual_matmul, zoo_dual_matmul_stacked)
 
 __all__ = ["flash_attention", "flash_attention_bshd", "rmsnorm",
-           "zoo_dual_matmul", "zoo_dual_matmul_stacked"]
+           "ssd_chunk", "ssd_chunk_bshp", "zoo_dual_matmul",
+           "zoo_dual_matmul_stacked"]

@@ -27,7 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 SOURCES: Dict[str, Path] = {
     name: _KERNELS / name / "csrc" / f"{name}.cu"
-    for name in ("zoo_dual_matmul", "flash_attention", "rmsnorm")
+    for name in ("zoo_dual_matmul", "flash_attention", "rmsnorm",
+                 "ssd_chunk")
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

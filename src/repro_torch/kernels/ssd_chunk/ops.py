@@ -1,0 +1,110 @@
+"""Public wrappers: the CUDA kernel for CUDA tensors, the plain version
+(``ref.py``) for CPU tensors.
+
+A CUDA tensor always goes to the kernel or raises: there is no fallback
+when ``nvcc`` or the library is missing. ``launches`` counts kernel
+launches (the CPU path launches nothing and counts nothing), so a run can
+show that its main path went through the kernel."""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels.ssd_chunk import kernel
+from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref, ssd_states_ref
+
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+MAX_CHUNK = 128
+MAX_PN = 64          # the largest head dim P and state size N
+
+launches: Dict[str, int] = {"ssd_chunk": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _validate(xh, a, dt, bm, cm, chunk: int, state0) -> bool:
+    """Check a model-layout call; True for CUDA tensors, False for CPU."""
+    if xh.ndim != 4 or a.ndim != 3 or dt.ndim != 3 or bm.ndim != 3 \
+            or cm.ndim != 3:
+        raise ValueError(
+            f"expected xh (B, S, H, P), a/dt (B, S, H), bm/cm (B, S, N); got "
+            f"{tuple(xh.shape)}, {tuple(a.shape)}, {tuple(dt.shape)}, "
+            f"{tuple(bm.shape)}, {tuple(cm.shape)}")
+    B, S, H, P = xh.shape
+    N = bm.shape[-1]
+    if min(B, S, H, P, N) < 1:
+        raise ValueError(f"empty operand: xh {tuple(xh.shape)}, bm "
+                         f"{tuple(bm.shape)}")
+    if (tuple(a.shape) != (B, S, H) or tuple(dt.shape) != (B, S, H)
+            or tuple(bm.shape) != (B, S, N) or tuple(cm.shape) != (B, S, N)):
+        raise ValueError(
+            f"shape mismatch: xh {tuple(xh.shape)}, a {tuple(a.shape)}, dt "
+            f"{tuple(dt.shape)}, bm {tuple(bm.shape)}, cm {tuple(cm.shape)}")
+    if state0 is not None and tuple(state0.shape) != (B, H, P, N):
+        raise ValueError(f"state0 {tuple(state0.shape)}, want "
+                         f"{(B, H, P, N)}")
+    if P > MAX_PN or N > MAX_PN:
+        raise ValueError(f"head dim {P} and state {N}: the kernel takes up "
+                         f"to {MAX_PN}")
+    if not 1 <= chunk <= MAX_CHUNK or S % chunk:
+        raise ValueError(f"chunk {chunk} must lie in [1, {MAX_CHUNK}] and "
+                         f"divide S = {S}")
+    if xh.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"xh dtype {xh.dtype} not in {KERNEL_DTYPES}")
+    if bm.dtype != xh.dtype or cm.dtype != xh.dtype:
+        raise ValueError(f"bm and cm must share xh's dtype {xh.dtype}, got "
+                         f"{bm.dtype}, {cm.dtype}")
+    floats = [a, dt] + ([] if state0 is None else [state0])
+    if any(t.dtype != torch.float32 for t in floats):
+        raise ValueError("a, dt and state0 must be float32")
+    operands = [xh, bm, cm] + floats
+    if not all(t.is_contiguous() for t in operands):
+        raise ValueError("every operand must be contiguous")
+    devices = {t.device for t in operands}
+    if len(devices) != 1:
+        raise ValueError(
+            f"operands on several devices: {sorted(map(str, devices))}")
+    if xh.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {xh.device}")
+    return xh.device.type == "cuda"
+
+
+def ssd_chunk_bshp(xh, a, dt, bm, cm, *, chunk: int, state0=None):
+    """The SSD scan in the model's layout: xh (B, S, H, P) f32/bf16, a/dt
+    (B, S, H) f32, bm/cm (B, S, N) in xh's dtype and shared by the heads,
+    state0 (B, H, P, N) f32 or None (zeros) -> (y (B, S, H, P) f32, final
+    state (B, H, P, N) f32). ``chunk`` is taken as min(chunk, S) and must
+    divide S."""
+    chunk = min(chunk, xh.shape[1]) if xh.ndim == 4 else chunk
+    if not _validate(xh, a, dt, bm, cm, chunk, state0):
+        return ssd_states_ref(xh, a, dt, bm, cm, state0)
+    B, S, H, P = xh.shape
+    y = torch.empty((B, S, H, P), dtype=torch.float32, device=xh.device)
+    state = torch.empty((B, H, P, bm.shape[-1]), dtype=torch.float32,
+                        device=xh.device)
+    kernel.launch(xh, a, dt, bm, cm, state0, y, state, chunk)
+    launches["ssd_chunk"] += 1
+    return y, state
+
+
+def ssd_chunk(xh, a, dt, bm, cm, *, chunk: int = 128):
+    """The TPU kernel's contract: xh (BH, S, P), a/dt (BH, S) f32, bm/cm
+    (BH, S, N) (batch and heads pre-flattened, B/C broadcast by the caller)
+    -> y (BH, S, P) in xh's dtype, from a zero state. One launch, as the
+    H = 1 case of :func:`ssd_chunk_bshp` with no final state."""
+    if xh.ndim != 3 or a.ndim != 2 or dt.ndim != 2:
+        raise ValueError(f"expected xh (BH, S, P), a/dt (BH, S); got "
+                         f"{tuple(xh.shape)}, {tuple(a.shape)}, "
+                         f"{tuple(dt.shape)}")
+    chunk = min(chunk, xh.shape[1])
+    x4, a3, dt3 = xh.unsqueeze(2), a.unsqueeze(2), dt.unsqueeze(2)
+    if not _validate(x4, a3, dt3, bm, cm, chunk, None):
+        return ssd_chunk_ref(xh, a, dt, bm, cm)
+    y = torch.empty_like(xh)
+    kernel.launch(x4, a3, dt3, bm, cm, None, y, None, chunk)
+    launches["ssd_chunk"] += 1
+    return y

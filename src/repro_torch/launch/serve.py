@@ -9,12 +9,14 @@ party, prefill token by token through the decode step), the oracle the
 split path equals on replicated client tables.
 
 Ported from the JAX package's ``launch/serve.py`` for the dense attention
-families; continuous batching (``--continuous``) belongs to the scheduler
+and the hybrid (Mamba2 + shared attention) families; continuous batching (``--continuous``) belongs to the scheduler
 slice and raises. ``--reduced`` / ``--no-reduced`` picks the smoke-size
 variant or the full published width (the JAX package's flag cannot turn
 reduction off).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b \\
+        --batch 8 --prompt-len 1024 --gen-len 128 --no-reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
         --batch 8 --prompt-len 1024 --gen-len 128 --no-reduced
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 """

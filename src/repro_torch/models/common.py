@@ -91,6 +91,19 @@ def stack_layer_specs(layer_tree, n_layers: int, axis_name: str = "layers"):
     return tree_map(one, layer_tree)
 
 
+def chunk_divisor(seq: int, cap: int) -> int:
+    """Largest chunk length <= ``cap`` that divides ``seq`` exactly.
+
+    The chunked recurrent forms (wkv6 / SSD) scan over fixed-size chunks
+    and require the sequence to tile evenly; prefill chunks arrive at
+    arbitrary span lengths, so pick the best even tiling (worst case 1,
+    which degenerates to the exact per-token recurrence)."""
+    for c in range(min(cap, seq), 1, -1):
+        if seq % c == 0:
+            return c
+    return 1
+
+
 def params_from_numpy(tree, device=None):
     """numpy (or any ``np.asarray``-able) leaves -> tensors on ``device``.
     bfloat16 arrays (``ml_dtypes``, as ``np.asarray`` of a JAX bf16 array

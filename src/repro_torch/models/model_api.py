@@ -5,7 +5,9 @@
                                tensors of it)
 * ``forward_fn(params, inputs)``                 -> logits
 * ``decode_fn(params, inputs, caches, cur_pos)`` -> (logits, caches); the
-                               caches are updated in place and returned
+                               caches (KV, and for the hybrid family also
+                               the SSM states) are updated in place and
+                               returned
 * ``client_keys``            — top-level param keys forming the ZOO client
                                partition (the embedding)
 
@@ -20,7 +22,9 @@ from typing import Any, Callable, Tuple
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer
+from repro_torch.models.common import ParamSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +62,27 @@ def build_model(cfg: ModelConfig, *, max_seq: int = 8192,
 
 
 def build_cache_specs(cfg: ModelConfig, batch: int, seq: int):
-    """Stacked per-layer KV cache spec tree (the attention families)."""
+    """Stacked per-layer decode state: the KV cache spec tree of the
+    attention families; for the hybrid family the tuple (ssm_states,
+    attn_caches), the JAX package's layout."""
     transformer.check_family(cfg)
+    if cfg.family == "hybrid":
+        n_super = cfg.n_layers // cfg.attn_every
+        d_in = cfg.ssm_expand * cfg.d_model
+        H = d_in // cfg.ssm_head_dim
+        ssm_states = {
+            "ssm": ParamSpec((n_super, cfg.attn_every, batch, H,
+                              cfg.ssm_head_dim, cfg.ssm_state), "float32",
+                             (None, "layers", "cache_batch", "cache_heads",
+                              None, None)),
+            "conv": ParamSpec((n_super, cfg.attn_every, batch,
+                               ssm_mod.CONV_W - 1, d_in), "float32",
+                              (None, "layers", "cache_batch", None,
+                               "ssm_inner")),
+        }
+        hd = cfg.resolved_head_dim
+        kv = ParamSpec((n_super, batch, seq, cfg.n_kv_heads, hd), "bfloat16",
+                       ("layers", "cache_batch", "cache_seq", "cache_heads",
+                        None))
+        return (ssm_states, {"k": kv, "v": kv})
     return attn_mod.cache_specs(cfg, batch, seq)

@@ -21,12 +21,23 @@ from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.rmsnorm import kernel as rms_kernel
 from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.kernels.ssd_chunk import kernel as ssd_kernel
+from repro_torch.kernels.ssd_chunk import ops as ssd_ops
 from repro_torch.kernels.zoo_dual_matmul import kernel as zoo_kernel
 from repro_torch.kernels.zoo_dual_matmul import ops as zoo_ops
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN_ROOTS = {"jax", "jaxlib", "repro"}
+# modules of each slice that the import checks must reach
+SLICE_MODULES = ("repro_torch.kernels.zoo_dual_matmul.ops",
+                 "repro_torch.kernels.flash_attention.ops",
+                 "repro_torch.kernels.rmsnorm.ops",
+                 "repro_torch.kernels.ssd_chunk.ops",
+                 "repro_torch.kernels.ssd_chunk.kernel",
+                 "repro_torch.kernels.ssd_chunk.ref",
+                 "repro_torch.models.ssm", "repro_torch.models.transformer",
+                 "repro_torch.launch.serve")
 
 
 def _port_files():
@@ -46,13 +57,14 @@ for name in names:
 assert not any(k == "triton" or k.startswith("triton.") for k in sys.modules)
 from repro_torch.kernels import _build
 assert not _build._LIBS          # importing builds and loads no kernel
-print(len(names))
+print(" ".join(names))
 """
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    names = out.stdout.split()
+    assert len(names) >= 20 and set(SLICE_MODULES) <= set(names)
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -113,13 +125,14 @@ for name in names:
     for k in [k for k in sys.modules if k.startswith("repro_torch")]:
         del sys.modules[k]
     importlib.import_module(name)
-print(len(names))
+print(" ".join(names))
 """
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 40
+    names = out.stdout.split()
+    assert len(names) >= 40 and set(SLICE_MODULES) <= set(names)
 
 
 def _fake_card(monkeypatch, tmp_path, ops, kernel):
@@ -139,7 +152,8 @@ def _fake_card(monkeypatch, tmp_path, ops, kernel):
 
 
 @pytest.mark.parametrize("which", ["flash_attention", "flash_bh", "rmsnorm",
-                                   "zoo_dual_matmul"])
+                                   "zoo_dual_matmul", "ssd_chunk",
+                                   "ssd_chunk_bshp"])
 def test_wrappers_raise_on_the_card_without_their_build(monkeypatch,
                                                         tmp_path, which):
     x = torch.ones(2, 4, 2, 16)
@@ -153,6 +167,14 @@ def test_wrappers_raise_on_the_card_without_their_build(monkeypatch,
         "zoo_dual_matmul": (zoo_ops, zoo_kernel,
                             lambda: zoo_ops.zoo_dual_matmul_stacked(
                                 x[0], x[0, :, :, :4], x[:1, :, :, :4], 1e-3)),
+        "ssd_chunk": (ssd_ops, ssd_kernel,
+                      lambda: ssd_ops.ssd_chunk(
+                          x[0], x[0, ..., 0], x[0, ..., 0], x[0], x[0],
+                          chunk=2)),
+        "ssd_chunk_bshp": (ssd_ops, ssd_kernel,
+                           lambda: ssd_ops.ssd_chunk_bshp(
+                               x, x[..., 0], x[..., 0], x[:, :, 0],
+                               x[:, :, 0], chunk=2, state0=x)),
     }
     ops, kernel, call = calls[which]
     before = dict(ops.launches)

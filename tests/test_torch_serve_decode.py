@@ -2,8 +2,12 @@
 against the JAX package's, and its own invariants as
 ``tests/test_serving_engine.py`` holds them for ``repro``.
 
-* Same weights (carried from ``repro``), same prompts, reduced phi3 in
-  f32: greedy tokens equal and the last logits within 1e-4, for both
+Every case runs on two families: reduced phi3 (dense) and reduced zamba2
+with 4 layers (hybrid: 2 super-blocks of 2 Mamba2 layers, the shared
+attention block at 2 sites, the tuple cache of SSM states and KV).
+
+* Same weights (carried from ``repro``), same prompts, in f32: greedy
+  tokens equal and the last logits within 1e-4, for both
   prefill modes; at temperature 0.8 the port is handed ``repro``'s own
   Gumbel draws (``jax.random.categorical`` is ``argmax(logits / T +
   gumbel(fold_in(key, 100 + t)))``) and the tokens are equal; the wire
@@ -32,18 +36,24 @@ from repro_torch.federation.serving import prefill_plan
 from repro_torch.launch import serve
 from repro_torch.models import common
 from repro_torch.models.model_api import build_cache_specs, build_model
+from repro_torch.tree import tree_map
 from test_torch_support import ledger_tuples, to_numpy, to_torch, torch_threads
 
-F32 = dict(param_dtype="float32", dtype="float32")
+# the reduced configs, in f32; zamba2 with 4 layers so that the shared
+# attention block runs at two sites
+ARCHS = {"phi3-mini-3.8b": dict(param_dtype="float32", dtype="float32"),
+         "zamba2-2.7b": dict(param_dtype="float32", dtype="float32",
+                             n_layers=4)}
 B, PL, GL = 2, 8, 6
 LOGITS_ATOL = 1e-4
 
 
-@pytest.fixture(scope="module")
-def case():
-    """Both sessions on the same reduced phi3 weights and prompts."""
-    jcfg = j_reduced(j_get_config("phi3-mini-3.8b"), **F32)
-    cfg = reduced(get_config("phi3-mini-3.8b"), **F32)
+@pytest.fixture(scope="module", params=list(ARCHS))
+def case(request):
+    """Both sessions on the same reduced weights and prompts."""
+    arch = request.param
+    jcfg = j_reduced(j_get_config(arch), **ARCHS[arch])
+    cfg = reduced(get_config(arch), **ARCHS[arch])
     jfed = JFederation.build(jcfg, n_clients=2, seq_len=PL + GL)
     fed = Federation.build(cfg, n_clients=2, seq_len=PL + GL, device="cpu")
     key = jax.random.key(0)
@@ -52,7 +62,7 @@ def case():
                                          (B, PL), 0, cfg.vocab_size))
     with torch_threads(2):
         yield dict(jfed=jfed, fed=fed, key=key, gp=gp, tp=to_torch(gp),
-                   toks=toks, cfg=cfg)
+                   toks=toks, cfg=cfg, arch=arch)
 
 
 class JaxGumbel:
@@ -105,9 +115,9 @@ def _global_decode(cfg, gp, toks, gen_len):
     """The global serve loop (one party, token-by-token prefill through
     the decode step) — the bitwise oracle for split decode."""
     model = build_model(cfg, max_seq=toks.shape[1] + gen_len)
-    caches = {k: torch.zeros(s.shape, dtype=common.torch_dtype(s.dtype))
-              for k, s in build_cache_specs(cfg, toks.shape[0],
-                                            toks.shape[1] + gen_len).items()}
+    caches = tree_map(
+        lambda s: torch.zeros(s.shape, dtype=common.torch_dtype(s.dtype)),
+        build_cache_specs(cfg, toks.shape[0], toks.shape[1] + gen_len))
     toks = torch.from_numpy(toks)
     logits = None
     for t in range(toks.shape[1]):
@@ -143,6 +153,9 @@ def test_split_equals_global_and_loop_equals_chunked(case):
     # engine-layout params give the same result as the global tree
     engine = fed.params_from_global(tp)
     assert engine["clients"]["embed"]["table"].shape[0] == 2
+    # the server holds everything but the embedding (the hybrid family's
+    # shared attention block included)
+    assert set(engine["server"]) == set(tp) - {"embed"}
     np.testing.assert_array_equal(
         fed.decode(engine, toks, gen_len=GL).tokens, chunked.tokens)
 
@@ -194,17 +207,18 @@ def test_decode_rejects_what_it_cannot_serve(case):
 # ------------------------------------------------------------ the driver --
 
 def test_serve_driver_split_and_global(case):
+    arch = case["arch"]
     with torch_threads(2):
-        split = serve.serve("phi3-mini-3.8b", batch=3, prompt_len=6,
-                            gen_len=5, n_clients=2, device="cpu")
-        glob = serve.serve("phi3-mini-3.8b", batch=3, prompt_len=6,
-                           gen_len=5, n_clients=0, device="cpu")
-    theirs = j_serve.serve("phi3-mini-3.8b", batch=3, prompt_len=6,
-                           gen_len=5, n_clients=2)
+        split = serve.serve(arch, batch=3, prompt_len=6, gen_len=5,
+                            n_clients=2, device="cpu")
+        glob = serve.serve(arch, batch=3, prompt_len=6, gen_len=5,
+                           n_clients=0, device="cpu")
+    theirs = j_serve.serve(arch, batch=3, prompt_len=6, gen_len=5,
+                           n_clients=2)
     assert split["mode"] == "federated" and glob["mode"] == "global"
     assert split["sample_output"] == glob["sample_output"]
     assert split["wire_bytes"] == theirs["wire_bytes"]
-    d = get_config("phi3-mini-3.8b")
+    d = get_config(arch)
     assert split["wire_bytes"] == Transport().account_serve(
         batch=3, embed=reduced(d).d_model, n_steps=11, n_gen=5).total_bytes
     assert split["seq_len"] == 12 and not split["wire_has_gradients"]
