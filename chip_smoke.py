@@ -8,12 +8,15 @@ and prints no result):
 1. device and build: the card's name and power limit, and the hand-written
    kernels built from ``src/repro_torch/kernels/*/csrc`` by ``nvcc``, one
    process per source, all at once (their ``-Xptxas -v`` register/spill
-   report);
+   report), and the count of ``HGMMA`` (wgmma) instructions in the flash
+   library's SASS, which must not be 0;
 2. every kernel entry point against its plain PyTorch version on the card:
-   the fused ZOO fan-out at the tabular main path's shapes and a ragged
-   one, f32 (TF32 off, 1e-4) and bf16 (1.5e-1); flash attention over head
-   dims 64/96/128, causal, window 64, non-causal Sq != Skv, q_offset 0 and
-   576 over a 1152-slot cache, ragged Sq and GQA, and RMSNorm at M = 8,
+   the fused ZOO fan-out at the tabular main path's shapes and ragged
+   ones, f32 (TF32 off, 1e-4) and bf16 (1.5e-1); flash attention (f32 on
+   the CUDA cores, bf16 on the tensor cores) over head dims 48 to 128
+   (Phi-3's 96 and Zamba2's 80 at both prefill chunks), causal, window 64,
+   non-causal Sq != Skv, q_offset 0 and 576 over a 1152-slot cache, ragged
+   Sq and Skv and GQA, and RMSNorm at M = 8,
    4608, 50 and d = 3072, 128, f32 (1e-4 / 1e-5) and bf16 (2e-2 plus a
    relative 2e-2); the SSD chunked scan at the TPU test's shapes, at the
    hybrid serve path's (B = 8, H = 80, P = N = 64; 576 rows at chunk 96
@@ -21,7 +24,8 @@ and prints no result):
    state) and at a ragged chunk of 7, f32 (1e-4) and bf16 (2e-2 plus a
    relative 2e-2); then each one's time, its plain version's, one PyTorch
    library call's where one exists, and the bound from its bytes and
-   operations;
+   operations (flash attention at both serve paths' head dims, 96 and 80),
+   and each one's achieved TFLOP/s and share of its bound;
 3. the tabular main path at the paper's width: cascaded hybrid VFL (ZOO
    clients through the fused kernel, FOO server) over an MNIST-sized
    stand-in, 500 rounds, with the kernel's launch count read around the
@@ -69,7 +73,9 @@ CHECK_SHAPES = [dict(R=1, M=64, K=196, N=128, q=1),
                 dict(R=3, M=64, K=196, N=128, q=1),
                 dict(R=1, M=64, K=196, N=128, q=4),
                 dict(R=3, M=64, K=196, N=128, q=4),
-                dict(R=2, M=50, K=33, N=70, q=3)]
+                dict(R=2, M=50, K=33, N=70, q=3),
+                dict(R=1, M=64, K=1000, N=128, q=6),
+                dict(R=2, M=40, K=196, N=64, q=9)]
 # per-method learning rates: benchmarks/run.py's for the first-order
 # servers; its 1e-3 for the ZOO servers (zoo-vfl, syn-zoo) is tuned for a
 # 64-feature model and diverges at 784 features, where 1e-4 trains
@@ -107,7 +113,21 @@ FLASH_CASES = [(2, 576, 1152, 4, 4, 96, True, 0, 0),
                (2, 448, 1152, 4, 2, 128, True, 64, 576),
                (2, 256, 256, 4, 4, 64, True, 64, 0),
                (2, 128, 256, 4, 4, 128, False, 0, 0),
-               (2, 50, 50, 2, 2, 96, True, 0, 0)]
+               (2, 50, 50, 2, 2, 96, True, 0, 0),
+               # Zamba2's head dim 80 (panels of 64 + 16) at both prefill
+               # chunks and a ragged chunk
+               (2, 576, 1152, 4, 4, 80, True, 0, 0),
+               (2, 448, 1152, 4, 4, 80, True, 0, 576),
+               (2, 37, 1152, 4, 4, 80, True, 0, 576),
+               # tile edges: Sq and Skv off the 128-row and 128-key tiles,
+               # three d panels (64 + 32 + 16), 48 = 32 + 16, MQA
+               (2, 300, 300, 2, 2, 96, True, 0, 0),
+               (1, 200, 333, 4, 1, 112, False, 0, 0),
+               (1, 130, 130, 2, 2, 48, True, 0, 0)]
+# serve-like magnitudes (q and k x 3: peaked scores; v x 50: the Phi-3
+# serve path's outputs reach 55), where rounding P to one bf16 would show;
+# bf16 only: (B, Sq, Skv, H, d, q_offset), causal
+FLASH_LARGE_CASES = [(2, 576, 1152, 4, 96, 0), (2, 448, 1152, 4, 80, 576)]
 FLASH_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: SERVE_TOL}
 RMS_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: SERVE_TOL}
 # the SSD scan: repro's f32 tolerance (1e-4, absolute and relative); bf16
@@ -217,8 +237,9 @@ def library_call(name, x, w, us, b, ub):
 
 
 def bound(name, x, w, us, b, ub):
-    """Least time for the work (ms): each input read once, each output
-    written once, against the f32 (CUDA core) or bf16 (tensor core) peak."""
+    """Least time for the work (ms) and what bounds it, and the operations
+    counted: each input read once, each output written once, against the
+    f32 (CUDA core) or bf16 (tensor core) peak."""
     if name == "zoo_dual_matmul":
         x, w, us = x[:1], w[:1], us[:1, :1]
     R, M, K = x.shape
@@ -233,7 +254,7 @@ def bound(name, x, w, us, b, ub):
     t_ops = ops / PEAK_OPS[x.dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
-                                 else "bytes")
+                                 else "bytes"), ops
 
 
 def check_kernels(ops, ref):
@@ -260,13 +281,13 @@ def check_kernels(ops, ref):
     args = kernel_inputs(**MAIN, dtype=torch.float32, seed=1)
     rows = {}
     for name, (kern, plain) in entry_calls(ops, ref, *args).items():
-        b_ms, b_by = bound(name, *args)
+        b_ms, b_by, n_ops = bound(name, *args)
         rows[name] = {
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": KERNELS[name], "launches": 0,
             "max_abs_err": errs[name], "ms": graph_ms(kern),
             "plain_ms": graph_ms(plain), "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": graph_ms(library_call(name, *args)),
+            "library_ms": graph_ms(library_call(name, *args)), "ops": n_ops,
         }
         log(f"time {name} at {MAIN} f32: kernel {rows[name]['ms']:.5f} ms "
             f"(per Python call {eager_ms(kern):.5f} ms), plain "
@@ -305,26 +326,31 @@ def flash_work(Sq, Skv, causal, window, q_offset):
 
 
 def flash_bound(q, k, causal, window, q_offset):
-    """Least time (ms) for one flash call: q and o once, the KV rows the
-    masks need once; 4 d operations per visible pair at the dtype's peak."""
+    """Least time (ms) for one flash call, what bounds it, and its
+    operations: q and o once, the KV rows the masks need once; 4 d
+    operations per visible pair at the dtype's peak."""
     B, Sq, Hq, d = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     pairs, kv_rows = flash_work(Sq, Skv, causal, window, q_offset)
     es = q.element_size()
     nbytes = 2 * q.numel() * es + 2 * B * kv_rows * Hkv * d * es
-    t_ops = 4 * d * pairs * B * Hq / PEAK_OPS[q.dtype] * 1e3
+    ops = 4 * d * pairs * B * Hq
+    t_ops = ops / PEAK_OPS[q.dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+    return (max(t_ops, t_bytes),
+            "operations" if t_ops > t_bytes else "bytes", ops)
 
 
 def rms_bound(x):
-    """Least time (ms) for one RMSNorm call: x and scale read, y written;
-    4 operations an element."""
+    """Least time (ms) for one RMSNorm call, what bounds it, and its
+    operations: x and scale read, y written; 4 operations an element."""
     M, d = x.shape
     nbytes = 2 * x.numel() * x.element_size() + 4 * d
-    t_ops = 4 * M * d / PEAK_OPS[x.dtype] * 1e3
+    ops = 4 * M * d
+    t_ops = ops / PEAK_OPS[x.dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+    return (max(t_ops, t_bytes),
+            "operations" if t_ops > t_bytes else "bytes", ops)
 
 
 def _err_ok(got, want, tol):
@@ -357,6 +383,41 @@ def rms_library_call(x, scale):
     return lambda: rms_norm(x, (x.shape[1],), weight=w, eps=1e-6)
 
 
+def flash_layer_times(flash_ops, flash_ref, g, d):
+    """The bf16 kernel, its plain version and SDPA over one layer's two
+    prefill chunks at the serve shapes (B = 8, H = 32, head dim d, a
+    1152-slot cache), summed over the chunks, with the bound."""
+    bf = torch.bfloat16
+    out = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops=0)
+    ops_t = bytes_t = 0.0
+    k = torch.randn(8, 1152, 32, d, device="cuda", generator=g).to(bf)
+    v = torch.randn(8, 1152, 32, d, device="cuda", generator=g).to(bf)
+    for Sq, off in [(576, 0), (448, 576)]:
+        q = torch.randn(8, Sq, 32, d, device="cuda", generator=g).to(bf)
+        kw = dict(causal=True, window=0, q_offset=off)
+        km = event_ms(lambda: flash_ops.flash_attention_bshd(q, k, v, **kw))
+        pm = event_ms(lambda: flash_ref.flash_attention_bshd_ref(q, k, v,
+                                                                 **kw), 5)
+        lm = event_ms(sdpa_call(q, k, v, True, 0, off))
+        b_ms, b_by, n_ops = flash_bound(q, k, True, 0, off)
+        log(f"time flash_attention bf16 chunk Sq={Sq} q_offset={off} "
+            f"(B=8, H=32, d={d}, Skv=1152): kernel {km:.5f} ms "
+            f"({n_ops / km / 1e9:.1f} TFLOP/s), plain {pm:.5f} ms, library "
+            f"(SDPA, explicit mask) {lm:.5f} ms, bound {b_ms:.6f} ms "
+            f"({b_by})")
+        for key, val in (("ms", km), ("plain_ms", pm), ("library_ms", lm),
+                         ("bound_ms", b_ms), ("ops", n_ops)):
+            out[key] += val
+        ops_t += b_ms if b_by == "operations" else 0.0
+        bytes_t += b_ms if b_by == "bytes" else 0.0
+    out["bound_by"] = "operations" if ops_t >= bytes_t else "bytes"
+    log(f"time flash_attention bf16 layer at d={d}: kernel {out['ms']:.5f} "
+        f"ms, library (SDPA) {out['library_ms']:.5f} ms, bound "
+        f"{out['bound_ms']:.6f} ms: the kernel is "
+        f"{out['library_ms'] / out['ms']:.2f}x SDPA's speed")
+    return out
+
+
 def check_serve_kernels(flash_ops, flash_ref, rms_ops, rms_ref):
     """Phase 2, serve kernels: flash attention and RMSNorm against their
     plain versions on the card; then their times at the serve path's
@@ -382,6 +443,27 @@ def check_serve_kernels(flash_ops, flash_ref, rms_ops, rms_ref):
             if not ok:
                 raise AssertionError("flash_attention disagrees with its "
                                      "plain version")
+            if dtype == torch.bfloat16:
+                errs["flash_attention"] = max(errs["flash_attention"], err)
+        large = FLASH_LARGE_CASES if dtype == torch.bfloat16 else []
+        for B, Sq, Skv, H, d, off in large:
+            q = torch.randn(B, Sq, H, d, device="cuda", generator=g) * 3
+            k = torch.randn(B, Skv, H, d, device="cuda", generator=g) * 3
+            v = torch.randn(B, Skv, H, d, device="cuda", generator=g) * 50
+            k[:, off + Sq:], v[:, off + Sq:] = 0, 0
+            q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+            got = flash_ops.flash_attention_bshd(q, k, v, q_offset=off)
+            want = flash_ref.flash_attention_bshd_ref(q, k, v, q_offset=off)
+            torch.cuda.synchronize()
+            err, ok = _err_ok(got, want, FLASH_TOL[dtype])
+            log(f"check flash_attention {str(dtype)[6:]} serve magnitudes "
+                f"B={B} Sq={Sq} Skv={Skv} H={H} d={d} q_offset={off}: "
+                f"max_abs_err {err:.3e}, max |want| "
+                f"{float(want.float().abs().max()):.4g} (tol "
+                f"{FLASH_TOL[dtype]}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("flash_attention disagrees with its "
+                                     "plain version at serve magnitudes")
             if dtype == torch.bfloat16:
                 errs["flash_attention"] = max(errs["flash_attention"], err)
         # the (BH, S, d) entry point of the TPU kernel's layout
@@ -410,37 +492,24 @@ def check_serve_kernels(flash_ops, flash_ref, rms_ops, rms_ref):
                 if dtype == torch.bfloat16:
                     errs["rmsnorm"] = max(errs["rmsnorm"], err)
 
-    # times at the serve path's shapes (bf16): one layer's two prefill
-    # chunks for flash attention, the prefill rows for RMSNorm
+    # times at the serve paths' shapes (bf16): one attention layer's two
+    # prefill chunks for flash attention, at Phi-3's head dim 96 (the row)
+    # and Zamba2's 80 (its "at_d80"), the prefill rows for RMSNorm
     bf = torch.bfloat16
     rows = {}
-    chunks = [(576, 0), (448, 576)]
-    kern_ms = plain_ms = lib_ms = bound_ms = 0.0
-    ops_t = bytes_t = 0.0
-    k = torch.randn(8, 1152, 32, 96, device="cuda", generator=g).to(bf)
-    v = torch.randn(8, 1152, 32, 96, device="cuda", generator=g).to(bf)
-    for Sq, off in chunks:
-        q = torch.randn(8, Sq, 32, 96, device="cuda", generator=g).to(bf)
-        kw = dict(causal=True, window=0, q_offset=off)
-        km = event_ms(lambda: flash_ops.flash_attention_bshd(q, k, v, **kw))
-        pm = event_ms(lambda: flash_ref.flash_attention_bshd_ref(q, k, v,
-                                                                 **kw), 5)
-        lm = event_ms(sdpa_call(q, k, v, True, 0, off))
-        b_ms, b_by = flash_bound(q, k, True, 0, off)
-        log(f"time flash_attention bf16 chunk Sq={Sq} q_offset={off} "
-            f"(B=8, H=32, d=96, Skv=1152): kernel {km:.5f} ms, plain "
-            f"{pm:.5f} ms, library (SDPA, explicit mask) {lm:.5f} ms, "
-            f"bound {b_ms:.6f} ms ({b_by})")
-        kern_ms, plain_ms, lib_ms = kern_ms + km, plain_ms + pm, lib_ms + lm
-        bound_ms += b_ms
-        ops_t += b_ms if b_by == "operations" else 0.0
-        bytes_t += b_ms if b_by == "bytes" else 0.0
-    rows["flash_attention"] = {
-        "ms": kern_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "operations" if ops_t >= bytes_t else "bytes",
-        "unit": "one layer's prefill: chunks of 576 (q_offset 0) and 448 "
-                "(q_offset 576) query rows, B=8, H=32, d=96, Skv=1152, bf16"}
+    for d in (96, 80):
+        layer = flash_layer_times(flash_ops, flash_ref, g, d)
+        if d == 96:
+            rows["flash_attention"] = {
+                **layer,
+                "unit": "one layer's prefill: chunks of 576 (q_offset 0) "
+                        "and 448 (q_offset 576) query rows, B=8, H=32, d=96, "
+                        "Skv=1152, bf16"}
+        else:
+            rows["flash_attention"]["at_d80"] = {
+                **layer,
+                "unit": "one Zamba2 attention site's prefill: the same "
+                        "chunks at d=80"}
     for M in (4608, 3584, 8):
         x = torch.randn(M, 3072, device="cuda", generator=g).to(bf)
         sc = torch.randn(3072, device="cuda", generator=g)
@@ -449,7 +518,7 @@ def check_serve_kernels(flash_ops, flash_ref, rms_ops, rms_ref):
         pm = timer(lambda: rms_ref.rmsnorm_ref(x, sc))
         lib = rms_library_call(x, sc)
         lm = timer(lib) if lib is not None else None
-        b_ms, b_by = rms_bound(x)
+        b_ms, b_by, n_ops = rms_bound(x)
         log(f"time rmsnorm bf16 M={M} d=3072: kernel {km:.5f} ms, plain "
             f"{pm:.5f} ms, library (F.rms_norm) "
             f"{'none' if lm is None else f'{lm:.5f} ms'}, bound "
@@ -457,7 +526,7 @@ def check_serve_kernels(flash_ops, flash_ref, rms_ops, rms_ref):
         if M == 4608:
             rows["rmsnorm"] = {
                 "ms": km, "plain_ms": pm, "library_ms": lm,
-                "bound_ms": b_ms, "bound_by": b_by,
+                "bound_ms": b_ms, "bound_by": b_by, "ops": n_ops,
                 "unit": "one call at the first prefill chunk's rows, "
                         "M=4608, d=3072, bf16"}
     for name in ("flash_attention", "rmsnorm"):
@@ -499,7 +568,8 @@ def ssd_bound(x, bm, chunk, y_dtype, with_state):
                               + 4 * pairs)
     t_ops = ops / PEAK_OPS[x.dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+    return (max(t_ops, t_bytes),
+            "operations" if t_ops > t_bytes else "bytes", ops)
 
 
 def ssd_tol(want, tol):
@@ -556,19 +626,21 @@ def check_ssd_kernel(ssd_ops, ssd_ref):
     # times at the serve path's shapes: one Mamba2 layer's two prefill
     # chunks (bf16 x, B, C; f32 y; state in and out)
     kern_ms = plain_ms = bound_ms = ops_t = bytes_t = 0.0
+    total_ops = 0
     for B, S, H, P, N, chunk in SSD_MODEL_CASES[:2]:
         x, a, dt, bm, cm, s0 = ssd_inputs(g, B, S, H, P, N, torch.bfloat16)
         km = event_ms(lambda: ssd_ops.ssd_chunk_bshp(x, a, dt, bm, cm,
                                                      chunk=chunk, state0=s0))
         pm = event_ms(lambda: ssd_ref.ssd_states_ref(x, a, dt, bm, cm,
                                                      state0=s0), 3)
-        b_ms, b_by = ssd_bound(x, bm, chunk, torch.float32, True)
+        b_ms, b_by, n_ops = ssd_bound(x, bm, chunk, torch.float32, True)
         log(f"time ssd_chunk bf16 S={S} chunk={chunk} (B={B}, H={H}, P={P}, "
             f"N={N}, state in and out): kernel {km:.5f} ms, plain (per-token "
             f"recurrence) {pm:.5f} ms, library none (no single PyTorch call "
             f"computes the SSD scan), bound {b_ms:.6f} ms ({b_by})")
         kern_ms, plain_ms, bound_ms = kern_ms + km, plain_ms + pm, \
             bound_ms + b_ms
+        total_ops += n_ops
         ops_t += b_ms if b_by == "operations" else 0.0
         bytes_t += b_ms if b_by == "bytes" else 0.0
     name = "ssd_chunk"
@@ -578,7 +650,7 @@ def check_ssd_kernel(ssd_ops, ssd_ref):
         "replaces": replaces, "launches": 0, "max_abs_err": err_max,
         "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "operations" if ops_t >= bytes_t else "bytes",
-        "library_ms": None,
+        "library_ms": None, "ops": total_ops,
         "unit": "one Mamba2 layer's prefill: chunks of 576 rows (chunk 96) "
                 "and 448 rows (chunk 112), B=8, H=80, P=N=64, x/B/C bf16, y "
                 "f32, state in and out; no PyTorch library call computes "
@@ -859,6 +931,33 @@ class CpuDrawsOn:
         return moved
 
 
+def report_rates(rows) -> None:
+    """Each kernel's achieved rate (the operations its bound counts, over
+    its measured time) and the share of its bound it reaches, written into
+    its row."""
+    entries = [(row["name"], row) for row in rows.values()]
+    entries.append(("flash_attention at d=80",
+                    rows["flash_attention"]["at_d80"]))
+    for name, row in entries:
+        row["tflops"] = row["ops"] / row["ms"] / 1e9
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        lib = row["library_ms"]
+        log(f"rate {name}: {row['ms']:.5f} ms, {row['tflops']:.3f} TFLOP/s "
+            f"achieved, {row['bound_share']:.2%} of its bound "
+            f"({row['bound_ms']:.6f} ms, {row['bound_by']}); library "
+            f"{'none' if lib is None else f'{lib:.5f} ms'}")
+
+
+def count_hgmma(build) -> int:
+    """HGMMA (wgmma) instructions in the built flash library's SASS."""
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    out = subprocess.run(
+        [str(cuobjdump), "--dump-sass",
+         str(build.library_path("flash_attention"))], capture_output=True,
+        text=True, timeout=300, check=True).stdout
+    return len(re.findall(r"\bHGMMA\b", out))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one "
@@ -897,6 +996,11 @@ def main() -> int:
         for line in text.splitlines():
             if re.search(r"Compiling entry|registers|spill", line):
                 log(f"  {name}: {line.strip()}")
+    hgmma = count_hgmma(_build)
+    log(f"flash library SASS: {hgmma} HGMMA (wgmma) instructions")
+    if not hgmma:
+        raise AssertionError("the flash library's SASS has no HGMMA: the "
+                             "bf16 kernel does not run on the tensor cores")
 
     # ---- phase 2: kernels against their plain versions -----------------
     rows = check_kernels(ops, ref)
@@ -1025,6 +1129,7 @@ def main() -> int:
         serve_phase(rows, arch, ops, serve_kernels)
 
     # ---- phase 5: the record -------------------------------------------
+    report_rates(rows)
     log(card)
     log(json.dumps({"kernels": list(rows.values())}))
     log(json.dumps({"ok": True, "device": {

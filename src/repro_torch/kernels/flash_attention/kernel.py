@@ -1,9 +1,11 @@
-"""ctypes binding of the CUDA kernel in ``csrc/flash_attention.cu``.
+"""ctypes binding of the CUDA kernels in ``csrc/flash_attention.cu``: the
+f32 kernel on the CUDA cores (dtype code 0) and the bf16 kernel on the
+tensor cores (dtype code 1), behind one C function.
 
 One launch covers every batch row, query head and query tile. The library
 is built and loaded at the first launch, never at import. Callers go
-through ``ops.py``, which validates shapes, dtypes, devices and contiguity
-before a pointer is taken here."""
+through ``ops.py``, which validates shapes, dtypes, devices, contiguity
+and (for bf16) alignment before a pointer is taken here."""
 from __future__ import annotations
 
 import ctypes

@@ -1,6 +1,12 @@
 """Public wrappers: the CUDA kernel for CUDA tensors, the plain version
 (``ref.py``) for CPU tensors.
 
+Each dtype has one route on the card: float32 goes to the CUDA-core
+kernel (f32 FMA, to hold the plain version to 1e-4), bfloat16 to the
+tensor-core kernel (wgmma fed by TMA), which needs 16-byte-aligned
+operands; a bf16 CUDA tensor it cannot take raises, it never goes
+elsewhere.
+
 A CUDA tensor always goes to the kernel or raises: there is no fallback
 when ``nvcc`` or the library is missing. ``launches`` counts kernel
 launches (the CPU path launches nothing and counts nothing), so a run can
@@ -61,9 +67,25 @@ def _validate(q, k, v, window: int, q_offset: int) -> bool:
             f"operands on several devices: {sorted(map(str, devices))}")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
-    if q.device.type == "cuda" and (Sq + 63) // 64 > 65535:
-        raise ValueError(f"grid too large for the kernel: Sq={Sq}")
-    return q.device.type == "cuda"
+    if q.device.type != "cuda":
+        return False
+    if q.dtype == torch.float32 and (Sq + 63) // 64 > 65535:
+        raise ValueError(f"grid too large for the f32 kernel: Sq={Sq}")
+    if q.dtype == torch.bfloat16:
+        check_tma_alignment(q, k, v)
+    return True
+
+
+def check_tma_alignment(q, k, v) -> None:
+    """The tensor-core route reads q, k and v through TMA, which needs
+    16-byte-aligned base addresses (the strides are multiples of 32 bytes
+    for every head dim the kernel takes). Raises for any that is not."""
+    misaligned = [name for name, t in (("q", q), ("k", k), ("v", v))
+                  if t.data_ptr() % 16]
+    if misaligned:
+        raise ValueError(
+            f"the bf16 tensor-core kernel reads through TMA and needs "
+            f"16-byte-aligned operands; {', '.join(misaligned)} are not")
 
 
 def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0,

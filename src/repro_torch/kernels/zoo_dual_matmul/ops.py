@@ -70,7 +70,7 @@ def _validate(x, w, us, b, ub) -> bool:
     device = x.device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
-    if device.type == "cuda" and (R > 65535 or (M + 31) // 32 > 65535):
+    if device.type == "cuda" and (R > 65535 or (M + 7) // 8 > 65535):
         raise ValueError(f"grid too large for the kernel: R={R}, M={M}")
     return device.type == "cuda"
 

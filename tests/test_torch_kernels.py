@@ -194,12 +194,15 @@ def test_kernel_lanes_match_plain_and_pallas_lanes(q):
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain_version():
     """The hand-written CUDA kernel against its plain version, on the card,
-    at the main path's shapes and a ragged one, f32 (TF32 off) and bf16."""
+    at the main path's shapes, a ragged one (plain loads: rows that are not
+    16-byte multiples), a K that takes several chunks of the two-stage ring
+    and q lanes over several passes, f32 (TF32 off) and bf16."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU form")
     torch.backends.cuda.matmul.allow_tf32 = False
     ops.reset_launches()
-    shapes = [(1, 64, 196, 128, 1), (3, 64, 196, 128, 4), (2, 50, 33, 70, 3)]
+    shapes = [(1, 64, 196, 128, 1), (3, 64, 196, 128, 4), (2, 50, 33, 70, 3),
+              (1, 64, 1000, 128, 6), (2, 40, 196, 64, 9)]
     for dtype in ("float32", "bfloat16"):
         for R, M, K, N, q in shapes:
             (x, w, us, b, ub), _ = _inputs(R + q, R, M, K, N, q, dtype)
@@ -214,5 +217,6 @@ def test_cuda_kernel_matches_plain_version():
             torch.cuda.synchronize()
             for g, wn in zip((*got, *got2, *got3), (*want, *want2, *want3)):
                 _close(g, wn, dtype)
-    assert ops.launches == {"zoo_dual_matmul": 6, "zoo_dual_matmul_stacked": 6,
-                            "zoo_dual_matmul_stacked_bias_relu": 6}
+    n = 2 * len(shapes)
+    assert ops.launches == {"zoo_dual_matmul": n, "zoo_dual_matmul_stacked": n,
+                            "zoo_dual_matmul_stacked_bias_relu": n}

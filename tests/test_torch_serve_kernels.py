@@ -2,10 +2,12 @@
 (``repro_torch.kernels.flash_attention`` / ``.rmsnorm``) against the JAX
 package's: their plain versions (the wrappers' CPU path) against
 ``repro``'s ``ref.py`` oracles and ``repro``'s Pallas kernels in interpret
-mode, at ``tests/test_kernels.py``'s shapes plus Phi-3's head dim 96, GQA,
-ragged lengths and the chunked-prefill ``q_offset`` (held against
-``mha_chunked(q_offset=)``); the wrappers' argument checks; and, on a CUDA
-card only, the hand-written kernels against their plain versions.
+mode, at ``tests/test_kernels.py``'s shapes plus Phi-3's head dim 96,
+Zamba2's 80, GQA, ragged lengths and the chunked-prefill ``q_offset`` (held
+against ``mha_chunked(q_offset=)``); the wrappers' argument checks and
+dispatch (f32 to the CUDA-core kernel, bf16 to the tensor-core kernel, which
+needs 16-byte-aligned operands); and, on a CUDA card only, the hand-written
+kernels against their plain versions.
 
 Tolerances: f32 2e-5 (f32 math both sides, summed in other orders); bf16
 2e-2 absolute (``tests/test_kernels.py``'s). On the card, bf16 adds a
@@ -24,6 +26,7 @@ from repro.kernels.rmsnorm import ops as j_rms_ops
 from repro.kernels.rmsnorm import ref as j_rms_ref
 from repro.models.layers import apply_norm as j_apply_norm
 from repro.models.attention import mha_chunked as j_mha_chunked
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops
@@ -52,7 +55,7 @@ def _close(ours, theirs, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("BH,S,d", [(2, 128, 64), (4, 256, 64), (1, 256, 128),
-                                    (2, 128, 96)])
+                                    (2, 128, 96), (2, 128, 80)])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0)])
 def test_flash_plain_matches_reference(BH, S, d, dtype, causal, window):
     """The wrapper's CPU path (the plain version) against repro's oracle
@@ -81,20 +84,35 @@ def test_flash_cross_lengths():
            "float32")
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("Sq,Skv,q_offset,window,Hq,Hkv", [
+MODEL_LAYOUT_CASES = [
     (24, 48, 24, 0, 4, 4),      # the second prefill chunk of a 48-slot cache
     (18, 48, 24, 0, 4, 2),      # ragged chunk, GQA (G = 2)
     (24, 48, 0, 0, 2, 2),       # first chunk: zero cache slots past 24
     (50, 50, 0, 16, 4, 1),      # causal sliding window, MQA
     (7, 40, 30, 8, 2, 1),       # window with an offset
-])
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Skv,q_offset,window,Hq,Hkv", MODEL_LAYOUT_CASES)
 def test_flash_model_layout_matches_mha_chunked(Sq, Skv, q_offset, window,
                                                 Hq, Hkv, dtype):
     """The model-layout wrapper (GQA in place, ``q_offset``) against
     repro's ``mha_chunked(q_offset=)``, its chunked-prefill attention; the
-    cache past q_offset + Sq is zero, as the serve plane leaves it."""
-    d = 96
+    cache past q_offset + Sq is zero, as the serve plane leaves it. Phi-3's
+    head dim 96."""
+    _check_model_layout(Sq, Skv, q_offset, window, Hq, Hkv, dtype, d=96)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Skv,q_offset,window,Hq,Hkv", MODEL_LAYOUT_CASES)
+def test_flash_model_layout_head_dim_80(Sq, Skv, q_offset, window, Hq, Hkv,
+                                        dtype):
+    """As above at Zamba2's attention head dim 80."""
+    _check_model_layout(Sq, Skv, q_offset, window, Hq, Hkv, dtype, d=80)
+
+
+def _check_model_layout(Sq, Skv, q_offset, window, Hq, Hkv, dtype, d):
     (q, k, v), (jq, jk, jv) = _arrays(
         Sq + Skv + Hkv, [(2, Sq, Hq, d), (2, Skv, Hkv, d), (2, Skv, Hkv, d)],
         dtype)
@@ -132,6 +150,23 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take():
         flash_ops.flash_attention_bshd(q, k, v)
     with pytest.raises(ValueError):
         flash_ops.flash_attention(q, k, v)           # 4-d in the TPU layout
+    # one route a dtype on the card: code 0, f32 on the CUDA cores (to hold
+    # the plain version to 1e-4); code 1, bf16 on the tensor cores
+    assert flash_kernel._DTYPE_CODES == {torch.float32: 0,
+                                         torch.bfloat16: 1}
+    assert set(flash_kernel._DTYPE_CODES) == set(flash_ops.KERNEL_DTYPES)
+    # the tensor-core route reads through TMA: a misaligned base raises
+    shape = (2, 8, 4, 32)
+    n = int(np.prod(shape))
+    buf = torch.zeros(n + 1, dtype=torch.bfloat16)
+    aligned = buf[:n].view(shape)
+    shifted = buf[1:].view(shape)                  # 2 bytes off, contiguous
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    flash_ops.check_tma_alignment(aligned, aligned, aligned)
+    for operands in [(shifted, aligned, aligned), (aligned, shifted, aligned),
+                     (aligned, aligned, shifted)]:
+        with pytest.raises(ValueError, match="16-byte-aligned"):
+            flash_ops.check_tma_alignment(*operands)
 
 
 # ----------------------------------------------------------------- RMSNorm --
@@ -183,9 +218,11 @@ def test_cpu_paths_launch_nothing():
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_versions():
     """The hand-written kernels against their plain versions on the card:
-    head dims 64/96/128, causal, window 64, non-causal with Sq != Skv,
-    q_offset 0 and 576 over a 1152-slot cache, ragged Sq, GQA; RMSNorm at
-    M = 8, 4608 and 50."""
+    head dims 64/96/128 and Zamba2's 80 (both prefill chunks), causal,
+    window 64, non-causal with Sq != Skv, q_offset 0 and 576 over a
+    1152-slot cache, ragged Sq, GQA, and the bf16 kernel's tile edges (Sq
+    and Skv off its 128-row and 128-key tiles, three d panels at 112);
+    RMSNorm at M = 8, 4608 and 50; a misaligned bf16 operand raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU form")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -196,7 +233,12 @@ def test_cuda_kernels_match_plain_versions():
              (1, 576, 1152, 2, 2, 96, True, 0, 576),
              (1, 448, 1152, 4, 2, 96, True, 0, 576),
              (1, 50, 50, 2, 2, 128, True, 64, 0),
-             (2, 128, 256, 2, 2, 64, False, 0, 0)]
+             (2, 128, 256, 2, 2, 64, False, 0, 0),
+             (1, 576, 1152, 2, 2, 80, True, 0, 0),
+             (1, 448, 1152, 2, 2, 80, True, 0, 576),
+             (1, 37, 1152, 2, 1, 80, True, 0, 576),
+             (1, 300, 300, 2, 2, 96, True, 0, 0),
+             (1, 200, 333, 4, 1, 112, False, 0, 0)]
     n = 0
     for dtype, (atol, rtol) in tols.items():
         for B, Sq, Skv, Hq, Hkv, d, causal, window, off in cases:
@@ -222,3 +264,8 @@ def test_cuda_kernels_match_plain_versions():
                                        atol=ratol, rtol=rrtol)
     assert flash_ops.launches == {"flash_attention": n}
     assert rms_ops.launches == {"rmsnorm": 6}
+    q = torch.zeros(2 * 8 * 4 * 32 + 1, dtype=torch.bfloat16, device="cuda")
+    q = q[1:].view(2, 8, 4, 32)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        flash_ops.flash_attention_bshd(q, q, q)
+    assert flash_ops.launches == {"flash_attention": n}
