@@ -9,7 +9,8 @@ and prints no result):
    kernels built from ``src/repro_torch/kernels/*/csrc`` by ``nvcc``, one
    process per source, all at once (their ``-Xptxas -v`` register/spill
    report), and the count of ``HGMMA`` (wgmma) instructions in the flash
-   library's SASS, which must not be 0;
+   library's SASS and of ``HMMA``/``HGMMA`` (mma.sync / wgmma) ones in the
+   SSD library's, neither of which may be 0;
 2. every kernel entry point against its plain PyTorch version on the card:
    the fused ZOO fan-out at the tabular main path's shapes and ragged
    ones, f32 (TF32 off, 1e-4) and bf16 (1.5e-1); flash attention (f32 on
@@ -21,8 +22,12 @@ and prints no result):
    relative 2e-2); the SSD chunked scan at the TPU test's shapes, at the
    hybrid serve path's (B = 8, H = 80, P = N = 64; 576 rows at chunk 96
    and 448 at chunk 112, from a non-zero initial state, y and the final
-   state) and at a ragged chunk of 7, f32 (1e-4) and bf16 (2e-2 plus a
-   relative 2e-2); then each one's time, its plain version's, one PyTorch
+   state), at a ragged chunk of 7, at chunk 128 and at P or N below 64
+   (20 x 12 at a chunk of 25 through plain loads), f32 (1e-4; y and the
+   state f32 whatever x's type; bf16 y of the TPU contract 2e-2 plus a
+   relative 2e-2), and in bf16 at serve magnitudes (|y| to 1e5, the serve
+   tolerance), with the scan kernel's grid and resident blocks an SM;
+   then each one's time, its plain version's, one PyTorch
    library call's where one exists, and the bound from its bytes and
    operations (flash attention at both serve paths' head dims, 96 and 80),
    and each one's achieved TFLOP/s and share of its bound;
@@ -41,8 +46,10 @@ and prints no result):
    the run and held to the counts derived from the config, the wire bytes
    against the serve ledger's formula, the kernels held to their plain
    versions on the inputs they saw in the first and last layer of both
-   prefill chunks (and, for RMSNorm, one decode step), and a profile of
-   decode steps;
+   prefill chunks (and, for RMSNorm, one decode step), a profile of
+   decode steps and, for Zamba2, a profile of one prefill split by kernel
+   family, whose device kernels show every SSD call on the tensor cores
+   (one pre-pass and one scan a call, and no f32-route kernel);
 5. a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 
 It needs one card, and builds into ``build/`` at first use.
@@ -137,9 +144,20 @@ SSD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: SERVE_TOL}
 SSD_TPU_CASES = [(2, 64, 32, 16, 16), (3, 128, 32, 16, 32),
                  (1, 128, 64, 32, 64)]
 # (B, S, H, P, N, chunk) in the model's layout, from a non-zero state: the
-# hybrid serve path's two prefill chunks and a ragged chunk
+# hybrid serve path's two prefill chunks, a ragged chunk, the largest chunk,
+# and P or N below 64 (the tensor-core route pads them; 20 x 12 at a chunk
+# of 25 also takes plain loads)
 SSD_MODEL_CASES = [(8, 576, 80, 64, 64, 96), (8, 448, 80, 64, 64, 112),
-                   (2, 56, 4, 64, 64, 7)]
+                   (2, 56, 4, 64, 64, 7), (2, 256, 4, 64, 64, 128),
+                   (2, 224, 4, 32, 64, 112), (2, 192, 4, 64, 16, 96),
+                   (1, 50, 3, 20, 12, 25)]
+# bf16 at serve magnitudes (x x 16, B and C x 8, the state x 1e3: |y| to
+# 1e5, as the serve path's outputs reach 2.5e7), where rounding M, S or
+# x w to one bf16 would fail the serve tolerance (ssd_tol); (1e-4, 1e-4)
+# absolute cannot hold there even for exact f32 sums, whose rounding at
+# |y| ~ 1e5 is ~1e-2 where y cancels to near 0
+SSD_LARGE_CASES = [(2, 576, 8, 64, 64, 96), (2, 448, 8, 64, 64, 112)]
+SSD_LARGE_SCALE = dict(x=16.0, bc=8.0, state=1e3)
 
 
 def log(msg: str) -> None:
@@ -537,18 +555,23 @@ def check_serve_kernels(flash_ops, flash_ref, rms_ops, rms_ref):
     return rows
 
 
-def ssd_inputs(g, B, S, H, P, N, dtype):
+def ssd_inputs(g, B, S, H, P, N, dtype, x_scale=1.0, bc_scale=1.0,
+               state_scale=1.0):
     """SSD operands in the model's layout as repro's kernel test draws
     them (x, B, C scaled by 0.5; a in (0.05, 0.95); dt softplus of a
-    normal), and a non-zero f32 initial state."""
-    x = (torch.randn(B, S, H, P, device="cuda", generator=g) * 0.5).to(dtype)
+    normal), and a non-zero f32 initial state; the scales multiply x, B
+    and C, and the state."""
+    x = (torch.randn(B, S, H, P, device="cuda", generator=g) * 0.5
+         * x_scale).to(dtype)
     a = torch.sigmoid(torch.randn(B, S, H, device="cuda", generator=g))
     a = a * 0.9 + 0.05
     dt = torch.nn.functional.softplus(
         torch.randn(B, S, H, device="cuda", generator=g))
-    bm = (torch.randn(B, S, N, device="cuda", generator=g) * 0.5).to(dtype)
-    cm = (torch.randn(B, S, N, device="cuda", generator=g) * 0.5).to(dtype)
-    s0 = torch.randn(B, H, P, N, device="cuda", generator=g)
+    bm = (torch.randn(B, S, N, device="cuda", generator=g) * 0.5
+          * bc_scale).to(dtype)
+    cm = (torch.randn(B, S, N, device="cuda", generator=g) * 0.5
+          * bc_scale).to(dtype)
+    s0 = torch.randn(B, H, P, N, device="cuda", generator=g) * state_scale
     return x, a, dt, bm, cm, s0
 
 
@@ -581,12 +604,14 @@ def ssd_tol(want, tol):
     return (tol[0] * max(1.0, float(want.float().abs().max())), tol[1])
 
 
-def check_ssd_kernel(ssd_ops, ssd_ref):
+def check_ssd_kernel(ssd_ops, ssd_ref, ssd_kernel, build_report):
     """Phase 2, the SSD scan against its plain version (the per-token
-    recurrence) on the card, then its time at the serve path's shapes.
-    Returns its kernel row (launches filled in later)."""
+    recurrence) on the card, the tensor-core route's launch shape, then its
+    time at the serve path's shapes. Returns its kernel row (launches
+    filled in later)."""
     g = torch.Generator("cuda").manual_seed(3)
     err_max = 0.0
+    f32_tol = SSD_TOL[torch.float32]
     for dtype in (torch.float32, torch.bfloat16):
         for BH, S, P, N, chunk in SSD_TPU_CASES:
             x, a, dt, bm, cm, _ = ssd_inputs(g, BH, S, 1, P, N, dtype)
@@ -610,18 +635,57 @@ def check_ssd_kernel(ssd_ops, ssd_ref):
             yr, sr = ssd_ref.ssd_states_ref(x, a, dt, bm, cm, state0=s0)
             torch.cuda.synchronize()
             # y and the state are f32 whatever x's type: f32 tolerance
-            (ey, oky), (es, oks) = (_err_ok(y, yr, SSD_TOL[torch.float32]),
-                                    _err_ok(s1, sr, SSD_TOL[torch.float32]))
+            (ey, oky), (es, oks) = (_err_ok(y, yr, f32_tol),
+                                    _err_ok(s1, sr, f32_tol))
             log(f"check ssd_chunk (B, S, H, P) {str(dtype)[6:]} B={B} S={S} "
                 f"H={H} P={P} N={N} chunk={chunk}, state in and out: y "
                 f"max_abs_err {ey:.3e} (max |y| "
                 f"{float(yr.abs().max()):.4g}), state max_abs_err {es:.3e} "
-                f"(tol {SSD_TOL[torch.float32]}) "
-                f"{'ok' if oky and oks else 'FAIL'}")
+                f"(tol {f32_tol}) {'ok' if oky and oks else 'FAIL'}")
             if not (oky and oks):
                 raise AssertionError("ssd_chunk (model layout) disagrees "
                                      "with its plain version")
             err_max = max(err_max, ey, es)
+    for B, S, H, P, N, chunk in SSD_LARGE_CASES:
+        x, a, dt, bm, cm, s0 = ssd_inputs(
+            g, B, S, H, P, N, torch.bfloat16,
+            x_scale=SSD_LARGE_SCALE["x"], bc_scale=SSD_LARGE_SCALE["bc"],
+            state_scale=SSD_LARGE_SCALE["state"])
+        y, s1 = ssd_ops.ssd_chunk_bshp(x, a, dt, bm, cm, chunk=chunk,
+                                       state0=s0)
+        yr, sr = ssd_ref.ssd_states_ref(x, a, dt, bm, cm, state0=s0)
+        # the CUDA-core route on the same values in f32, for the record
+        y32, _ = ssd_ops.ssd_chunk_bshp(x.float(), a, dt, bm.float(),
+                                        cm.float(), chunk=chunk, state0=s0)
+        torch.cuda.synchronize()
+        (ey, oky), (es, oks) = (_err_ok(y, yr, ssd_tol(yr, f32_tol)),
+                                _err_ok(s1, sr, ssd_tol(sr, f32_tol)))
+        e32, ok32 = _err_ok(y32, yr, f32_tol)
+        log(f"check ssd_chunk bf16 at serve magnitudes B={B} S={S} H={H} "
+            f"chunk={chunk}: y max_abs_err {ey:.3e} (max |y| "
+            f"{float(yr.abs().max()):.4g}), state max_abs_err {es:.3e} (max "
+            f"|state| {float(sr.abs().max()):.4g}) (tol ssd_tol: "
+            f"{f32_tol[0]} x max |want| plus {f32_tol[1]} x |want|) "
+            f"{'ok' if oky and oks else 'FAIL'}; for the record, the f32 "
+            f"CUDA-core route on the same values: y max_abs_err {e32:.3e}, "
+            f"(1e-4, 1e-4) {'holds' if ok32 else 'does not hold'}")
+        if not (oky and oks):
+            raise AssertionError("ssd_chunk (bf16, serve magnitudes) "
+                                 "disagrees with its plain version")
+        err_max = max(err_max, ey, es)
+
+    # the tensor-core route's launch shape, registers and spills
+    lines = [ln.strip() for ln in build_report.splitlines()
+             if re.search(r"registers|spill", ln)]
+    log("ssd_chunk build report: " + " | ".join(lines))
+    shapes = {}
+    for B, S, H, P, N, chunk in SSD_MODEL_CASES[:2]:
+        occ = ssd_kernel.occupancy(torch.bfloat16, B, H, chunk)
+        nbytes = ssd_kernel.scratch_bytes(torch.bfloat16, B, S, H, chunk)
+        log(f"ssd_chunk tensor-core route at S={S} chunk={chunk}: scan "
+            f"kernel {occ}; pre-pass grid {B * (S // chunk)} x "
+            f"{-(-H // 16) + 1}; scratch {nbytes} B")
+        shapes[f"S={S},chunk={chunk}"] = {**occ, "scratch_bytes": nbytes}
 
     # times at the serve path's shapes: one Mamba2 layer's two prefill
     # chunks (bf16 x, B, C; f32 y; state in and out)
@@ -650,11 +714,12 @@ def check_ssd_kernel(ssd_ops, ssd_ref):
         "replaces": replaces, "launches": 0, "max_abs_err": err_max,
         "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "operations" if ops_t >= bytes_t else "bytes",
-        "library_ms": None, "ops": total_ops,
+        "library_ms": None, "ops": total_ops, "launch_shapes": shapes,
         "unit": "one Mamba2 layer's prefill: chunks of 576 rows (chunk 96) "
                 "and 448 rows (chunk 112), B=8, H=80, P=N=64, x/B/C bf16, y "
-                "f32, state in and out; no PyTorch library call computes "
-                "the SSD scan"}}
+                "f32, state in and out; device_kernels_per_call is counted "
+                "by the Zamba2 prefill profile; no PyTorch library call "
+                "computes the SSD scan"}}
 
 
 class Capture:
@@ -731,6 +796,83 @@ def profile_decode(fed, params, serving, steps: int = 8) -> None:
     for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
         log(f"  {dev_us(e) / steps:9.2f} us/step  x{e.count / steps:6.2f}"
             f"  {e.key[:90]}")
+
+
+# the SSD library's device kernels: the bf16 route's pre-pass and scan on
+# the tensor cores, the f32 route's scan on the CUDA cores
+SSD_DEVICE_KERNELS = ("ssd_prep_kernel", "ssd_tc_kernel", "ssd_chunk_kernel")
+# kernel families of a prefill profile, by the kernel's name
+PREFILL_FAMILIES = (
+    ("SSD scan (pre-pass and scan)", r"ssd_(?:prep|tc)_kernel"),
+    ("flash attention", r"flash"),
+    ("RMSNorm", r"rmsnorm"),
+    ("weight products (cuBLAS)", r"gemm|nvjet|sm90_|cutlass|xmma|cublas"),
+)
+
+
+def profile_prefill(fed, params, serving, ssd_ops) -> dict:
+    """Where one full-width prefill's device time goes: torch.profiler over
+    the serve path's chunked prefill (8 x 1024 tokens in the party spans'
+    chunks), after one warm-up prefill; device time by kernel family (the
+    SSD scan, flash attention, RMSNorm, the weight products, and the rest:
+    f32 elementwise work, casts, copies). Returns the profiled prefill's
+    SSD wrapper calls and the device kernels of each SSD kernel the
+    profiler saw: the pre-pass and scan of the bf16 route, the f32
+    route's kernel. Raises if the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    B, P = SERVE["batch"], SERVE["prompt_len"]
+    span = fed.seq_len // SERVE["n_clients"]
+    g = torch.Generator("cuda").manual_seed(1)
+    prompts = torch.randint(0, fed.model_cfg.vocab_size, (B, P),
+                            device="cuda", generator=g).to(torch.int32)
+    caches = serving.zero_caches(fed.adapter, B, P + SERVE["gen_len"],
+                                 fed.device)
+
+    def run():
+        for t0, t1, m in serving.prefill_plan(P, span):
+            serving.prefill_chunk(fed.adapter, params, prompts[:, t0:t1],
+                                  caches, t0, m)
+        torch.cuda.synchronize()
+    run()
+    calls0 = ssd_ops.launches["ssd_chunk"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    calls = ssd_ops.launches["ssd_chunk"] - calls0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    busy = sum(dev_us(e) for e in kernels)
+    if not busy:
+        raise AssertionError("prefill profile: the profiler saw no CUDA "
+                             "kernel time, so the SSD route is not shown")
+    split = {name: 0.0 for name, _ in PREFILL_FAMILIES}
+    split["the rest (f32 elementwise, casts, copies)"] = 0.0
+    for e in kernels:
+        fam = next((name for name, pat in PREFILL_FAMILIES
+                    if re.search(pat, e.key, re.IGNORECASE)),
+                   "the rest (f32 elementwise, casts, copies)")
+        split[fam] += dev_us(e)
+    log(f"prefill profile, one full-width prefill (B={B}, {P} tokens in "
+        f"chunks of {span} and {P - span}) under torch.profiler: wall "
+        f"{wall_us:.1f} us, device busy {busy:.1f} us ({busy / wall_us:.2%} "
+        f"of wall), {sum(e.count for e in kernels)} kernel launches")
+    for name, us in split.items():
+        log(f"  {us:11.1f} us  {us / busy:7.2%}  {name}")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
+        log(f"  {dev_us(e):11.1f} us  x{e.count:5d}  {e.key[:90]}")
+    seen = {name: sum(e.count for e in kernels
+                      if re.search(rf"\b{name}\b", e.key))
+            for name in SSD_DEVICE_KERNELS}
+    log(f"prefill profile: {calls} ssd_chunk wrapper calls, device kernels "
+        f"{seen}")
+    return {"calls": calls, **seen}
 
 
 def serve_plan(cfg):
@@ -874,8 +1016,23 @@ def serve_phase(rows, arch, zoo_ops, kernels):
     fed, params = serve_mod.build_session(
         cfg, n_clients=SERVE["n_clients"], prompt_len=SERVE["prompt_len"],
         gen_len=SERVE["gen_len"], seed=0)
-    profile_decode(fed, fed.params_from_global(params), serving)
-    del fed, params
+    fed_params = fed.params_from_global(params)
+    if cfg.family == "hybrid":
+        seen = profile_prefill(fed, fed_params, serving,
+                               kernels["ssd_chunk"][0])
+        # one prefill runs the SSD scan once per Mamba2 layer and chunk, as
+        # the serve run did; every call takes the tensor cores: one
+        # pre-pass and one scan kernel, and never the f32 route's kernel
+        if not (seen["calls"] == want["ssd_chunk"]
+                == seen["ssd_tc_kernel"] == seen["ssd_prep_kernel"]
+                and seen["ssd_chunk_kernel"] == 0):
+            raise AssertionError(f"the prefill's SSD calls ran {seen}, want "
+                                 f"{want['ssd_chunk']} calls, each one "
+                                 "pre-pass and one tensor-core scan")
+        rows["ssd_chunk"]["device_kernels_per_call"] = (
+            sum(seen[k] for k in SSD_DEVICE_KERNELS) / seen["calls"])
+    profile_decode(fed, fed_params, serving)
+    del fed, params, fed_params
     torch.cuda.empty_cache()
 
 
@@ -948,14 +1105,14 @@ def report_rates(rows) -> None:
             f"{'none' if lib is None else f'{lib:.5f} ms'}")
 
 
-def count_hgmma(build) -> int:
-    """HGMMA (wgmma) instructions in the built flash library's SASS."""
+def count_mma(build, name: str, pattern: str) -> int:
+    """Tensor-core instructions (``pattern``: HGMMA for wgmma, HMMA for
+    mma.sync) in the built library ``name``'s SASS."""
     cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
     out = subprocess.run(
-        [str(cuobjdump), "--dump-sass",
-         str(build.library_path("flash_attention"))], capture_output=True,
-        text=True, timeout=300, check=True).stdout
-    return len(re.findall(r"\bHGMMA\b", out))
+        [str(cuobjdump), "--dump-sass", str(build.library_path(name))],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    return len(re.findall(pattern, out))
 
 
 def main() -> int:
@@ -975,6 +1132,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ref as flash_ref
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.rmsnorm import ref as rms_ref
+    from repro_torch.kernels.ssd_chunk import kernel as ssd_kernel
     from repro_torch.kernels.ssd_chunk import ops as ssd_ops
     from repro_torch.kernels.ssd_chunk import ref as ssd_ref
     from repro_torch.kernels.zoo_dual_matmul import ops, ref
@@ -996,16 +1154,23 @@ def main() -> int:
         for line in text.splitlines():
             if re.search(r"Compiling entry|registers|spill", line):
                 log(f"  {name}: {line.strip()}")
-    hgmma = count_hgmma(_build)
+    hgmma = count_mma(_build, "flash_attention", r"\bHGMMA\b")
     log(f"flash library SASS: {hgmma} HGMMA (wgmma) instructions")
     if not hgmma:
         raise AssertionError("the flash library's SASS has no HGMMA: the "
                              "bf16 kernel does not run on the tensor cores")
+    ssd_mma = count_mma(_build, "ssd_chunk", r"\bH(?:G)?MMA\b")
+    log(f"ssd_chunk library SASS: {ssd_mma} HMMA/HGMMA (mma.sync / wgmma) "
+        f"instructions")
+    if not ssd_mma:
+        raise AssertionError("the SSD library's SASS has no HMMA or HGMMA: "
+                             "the bf16 scan does not run on the tensor cores")
 
     # ---- phase 2: kernels against their plain versions -----------------
     rows = check_kernels(ops, ref)
     rows.update(check_serve_kernels(flash_ops, flash_ref, rms_ops, rms_ref))
-    rows.update(check_ssd_kernel(ssd_ops, ssd_ref))
+    rows.update(check_ssd_kernel(ssd_ops, ssd_ref, ssd_kernel,
+                                 reports["ssd_chunk"]))
 
     # ---- phase 3: the tabular main path at the paper's width -----------
     cfg = PaperMLPConfig()

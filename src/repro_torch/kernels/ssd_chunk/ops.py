@@ -26,6 +26,13 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+def _scratch(xh, B: int, S: int, H: int, chunk: int):
+    """The launch's device scratch (uint8), as many bytes as the library
+    asks for, or None when it needs none."""
+    n = kernel.scratch_bytes(xh.dtype, B, S, H, chunk)
+    return torch.empty(n, dtype=torch.uint8, device=xh.device) if n else None
+
+
 def _validate(xh, a, dt, bm, cm, chunk: int, state0) -> bool:
     """Check a model-layout call; True for CUDA tensors, False for CPU."""
     if xh.ndim != 4 or a.ndim != 3 or dt.ndim != 3 or bm.ndim != 3 \
@@ -86,7 +93,8 @@ def ssd_chunk_bshp(xh, a, dt, bm, cm, *, chunk: int, state0=None):
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=xh.device)
     state = torch.empty((B, H, P, bm.shape[-1]), dtype=torch.float32,
                         device=xh.device)
-    kernel.launch(xh, a, dt, bm, cm, state0, y, state, chunk)
+    kernel.launch(xh, a, dt, bm, cm, state0, y, state,
+                  _scratch(xh, B, S, H, chunk), chunk)
     launches["ssd_chunk"] += 1
     return y, state
 
@@ -105,6 +113,7 @@ def ssd_chunk(xh, a, dt, bm, cm, *, chunk: int = 128):
     if not _validate(x4, a3, dt3, bm, cm, chunk, None):
         return ssd_chunk_ref(xh, a, dt, bm, cm)
     y = torch.empty_like(xh)
-    kernel.launch(x4, a3, dt3, bm, cm, None, y, None, chunk)
+    kernel.launch(x4, a3, dt3, bm, cm, None, y, None,
+                  _scratch(xh, xh.shape[0], xh.shape[1], 1, chunk), chunk)
     launches["ssd_chunk"] += 1
     return y
