@@ -17,9 +17,11 @@ and prints no result):
    the CUDA cores, bf16 on the tensor cores) over head dims 48 to 128
    (Phi-3's 96 and Zamba2's 80 at both prefill chunks), causal, window 64,
    non-causal Sq != Skv, q_offset 0 and 576 over a 1152-slot cache, ragged
-   Sq and Skv and GQA, and RMSNorm at M = 8,
-   4608, 50 and d = 3072, 128, f32 (1e-4 / 1e-5) and bf16 (2e-2 plus a
-   relative 2e-2); the SSD chunked scan at the TPU test's shapes, at the
+   Sq and Skv and GQA, and RMSNorm (RMS_CASES: M = 8, 4608, 3584, 50, 1;
+   d = 3072, 2560, 5120, 7168 and 128 on the one-pass vector kernel,
+   ragged d, d = 9000 and a misaligned x on the general kernel, each case
+   held to its route), f32 (1e-4 / 1e-5) and bf16 (2e-2 plus a relative
+   2e-2); the SSD chunked scan at the TPU test's shapes, at the
    hybrid serve path's (B = 8, H = 80, P = N = 64; 576 rows at chunk 96
    and 448 at chunk 112, from a non-zero initial state, y and the final
    state), at a ragged chunk of 7, at chunk 128 and at P or N below 64
@@ -30,7 +32,11 @@ and prints no result):
    then each one's time, its plain version's, one PyTorch
    library call's where one exists, and the bound from its bytes and
    operations (flash attention at both serve paths' head dims, 96 and 80),
-   and each one's achieved TFLOP/s and share of its bound;
+   and each one's achieved TFLOP/s and share of its bound. RMSNorm is
+   timed at both serve widths' prefill and decode rows from CUDA graphs
+   over inputs rotated through more than 3 x the L2 (no host and no L2 in
+   the reading), beside F.rms_norm, the general kernel, the time per
+   Python call and, at M = 8, an empty kernel's;
 3. the tabular main path at the paper's width: cascaded hybrid VFL (ZOO
    clients through the fused kernel, FOO server) over an MNIST-sized
    stand-in, 500 rounds, with the kernel's launch count read around the
@@ -43,7 +49,8 @@ and prints no result):
    Phi-3-mini (32 layers, d_model 3072) and Zamba2-2.7B (54 Mamba2 layers
    and a shared attention block at 9 sites, d_model 2560). For each, the
    launch counts of flash attention, RMSNorm and the SSD scan read around
-   the run and held to the counts derived from the config, the wire bytes
+   the run and held to the counts derived from the config (every RMSNorm
+   launch on the vector kernel), the wire bytes
    against the serve ledger's formula, the kernels held to their plain
    versions on the inputs they saw in the first and last layer of both
    prefill chunks (and, for RMSNorm, one decode step), a profile of
@@ -137,6 +144,27 @@ FLASH_CASES = [(2, 576, 1152, 4, 4, 96, True, 0, 0),
 FLASH_LARGE_CASES = [(2, 576, 1152, 4, 96, 0), (2, 448, 1152, 4, 80, 576)]
 FLASH_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: SERVE_TOL}
 RMS_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: SERVE_TOL}
+# RMSNorm's timed shapes: the serve paths' prefill chunks (8 x 576 and
+# 8 x 448 rows) and decode step (8 rows) at Phi-3's d_model 3072 and
+# Zamba2's 2560 in bf16, and f32 at the first; the row's shape first
+RMS_TIME_SHAPES = ([(M, 3072, torch.bfloat16) for M in (4608, 3584, 8)]
+                   + [(M, 2560, torch.bfloat16) for M in (4608, 3584, 8)]
+                   + [(4608, 3072, torch.float32)])
+COLD_L2_TIMES = 3     # the rotated inputs total more than 3 x the L2
+# RMSNorm's cases on the card: (M, d, x's offset into its buffer in
+# elements, the route f32 and bf16 must take). The serve widths and the
+# registry's d_model up to 7168 take the vector kernel; ragged d (d = 100
+# is 16-byte whole in f32 only), d above 8192 and an x 1 element off a
+# 16-byte boundary take the general one
+V, G = "vector", "general"
+RMS_CASES = [(8, 3072, 0, (V, V)), (4608, 3072, 0, (V, V)),
+             (50, 3072, 0, (V, V)), (8, 128, 0, (V, V)),
+             (4608, 128, 0, (V, V)), (50, 128, 0, (V, V)),
+             (3584, 2560, 0, (V, V)), (8, 2560, 0, (V, V)),
+             (64, 5120, 0, (V, V)), (64, 7168, 0, (V, V)),
+             (50, 100, 0, (V, G)), (50, 130, 0, (G, G)),
+             (16, 9000, 0, (G, G)), (1, 3072, 0, (V, V)),
+             (1, 2560, 0, (V, V)), (64, 3072, 1, (G, G))]
 # the SSD scan: repro's f32 tolerance (1e-4, absolute and relative); bf16
 # outputs round separately on both sides: one bf16 step, SERVE_TOL
 SSD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: SERVE_TOL}
@@ -393,12 +421,58 @@ def sdpa_call(q, k, v, causal, window, q_offset):
         qt, kt, vt, attn_mask=mask)
 
 
-def rms_library_call(x, scale):
+def rms_library_call(scale, dtype):
+    """x -> ``F.rms_norm`` of x with the same scale (cast to x's type
+    outside the timed region), or None where this torch lacks it."""
     rms_norm = getattr(torch.nn.functional, "rms_norm", None)
     if rms_norm is None:
         return None
-    w = scale.to(x.dtype)
-    return lambda: rms_norm(x, (x.shape[1],), weight=w, eps=1e-6)
+    w = scale.to(dtype)
+    return lambda x: rms_norm(x, (x.shape[1],), weight=w, eps=1e-6)
+
+
+def cold_inputs(g, M, d, dtype):
+    """Distinct (M, d) inputs cut from one flat buffer of more than
+    COLD_L2_TIMES x the card's L2, each at a 256-byte-aligned offset: a
+    call that takes them in turn never finds its x in the L2."""
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    es = torch.empty((), dtype=dtype).element_size()
+    stride = -(-M * d * es // 256) * 256 // es
+    n = max(2, COLD_L2_TIMES * l2 // (M * d * es) + 1)
+    pool = torch.randn(n * stride, device="cuda", generator=g).to(dtype)
+    return [pool[i * stride:i * stride + M * d].view(M, d) for i in range(n)]
+
+
+def cold_graph_times(fns, xs, min_calls: int = 40, replays: int = 5):
+    """Device time per call of each ``fn(x)`` in ``fns``, with x taken in
+    turn from ``xs`` (``cold_inputs``: L2-cold): each fn's calls captured in
+    a CUDA graph of its own (no host time in the reading), the graphs
+    replayed in turns between CUDA events, the best replay of each."""
+    n = len(xs) * -(-min_calls // len(xs))
+    graphs = {}
+    for name, fn in fns.items():
+        for x in xs[:2]:
+            fn(x)
+        torch.cuda.synchronize()
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name]):
+            for i in range(n):
+                fn(xs[i % len(xs)])
+        graphs[name].replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    best = {name: float("inf") for name in fns}
+    for _ in range(replays):
+        for name, graph in graphs.items():
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            best[name] = min(best[name], start.elapsed_time(end) / n)
+    del graphs
+    torch.cuda.empty_cache()
+    return best, n
 
 
 def flash_layer_times(flash_ops, flash_ref, g, d):
@@ -436,12 +510,12 @@ def flash_layer_times(flash_ops, flash_ref, g, d):
     return out
 
 
-def check_serve_kernels(flash_ops, flash_ref, rms_ops, rms_ref):
-    """Phase 2, serve kernels: flash attention and RMSNorm against their
-    plain versions on the card; then their times at the serve path's
-    shapes. Returns the two kernel rows (launches filled in later)."""
+def check_flash_kernel(flash_ops, flash_ref):
+    """Phase 2, flash attention against its plain version on the card;
+    then its times at the serve paths' shapes. Returns its kernel row
+    (launches filled in later)."""
     g = torch.Generator("cuda").manual_seed(2)
-    errs = {"flash_attention": 0.0, "rmsnorm": 0.0}
+    err_max = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for B, Sq, Skv, Hq, Hkv, d, causal, window, off in FLASH_CASES:
             q = torch.randn(B, Sq, Hq, d, device="cuda", generator=g)
@@ -462,7 +536,7 @@ def check_serve_kernels(flash_ops, flash_ref, rms_ops, rms_ref):
                 raise AssertionError("flash_attention disagrees with its "
                                      "plain version")
             if dtype == torch.bfloat16:
-                errs["flash_attention"] = max(errs["flash_attention"], err)
+                err_max = max(err_max, err)
         large = FLASH_LARGE_CASES if dtype == torch.bfloat16 else []
         for B, Sq, Skv, H, d, off in large:
             q = torch.randn(B, Sq, H, d, device="cuda", generator=g) * 3
@@ -483,7 +557,7 @@ def check_serve_kernels(flash_ops, flash_ref, rms_ops, rms_ref):
                 raise AssertionError("flash_attention disagrees with its "
                                      "plain version at serve magnitudes")
             if dtype == torch.bfloat16:
-                errs["flash_attention"] = max(errs["flash_attention"], err)
+                err_max = max(err_max, err)
         # the (BH, S, d) entry point of the TPU kernel's layout
         q = torch.randn(6, 200, 64, device="cuda", generator=g).to(dtype)
         got = flash_ops.flash_attention(q, q, q, window=64)
@@ -494,26 +568,10 @@ def check_serve_kernels(flash_ops, flash_ref, rms_ops, rms_ref):
             f"max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("flash_attention (BH layout) disagrees")
-        for M in (8, 4608, 50):
-            for d in (3072, 128):
-                x = torch.randn(M, d, device="cuda", generator=g).to(dtype)
-                sc = torch.randn(d, device="cuda", generator=g)
-                got, want = rms_ops.rmsnorm(x, sc), rms_ref.rmsnorm_ref(x, sc)
-                torch.cuda.synchronize()
-                err, ok = _err_ok(got, want, RMS_TOL[dtype])
-                log(f"check rmsnorm {str(dtype)[6:]} M={M} d={d}: "
-                    f"max_abs_err {err:.3e} (tol {RMS_TOL[dtype]}) "
-                    f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError("rmsnorm disagrees with its plain "
-                                         "version")
-                if dtype == torch.bfloat16:
-                    errs["rmsnorm"] = max(errs["rmsnorm"], err)
 
     # times at the serve paths' shapes (bf16): one attention layer's two
-    # prefill chunks for flash attention, at Phi-3's head dim 96 (the row)
-    # and Zamba2's 80 (its "at_d80"), the prefill rows for RMSNorm
-    bf = torch.bfloat16
+    # prefill chunks, at Phi-3's head dim 96 (the row) and Zamba2's 80 (its
+    # "at_d80")
     rows = {}
     for d in (96, 80):
         layer = flash_layer_times(flash_ops, flash_ref, g, d)
@@ -528,31 +586,127 @@ def check_serve_kernels(flash_ops, flash_ref, rms_ops, rms_ref):
                 **layer,
                 "unit": "one Zamba2 attention site's prefill: the same "
                         "chunks at d=80"}
-    for M in (4608, 3584, 8):
-        x = torch.randn(M, 3072, device="cuda", generator=g).to(bf)
-        sc = torch.randn(3072, device="cuda", generator=g)
-        timer = graph_ms if M == 8 else event_ms
-        km = timer(lambda: rms_ops.rmsnorm(x, sc))
-        pm = timer(lambda: rms_ref.rmsnorm_ref(x, sc))
-        lib = rms_library_call(x, sc)
-        lm = timer(lib) if lib is not None else None
-        b_ms, b_by, n_ops = rms_bound(x)
-        log(f"time rmsnorm bf16 M={M} d=3072: kernel {km:.5f} ms, plain "
-            f"{pm:.5f} ms, library (F.rms_norm) "
-            f"{'none' if lm is None else f'{lm:.5f} ms'}, bound "
-            f"{b_ms:.6f} ms ({b_by})")
-        if M == 4608:
-            rows["rmsnorm"] = {
-                "ms": km, "plain_ms": pm, "library_ms": lm,
-                "bound_ms": b_ms, "bound_by": b_by, "ops": n_ops,
-                "unit": "one call at the first prefill chunk's rows, "
-                        "M=4608, d=3072, bf16"}
-    for name in ("flash_attention", "rmsnorm"):
-        replaces, source = SERVE_ROWS[name]
-        rows[name] = {"name": name, "route": "cuda", "source": source,
-                      "replaces": replaces, "launches": 0,
-                      "max_abs_err": errs[name], **rows[name]}
+    replaces, source = SERVE_ROWS["flash_attention"]
+    rows["flash_attention"] = {
+        "name": "flash_attention", "route": "cuda", "source": source,
+        "replaces": replaces, "launches": 0,
+        "max_abs_err": err_max, **rows["flash_attention"]}
     return rows
+
+
+def check_rmsnorm(rms_ops, rms_ref, rms_kernel):
+    """Phase 2, RMSNorm against its plain version on the card (each case
+    held to the route it must take); then its times at RMS_TIME_SHAPES.
+    Returns its kernel row (launches filled in later)."""
+    g = torch.Generator("cuda").manual_seed(4)
+    err_max = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for M, d, offset, want_routes in RMS_CASES:
+            want_route = want_routes[dtype == torch.bfloat16]
+            flat = torch.randn(offset + M * d, device="cuda", generator=g)
+            x = flat.to(dtype)[offset:].view(M, d)
+            sc = torch.randn(d, device="cuda", generator=g)
+            before = dict(rms_ops.route_launches)
+            got, want = rms_ops.rmsnorm(x, sc), rms_ref.rmsnorm_ref(x, sc)
+            torch.cuda.synchronize()
+            took = [r for r, n in rms_ops.route_launches.items()
+                    if n != before[r]]
+            err, ok = _err_ok(got, want, RMS_TOL[dtype])
+            where = (f", x {offset} element(s) into its buffer" if offset
+                     else "")
+            log(f"check rmsnorm {str(dtype)[6:]} M={M} d={d}{where}: route "
+                f"{took} (want {want_route}), max_abs_err {err:.3e} "
+                f"(tol {RMS_TOL[dtype]}) {'ok' if ok else 'FAIL'}")
+            if took != [want_route]:
+                raise AssertionError(f"rmsnorm took route {took}, want "
+                                     f"{want_route}")
+            if not ok:
+                raise AssertionError("rmsnorm disagrees with its plain "
+                                     "version")
+            if dtype == torch.bfloat16:
+                err_max = max(err_max, err)
+    shapes = {key: time_rmsnorm(rms_ops, rms_ref, rms_kernel, g, *key)
+              for key in RMS_TIME_SHAPES}
+    first = shapes[RMS_TIME_SHAPES[0]]
+    replaces, source = SERVE_ROWS["rmsnorm"]
+    return {"rmsnorm": {
+        "name": "rmsnorm", "route": "cuda", "source": source,
+        "replaces": replaces, "launches": 0, "max_abs_err": err_max,
+        "ms": first["kernel"], "plain_ms": first["plain"],
+        "library_ms": first["F.rms_norm"], "bound_ms": first["bound_ms"],
+        "bound_by": first["bound_by"], "ops": first["ops"],
+        "at_shapes": {f"M={M},d={d},{str(dt)[6:]}": t
+                      for (M, d, dt), t in shapes.items()},
+        "unit": "one call at the first prefill chunk's rows, M=4608, "
+                "d=3072, bf16; device time from CUDA graphs over L2-cold "
+                "inputs"}}
+
+
+def rms_general_call(rms_kernel, sc):
+    """x -> y through the RMSNorm library's general kernel (the first
+    port's), not counted as a launch: timed beside the wrapper's vector
+    route."""
+    def call(x):
+        y = torch.empty_like(x)
+        rms_kernel.launch(x, sc, y, 1e-6, "general")
+        return y
+    return call
+
+
+def time_rmsnorm(rms_ops, rms_ref, rms_kernel, g, M, d, dtype):
+    """One shape's RMSNorm times (ms), graph-timed over L2-cold inputs in
+    turns: the wrapper (the vector route), the general kernel (the first
+    port's), F.rms_norm and the plain version.
+    Beside them the time per Python call (eager_ms: the host's cost where
+    it exceeds the device's) of the wrapper and of F.rms_norm; the former
+    reading (event_ms over 20 eager calls on one x,
+    which the L2 may hold), logged only; the vector kernel's launch shape
+    and resident blocks an SM; at M = 8 the library's empty kernel at that
+    launch shape, the launch floor."""
+    xs = cold_inputs(g, M, d, dtype)
+    sc = torch.randn(d, device="cuda", generator=g)
+    lib = rms_library_call(sc, dtype)
+    fns = {"kernel": lambda x: rms_ops.rmsnorm(x, sc),
+           "general": rms_general_call(rms_kernel, sc),
+           "F.rms_norm": lib,
+           "plain": lambda x: rms_ref.rmsnorm_ref(x, sc)}
+    if lib is None:
+        del fns["F.rms_norm"]
+    best, n = cold_graph_times(fns, xs)
+    b_ms, b_by, n_ops = rms_bound(xs[0])
+    threads, vecs, rows = rms_ops.launch_shape(xs[0])
+    blocks = rms_kernel.occupancy(dtype, d, (threads, vecs, rows))
+    out = {**best, "bound_ms": b_ms, "bound_by": b_by, "ops": n_ops,
+           "eager_ms": eager_ms(lambda: rms_ops.rmsnorm(xs[0], sc)),
+           "event_ms_warm": event_ms(lambda: rms_ops.rmsnorm(xs[0], sc)),
+           "launch_shape": {
+               "threads_a_row": threads, "vectors_a_thread": vecs,
+               "rows_a_block": rows, "blocks_an_sm": blocks}}
+    out.setdefault("F.rms_norm", None)
+    out["library_eager_ms"] = (None if lib is None
+                               else eager_ms(lambda: lib(xs[0])))
+    grid = -(-M // rows)
+    if M == 8:
+        out["empty_kernel_ms"] = graph_ms(
+            lambda: rms_kernel.launch_empty(grid, threads * rows))
+    lm, le = out["F.rms_norm"], out["library_eager_ms"]
+    log(f"time rmsnorm {str(dtype)[6:]} M={M} d={d}, L2-cold ({len(xs)} "
+        f"inputs of {xs[0].numel() * xs[0].element_size()} B in turns, {n} "
+        f"calls a graph, the best of 5 replays): kernel {best['kernel']:.5f} "
+        f"ms ({b_ms / best['kernel']:.2%} of its bound; {grid} blocks of "
+        f"{rows} x {threads} threads x {vecs} vectors, {blocks} an SM); "
+        f"general (the first port's) kernel {best['general']:.5f} ms; "
+        f"F.rms_norm {'none' if lm is None else f'{lm:.5f} ms'}; plain "
+        f"{best['plain']:.5f} ms; bound {b_ms:.6f} ms ({b_by}); per Python "
+        f"call (eager_ms) {out['eager_ms']:.5f} ms, F.rms_norm's "
+        f"{'none' if le is None else f'{le:.5f} ms'}"
+        f"; former reading (event_ms, 20 eager calls on one x) "
+        f"{out['event_ms_warm']:.5f} ms"
+        + (f"; empty kernel on {grid} x {threads * rows} threads (graph) "
+           f"{out['empty_kernel_ms']:.5f} ms" if M == 8 else ""))
+    del xs
+    torch.cuda.empty_cache()
+    return out
 
 
 def ssd_inputs(g, B, S, H, P, N, dtype, x_scale=1.0, bc_scale=1.0,
@@ -947,6 +1101,14 @@ def serve_phase(rows, arch, zoo_ops, kernels):
             launches[k] for k in zoo_ops.launches):
         raise AssertionError(f"serve launches {launches}, want {want} and "
                              "no ZOO kernel")
+    # every RMSNorm launch of the serve path took the vector kernel
+    rms_routes = dict(kernels["rmsnorm"][0].route_launches)
+    log(f"serve path: RMSNorm launches by route {rms_routes}")
+    if rms_routes != {"vector": want["rmsnorm"], "general": 0}:
+        raise AssertionError(f"serve RMSNorm routes {rms_routes}, want all "
+                             f"{want['rmsnorm']} on the vector kernel")
+    rows["rmsnorm"].setdefault("route_launches_by_path", {})[arch] = \
+        rms_routes
     B, d = SERVE["batch"], cfg.d_model
     steps = SERVE["prompt_len"] + SERVE["gen_len"]
     formula = steps * B * d * 4 + SERVE["gen_len"] * B * 4
@@ -1130,6 +1292,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.rmsnorm import ref as rms_ref
     from repro_torch.kernels.ssd_chunk import kernel as ssd_kernel
@@ -1168,7 +1331,8 @@ def main() -> int:
 
     # ---- phase 2: kernels against their plain versions -----------------
     rows = check_kernels(ops, ref)
-    rows.update(check_serve_kernels(flash_ops, flash_ref, rms_ops, rms_ref))
+    rows.update(check_flash_kernel(flash_ops, flash_ref))
+    rows.update(check_rmsnorm(rms_ops, rms_ref, rms_kernel))
     rows.update(check_ssd_kernel(ssd_ops, ssd_ref, ssd_kernel,
                                  reports["ssd_chunk"]))
 

@@ -1,13 +1,17 @@
-"""Public wrapper: the CUDA kernel for CUDA tensors, the plain version
+"""Public wrapper: the CUDA kernels for CUDA tensors, the plain version
 (``ref.py``) for CPU tensors.
 
-A CUDA tensor always goes to the kernel or raises: there is no fallback
-when ``nvcc`` or the library is missing. ``launches`` counts kernel
-launches (the CPU path launches nothing and counts nothing), so a run can
-show that its main path went through the kernel."""
+A CUDA tensor always goes to a kernel or raises: there is no fallback
+when ``nvcc`` or the library is missing. :func:`route` picks the kernel:
+the one-pass vector kernel wherever it can take the call, else the
+general one. ``launches`` counts kernel launches and ``route_launches``
+the same launches by route (the CPU path launches nothing and counts
+nothing), so a run can show that its main path went through the vector
+kernel."""
 from __future__ import annotations
 
-from typing import Dict
+import functools
+from typing import Dict, Tuple
 
 import torch
 
@@ -15,13 +19,20 @@ from repro_torch.kernels.rmsnorm import kernel
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+VEC_BYTES = 16          # the vector kernel's loads and stores
+MAX_VECTOR_D = 8192     # the vector kernel keeps a row in registers
+MAX_VECS = 8            # 16-byte vectors a thread keeps
+MAX_THREADS = 1024
+MIN_ROW_THREADS = 128   # a block's threads for rows of fewer vectors
 
 launches: Dict[str, int] = {"rmsnorm": 0}
+route_launches: Dict[str, int] = {"vector": 0, "general": 0}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, route_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def _validate(x, scale) -> bool:
@@ -29,7 +40,7 @@ def _validate(x, scale) -> bool:
     if x.ndim != 2 or scale.ndim != 1 or scale.shape[0] != x.shape[1]:
         raise ValueError(f"expected x (M, d) and scale (d,); got "
                          f"{tuple(x.shape)}, {tuple(scale.shape)}")
-    if min(x.shape) < 1:
+    if x.numel() == 0:
         raise ValueError(f"empty operand: x {tuple(x.shape)}")
     if x.dtype not in KERNEL_DTYPES:
         raise ValueError(f"x dtype {x.dtype} not in {KERNEL_DTYPES}")
@@ -37,12 +48,66 @@ def _validate(x, scale) -> bool:
         raise ValueError(f"scale must be float32, got {scale.dtype}")
     if not (x.is_contiguous() and scale.is_contiguous()):
         raise ValueError("x and scale must be contiguous")
-    if x.device != scale.device:
-        raise ValueError(f"operands on several devices: {x.device}, "
+    device = x.device
+    if device != scale.device:
+        raise ValueError(f"operands on several devices: {device}, "
                          f"{scale.device}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {x.device}")
-    return x.device.type == "cuda"
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device.type == "cuda"
+
+
+def route(x, scale=None) -> str:
+    """The kernel a contiguous (M, d) x takes: ``"vector"`` where its rows
+    split into 16-byte vectors (d a multiple of 16 bytes of x's type), x
+    (and scale, where given) lies at a 16-byte-aligned address and
+    d <= MAX_VECTOR_D; else ``"general"``. The wrapper's y comes from the
+    allocator and is aligned."""
+    d = x.shape[-1]
+    if d > MAX_VECTOR_D or d * x.element_size() % VEC_BYTES:
+        return "general"
+    if x.data_ptr() % VEC_BYTES or (scale is not None
+                                    and scale.data_ptr() % VEC_BYTES):
+        return "general"
+    return "vector"
+
+
+@functools.lru_cache(maxsize=None)
+def vector_shape(d: int, element_size: int,
+                 few_rows: bool = False) -> Tuple[int, int, int]:
+    """(threads a row, vectors a thread, rows a block) of the vector
+    kernel for rows of d elements. Where the call has rows enough to share
+    the SMs (prefill), device memory bounds it: the most vectors a thread
+    that leave no thread idle with at least MIN_ROW_THREADS threads a row
+    (d = 3072 bf16: 128 x 3; d = 2560: 160 x 2). With ``few_rows`` (fewer
+    rows than the card has SMs: decode), each row's latency bounds it: the
+    fewest vectors a thread that leave no thread idle (384 x 1 and
+    320 x 1). Where no shape leaves every thread working, the fewest idle
+    vector slots. Rows of fewer threads share a block of MIN_ROW_THREADS."""
+    nvec = d * element_size // VEC_BYTES
+    shapes = []
+    for k in range(1, MAX_VECS + 1):
+        threads = 32 * -(-nvec // (32 * k))      # whole warps
+        idle = threads * k - nvec
+        if threads <= MAX_THREADS:
+            order = k if few_rows else -k
+            shapes.append(((idle > 0, threads < MIN_ROW_THREADS, idle,
+                            order), threads, k))
+    _, threads, k = min(shapes)
+    return threads, k, max(1, MIN_ROW_THREADS // threads)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    props = torch.cuda.get_device_properties(device_index)
+    return props.multi_processor_count
+
+
+def launch_shape(x) -> Tuple[int, int, int]:
+    """The vector kernel's launch shape for a CUDA x (M, d)."""
+    M, d = x.shape
+    return vector_shape(d, x.element_size(),
+                        M < _sm_count(x.device.index))
 
 
 def rmsnorm(x, scale, *, eps: float = 1e-6):
@@ -50,7 +115,12 @@ def rmsnorm(x, scale, *, eps: float = 1e-6):
     or bf16, scale (d,) f32 -> (M, d) in x's dtype, f32 math."""
     if not _validate(x, scale):
         return rmsnorm_ref(x, scale, eps)
+    way = route(x, scale)
     y = torch.empty_like(x)
-    kernel.launch(x, scale, y, eps)
+    if way == "vector":
+        kernel.launch(x, scale, y, eps, way, launch_shape(x))
+    else:
+        kernel.launch(x, scale, y, eps, way)
     launches["rmsnorm"] += 1
+    route_launches[way] += 1
     return y

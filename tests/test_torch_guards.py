@@ -142,6 +142,9 @@ def _fake_card(monkeypatch, tmp_path, ops, kernel):
     monkeypatch.setattr(torch.cuda, "device", contextlib.nullcontext)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda *a: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda *a: types.SimpleNamespace(
+                            multi_processor_count=132))
 
     def no_nvcc():
         raise RuntimeError("nvcc not found")

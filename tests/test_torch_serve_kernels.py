@@ -173,12 +173,13 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take():
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("M,d", [(128, 256), (256, 512), (64, 1024), (8, 96),
-                                 (50, 128)])
+                                 (50, 128), (8, 2560), (64, 3072)])
 def test_rmsnorm_plain_matches_reference(M, d, dtype):
-    """tests/test_kernels.py's shapes, the decode step's M = 8 and a ragged
-    M = 50 (which the TPU kernel's row tiling rejects, so its Pallas form
-    is checked at the tiled shapes only), against repro's oracle, its
-    model function ``layers.apply_norm`` and its Pallas kernel."""
+    """tests/test_kernels.py's shapes, the decode step's M = 8 (also at
+    Zamba2's d_model 2560), Phi-3's d_model 3072 and a ragged M = 50
+    (which the TPU kernel's row tiling rejects, so its Pallas form is
+    checked at the tiled shapes only), against repro's oracle, its model
+    function ``layers.apply_norm`` and its Pallas kernel."""
     (x, sc), (jx, jsc) = _arrays(M + d, [(M, d), (d,)], dtype)
     sc, jsc = sc.float(), jsc.astype(jnp.float32)
     ours = rms_ops.rmsnorm(x, sc)
@@ -202,18 +203,96 @@ def test_rmsnorm_wrapper_rejects_what_the_kernel_does_not_take():
             rms_ops.rmsnorm(xx, ss)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [3072, 2560])
+def test_rmsnorm_route_takes_vector_kernel_at_serve_widths(d, dtype):
+    """Phi-3's and Zamba2's d_model from fresh allocations take the
+    one-pass vector kernel, with scale or without."""
+    (x, sc), _ = _arrays(d, [(8, d), (d,)], dtype)
+    assert rms_ops.route(x) == "vector"
+    assert rms_ops.route(x, sc.float()) == "vector"
+
+
+def test_rmsnorm_route_takes_general_kernel_where_vectors_do_not_fit():
+    """Ragged d (not a whole number of 16-byte vectors), d above the
+    register path's 8192 and a misaligned x or scale take the general
+    kernel; d = 100 is whole vectors in f32 (4 a vector), not in bf16."""
+    def fresh(M, d, dtype):
+        return torch.zeros(M, d, dtype=dtype)
+    bf, f32 = torch.bfloat16, torch.float32
+    for x in (fresh(4, 100, bf), fresh(4, 130, bf), fresh(4, 130, f32),
+              fresh(2, 8200, bf), fresh(2, 8200, f32), fresh(2, 9000, bf)):
+        assert rms_ops.route(x) == "general", (x.shape, x.dtype)
+    assert rms_ops.route(fresh(4, 100, f32)) == "vector"
+    assert rms_ops.route(fresh(2, 8192, f32)) == "vector"
+    for dtype in (bf, f32):
+        buf = torch.zeros(64 * 3072 + 1, dtype=dtype)
+        shifted = buf[1:].view(64, 3072)          # one element off
+        assert shifted.is_contiguous() and shifted.data_ptr() % 16
+        assert rms_ops.route(buf[:-1].view(64, 3072)) == "vector"
+        assert rms_ops.route(shifted) == "general"
+    scale = torch.zeros(3073)[1:]
+    assert rms_ops.route(fresh(4, 3072, bf), scale) == "general"
+
+
+@pytest.mark.parametrize("few_rows", [False, True])
+def test_rmsnorm_vector_shape_leaves_no_thread_idle(few_rows):
+    """The vector kernel's launch shape, for prefill-sized calls and for
+    calls of fewer rows than SMs (decode): at every registry d_model (the
+    serve widths among them) whole warps of at least 128 threads, one row
+    a block, each thread holding the same number of 16-byte vectors with
+    none left over; for any d the route takes, a shape the C launcher
+    accepts that covers the row."""
+    from repro_torch.configs import ARCH_REGISTRY
+    want = {(3072, 2): (384, 1, 1), (2560, 2): (320, 1, 1)} if few_rows \
+        else {(3072, 2): (128, 3, 1), (2560, 2): (160, 2, 1)}
+    for (d, es), shape in want.items():
+        assert rms_ops.vector_shape(d, es, few_rows) == shape
+    for arch, cfg in ARCH_REGISTRY.items():
+        for es in (2, 4):
+            threads, vecs, rows = rms_ops.vector_shape(cfg.d_model, es,
+                                                       few_rows)
+            assert threads % 32 == 0 and threads >= 128 and rows == 1
+            assert threads * vecs * 16 == cfg.d_model * es, arch
+    for es in (2, 4):
+        for d in range(16 // es, rms_ops.MAX_VECTOR_D + 1, 16 // es):
+            threads, vecs, rows = rms_ops.vector_shape(d, es, few_rows)
+            assert threads % 32 == 0 and threads * rows <= 1024
+            assert 1 <= vecs <= rms_ops.MAX_VECS
+            assert threads * vecs * 16 >= d * es
+            assert (threads - 32) * vecs * 16 < d * es    # no idle warp
+
+
 def test_cpu_paths_launch_nothing():
     (q, k, v), _ = _arrays(4, [(2, 8, 4, 32), (2, 8, 2, 32), (2, 8, 2, 32)],
                            "float32")
     (x, sc), _ = _arrays(5, [(4, 32), (32,)], "float32")
-    before = dict(flash_ops.launches), dict(rms_ops.launches)
+    before = (dict(flash_ops.launches), dict(rms_ops.launches),
+              dict(rms_ops.route_launches))
     flash_ops.flash_attention_bshd(q, k, v, q_offset=0)
     flash_ops.flash_attention(*(t[:, :, 0].contiguous() for t in (q, k, v)))
     rms_ops.rmsnorm(x, sc)
-    assert (flash_ops.launches, rms_ops.launches) == before
+    assert (flash_ops.launches, rms_ops.launches,
+            rms_ops.route_launches) == before
 
 
 # ------------------------------------------------------------- on the card --
+
+# RMSNorm on the card: (M, d, x's offset into its buffer in elements, the
+# route f32 and bf16 take); chip_smoke.py's phase 2 runs these and more
+RMS_CARD_CASES = [(8, 3072, 0, ("vector", "vector")),
+                  (4608, 3072, 0, ("vector", "vector")),
+                  (50, 128, 0, ("vector", "vector")),
+                  (3584, 2560, 0, ("vector", "vector")),
+                  (8, 2560, 0, ("vector", "vector")),
+                  (64, 5120, 0, ("vector", "vector")),
+                  (64, 7168, 0, ("vector", "vector")),
+                  (50, 100, 0, ("vector", "general")),
+                  (50, 130, 0, ("general", "general")),
+                  (16, 9000, 0, ("general", "general")),
+                  (1, 3072, 0, ("vector", "vector")),
+                  (64, 3072, 1, ("general", "general"))]
+
 
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_versions():
@@ -222,7 +301,10 @@ def test_cuda_kernels_match_plain_versions():
     window 64, non-causal with Sq != Skv, q_offset 0 and 576 over a
     1152-slot cache, ragged Sq, GQA, and the bf16 kernel's tile edges (Sq
     and Skv off its 128-row and 128-key tiles, three d panels at 112);
-    RMSNorm at M = 8, 4608 and 50; a misaligned bf16 operand raises."""
+    RMSNorm at M = 8, 4608, 50 and 1, the serve widths and d_model up to
+    7168 on the vector kernel, ragged d, d above 8192 and a misaligned x on
+    the general one (each case held to its route); a misaligned bf16
+    flash operand raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU form")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -253,17 +335,22 @@ def test_cuda_kernels_match_plain_versions():
             np.testing.assert_allclose(to_numpy(got), to_numpy(want),
                                        atol=atol, rtol=rtol)
             n += 1
-        for M, d in ((8, 3072), (4608, 3072), (50, 128)):
-            (x, sc), _ = _arrays(M, [(M, d), (d,)], dtype)
-            x, sc = x.cuda(), sc.float().cuda()
+        for M, d, offset, routes in RMS_CARD_CASES:
+            (flat, sc), _ = _arrays(M + d, [(offset + M * d,), (d,)], dtype)
+            x = flat.cuda()[offset:].view(M, d)
+            sc = sc.float().cuda()
+            before = dict(rms_ops.route_launches)
             got = rms_ops.rmsnorm(x, sc)
             want = rms_ref.rmsnorm_ref(x, sc)
             torch.cuda.synchronize()
+            took = [r for r, c in rms_ops.route_launches.items()
+                    if c != before[r]]
+            assert took == [routes[dtype == "bfloat16"]], (M, d, offset)
             ratol, rrtol = RMS_CARD_TOL[dtype]
             np.testing.assert_allclose(to_numpy(got), to_numpy(want),
                                        atol=ratol, rtol=rrtol)
     assert flash_ops.launches == {"flash_attention": n}
-    assert rms_ops.launches == {"rmsnorm": 6}
+    assert rms_ops.launches == {"rmsnorm": 2 * len(RMS_CARD_CASES)}
     q = torch.zeros(2 * 8 * 4 * 32 + 1, dtype=torch.bfloat16, device="cuda")
     q = q[1:].view(2, 8, 4, 32)
     with pytest.raises(ValueError, match="16-byte-aligned"):
