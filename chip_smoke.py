@@ -57,7 +57,21 @@ and prints no result):
    decode steps and, for Zamba2, a profile of one prefill split by kernel
    family, whose device kernels show every SSD call on the tensor cores
    (one pre-pass and one scan a call, and no f32-route kernel);
-5. a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
+5. LM training on the card: each differentiable kernel's gradients (flash
+   attention f32 and bf16, causal and window 64, d = 96 and 80; RMSNorm on
+   both routes; the SSD scan f32 and bf16, at the training shapes) against
+   autograd through its plain version, every output with a grad_fn; one
+   step of the cascaded, first-order and full-ZOO factories on reduced
+   phi3 in f32 against the same step on the CPU (1e-4); then
+   ``launch.train.train`` of Phi-3-mini at full width and depth, 20
+   cascaded steps of 8 x 128 tokens at the CLI's defaults (finite, falling
+   loss; launch counts derived from the config; the wire formula; ms per
+   step, peak memory and one step profiled by family); Zamba2-2.7B at full
+   width cut to 6 layers (5 steps through ``Federation.sync_step``, the
+   gradient reaching the first Mamba2 layer's in_proj); and Phi-3 at full
+   width with 2 layers trained 4 steps, saved, resumed to 8, against 8
+   without a break (bitwise equal losses and params);
+6. a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 
 It needs one card, and builds into ``build/`` at first use.
 """
@@ -1232,21 +1246,19 @@ def profile_rounds(fed, params, x_parts, y) -> None:
 
 
 class CpuDrawsOn:
-    """A CPU ``TorchDraws`` stream handed to a run on another device, so a
-    card run and a CPU run consume the same random numbers."""
+    """A draw source on the CPU (the engine's ``TorchDraws``, the training
+    step's ``StepDraws``) handed to a run on another device, so a card run
+    and a CPU run consume the same random numbers."""
 
-    def __init__(self, seed, device):
-        from repro_torch.core.draws import TorchDraws
-        self.cpu, self.device = TorchDraws(seed, "cpu"), device
+    def __init__(self, cpu_source, device):
+        self.cpu, self.device = cpu_source, device
 
     def __getattr__(self, name):
+        from repro_torch.tree import tree_map
         fn = getattr(self.cpu, name)
 
         def moved(*args):
-            out = fn(*args)
-            if isinstance(out, dict):
-                return {k: v.to(self.device) for k, v in out.items()}
-            return out.to(self.device)
+            return tree_map(lambda t: t.to(self.device), fn(*args))
         return moved
 
 
@@ -1267,6 +1279,626 @@ def report_rates(rows) -> None:
             f"{'none' if lib is None else f'{lib:.5f} ms'}")
 
 
+# ------------------------------------------------------ phase 5: training --
+
+# the training shapes: 8 sequences of 128 tokens (the CLI's defaults), q = 1
+TRAIN = dict(batch=8, seq=128)
+TRAIN_STEPS, TRAIN_WARMUP = 20, 3
+# per-kernel gradients: repro's f32 tolerance; bf16 at the forward's bf16
+# tolerance (PERF.md §2). The wrapper's backward is autograd through the
+# plain version on the saved inputs, so its gradient equals the plain
+# one's by construction: the check holds the wiring (a grad_fn, the
+# Function entered); the forward is held at FLASH_TOL, RMS_TOL and, for
+# the SSD's f32 y and state, SSD_TOL[f32] scaled by ssd_tol
+GRAD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: SERVE_TOL}
+# one step on the card against the CPU (reduced phi3, f32): normal
+# directions at μ = 0.1, so ĥ − h (about 1e-2) stands far above the lane
+# losses' f32 rounding on either device, which the estimator divides by μ
+STEP_VFL = dict(mu=0.1, zoo_dist="normal", lr_server=0.01, lr_client=0.01)
+STEP_TOL = 1e-4
+# device kernels of a training step, by family: the library's profiler
+# ranges around the plain backward, the SGD update and the direction draws
+# first, then the kernel's name
+TRAIN_FAMILIES = (
+    ("forward kernels (flash, RMSNorm, SSD)", r"flash|rmsnorm|ssd_"),
+    ("cuBLAS products", r"gemm|nvjet|sm90_|cutlass|xmma|cublas"),
+)
+
+
+def train_plan(cfg, q: int = 1, steps: int = 1) -> dict:
+    """Kernel launches of ``steps`` cascaded training steps, derived from
+    the config: each step runs the clean lane's forward (with grad) and
+    the q perturbed lanes' forwards (no grad, one pass each), and with
+    ``cfg.remat`` the backward recomputes every checkpointed block (each
+    attention block; each hybrid super-block of attn_every Mamba2 layers
+    and the shared attention block) once; the final norm lies outside
+    the checkpointed blocks. A forward runs flash attention once per
+    attention site, the SSD scan once per Mamba2 layer, and RMSNorm at ln1
+    and ln2 of each attention block, ln1 of each Mamba2 layer and the
+    final norm."""
+    if cfg.family == "hybrid":
+        sites = cfg.n_layers // cfg.attn_every
+        mamba = sites * cfg.attn_every
+    else:
+        sites, mamba = cfg.n_layers, 0
+    block_norms = 2 * sites + mamba
+    fwd, remat = 1 + q, int(cfg.remat)
+    launches = {"flash_attention": steps * sites * (fwd + remat),
+                "rmsnorm": steps * ((block_norms + 1) * fwd
+                                    + block_norms * remat),
+                "ssd_chunk": steps * mamba * (fwd + remat)}
+    why = (f"{steps} steps x [{fwd} forwards (clean + {q} perturbed) + "
+           f"{remat} remat recompute] x ({sites} attention sites -> flash; "
+           f"{mamba} Mamba2 layers -> SSD; {block_norms} block norms, + 1 "
+           f"final norm a forward not recomputed -> RMSNorm)")
+    return dict(launches=launches, why=why)
+
+
+class StepRecorder:
+    """Wraps ``Federation.sync_step`` (at the script's level, for one
+    ``with``) so every step a driver takes is recorded: its StepOutput,
+    and the host clock after a synchronise (the driver reads the loss
+    right after, so the synchronise adds no wait). ``profile_at`` runs
+    that step (0-based) under torch.profiler. ``Federation.save`` is timed
+    too."""
+
+    def __init__(self, profile_at=None):
+        from repro_torch.federation import session
+        self.session = session
+        self.profile_at = profile_at
+        self.outputs, self.ends, self.saves = [], [], []
+        self.profile = None
+
+    def __enter__(self):
+        Fed = self.session.Federation
+        self.inner_step, self.inner_save = Fed.sync_step, Fed.save
+        rec = self
+
+        def sync_step(fed, optimizer, **kw):
+            step = rec.inner_step(fed, optimizer, **kw)
+
+            def recorded(*args):
+                if len(rec.outputs) == rec.profile_at:
+                    out, rec.profile = profile_train_step(step, args)
+                else:
+                    out = step(*args)
+                torch.cuda.synchronize()
+                rec.ends.append(time.perf_counter())
+                rec.outputs.append(out[2])
+                return out
+            return recorded
+
+        def save(fed, path, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = rec.inner_save(fed, path, *args, **kw)
+            rec.saves.append(time.perf_counter() - t0)
+            return out
+
+        Fed.sync_step, Fed.save = sync_step, save
+        return self
+
+    def __exit__(self, *exc):
+        Fed = self.session.Federation
+        Fed.sync_step, Fed.save = self.inner_step, self.inner_save
+
+    @property
+    def losses(self):
+        return [float(o.loss) for o in self.outputs]
+
+
+PROFILE_WARMUP = "profiler warm-up"
+
+
+def profile_train_step(step, args):
+    """One training step under torch.profiler: its wall, the device's busy
+    time, and the device time by family — each kernel goes to the first
+    range it was launched under (the library's own ranges: plain
+    backward, SGD update, direction draws), else to its name's family
+    (the forward kernels, also when remat recomputes them in the
+    backward; cuBLAS), else to the rest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # the trace can miss a region's first launches (on an H100 it
+        # has dropped a step's first five, its direction draws):
+        # throwaway launches go first, in a range the split leaves out
+        with record_function(PROFILE_WARMUP):
+            x = torch.zeros(1, device="cuda")
+            for _ in range(32):
+                x.add_(1)
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ranges = ("plain backward", "SGD update", "direction draws",
+              PROFILE_WARMUP)
+    split, by_name, n_kernels = {}, {}, 0
+    launching = [e for e in prof.events() if getattr(e, "kernels", None)]
+    # count each kernel once: at the innermost event that lists it
+    outer = set()
+    for e in launching:
+        node = e.cpu_parent
+        while node is not None:
+            outer.add(id(node))
+            node = node.cpu_parent
+    for e in launching:
+        if id(e) in outer:
+            continue
+        fam, node = None, e
+        while node is not None and fam is None:
+            if node.name.startswith(ranges):
+                fam = node.name
+            node = node.cpu_parent
+        if fam == PROFILE_WARMUP:
+            continue
+        for k in e.kernels:
+            f = fam or next((name for name, pat in TRAIN_FAMILIES
+                             if re.search(pat, k.name, re.IGNORECASE)),
+                            "the rest (elementwise, softmax, casts, copies)")
+            split[f] = split.get(f, 0.0) + k.duration
+            by_name[k.name] = by_name.get(k.name, 0.0) + k.duration
+            n_kernels += 1
+    busy = sum(split.values())
+    # where the host's time goes: CPU events by their own (self) time
+    host = sorted(((e.key, e.self_cpu_time_total, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU),
+                  key=lambda kv: -kv[1])[:12]
+    return out, dict(wall_us=wall_us, busy_us=busy, split=split,
+                     by_name=by_name, kernels=n_kernels, host=host)
+
+
+def log_profile(what, prof) -> None:
+    busy = prof["busy_us"]
+    if busy:
+        log(f"{what} under torch.profiler: wall {prof['wall_us']:.1f} us, "
+            f"device busy {busy:.1f} us ({busy / prof['wall_us']:.2%} of "
+            f"wall), {prof['kernels']} device kernels")
+        for name, us in sorted(prof["split"].items(), key=lambda kv: -kv[1]):
+            log(f"  {us:11.1f} us  {us / busy:7.2%}  {name}")
+        for name, us in sorted(prof["by_name"].items(),
+                               key=lambda kv: -kv[1])[:10]:
+            log(f"  {us:11.1f} us  {name[:90]}")
+    else:
+        log(f"{what}: the profiler saw no CUDA kernel time; the split is "
+            "not measured")
+    log(f"{what}: host events by self CPU time (the profiler's own cost "
+        f"included)")
+    for name, us, count in prof["host"]:
+        log(f"  {us:11.1f} us  x{count:6d}  {name[:80]}")
+
+
+def check_kernel_grads(rows, flash_ops, flash_ref, rms_ops, rms_ref,
+                       ssd_ops, ssd_ref) -> None:
+    """Each differentiable kernel at the training shapes: the wrapper's
+    output carries a grad_fn, and its gradients (torch.autograd.grad of
+    a fixed random weighting of the output) equal autograd through the
+    plain version on the same inputs (equal by construction: the
+    backward is that autograd, so this holds the wiring), and its forward
+    output (the kernel's) equals the plain version's at the forward's
+    tolerance. Flash attention: f32 and bf16,
+    causal and window 64, d = 96 (Phi-3) and 80 (Zamba2); RMSNorm: the
+    vector route (1024 x 3072, 1024 x 2560) and the general one (d = 100
+    bf16); the SSD scan: f32 and bf16 at the hybrid training shape."""
+    g = torch.Generator("cuda").manual_seed(11)
+    B, S = TRAIN["batch"], TRAIN["seq"]
+
+    def rnd(*shape, dtype=torch.float32, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g, device="cuda")
+                ).to(dtype)
+
+    counts = {"flash_attention": flash_ops, "rmsnorm": rms_ops,
+              "ssd_chunk": ssd_ops}
+
+    def check(name, what, call, plain, operands, dtype, fwd_tol, route=None):
+        leaves = [t.detach().requires_grad_(True) for t in operands]
+        before = dict(rms_ops.route_launches)
+        launched = counts[name].launches[name]
+        outs = call(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        out = outs[0]
+        if any(o.grad_fn is None for o in outs):
+            raise AssertionError(f"{name} ({what}): the wrapper's output "
+                                 "has no grad_fn")
+        if counts[name].launches[name] != launched + 1:
+            raise AssertionError(f"{name} ({what}): the forward did not "
+                                 "launch the kernel once")
+        if route is not None and rms_ops.route_launches[route] \
+                == before[route]:
+            raise AssertionError(f"{name} ({what}) did not take the "
+                                 f"{route} route")
+        w = rnd(*out.shape)
+        got = torch.autograd.grad((out.float() * w).sum(), leaves)
+        ref_leaves = [t.detach().requires_grad_(True) for t in operands]
+        ref_outs = plain(*ref_leaves)
+        ref_outs = ref_outs if isinstance(ref_outs, tuple) else (ref_outs,)
+        want = torch.autograd.grad((ref_outs[0].float() * w).sum(),
+                                   ref_leaves)
+        torch.cuda.synchronize()
+        fwd = [_err_ok(o.detach(), r.detach(), fwd_tol(r))
+               for o, r in zip(outs, ref_outs)]
+        fwd_err = max(e for e, _ in fwd)
+        fwd_ok = all(o for _, o in fwd)
+        log(f"forward {name} ({what}), the wrapper with grad on: "
+            f"max_abs_err {fwd_err:.3e} over {len(outs)} outputs, max |out| "
+            f"{max(float(r.float().abs().max()) for r in ref_outs):.4g} (tol "
+            f"{[fwd_tol(r) for r in ref_outs]}) {'ok' if fwd_ok else 'FAIL'}")
+        if not fwd_ok:
+            raise AssertionError(f"{name} ({what}): the kernel's forward "
+                                 "differs from the plain version")
+        checks = [_err_ok(a, b, GRAD_TOL[dtype]) for a, b in zip(got, want)]
+        err = max(e for e, _ in checks)
+        ok = all(o for _, o in checks)
+        log(f"grad {name} ({what}): max_abs_err {err:.3e} over "
+            f"{len(leaves)} operand gradients, max |grad| "
+            f"{max(float(b.float().abs().max()) for b in want):.4g} (tol "
+            f"{GRAD_TOL[dtype]}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} ({what}): the gradient differs "
+                                 "from autograd through the plain version")
+        row = rows[name]
+        row["grad_max_abs_err"] = max(row.get("grad_max_abs_err", 0.0), err)
+        row["train_fwd_max_abs_err"] = max(
+            row.get("train_fwd_max_abs_err", 0.0), fwd_err)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (96, 80):
+            for window in (0, 64):
+                kw = dict(causal=True, window=window)
+                check("flash_attention",
+                      f"{dtype}, q/k/v ({B}, {S}, 32, {d}), causal, window "
+                      f"{window}",
+                      lambda q, k, v, kw=kw: flash_ops.flash_attention_bshd(
+                          q, k, v, **kw),
+                      lambda q, k, v, kw=kw:
+                          flash_ref.flash_attention_bshd_ref(q, k, v, **kw),
+                      [rnd(B, S, 32, d, dtype=dtype) for _ in range(3)],
+                      dtype, lambda _, t=FLASH_TOL[dtype]: t)
+    for M, d, dtype, route in ((B * S, 3072, torch.bfloat16, "vector"),
+                               (B * S, 2560, torch.bfloat16, "vector"),
+                               (B * S, 3072, torch.float32, "vector"),
+                               (B * S, 100, torch.bfloat16, "general")):
+        check("rmsnorm", f"{dtype}, x ({M}, {d}), {route} route",
+              lambda x, s: rms_ops.rmsnorm(x, s),
+              lambda x, s: rms_ref.rmsnorm_ref(x, s),
+              [rnd(M, d, dtype=dtype, scale=3.0), 1.0 + 0.1 * rnd(d)],
+              dtype, lambda _, t=RMS_TOL[dtype]: t, route)
+    H, P, N, chunk = 80, 64, 64, 128
+    for dtype in (torch.float32, torch.bfloat16):
+        xh = rnd(B, S, H, P, dtype=dtype)
+        dt = torch.nn.functional.softplus(rnd(B, S, H) - 1.0)
+        a = torch.exp(-dt * 0.5)
+        check("ssd_chunk", f"{dtype}, x ({B}, {S}, {H}, {P}), state {N}, "
+              f"chunk {chunk}",
+              lambda *t: ssd_ops.ssd_chunk_bshp(*t, chunk=chunk),
+              lambda *t: ssd_ref.ssd_chunked_ref(*t, chunk),
+              [xh, a, dt, rnd(B, S, N, dtype=dtype),
+               rnd(B, S, N, dtype=dtype)], dtype,
+              lambda want: ssd_tol(want, SSD_TOL[torch.float32]))
+
+
+def step_card_vs_cpu(counters) -> None:
+    """One step of the cascaded, first-order (vafl) and full-ZOO (zoo-vfl)
+    factories on reduced phi3 in f32 (flash attention on the CUDA cores,
+    the RMSNorm vector kernel), on the card and on the CPU from the same
+    params, batch and draws: losses and gradient norms agree at 1e-4
+    relative; every updated leaf at 1e-4 of max(its largest |entry|, 1);
+    and every leaf's step (new − old) entrywise, so an entrywise-wrong
+    gradient that keeps its norm cannot pass. The step's gate is the one
+    tests/test_torch_train_step.py holds the port's step to repro's with
+    (1e-4 of the CPU step's largest entry in the leaf, plus one f32
+    rounding of its largest param) plus twice the f32 step's own error
+    in that leaf: the largest gap between the CPU's f32 step and the same
+    step from f64 params (the card and the CPU are each an f32 evaluation
+    that far from the more precise one). At this batch the embedding's
+    step is 1e-4 to 1e-3 of its largest entry from the f64 one, below
+    which no two f32 evaluations are bound to agree."""
+    from repro_torch.configs import VFLConfig, get_config, reduced
+    from repro_torch.core import cascade
+    from repro_torch.core.draws import StepDraws
+    from repro_torch.data import lm_token_batches
+    from repro_torch.models import common
+    from repro_torch.models.model_api import build_model
+    from repro_torch.optim import sgd
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = reduced(get_config("phi3-mini-3.8b"), param_dtype="float32")
+    model = build_model(cfg, max_seq=TRAIN["seq"])
+    cpu = common.materialize(model.param_specs,
+                             torch.Generator().manual_seed(0))
+    card = tree_map(lambda t: t.to("cuda"), cpu)
+    cpu64 = tree_map(lambda t: t.double(), cpu)
+    nb = next(lm_token_batches(1, cfg.vocab_size, TRAIN["batch"],
+                               TRAIN["seq"]))
+    batches = {dev: {k: torch.from_numpy(v).to(dev) for k, v in nb.items()}
+               for dev in ("cpu", "cuda")}
+    for method in ("cascaded", "vafl", "zoo-vfl"):
+        outs = {}
+        for dev, params in (("card", card), ("cpu", cpu), ("f64", cpu64)):
+            step = cascade.make_step_for_method(
+                method, model.loss_fn, model.client_keys,
+                VFLConfig(**STEP_VFL), sgd(0.01), vocab=cfg.padded_vocab)
+            for c in counters:
+                c.reset_launches()
+            where = "cuda" if dev == "card" else "cpu"
+            new, _, out = step(params, sgd(0.01).init(params),
+                               batches[where], 0,
+                               CpuDrawsOn(StepDraws(0, "cpu"), where))
+            outs[dev] = (new, out)
+            if dev == "card":
+                torch.cuda.synchronize()
+                ran = _launches(counters)
+        (g_new, g_out), (c_new, c_out) = outs["card"], outs["cpu"]
+        r_new = outs["f64"][0]
+        worst = 0.0
+        for field in ("loss", "loss_perturbed", "grad_client_norm",
+                      "grad_server_norm"):
+            a, b = float(getattr(g_out, field)), float(getattr(c_out, field))
+            rel = abs(a - b) / max(abs(b), 1e-12)
+            worst = max(worst, rel)
+            if not rel <= STEP_TOL:
+                raise AssertionError(f"{method} step {field}: card {a} vs "
+                                     f"CPU {b}")
+        leaf_err = max(float((x.cpu() - y).abs().max()
+                             / max(float(y.abs().max()), 1.0))
+                       for x, y in zip(tree_leaves(g_new), tree_leaves(c_new)))
+        step_err, worst_leaf, f32_err = 0.0, None, 0.0
+        for x, y, r, p in zip(tree_leaves(g_new), tree_leaves(c_new),
+                              tree_leaves(r_new), tree_leaves(cpu)):
+            want = (y - p).double()
+            gap = float(((x.cpu() - p).double() - want).abs().max())
+            own = float(((r - p.double()) - want).abs().max())
+            ulp = float(np.spacing(np.float32(p.abs().max())))
+            big = max(float(want.abs().max()), 1e-30)
+            # the gap beyond the f32 error allowance, over the step
+            rel = (gap - ulp - 2 * own) / big
+            f32_err = max(f32_err, (own - ulp) / big)
+            if worst_leaf is None or rel > step_err:
+                step_err, worst_leaf = rel, tuple(p.shape)
+        log(f"step on the card vs the CPU, {method}, reduced phi3 f32, "
+            f"batch {TRAIN['batch']} x {TRAIN['seq']}: loss "
+            f"{float(g_out.loss):.6f} vs {float(c_out.loss):.6f}, "
+            f"perturbed {float(g_out.loss_perturbed):.6f}, |g_c| "
+            f"{float(g_out.grad_client_norm):.6g} vs "
+            f"{float(c_out.grad_client_norm):.6g}, |g_s| "
+            f"{float(g_out.grad_server_norm):.6g} vs "
+            f"{float(c_out.grad_server_norm):.6g}; worst relative gap "
+            f"{worst:.3e}, updated leaves' worst gap {leaf_err:.3e} (tol "
+            f"{STEP_TOL}); steps' worst gap beyond one rounding and twice "
+            f"the f32 step's own error {step_err:.3e} of the leaf's largest "
+            f"step entry (leaf {worst_leaf}; tol {STEP_TOL}; the CPU f32 "
+            f"step's error against f64 params, beyond one rounding, up to "
+            f"{f32_err:.3e} of it); "
+            f"card launches {ran}")
+        if not (leaf_err <= STEP_TOL and step_err <= STEP_TOL):
+            raise AssertionError(f"{method} step: updated leaves differ by "
+                                 f"{leaf_err}, their steps by {step_err} of "
+                                 "the largest step entry")
+        if not (ran["flash_attention"] and ran["rmsnorm"]):
+            raise AssertionError(f"{method} step on the card launched "
+                                 f"{ran}")
+
+
+def train_phase(rows, card, counters) -> None:
+    """Phase 5: LM training on the card. Per-kernel gradients, one step
+    against the CPU, then ``launch.train.train`` of Phi-3-mini at full
+    width and depth (20 cascaded steps, the CLI's defaults), Zamba2-2.7B
+    at full width cut to 6 layers (5 steps through
+    ``Federation.sync_step``), and resume-equivalence at full width with
+    2 layers."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm import ref as rms_ref
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+    from repro_torch.kernels.ssd_chunk import ref as ssd_ref
+    check_kernel_grads(rows, flash_ops, flash_ref, rms_ops, rms_ref,
+                       ssd_ops, ssd_ref)
+    step_card_vs_cpu(counters)
+    train_phi3(rows, card, counters)
+    train_zamba2(rows, counters)
+    train_resume(card)
+
+
+def _launches(counters):
+    return {k: v for c in counters for k, v in c.launches.items()}
+
+
+def train_phi3(rows, card, counters) -> None:
+    from repro_torch.federation import Transport
+    from repro_torch.launch import train as train_mod
+    arch = "phi3-mini-3.8b"
+    cfg = train_mod.get_config(arch)
+    plan = train_plan(cfg, q=1, steps=TRAIN_STEPS)
+    with StepRecorder(profile_at=TRAIN_STEPS - 1) as rec:
+        for c in counters:
+            c.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = train_mod.train(arch, use_reduced=False, steps=TRAIN_STEPS,
+                              method="cascaded", log_every=5, **TRAIN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches(counters)
+    peak = torch.cuda.max_memory_allocated()
+    losses = rec.losses
+    timed = rec.ends[TRAIN_WARMUP - 1:TRAIN_STEPS - 1]
+    ms = (timed[-1] - timed[0]) * 1e3 / (len(timed) - 1)
+    log(f"train: {arch} full width and depth ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.param_count() / 1e9:.3f} B params, "
+        f"bf16), cascaded, batch {TRAIN['batch']} x {TRAIN['seq']}, SGD lr "
+        f"0.01, mu 1e-3, q = 1, remat {cfg.remat}: {TRAIN_STEPS} steps, "
+        f"{ms:.3f} ms per step (host clock after a synchronise, steps "
+        f"{TRAIN_WARMUP}..{TRAIN_STEPS - 2} after {TRAIN_WARMUP} warm-up "
+        f"steps; step {TRAIN_STEPS - 1} profiled) on {card}; peak memory "
+        f"{peak / 2**30:.2f} GiB; whole call {wall:.2f} s (weights drawn "
+        f"on the card included)")
+    log(f"train losses: {[round(x, 4) for x in losses]}")
+    first, last5 = losses[0], float(np.mean(losses[-5:]))
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"training losses not finite: {losses}")
+    if not last5 < first:
+        raise AssertionError(f"training loss did not fall: first {first}, "
+                             f"mean of the last 5 {last5}")
+    log(f"train launches {launches}, derived {plan['launches']}: "
+        f"{plan['why']}")
+    if {k: launches[k] for k in plan["launches"]} != plan["launches"] or \
+            any(launches[k] for k in launches if k not in plan["launches"]):
+        raise AssertionError(f"training launches {launches}, want "
+                             f"{plan['launches']} and no ZOO kernel")
+    B, d = TRAIN["batch"], cfg.d_model
+    formula = 2 * (B * d * 4 + B * 4)
+    ledger = Transport("cascaded").account(batch=B, embed=d,
+                                           n_rounds=TRAIN_STEPS)
+    log(f"train wire: {res['wire_bytes_per_round']} B a round; formula "
+        f"(1 + q) x ({B} x {d} f32 embeddings up + {B} f32 losses down) = "
+        f"{formula} B; Transport.account {ledger.total_bytes} B over "
+        f"{TRAIN_STEPS} rounds; gradients on the wire: "
+        f"{res['wire_has_gradients']}")
+    if not (res["wire_bytes_per_round"] == formula
+            == ledger.total_bytes // TRAIN_STEPS) \
+            or res["wire_has_gradients"]:
+        raise AssertionError("training wire differs from the formula")
+    log_profile(f"train profile, step {TRAIN_STEPS - 1} of {arch} on "
+                f"{card}", rec.profile)
+    for name, n in plan["launches"].items():
+        if n:
+            rows[name]["launches"] += launches[name]
+            rows[name].setdefault("launches_by_path", {})[
+                f"train:{arch}"] = launches[name]
+
+
+def train_zamba2(rows, counters) -> None:
+    import dataclasses
+    from repro_torch.configs import VFLConfig, get_config
+    from repro_torch.core import cascade
+    from repro_torch.core.async_engine import EngineConfig
+    from repro_torch.core.draws import StepDraws
+    from repro_torch.data import BatchIterator, lm_token_batches
+    from repro_torch.federation import Federation
+    from repro_torch.launch.train import _normalized_lr_client
+    from repro_torch.models import common
+    from repro_torch.optim import sgd
+    arch, steps = "zamba2-2.7b", 5
+    cfg = dataclasses.replace(get_config(arch), n_layers=6)
+    plan = train_plan(cfg, q=1, steps=steps)
+    fed = Federation.build(cfg, VFLConfig(mu=1e-3, lr_server=0.01),
+                           EngineConfig(method="cascaded", steps=steps,
+                                        batch_size=TRAIN["batch"]),
+                           seq_len=TRAIN["seq"])
+    fed.vfl = dataclasses.replace(
+        fed.vfl, lr_client=_normalized_lr_client(fed, 0.01))
+    params = common.materialize(fed.model.param_specs,
+                                torch.Generator(fed.device).manual_seed(0),
+                                device=fed.device)
+    opt = sgd(0.01)
+    step, state = fed.sync_step(opt), opt.init(params)
+    data = BatchIterator(lm_token_batches(1, cfg.vocab_size, TRAIN["batch"],
+                                          TRAIN["seq"]), fed.device)
+    draws = StepDraws(0, fed.device)
+    first = next(data)
+    for c in counters:
+        c.reset_launches()
+    losses = []
+    for t in range(steps):
+        params, state, out = step(params, state, first if t == 0
+                                  else next(data), t, draws)
+        losses.append(float(out.loss))
+    launches = _launches(counters)
+    log(f"train: {arch} full width cut to {cfg.n_layers} layers "
+        f"({cfg.n_layers // cfg.attn_every} shared-attention site(s)), bf16, "
+        f"{steps} cascaded steps through Federation.sync_step: losses "
+        f"{[round(x, 4) for x in losses]}; launches {launches}, derived "
+        f"{plan['launches']}: {plan['why']}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"zamba2 training losses not finite: {losses}")
+    if {k: launches[k] for k in plan["launches"]} != plan["launches"]:
+        raise AssertionError(f"zamba2 training launches {launches}, want "
+                             f"{plan['launches']}")
+    # the server's gradient reaches in_proj of the first Mamba2 layer
+    # (through the SSD scan's and the norms' plain backward)
+    _, g = cascade._value_and_grad(fed.model.loss_fn, params, first,
+                                   ["blocks"])
+    w_in = g["blocks"]["ssm"]["w_in"][0, 0].float()
+    norm = float(w_in.norm())
+    log(f"train: {arch} gradient at in_proj (blocks/ssm/w_in) of the first "
+        f"Mamba2 layer: norm {norm:.4g}, finite "
+        f"{bool(torch.isfinite(w_in).all())}")
+    if not (norm > 0 and bool(torch.isfinite(w_in).all())):
+        raise AssertionError("the gradient does not reach the first Mamba2 "
+                             "layer's in_proj")
+    for name, n in plan["launches"].items():
+        rows[name]["launches"] += launches[name]
+        rows[name].setdefault("launches_by_path", {})[f"train:{arch}"] = \
+            launches[name]
+    del params, state, g
+    torch.cuda.empty_cache()
+
+
+def train_resume(card) -> None:
+    """Phi-3-mini at full width with 2 layers (bf16): 4 steps saved, resumed
+    to 8, against 8 without a break; the losses of every step and the final
+    params must be bitwise equal (the step is deterministic on the card:
+    no atomics in the kernels, fixed cuBLAS shapes, draws seeded by the
+    step), and the saved ledger totals and step clocks equal."""
+    import dataclasses
+    import json
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import load_tree
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_mod
+    from repro_torch.tree import tree_leaves
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=build)
+    kw = dict(use_reduced=False, method="cascaded", log_every=100, **TRAIN)
+    inner_get = train_mod.get_config
+    train_mod.get_config = lambda arch: dataclasses.replace(
+        inner_get(arch), n_layers=2)
+    try:
+        with StepRecorder() as rec:
+            train_mod.train("phi3-mini-3.8b", steps=4,
+                            checkpoint_path=f"{root}/a", **kw)
+            train_mod.train(steps=8, resume=f"{root}/a",
+                            checkpoint_path=f"{root}/b", log_every=100)
+            train_mod.train("phi3-mini-3.8b", steps=8,
+                            checkpoint_path=f"{root}/c", **kw)
+        losses = rec.losses
+        split, straight = losses[:8], losses[8:]
+        trees = {}
+        for name in ("b", "c"):
+            trees[name] = [load_tree(os.path.join(root, name, party))[0]
+                           for party in ("server", "clients", "opt_server")]
+        same = all(torch.equal(x, y) for tb, tc in zip(trees["b"],
+                                                       trees["c"])
+                   for x, y in zip(tree_leaves(tb), tree_leaves(tc)))
+        manifests = [json.load(open(os.path.join(root, n, "session.json")))
+                     for n in ("b", "c")]
+        size = sum(f.stat().st_size for f in Path(root, "c").rglob("*")
+                   if f.is_file())
+        log(f"resume: phi3 full width, 2 layers, bf16: 4 steps saved + "
+            f"resumed to 8 {[round(x, 5) for x in split]}; 8 without a "
+            f"break {[round(x, 5) for x in straight]}; losses bitwise equal "
+            f"{split == straight}; final params and optimizer state "
+            f"bitwise equal {same}; ledger counts equal "
+            f"{manifests[0]['ledger_counts'] == manifests[1]['ledger_counts']}"
+            f"; checkpoint {size / 2**20:.1f} MiB, written in "
+            f"{[round(s, 3) for s in rec.saves]} s on {card}")
+        if not (split == straight and same
+                and manifests[0]["ledger_counts"]
+                == manifests[1]["ledger_counts"]
+                and manifests[0]["step"] == manifests[1]["step"] == 8):
+            raise AssertionError("the resumed run differs from the unbroken "
+                                 "one")
+    finally:
+        train_mod.get_config = inner_get
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def count_mma(build, name: str, pattern: str) -> int:
     """Tensor-core instructions (``pattern``: HGMMA for wgmma, HMMA for
     mma.sync) in the built library ``name``'s SASS."""
@@ -1278,6 +1910,7 @@ def count_mma(build, name: str, pattern: str) -> int:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one "
               "card", file=sys.stderr)
@@ -1287,6 +1920,7 @@ def main() -> int:
     from repro_torch.configs.paper_mlp import PaperMLPConfig
     from repro_torch.core.adapters import tabular_adapter
     from repro_torch.core.async_engine import EngineConfig
+    from repro_torch.core.draws import TorchDraws
     from repro_torch.data import make_classification, vertical_partition
     from repro_torch.federation import Federation
     from repro_torch.kernels import _build
@@ -1401,11 +2035,12 @@ def main() -> int:
         ec = EngineConfig(method="cascaded", steps=steps, batch_size=64,
                           use_lanes=True)
         gpu = Federation.build(kernel_ad, v, ec).run(
-            params, x_parts[:, sub], y_dev[sub], draws=CpuDrawsOn(0, "cuda"))
+            params, x_parts[:, sub], y_dev[sub],
+            draws=CpuDrawsOn(TorchDraws(0, "cpu"), "cuda"))
         cpu = Federation.build(tabular_adapter(cfg), v, ec,
                                device="cpu").run(
             cpu_params, x_parts[:, sub].cpu(), y_dev[sub].cpu(),
-            draws=CpuDrawsOn(0, "cpu"))
+            draws=CpuDrawsOn(TorchDraws(0, "cpu"), "cpu"))
         gap = float(np.abs(gpu.losses - cpu.losses).max())
         log(f"card (kernel lanes) vs CPU (plain lanes), {dist}, {steps} "
             f"rounds at paper width: max loss gap {gap:.3e} (atol {atol})")
@@ -1457,8 +2092,12 @@ def main() -> int:
     for arch in SERVE_ARCHS:
         serve_phase(rows, arch, ops, serve_kernels)
 
-    # ---- phase 5: the record -------------------------------------------
+    # ---- phase 5: LM training on the card --------------------------------
+    train_phase(rows, card, (ops, flash_ops, rms_ops, ssd_ops))
+
+    # ---- phase 6: the record -------------------------------------------
     report_rates(rows)
+    log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": list(rows.values())}))
     log(json.dumps({"ok": True, "device": {

@@ -16,7 +16,8 @@ from repro_torch.configs import (
     whisper_medium,
     zamba2_2p7b,
 )
-from repro_torch.configs.base import ModelConfig, VFLConfig, reduced
+from repro_torch.configs.base import (INPUT_SHAPES, ModelConfig, ShapeConfig,
+                                      TrainConfig, VFLConfig, reduced)
 
 ARCH_REGISTRY: dict[str, ModelConfig] = {
     m.CONFIG.arch_id: m.CONFIG
@@ -50,5 +51,6 @@ def get_config(arch_id: str) -> ModelConfig:
         ) from None
 
 
-__all__ = ["ARCH_REGISTRY", "ModelConfig", "PAPER_MLP", "VFLConfig",
-           "get_config", "list_archs", "reduced"]
+__all__ = ["ARCH_REGISTRY", "INPUT_SHAPES", "ModelConfig", "PAPER_MLP",
+           "ShapeConfig", "TrainConfig", "VFLConfig", "get_config",
+           "list_archs", "reduced"]

@@ -2,9 +2,11 @@
 
 ``ModelConfig`` describes one architecture's *global* model (client
 embedding + server backbone) and ``reduced()`` its smoke-size variant;
-``VFLConfig`` describes the party plane (number of clients, optimization
-method per party, ZOO hyper-parameters). Both are copies of the JAX
-package's, field for field, so a run is configured identically in both.
+``ShapeConfig`` one of the four input shapes; ``VFLConfig`` the party
+plane (number of clients, optimization method per party, ZOO
+hyper-parameters); ``TrainConfig`` the top-level launcher config. All are
+copies of the JAX package's, field for field, so a run is configured
+identically in both.
 """
 from __future__ import annotations
 
@@ -204,6 +206,26 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k":    ShapeConfig("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768,   32, "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeConfig("long_500k",  524_288,    1, "decode"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
 class VFLConfig:
     """Party-plane configuration (the paper's protocol)."""
     n_clients: int = 1
@@ -229,6 +251,25 @@ class VFLConfig:
     # test-only: route zoo_gradient through the original per-query Python
     # loop instead of the vectorized lane stack (oracle for equality tests)
     zoo_unrolled_oracle: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    vfl: VFLConfig = dataclasses.field(default_factory=VFLConfig)
+    shape: ShapeConfig = dataclasses.field(default_factory=lambda: INPUT_SHAPES["train_4k"])
+    optimizer: str = "sgd"         # paper uses vanilla SGD for all frameworks
+    momentum: float = 0.0
+    weight_decay: float = 0.0      # λ g(w) regularizer of Eq. 1
+    lr_schedule: str = "constant"
+    warmup_steps: int = 0
+    steps: int = 100
+    log_every: int = 10
+    seed: int = 0
+    grad_clip: float = 0.0
+    multi_pod: bool = False
+    use_pallas: bool = False       # never read, as in the JAX package: the
+                                   # port's models take the kernels on CUDA
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

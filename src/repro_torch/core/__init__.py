@@ -1,8 +1,9 @@
 """The paper's contribution: cascaded hybrid optimization for async VFL."""
 from repro_torch.core.adapters import ModelAdapter, tabular_adapter
-from repro_torch.core.draws import DrawSource, TorchDraws
+from repro_torch.core.draws import DrawSource, StepDraws, TorchDraws
 from repro_torch.core.partition import merge_params, split_params, tree_dim
 from repro_torch.core.zoo import (
+    embedding_row_mask,
     grad_from_losses,
     perturb,
     phi_factor,
@@ -16,7 +17,9 @@ from repro_torch.core.zoo import (
 __all__ = [
     "DrawSource",
     "ModelAdapter",
+    "StepDraws",
     "TorchDraws",
+    "embedding_row_mask",
     "grad_from_losses",
     "merge_params",
     "perturb",

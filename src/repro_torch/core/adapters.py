@@ -146,9 +146,10 @@ def from_model_config(cfg: ModelConfig, *, n_clients: int = 2,
     the shared attention block), final norm and LM head. The
     serve hooks are the exact post-embedding half of
     ``transformer.forward``'s decode path, so split decode equals global
-    decode. The training hooks (``client_forward``, ``client_lanes``,
-    ``server_loss``, ``row_mask``) belong to the LM training slice and
-    raise ``NotImplementedError``.
+    decode. The async engine's training hooks (``client_forward``,
+    ``client_lanes``, ``server_loss``, ``row_mask``) belong to the
+    async-engine LM plane and raise ``NotImplementedError``; the sync
+    training plane is ``Federation.sync_step``.
     """
     transformer.check_family(cfg)
     if n_clients < 1 or seq_len % n_clients:
@@ -162,7 +163,9 @@ def from_model_config(cfg: ModelConfig, *, n_clients: int = 2,
     def training_hook(*_args):
         raise NotImplementedError(
             "LM training through the async engine is not ported yet "
-            "(ROADMAP.md, Queue 1 item 4); this adapter serves only")
+            "(ROADMAP.md, Queue 1 item 10, the async-engine LM plane); this "
+            "adapter serves only — LM training runs through "
+            "Federation.sync_step and launch/train.py")
 
     def param_specs():
         return {"clients": common.stack_layer_specs(client_spec, n_clients,

@@ -21,13 +21,21 @@ the port's engine asks a draw source for each of them instead:
 key order. :class:`TorchDraws` serves a run from one ``torch.Generator``
 on the run's device; the parity tests inject a source that replays the
 JAX package's threefry draws through the same methods.
+
+The sync training step (:mod:`repro_torch.core.cascade`) asks for the
+directions and the noise of step t through the same methods (one block
+row). :class:`StepDraws` answers them from a generator seeded by
+(seed, t, stream) alone, as the JAX driver's ``fold_in(key, t)`` does, so
+a run resumed at step k draws what an unbroken run draws from step k on.
 """
 from __future__ import annotations
 
 import math
 from typing import Optional, Protocol, Sequence
 
+import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.core.partition import tree_leaves, tree_unflatten
 
@@ -69,6 +77,18 @@ def make_schedule(generator: torch.Generator, steps: int, n_clients: int,
                              generator=generator)
 
 
+def _normals(generator: torch.Generator, template, lead):
+    """One randn for every leaf of ``template``, each (*lead, *leaf), on
+    the generator's device."""
+    leaves = tree_leaves(template)
+    sizes = [math.prod(lead) * leaf.numel() for leaf in leaves]
+    flat = torch.randn(sum(sizes), generator=generator,
+                       device=generator.device)
+    return tree_unflatten(template, [
+        part.view(*lead, *leaf.shape)
+        for part, leaf in zip(flat.split(sizes), leaves)])
+
+
 class TorchDraws:
     """A run's draws from one ``torch.Generator(device)`` seeded with
     ``seed``. Draws are taken in call order, and the engine calls in a
@@ -89,14 +109,7 @@ class TorchDraws:
                              device=self.device)
 
     def _normals(self, template, lead):
-        """One randn for every leaf of ``template``, each (*lead, *leaf)."""
-        leaves = tree_leaves(template)
-        sizes = [math.prod(lead) * leaf.numel() for leaf in leaves]
-        flat = torch.randn(sum(sizes), generator=self.generator,
-                           device=self.device)
-        return tree_unflatten(template, [
-            part.view(*lead, *leaf.shape)
-            for part, leaf in zip(flat.split(sizes), leaves)])
+        return _normals(self.generator, template, lead)
 
     def client_directions(self, t, template, n_rows, q):
         return self._normals(template, (n_rows, q))
@@ -110,3 +123,37 @@ class TorchDraws:
     def noise(self, t, n_rows, n):
         return torch.randn((n_rows, n), generator=self.generator,
                            device=self.device)
+
+
+class StepDraws:
+    """The sync training step's draws: step t's client directions, server
+    directions and DP noise each come from a ``torch.Generator(device)``
+    seeded from (seed, t, stream) through numpy's ``SeedSequence``, never
+    from what earlier steps drew. Each draw runs in a profiler range
+    ("direction draws")."""
+
+    CLIENT, SERVER, NOISE = 0, 1, 2
+
+    def __init__(self, seed: int, device) -> None:
+        self.seed = int(seed)
+        self.device = torch.device(device)
+
+    def _generator(self, t: int, stream: int) -> torch.Generator:
+        state = np.random.SeedSequence([self.seed, int(t), stream])
+        g = torch.Generator(self.device)
+        g.manual_seed(int(state.generate_state(1, np.uint64)[0]))
+        return g
+
+    def client_directions(self, t, template, n_rows, q):
+        with record_function("direction draws"):
+            return _normals(self._generator(t, self.CLIENT), template,
+                            (n_rows, q))
+
+    def server_directions(self, t, template, q):
+        with record_function("direction draws"):
+            return _normals(self._generator(t, self.SERVER), template, (q,))
+
+    def noise(self, t, n_rows, n):
+        with record_function("direction draws"):
+            return torch.randn((n_rows, n), generator=self._generator(
+                t, self.NOISE), device=self.device)

@@ -181,3 +181,10 @@ def zoo_gradient(raw, loss_fn, tree, mu: float, dist: str = "sphere",
     aux = None if auxes == {} else tree_map(lambda a: a[0], auxes)
     grad = grad_from_losses(u_stack, losses[1:], losses[0], mu, phi)
     return grad, losses[0], aux
+
+
+def embedding_row_mask(tokens, vocab: int):
+    """0/1 mask of vocabulary rows present in the batch (active-row mode)."""
+    mask = torch.zeros((vocab,), dtype=torch.float32, device=tokens.device)
+    mask[tokens.reshape(-1).long()] = 1.0
+    return mask

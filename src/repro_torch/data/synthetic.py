@@ -5,12 +5,15 @@
   paper's base experiments (n_features=784, 10 classes).
 * ``vertical_partition`` — the VFL feature split: each of M clients gets an
   equal, disjoint feature slice of every sample (paper §VI-A-a).
+* ``lm_token_batches`` — Zipf-distributed token streams with local n-gram
+  structure for the LM-scale configs (so CE actually decreases when the
+  model learns).
 
 numpy only, so a seed gives the same bytes as the JAX package's copy.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Iterator, Tuple
 
 import numpy as np
 
@@ -36,3 +39,27 @@ def vertical_partition(X: np.ndarray, n_clients: int) -> np.ndarray:
     n, f = X.shape
     per = f // n_clients
     return np.stack([X[:, m * per:(m + 1) * per] for m in range(n_clients)])
+
+
+def lm_token_batches(seed: int, vocab: int, batch: int, seq: int,
+                     *, n_batches: int = 0) -> Iterator[dict]:
+    """Zipfian unigram + first-order chain structure — learnable synthetic
+    text. Yields {"tokens", "labels"} int32 (labels == tokens; the loss
+    shifts)."""
+    rng = np.random.default_rng(seed)
+    # sparse bigram transition structure over a Zipf unigram base
+    base = 1.0 / np.arange(1, vocab + 1) ** 1.1
+    base /= base.sum()
+    n_modes = min(64, vocab)
+    jump = rng.integers(0, vocab, n_modes)
+
+    i = 0
+    while n_batches == 0 or i < n_batches:
+        toks = rng.choice(vocab, size=(batch, seq), p=base).astype(np.int32)
+        # inject deterministic bigrams: after token t, with p=.5, emit
+        # jump[t % n_modes] — gives the model something to learn
+        mask = rng.random((batch, seq - 1)) < 0.5
+        nxt = jump[toks[:, :-1] % n_modes]
+        toks[:, 1:] = np.where(mask, nxt, toks[:, 1:])
+        yield {"tokens": toks, "labels": toks.copy()}
+        i += 1

@@ -4,9 +4,15 @@ transports over wires.
     from repro_torch.federation import Federation
     fed = Federation.build(model_cfg, vfl_cfg, engine_cfg)   # on the card
     result = fed.run(params, x_parts, y)      # async protocol (staleness)
+    step = fed.sync_step(opt)                 # the sync LM training step
+    fed.save(path, params, step=k, opt_state=opt_state)
+    fed, params, state = Federation.restore(path)
 """
 from repro_torch.core.privacy import GaussianLossChannel
-from repro_torch.federation.session import Federation
+from repro_torch.federation.parties import (ClientParty, Parties,
+                                            ServerParty)
+from repro_torch.federation.session import Federation, SessionState
 from repro_torch.federation.transport import Transport
 
-__all__ = ["Federation", "GaussianLossChannel", "Transport"]
+__all__ = ["ClientParty", "Federation", "GaussianLossChannel", "Parties",
+           "ServerParty", "SessionState", "Transport"]

@@ -15,7 +15,18 @@ the choices every entry point wires together —
 and the session runs:
 
 * TRAIN — :meth:`Federation.run` drives the asynchronous engine
-  (staleness, blocks, all five methods) on that device;
+  (staleness, blocks, all five methods) on that device, and
+  :meth:`Federation.sync_step` builds the cascade/baseline step over the
+  global model's loss that the ``launch/train.py`` driver pumps batches
+  through;
+* CHECKPOINT/RESUME — :meth:`Federation.save` writes one directory per
+  PARTY (``fed.parties``: the server's directory contains zero client
+  leaves and vice versa) plus the session state (step, optimizer state,
+  wire ledger totals, spent DP budget); :meth:`Federation.restore`
+  rebuilds the session and state on a device, so a resumed run continues
+  allclose to an uninterrupted one with ledger and (ε, δ) totals exactly
+  continued. The on-disk format is the JAX package's: a session saved by
+  either package restores in the other;
 * SERVE — :meth:`Federation.serve_step` / :meth:`Federation.decode` run
   split inference with the SAME party split as training (clients embed
   their token spans, the server owns backbone + head + caches), routed
@@ -25,26 +36,36 @@ and the session runs:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Union
+import json
+import math
+import os
+from typing import Any, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.io import atomic_write, load_tree, save_checkpoint
 from repro_torch.configs.base import ModelConfig, VFLConfig
 from repro_torch.configs.paper_mlp import PaperMLPConfig
-from repro_torch.core import async_engine
+from repro_torch.core import async_engine, cascade
 from repro_torch.core.adapters import (ModelAdapter, from_model_config,
                                        tabular_adapter)
 from repro_torch.core.draws import DrawSource, TorchDraws
 from repro_torch.core.methods import canonical_method
-from repro_torch.core.partition import lm_engine_params, tree_map
+from repro_torch.core.partition import (lm_engine_params, merge_params,
+                                        split_params, tree_leaves, tree_map)
 from repro_torch.core.privacy import GaussianLossChannel, Ledger
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.federation import serving
+from repro_torch.federation.parties import (ClientParty, Parties, ServerParty,
+                                            is_engine_layout)
 from repro_torch.federation.transport import Transport
 from repro_torch.models import model_api
 
 ModelLike = Union[ModelAdapter, ModelConfig, PaperMLPConfig]
+
+SESSION_MANIFEST = "session.json"
+CHECKPOINT_VERSION = 1
 
 
 def _to_device(a, device: torch.device, dtype=None) -> torch.Tensor:
@@ -52,9 +73,24 @@ def _to_device(a, device: torch.device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def is_engine_layout(params: Any) -> bool:
-    """True for the async engine's {"clients", "server"} param layout."""
-    return isinstance(params, dict) and set(params) == {"clients", "server"}
+@dataclasses.dataclass
+class SessionState:
+    """The non-parameter state a checkpoint carries: everything a resumed
+    run needs to continue EXACTLY (not just approximately) — the step
+    clock, the optimizer/schedule state, the Transport ledger totals, and
+    the DP accountant's release count. (The JAX package's state also
+    carries the population engine's and the serve scheduler's planes,
+    which are not ported yet: ROADMAP.md, Queue 1 items 4 and 10.)"""
+    step: int = 0
+    opt_state: Optional[Any] = None
+    ledger: Ledger = dataclasses.field(default_factory=Ledger)
+    dp_releases: int = 0
+    # the free-form metadata the saver passed to ``fed.save`` (driver
+    # knobs like batch/seed/schedule live here, not in the session)
+    metadata: dict = dataclasses.field(default_factory=dict)
+
+    def dp_spent(self, transport: Transport) -> Tuple[float, float]:
+        return transport.privacy_spent(self.dp_releases)
 
 
 @dataclasses.dataclass
@@ -169,6 +205,46 @@ class Federation:
                              "the engine layout)")
         return lm_engine_params(global_params, self.n_clients)
 
+    # ------------------------------------------------------- sync driver --
+    def sync_step(self, optimizer, *, vocab: Optional[int] = None):
+        """Cascade/baseline step over the GLOBAL model's loss — the
+        ``launch/train.py`` plane: ``step(params, opt_state, batch, t,
+        draws) -> (params, opt_state, StepOutput)`` (see
+        :mod:`repro_torch.core.cascade`). Requires a ModelConfig
+        session; params and batches live on the session's device."""
+        if self.model_cfg is None:
+            raise ValueError(
+                "sync_step drives a global-model loss; build the session "
+                "from a ModelConfig (tabular/adapter sessions train through "
+                "Federation.run)")
+        vocab = self.model_cfg.padded_vocab if vocab is None else vocab
+        return cascade.make_step_for_method(
+            self.transport.method, self.model.loss_fn,
+            self.model.client_keys, self.vfl, optimizer, vocab=vocab,
+            transport=self.transport)
+
+    # ------------------------------------------------------ party plane ---
+    @property
+    def client_keys(self) -> Tuple[str, ...]:
+        """Top-level GLOBAL-layout keys forming the client partition."""
+        if self.model_cfg is not None:
+            return self.model.client_keys
+        return ("clients",)
+
+    @property
+    def parties(self) -> Parties:
+        """Typed party handles — the one way any plane addresses state.
+
+        ``parties.server`` owns the backbone/head partition,
+        ``parties.clients[m]`` owns client m's slice; both resolve against
+        either param layout (engine ``{"clients", "server"}`` or the
+        global ``build_model`` tree)."""
+        keys = self.client_keys
+        return Parties(
+            server=ServerParty(client_keys=keys),
+            clients=tuple(ClientParty(index=m, client_keys=keys)
+                          for m in range(self.n_clients)))
+
     # ------------------------------------------------------ serve plane ---
     def serve_step(self):
         """One-token split-inference step (see
@@ -219,5 +295,209 @@ class Federation:
         belongs to the scheduler slice."""
         raise NotImplementedError(
             "continuous batching (Federation.serve, the paged scheduler) is "
-            "not ported yet (ROADMAP.md, Queue 1 item 6); use "
+            "not ported yet (ROADMAP.md, Queue 1 item 4); use "
             "Federation.decode")
+
+    # ------------------------------------------------- checkpoint plane ---
+    def save(self, path: str, params, *, step: int = 0,
+             opt_state: Optional[Any] = None,
+             ledger: Optional[Ledger] = None, dp_releases: int = 0,
+             metadata: Optional[dict] = None) -> str:
+        """Party-scoped checkpoint: one directory per party + session state.
+
+        Layout::
+
+            path/
+              session.json     step, configs, ledger totals, DP releases
+              server/          server party's leaves ONLY
+              client_00/ ...   per-client slices   (engine layout), or
+              clients/         the client partition (global layout)
+              opt_server/, opt_clients/   optimizer state, split on the
+                                          same party boundary (optional)
+
+        The isolation is structural (:mod:`repro_torch.federation.parties`):
+        the server handle cannot address a client leaf, so its directory
+        provably contains none — and vice versa. Returns ``path`` (the
+        token ``Federation.restore`` consumes)."""
+        os.makedirs(path, exist_ok=True)
+        parties = self.parties
+        engine_layout = is_engine_layout(params)
+        if engine_layout:
+            rows = tree_leaves(params["clients"])[0].shape[0]
+            if rows != len(parties.clients):
+                raise ValueError(
+                    f"params stack {rows} client parties but the session "
+                    f"was built with n_clients={len(parties.clients)} — a "
+                    "per-party save would silently drop rows; pass "
+                    f"n_clients={rows} to Federation.build")
+            save_checkpoint(os.path.join(path, parties.server.name),
+                            parties.server.owned(params), step=step)
+            for party in parties.clients:
+                save_checkpoint(os.path.join(path, party.name),
+                                party.owned(params), step=step)
+        else:
+            save_checkpoint(os.path.join(path, "server"),
+                            parties.server.owned(params), step=step)
+            save_checkpoint(os.path.join(path, "clients"),
+                            parties.clients[0].owned(params), step=step)
+        if opt_state is not None:
+            opt_c, opt_s = self._split_opt_state(opt_state, engine_layout)
+            save_checkpoint(os.path.join(path, "opt_server"), opt_s,
+                            step=step)
+            save_checkpoint(os.path.join(path, "opt_clients"), opt_c,
+                            step=step)
+
+        ledger = ledger if ledger is not None else Ledger()
+        eps, delta = self.transport.privacy_spent(dp_releases)
+        manifest = {
+            "version": CHECKPOINT_VERSION,
+            "step": int(step),
+            "layout": "engine" if engine_layout else "global",
+            "has_opt_state": opt_state is not None,
+            "model": self._model_manifest(),
+            "vfl": dataclasses.asdict(self.vfl),
+            # the JAX package's engine config also has mesh_shards (0: one
+            # device, the only layout the port runs)
+            "engine": dict(dataclasses.asdict(self.engine), mesh_shards=0),
+            "noise": (None if self.transport.noise is None
+                      else dataclasses.asdict(self.transport.noise)),
+            "n_clients": self.n_clients,
+            "seq_len": self.seq_len,
+            "ledger_counts": ledger.to_counts(),
+            "dp_releases": int(dp_releases),
+            "dp_spent": [eps if math.isfinite(eps) else None, delta],
+            "async_plane": False,
+            "serve_plane": False,
+            "metadata": metadata or {},
+        }
+        # atomic + last: a session.json on disk always certifies complete
+        # party directories next to it
+        atomic_write(os.path.join(path, SESSION_MANIFEST),
+                     lambda f: json.dump(manifest, f, indent=2), mode="w")
+        return path
+
+    @classmethod
+    def restore(cls, path: str, model_cfg: Optional[ModelLike] = None, *,
+                device: DeviceLike = None
+                ) -> Tuple["Federation", Any, SessionState]:
+        """Rebuild (session, params, state) from a :meth:`save` directory
+        (written by either package), with the params and optimizer state
+        on ``device`` — the card unless the caller asks for the CPU.
+
+        The session's configs (model, vfl, engine, DP channel) come from
+        ``session.json``; only adapter-built sessions — whose model plane
+        is an arbitrary callable bundle — need the caller to pass the
+        ``model_cfg`` (the adapter) back in. ``state.step``/``opt_state``/
+        ``ledger``/``dp_releases`` continue a training run exactly:
+        re-drive the same batches from ``state.step`` and the trajectory
+        is allclose to one that never stopped."""
+        with open(os.path.join(path, SESSION_MANIFEST)) as f:
+            manifest = json.load(f)
+        if manifest["version"] != CHECKPOINT_VERSION:
+            raise ValueError(
+                f"checkpoint version {manifest['version']} != "
+                f"{CHECKPOINT_VERSION}")
+        if manifest.get("async_plane") or manifest.get("serve_plane"):
+            raise NotImplementedError(
+                "the checkpoint carries the population engine's or the serve "
+                "scheduler's plane, which are not ported yet (ROADMAP.md, "
+                "Queue 1 items 4 and 10)")
+
+        model = cls._model_from_manifest(manifest["model"], model_cfg)
+        vfl_d = dict(manifest["vfl"])
+        if vfl_d.get("activation_probs") is not None:
+            vfl_d["activation_probs"] = tuple(vfl_d["activation_probs"])
+        engine_d = dict(manifest["engine"])
+        if engine_d.pop("mesh_shards", 0):
+            raise NotImplementedError(
+                "a client-sharded session (mesh_shards > 0) is not ported "
+                "yet (ROADMAP.md, Queue 1 item 7)")
+        noise_d = manifest["noise"]
+        fed = cls.build(
+            model, VFLConfig(**vfl_d), async_engine.EngineConfig(**engine_d),
+            noise=None if noise_d is None else GaussianLossChannel(**noise_d),
+            n_clients=manifest["n_clients"], seq_len=manifest["seq_len"],
+            device=device)
+        dev = fed.device
+
+        server_tree, _, _ = load_tree(os.path.join(path, "server"), dev)
+        if manifest["layout"] == "engine":
+            client_trees = [
+                load_tree(os.path.join(path, party.name), dev)[0]
+                for party in fed.parties.clients]
+            params = fed.parties.assemble(server_tree, client_trees)
+        else:
+            client_tree, _, _ = load_tree(os.path.join(path, "clients"), dev)
+            params = fed.parties.merge_global(server_tree, client_tree)
+
+        opt_state = None
+        if manifest["has_opt_state"]:
+            opt_s, _, _ = load_tree(os.path.join(path, "opt_server"), dev)
+            opt_c, _, _ = load_tree(os.path.join(path, "opt_clients"), dev)
+            opt_state = fed._merge_opt_state(
+                opt_c, opt_s, manifest["layout"] == "engine")
+
+        state = SessionState(
+            step=manifest["step"], opt_state=opt_state,
+            ledger=Ledger.from_counts(manifest["ledger_counts"]),
+            dp_releases=manifest["dp_releases"],
+            metadata=manifest.get("metadata", {}))
+        return fed, params, state
+
+    # ----------------------------------------------- checkpoint helpers ---
+    def _model_manifest(self) -> dict:
+        if self.model_cfg is not None:
+            return {"kind": "model_config",
+                    "data": dataclasses.asdict(self.model_cfg)}
+        if (self._adapter is not None
+                and self._adapter.name.startswith("tabular")):
+            # a tabular adapter is fully determined by its PaperMLPConfig;
+            # reconstruct it from the stacked client/server spec shapes
+            spec = self._adapter.param_specs()
+            M, f, e = spec["clients"]["w"].shape
+            se, C = spec["server"]["w2"].shape
+            return {"kind": "paper_mlp",
+                    "data": dataclasses.asdict(PaperMLPConfig(
+                        n_features=M * f, n_classes=C, n_clients=M,
+                        client_embed=e, server_embed=se))}
+        return {"kind": "adapter", "data": self.adapter.name}
+
+    @staticmethod
+    def _model_from_manifest(m: dict, model_cfg: Optional[ModelLike]):
+        if model_cfg is not None:
+            return model_cfg
+        if m["kind"] == "model_config":
+            return ModelConfig(**m["data"])
+        if m["kind"] == "paper_mlp":
+            return PaperMLPConfig(**m["data"])
+        raise ValueError(
+            f"checkpoint was saved from an adapter-built session "
+            f"({m['data']!r}); pass the adapter back via "
+            "Federation.restore(path, model_cfg=adapter)")
+
+    def _split_opt_state(self, opt_state, engine_layout: bool):
+        """Split optimizer state on the party boundary: per-parameter
+        trees (momentum, adam moments) mirror the param layout and split
+        like params; the step clock lives with the server (the session's
+        round counter is server-side in the protocol)."""
+        opt_c, opt_s = {}, {}
+        for k, v in opt_state.items():
+            if k == "step":
+                opt_s[k] = v
+            elif engine_layout:
+                opt_c[k] = v["clients"]
+                opt_s[k] = v["server"]
+            else:
+                opt_c[k], opt_s[k] = split_params(v, self.client_keys)
+        return opt_c, opt_s
+
+    def _merge_opt_state(self, opt_c, opt_s, engine_layout: bool):
+        out = {}
+        for k, v in opt_s.items():
+            if k == "step":
+                out[k] = v
+            elif engine_layout:
+                out[k] = {"clients": opt_c[k], "server": v}
+            else:
+                out[k] = merge_params(opt_c.get(k, {}), v)
+        return out

@@ -10,13 +10,22 @@ elsewhere.
 A CUDA tensor always goes to the kernel or raises: there is no fallback
 when ``nvcc`` or the library is missing. ``launches`` counts kernel
 launches (the CPU path launches nothing and counts nothing), so a run can
-show that its main path went through the kernel."""
+show that its main path went through the kernel.
+
+Training: when grad mode is on and q, k or v requires grad, the call goes
+through :class:`FlashAttentionFn`, whose forward is the same kernel launch
+and whose backward is autograd through the plain version (``ref.py``),
+recomputed from the saved q, k and v (``kernels/_plain_grad.py``): the
+JAX package differentiates its plain attention too. Backward kernels are
+later work (ROADMAP.md, Queue 1 item 3(b)). With grad off the call
+launches the kernel and nothing else."""
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
 
+from repro_torch.kernels._plain_grad import needs_grad, plain_backward
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import flash_attention_bshd_ref
 
@@ -97,11 +106,40 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0,
     if not _validate(q, k, v, window, q_offset):
         return flash_attention_bshd_ref(q, k, v, causal=causal,
                                         window=window, q_offset=q_offset)
+    if needs_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, causal, window, q_offset)
+    return _launch(q, k, v, causal, window, q_offset)
+
+
+def _launch(q, k, v, causal, window, q_offset):
     o = torch.empty_like(q)
     kernel.launch(q, k, v, o, causal=causal, window=window,
                   q_offset=q_offset)
     launches["flash_attention"] += 1
     return o
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The kernel's forward; the backward differentiates the plain version
+    recomputed from the saved q, k and v (one materialized score tensor
+    (B, Hq, Sq, Skv) f32 a call)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window, q_offset)
+        return _launch(q, k, v, causal, window, q_offset)
+
+    @staticmethod
+    def backward(ctx, grad_o):
+        causal, window, q_offset = ctx.mask
+
+        def plain(q, k, v):
+            return flash_attention_bshd_ref(q, k, v, causal=causal,
+                                            window=window, q_offset=q_offset)
+        return plain_backward("flash attention", plain, ctx.saved_tensors,
+                              ctx.needs_input_grad[:3], (grad_o,)) + (
+                                  None, None, None)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,

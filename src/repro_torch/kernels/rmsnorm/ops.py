@@ -7,7 +7,15 @@ the one-pass vector kernel wherever it can take the call, else the
 general one. ``launches`` counts kernel launches and ``route_launches``
 the same launches by route (the CPU path launches nothing and counts
 nothing), so a run can show that its main path went through the vector
-kernel."""
+kernel.
+
+Training: when grad mode is on and x or scale requires grad, the call
+goes through :class:`RMSNormFn`, whose forward is the same kernel launch
+and whose backward is autograd through the plain version (``ref.py``),
+recomputed from the saved x and scale (``kernels/_plain_grad.py``), the
+function the JAX package differentiates. Backward kernels are later work
+(ROADMAP.md, Queue 1 item 3(b)). With grad off the call launches the
+kernel and nothing else."""
 from __future__ import annotations
 
 import functools
@@ -15,6 +23,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.kernels._plain_grad import needs_grad, plain_backward
 from repro_torch.kernels.rmsnorm import kernel
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
@@ -115,6 +124,12 @@ def rmsnorm(x, scale, *, eps: float = 1e-6):
     or bf16, scale (d,) f32 -> (M, d) in x's dtype, f32 math."""
     if not _validate(x, scale):
         return rmsnorm_ref(x, scale, eps)
+    if needs_grad(x, scale):
+        return RMSNormFn.apply(x, scale, eps)
+    return _launch(x, scale, eps)
+
+
+def _launch(x, scale, eps: float):
     way = route(x, scale)
     y = torch.empty_like(x)
     if way == "vector":
@@ -124,3 +139,21 @@ def rmsnorm(x, scale, *, eps: float = 1e-6):
     launches["rmsnorm"] += 1
     route_launches[way] += 1
     return y
+
+
+class RMSNormFn(torch.autograd.Function):
+    """The kernel's forward; the backward differentiates the plain version
+    recomputed from the saved x and scale."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _launch(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        eps = ctx.eps
+        return plain_backward("RMSNorm", lambda x, s: rmsnorm_ref(x, s, eps),
+                              ctx.saved_tensors, ctx.needs_input_grad[:2],
+                              (grad_y,)) + (None,)

@@ -4,15 +4,27 @@
 A CUDA tensor always goes to the kernel or raises: there is no fallback
 when ``nvcc`` or the library is missing. ``launches`` counts kernel
 launches (the CPU path launches nothing and counts nothing), so a run can
-show that its main path went through the kernel."""
+show that its main path went through the kernel.
+
+Training: when grad mode is on and an operand requires grad, the call
+goes through :class:`SSDChunkFn`, whose forward is the same kernel launch
+and whose backward is autograd through the plain chunked form
+(``ref.py::ssd_chunked_ref``, the JAX package's ``_ssd_chunked``, which
+it differentiates) at the same chunk, recomputed from the saved inputs
+(``kernels/_plain_grad.py``). Backward kernels are later work (ROADMAP.md,
+Queue 1 item 3(b)). With grad off the call launches the kernel and
+nothing else."""
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
 
+from repro_torch.kernels._plain_grad import needs_grad, plain_backward
 from repro_torch.kernels.ssd_chunk import kernel
-from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref, ssd_states_ref
+from repro_torch.kernels.ssd_chunk.ref import (ssd_chunk_ref,
+                                               ssd_chunked_ref,
+                                               ssd_states_ref)
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 MAX_CHUNK = 128
@@ -89,6 +101,12 @@ def ssd_chunk_bshp(xh, a, dt, bm, cm, *, chunk: int, state0=None):
     chunk = min(chunk, xh.shape[1]) if xh.ndim == 4 else chunk
     if not _validate(xh, a, dt, bm, cm, chunk, state0):
         return ssd_states_ref(xh, a, dt, bm, cm, state0)
+    if needs_grad(xh, a, dt, bm, cm, state0):
+        return SSDChunkFn.apply(xh, a, dt, bm, cm, state0, chunk)
+    return _launch(xh, a, dt, bm, cm, state0, chunk)
+
+
+def _launch(xh, a, dt, bm, cm, state0, chunk: int):
     B, S, H, P = xh.shape
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=xh.device)
     state = torch.empty((B, H, P, bm.shape[-1]), dtype=torch.float32,
@@ -112,8 +130,34 @@ def ssd_chunk(xh, a, dt, bm, cm, *, chunk: int = 128):
     x4, a3, dt3 = xh.unsqueeze(2), a.unsqueeze(2), dt.unsqueeze(2)
     if not _validate(x4, a3, dt3, bm, cm, chunk, None):
         return ssd_chunk_ref(xh, a, dt, bm, cm)
+    if needs_grad(xh, a, dt, bm, cm):
+        y, _ = SSDChunkFn.apply(x4, a3, dt3, bm, cm, None, chunk)
+        return y.squeeze(2).to(xh.dtype)
     y = torch.empty_like(xh)
     kernel.launch(x4, a3, dt3, bm, cm, None, y, None,
                   _scratch(xh, xh.shape[0], xh.shape[1], 1, chunk), chunk)
     launches["ssd_chunk"] += 1
     return y
+
+
+class SSDChunkFn(torch.autograd.Function):
+    """The kernel's forward -> (y f32, final state f32); the backward
+    differentiates the plain chunked form at the same chunk, recomputed
+    from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, xh, a, dt, bm, cm, state0, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(xh, a, dt, bm, cm, state0)
+        ctx.chunk = chunk
+        return _launch(xh, a, dt, bm, cm, state0, chunk)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_state):
+        chunk = ctx.chunk
+
+        def plain(xh, a, dt, bm, cm, state0):
+            return ssd_chunked_ref(xh, a, dt, bm, cm, chunk, state0)
+        return plain_backward("SSD", plain, ctx.saved_tensors,
+                              ctx.needs_input_grad[:6],
+                              (grad_y, grad_state)) + (None,)

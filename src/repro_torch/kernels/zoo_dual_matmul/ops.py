@@ -4,13 +4,19 @@
 A CUDA tensor always goes to the kernel or raises: there is no fallback
 when ``nvcc`` or the library is missing. ``launches`` counts kernel
 launches per entry point (the CPU path launches nothing and counts
-nothing), so a run can show that its main path went through the kernel."""
+nothing), so a run can show that its main path went through the kernel.
+
+The kernel computes the clients' zeroth-order lanes, which need no
+gradient, and has no backward: a CUDA call with grad mode on and an
+operand that requires grad raises rather than return an output that
+would drop the gradient."""
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
 
+from repro_torch.kernels._plain_grad import needs_grad
 from repro_torch.kernels.zoo_dual_matmul import kernel
 from repro_torch.kernels.zoo_dual_matmul.ref import (
     zoo_dual_matmul_ref, zoo_dual_matmul_stacked_bias_relu_ref,
@@ -76,6 +82,11 @@ def _validate(x, w, us, b, ub) -> bool:
 
 
 def _launch(name: str, x, w, us, b, ub, mu):
+    if needs_grad(x, w, us, b, ub):
+        raise ValueError(
+            "the ZOO fan-out kernel has no backward (its lanes are the "
+            "clients' zeroth-order queries); an operand requires grad: "
+            "detach it or call under torch.no_grad()")
     R, M, _ = x.shape
     N, q = w.shape[-1], us.shape[1]
     y = torch.empty((R, M, N), dtype=x.dtype, device=x.device)

@@ -71,7 +71,7 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 16,
     if continuous:
         raise NotImplementedError(
             "continuous batching is not ported yet (ROADMAP.md, Queue 1 "
-            "item 6: paging.py, scheduler.py)")
+            "item 4: paging.py, scheduler.py)")
     cfg = get_config(arch)
     if use_reduced:
         cfg = reduced(cfg, remat=False)

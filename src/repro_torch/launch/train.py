@@ -1,0 +1,266 @@
+"""End-to-end cascaded VFL training driver, on the card.
+
+Trains a decoder-only architecture (the dense and hybrid families) with
+the paper's cascaded hybrid optimization (ZOO client / FOO server) — or
+any baseline method — on synthetic LM data. ``--reduced`` (the default)
+runs the smoke-size config; ``--full`` the published width.
+
+Training is constructed through the ``repro_torch.federation`` session
+API: ``Federation.build(cfg, vfl, engine_cfg)`` resolves the model plane,
+the canonical method name and the wire (ledger + optional DP noise
+channel), and this driver pumps batches through ``fed.sync_step(...)``.
+The CLI accepts every spelling in ``repro_torch.core.methods.
+METHOD_ALIASES`` and canonicalizes at the boundary — step factories and
+the ledger only ever see canonical names.
+
+Checkpointing goes through the session lifecycle: ``--checkpoint`` calls
+``fed.save`` (per-party directories + step + optimizer/schedule state +
+ledger totals + spent DP budget) and ``--resume PATH`` continues from a
+saved session — the restored run re-derives the same batches, per-step
+draws and the ORIGINAL schedule horizon from the saved state, so it
+matches an uninterrupted run allclose with ledger and (ε, δ) totals
+exactly continued (exactly equivalent for step-stationary schedules;
+decaying schedules keep their saved total_steps rather than silently
+re-stretching, running at the tail lr past the original horizon).
+
+Ported from the JAX package's ``launch/train.py``. Step t's ZOO
+directions and DP noise come from ``StepDraws(seed)``, seeded by
+(seed, t), where the JAX driver folds t into its key. ``--device``
+chooses where it runs: the card by default, ``cpu`` when asked. The run
+is single-device: ``--production-mesh`` and ``--engine population`` are
+later slices and raise.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --steps 8 --batch 4 --seq 32
+    PYTHONPATH=src python -m repro_torch.launch.train --full --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --resume ck/ \\
+        --steps 200 --checkpoint ck2/
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import itertools
+import json
+import math
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import VFLConfig, get_config, list_archs, reduced
+from repro_torch.core.async_engine import EngineConfig
+from repro_torch.core.draws import StepDraws
+from repro_torch.core.methods import METHOD_ALIASES, canonical_method
+from repro_torch.core.partition import split_params
+from repro_torch.core.privacy import GaussianLossChannel
+from repro_torch.data import BatchIterator, lm_token_batches
+from repro_torch.device import DeviceLike
+from repro_torch.federation import Federation, SessionState
+from repro_torch.models import common
+from repro_torch.optim import make_schedule, sgd
+from repro_torch.tree import tree_leaves
+
+
+def train(arch: str = "", *, steps: int = 100, batch: int = 8,
+          seq: int = 128, method: str = "cascaded", lr: float = 0.01,
+          mu: float = 1e-3, lr_client: float = 0.0,
+          use_reduced: bool = True, seed: int = 0,
+          log_every: int = 10, zoo_queries: int = 1,
+          active_rows: bool = False, production_mesh: bool = False,
+          checkpoint_path: str = "", schedule: str = "constant",
+          noise: Optional[GaussianLossChannel] = None,
+          resume: str = "", device: DeviceLike = None) -> dict:
+    """``device=None`` runs on the card and raises without one; pass
+    ``device="cpu"`` for the CPU. A resumed run restores onto ``device``."""
+    if production_mesh:
+        raise NotImplementedError(
+            "the production mesh (sharded params, PARAM_RULES) is not ported "
+            "yet (ROADMAP.md, Queue 1 item 7, the sharding slice); the port "
+            "trains on one device")
+    start = 0
+    state = SessionState()
+    sched_total = steps
+    if resume:
+        # the saved session is the source of truth for everything that
+        # must match the original run (model/vfl/engine/noise configs and
+        # the driver knobs stashed in the metadata); ``steps`` stays a
+        # TOTAL step count, so resume at step k with steps=2k runs k more
+        fed, params, state = Federation.restore(resume, device=device)
+        meta = _driver_metadata(resume, state.metadata)
+        arch, method = meta["arch"], fed.transport.method
+        batch, seq, seed = meta["batch"], meta["seq"], meta["seed"]
+        lr, schedule = meta["lr"], meta["schedule"]
+        # rebuild the EXACT schedule the saved run trained under — a
+        # decaying schedule must not silently re-stretch to the new total
+        sched_total = meta.get("schedule_total_steps", steps)
+        zoo_queries = fed.vfl.zoo_queries
+        cfg = fed.model_cfg
+        noise = fed.transport.noise
+        start = state.step
+        if steps <= start:
+            raise ValueError(
+                f"--steps {steps} is a total step count; the resumed "
+                f"session is already at step {start}")
+    else:
+        cfg = get_config(arch)
+        if use_reduced:
+            cfg = reduced(cfg)
+        method = canonical_method(method)
+        vfl = VFLConfig(mu=mu, lr_server=lr, lr_client=lr_client or lr,
+                        zoo_queries=zoo_queries, active_rows_only=active_rows)
+        fed = Federation.build(cfg, vfl,
+                               EngineConfig(method=method, steps=steps,
+                                            batch_size=batch),
+                               seq_len=seq, noise=noise, device=device)
+        if not lr_client:
+            lr_client = _normalized_lr_client(fed, lr)
+            fed.vfl = dataclasses.replace(vfl, lr_client=lr_client)
+
+    dev = fed.device
+    model = fed.model
+    opt = sgd(make_schedule(schedule, lr, total_steps=sched_total))
+    step_fn = fed.sync_step(opt)
+    if not resume:
+        params = common.materialize(
+            model.param_specs, torch.Generator(dev).manual_seed(seed),
+            device=dev)
+    opt_state = (state.opt_state if state.opt_state is not None
+                 else opt.init(params))
+    draws = StepDraws(seed, dev)
+
+    # deterministic batch stream: a resumed run skips the first ``start``
+    # draws, so step i consumes the exact batch the uninterrupted run did
+    data = BatchIterator(itertools.islice(
+        lm_token_batches(seed + 1, cfg.vocab_size, batch, seq),
+        start, steps), dev)
+
+    losses, t0 = [], time.time()
+    for i, b in enumerate(data, start=start):
+        params, opt_state, out = step_fn(params, opt_state, b, i, draws)
+        losses.append(float(out.loss))
+        if i % log_every == 0:
+            print(f"step {i:5d} loss {losses[-1]:.4f} "
+                  f"|g_c|={float(out.grad_client_norm):.3e} "
+                  f"|g_s|={float(out.grad_server_norm):.3e}", flush=True)
+
+    wall = time.time() - t0
+    n_new = steps - start
+    # the Transport owns the wire: one ledger call covers this segment
+    # (one activated client party — the embedding owner — per sync round),
+    # EXTENDING the restored ledger so lifetime totals continue exactly
+    ledger = fed.transport.account(batch=batch, embed=cfg.d_model,
+                                   zoo_queries=zoo_queries, n_rounds=n_new,
+                                   ledger=state.ledger)
+    dp_releases = state.dp_releases
+    if noise is not None:
+        dp_releases += fed.transport.releases(n_rounds=n_new,
+                                              zoo_queries=zoo_queries)
+    result = {
+        "arch": arch, "method": method, "steps": steps,
+        "device": str(dev),
+        "loss_first": losses[0], "loss_last": float(np.mean(losses[-5:])),
+        "wall_s": round(wall, 1),
+        "steps_per_s": round(n_new / wall, 2),
+        "wire_bytes_per_round": ledger.total_bytes // max(steps, 1),
+        "wire_has_gradients": ledger.transmits_gradients,
+    }
+    if resume:
+        result["resumed_from"], result["start_step"] = resume, start
+    if noise is not None:
+        eps, delta = fed.transport.privacy_spent(dp_releases)
+        result["dp_epsilon"], result["dp_delta"] = eps, delta
+    if checkpoint_path:
+        fed.save(checkpoint_path, params, step=steps, opt_state=opt_state,
+                 ledger=ledger, dp_releases=dp_releases,
+                 metadata={"arch": arch, "batch": batch, "seq": seq,
+                           "seed": seed, "lr": lr, "schedule": schedule,
+                           "schedule_total_steps": sched_total})
+        result["checkpoint"] = checkpoint_path
+    return result
+
+
+def _normalized_lr_client(fed: Federation, lr: float) -> float:
+    """Per-party lr (paper §VI-A-d tunes them separately): the sphere
+    two-point estimator's norm scales ~√d·|∇|, so normalize the client lr
+    by √d_client to keep update magnitudes FOO-comparable."""
+    model = fed.model
+    client_spec, _ = split_params(model.param_specs, model.client_keys)
+    d_client = sum(math.prod(s.shape) for s in tree_leaves(client_spec))
+    return lr / max(np.sqrt(d_client), 1.0)
+
+
+def _driver_metadata(path: str, meta: dict) -> dict:
+    """Validate the driver knobs ``fed.save`` stashed in the session."""
+    missing = {"arch", "batch", "seq", "seed", "lr", "schedule"} - set(meta)
+    if missing:
+        raise ValueError(
+            f"checkpoint {path!r} was not written by the train driver "
+            f"(metadata missing {sorted(missing)})")
+    return meta
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """CLI (factored out so tests can assert the alias surface)."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="phi3-mini-3.8b",
+                    choices=list_archs())
+    # every spelling in the shared alias table is accepted; only the
+    # canonical name travels past this boundary
+    ap.add_argument("--method", default="cascaded",
+                    choices=sorted(METHOD_ALIASES))
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=0.01)
+    ap.add_argument("--mu", type=float, default=1e-3)
+    ap.add_argument("--zoo-queries", type=int, default=1)
+    ap.add_argument("--active-rows", action="store_true")
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--production-mesh", action="store_true")
+    ap.add_argument("--checkpoint", default="")
+    # continue a saved session; --steps then means TOTAL steps (the run
+    # does steps - saved_step more). Model/method/data knobs come from
+    # the checkpoint, not the CLI.
+    ap.add_argument("--resume", default="")
+    ap.add_argument("--schedule", default="constant")
+    ap.add_argument("--seed", type=int, default=0)
+    # DP loss channel (0 = off): clip + per-release (ε, δ) target
+    ap.add_argument("--dp-epsilon", type=float, default=0.0)
+    ap.add_argument("--dp-delta", type=float, default=1e-5)
+    ap.add_argument("--dp-clip", type=float, default=10.0)
+    # sync: the lockstep driver. population: N client parties behind the
+    # wire plane (not ported yet; raises)
+    ap.add_argument("--engine", choices=("sync", "population"),
+                    default="sync")
+    ap.add_argument("--device", default=None,
+                    help="default: the CUDA card; 'cpu' for the CPU")
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    if args.engine == "population":
+        raise NotImplementedError(
+            "the population engine (train_population, run_population over "
+            "the wire plane) is not ported yet (ROADMAP.md, Queue 1 item 10, "
+            "the async-engine LM plane)")
+    noise = (GaussianLossChannel(clip=args.dp_clip, epsilon=args.dp_epsilon,
+                                 delta=args.dp_delta)
+             if args.dp_epsilon > 0 else None)
+    res = train(args.arch, steps=args.steps, batch=args.batch,
+                seq=args.seq, method=canonical_method(args.method),
+                lr=args.lr, mu=args.mu, use_reduced=args.reduced,
+                seed=args.seed, zoo_queries=args.zoo_queries,
+                active_rows=args.active_rows,
+                production_mesh=args.production_mesh,
+                checkpoint_path=args.checkpoint,
+                schedule=args.schedule, noise=noise,
+                resume=args.resume, device=args.device)
+    print(json.dumps(res, indent=2))
+
+
+if __name__ == "__main__":
+    main()

@@ -3,24 +3,29 @@
 
 * ``param_specs``            — ParamSpec tree (``common.materialize`` makes
                                tensors of it)
+* ``loss_fn(params, batch)`` — global-model training loss -> (loss, aux)
+                               (FOO baselines use it directly; the cascade
+                               partitions it)
 * ``forward_fn(params, inputs)``                 -> logits
 * ``decode_fn(params, inputs, caches, cur_pos)`` -> (logits, caches); the
                                caches (KV, and for the hybrid family also
                                the SSM states) are updated in place and
                                returned
+* ``input_specs(shape)``     — ParamSpec stand-ins for the data inputs of
+                               a ``ShapeConfig``
 * ``client_keys``            — top-level param keys forming the ZOO client
                                partition (the embedding)
 
 Ported from the JAX package's ``models/model_api.py`` for the families
-``transformer.check_family`` admits; training (``loss_fn``) belongs to the
-LM training slice, and the encoder-decoder family to a later one.
+``transformer.check_family`` admits; the encoder-decoder family belongs to
+a later slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Dict, Tuple
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer
@@ -31,9 +36,13 @@ from repro_torch.models.common import ParamSpec
 class Model:
     cfg: ModelConfig
     param_specs: Any
+    loss_fn: Callable            # (params, batch) -> (loss, aux)
     forward_fn: Callable         # (params, inputs) -> logits
     decode_fn: Callable          # (params, inputs, caches, cur_pos) -> (logits, caches)
     client_keys: Tuple[str, ...]
+
+    def input_specs(self, shape: ShapeConfig):
+        return build_input_specs(self.cfg, shape)
 
 
 def _client_keys(cfg: ModelConfig) -> Tuple[str, ...]:
@@ -48,6 +57,9 @@ def build_model(cfg: ModelConfig, *, max_seq: int = 8192,
     """window > 0 selects the sliding-window attention variant."""
     specs = transformer.backbone_specs(cfg, max_seq)
 
+    def loss_fn(params, batch):
+        return transformer.lm_loss(cfg, params, batch, window=window)
+
     def forward_fn(params, inputs):
         return transformer.forward(cfg, params, inputs, window=window)[0]
 
@@ -57,8 +69,26 @@ def build_model(cfg: ModelConfig, *, max_seq: int = 8192,
             window=window)
         return logits, new_caches
 
-    return Model(cfg=cfg, param_specs=specs, forward_fn=forward_fn,
-                 decode_fn=decode_fn, client_keys=_client_keys(cfg))
+    return Model(cfg=cfg, param_specs=specs, loss_fn=loss_fn,
+                 forward_fn=forward_fn, decode_fn=decode_fn,
+                 client_keys=_client_keys(cfg))
+
+
+def build_input_specs(cfg: ModelConfig,
+                      shape: ShapeConfig) -> Dict[str, ParamSpec]:
+    """ParamSpec dict for the *data* inputs of (cfg, shape) of the
+    decoder families: tokens and labels (B, S) for training, tokens for
+    prefill, tokens (B, 1) for decode (caches come from
+    :func:`build_cache_specs`)."""
+    transformer.check_family(cfg)
+    B, S = shape.global_batch, shape.seq_len
+    if shape.is_decode:
+        return {"tokens": ParamSpec((B, 1), "int32", ("batch", None))}
+    sp = {"tokens": ParamSpec((B, S), "int32", ("batch", None)),
+          "labels": ParamSpec((B, S), "int32", ("batch", None))}
+    if shape.kind == "prefill":
+        sp.pop("labels")
+    return sp
 
 
 def build_cache_specs(cfg: ModelConfig, batch: int, seq: int):

@@ -13,8 +13,9 @@ chunk the contribution is an attention-like (c×c) masked matrix; across
 chunks only the (P×N) state is carried. On a CUDA tensor
 :func:`_ssd_chunked` runs the hand-written SSD kernel
 (``repro_torch.kernels.ssd_chunk``); on the CPU it runs the plain chunked
-form below. The one-token decode step (S == 1) is a rank-1 state update in
-plain PyTorch on both, as in the JAX package.
+form (``ssd_chunk/ref.py::ssd_chunked_ref``), which is also what the
+kernel's backward differentiates. The one-token decode step (S == 1) is
+a rank-1 state update in plain PyTorch on both, as in the JAX package.
 
 A short causal depthwise conv (width 4) precedes the SSM; its tail is
 carried as decode state.
@@ -25,7 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_chunk import ops as ssd_ops
-from repro_torch.kernels.ssd_chunk.ref import ssd_states_ref
+from repro_torch.kernels.ssd_chunk.ref import (ssd_chunked_ref,
+                                               ssd_states_ref)
 from repro_torch.models.common import ParamSpec, chunk_divisor
 
 CONV_W = 4
@@ -82,53 +84,13 @@ def _ssd_chunked(xh, a, dt, Bm, Cm, chunk, state0=None):
 
     xh (B,S,H,P), a (B,S,H) decay in (0,1], dt (B,S,H), Bm/Cm (B,S,N),
     state0 (B,H,P,N) f32 or None. Returns (y (B,S,H,P) f32, final_state
-    (B,H,P,N) f32). A CUDA tensor goes to the SSD kernel (one launch)."""
+    (B,H,P,N) f32). A CUDA tensor goes to the SSD kernel (one launch); a
+    CPU tensor to the plain chunked form (``ssd_chunk/ref.py``)."""
     if xh.is_cuda:
         return ssd_ops.ssd_chunk_bshp(xh, a, dt, Bm.contiguous(),
                                       Cm.contiguous(), chunk=chunk,
                                       state0=state0)
-    B, S, H, P = xh.shape
-    N = Bm.shape[-1]
-    c = min(chunk, S)
-    if S % c:
-        raise ValueError(f"chunk {c} does not divide the sequence {S}")
-    nc = S // c
-
-    xr = xh.reshape(B, nc, c, H, P).float()
-    ar = a.reshape(B, nc, c, H)
-    dtr = dt.reshape(B, nc, c, H)
-    Br = Bm.reshape(B, nc, c, N).float()
-    Cr = Cm.reshape(B, nc, c, N).float()
-
-    la = torch.log(torch.clamp(ar, min=1e-20)).float()
-    cum = torch.cumsum(la, dim=2)                          # log prod a_1..t
-
-    state = (torch.zeros((B, H, P, N), dtype=torch.float32, device=xh.device)
-             if state0 is None else state0)
-    mask = torch.tril(torch.ones((c, c), dtype=torch.bool,
-                                 device=xh.device))[None, :, :, None]
-    ys = []
-    for k in range(nc):
-        x_c, cum_c, dt_c = xr[:, k], cum[:, k], dtr[:, k]
-        B_c, C_c = Br[:, k], Cr[:, k]
-        # intra-chunk: y[i] += sum_{j<=i} exp(cum_i - cum_j) dt_j (C_i·B_j) x_j
-        seg = cum_c[:, :, None, :] - cum_c[:, None, :, :]    # (B,i,j,H)
-        # double-where: exp() never sees the +inf upper triangle
-        seg = torch.where(mask, seg, 0.0)
-        dec = torch.where(mask, torch.exp(seg), 0.0)
-        cb = torch.einsum("bin,bjn->bij", C_c, B_c)          # (B,i,j)
-        M = dec * cb[..., None] * dt_c[:, None, :, :]        # (B,i,j,H)
-        y_intra = torch.einsum("bijh,bjhp->bihp", M, x_c)
-        # inter-chunk: y[i] += exp(cum_i) * C_i @ state^T
-        y_inter = (torch.einsum("bin,bhpn->bihp", C_c, state)
-                   * torch.exp(cum_c)[..., None])
-        # state update: S' = a_total*S + sum_j exp(cum_last-cum_j) dt_j x_j⊗B_j
-        w_j = torch.exp(cum_c[:, -1:, :] - cum_c) * dt_c     # (B,c,H)
-        ds = torch.einsum("bjhp,bjn,bjh->bhpn", x_c, B_c, w_j)
-        state = state * torch.exp(cum_c[:, -1])[:, :, None, None] + ds
-        ys.append(y_intra + y_inter)
-    y = torch.stack(ys, dim=1).reshape(B, S, H, P)
-    return y, state
+    return ssd_chunked_ref(xh, a, dt, Bm, Cm, chunk, state0)
 
 
 def ssd_recurrent_ref(xh, a, dt, Bm, Cm):

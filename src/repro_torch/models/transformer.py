@@ -7,8 +7,11 @@ stacked params (a leading layer axis on every block leaf, the JAX
 package's layout; the hybrid trunk is stacked (n_super, attn_every, ...));
 its ``lax.scan`` over them becomes a Python loop over that axis, and the
 per-layer KV caches and SSM states are views into the stacked caches,
-updated in place. Remat and sharding constraints have no meaning in a
-forward-only port and are left out. The RWKV, MoE, MLA, multimodal and
+updated in place. With ``cfg.remat``, a training forward (no caches,
+grad on) recomputes each block (a hybrid super-block) in the backward,
+as the JAX package's ``jax.checkpoint`` over the scan body does.
+Sharding constraints have no meaning on one device and are left out.
+``lm_loss`` is the training loss. The RWKV, MoE, MLA, MTP, multimodal and
 encoder-decoder families belong to later slices and raise
 ``NotImplementedError``.
 """
@@ -17,6 +20,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
@@ -99,9 +103,36 @@ def _mamba_block_apply(cfg, p, x, *, state=None):
     return x + s
 
 
+def _maybe_remat(cfg, fn, caches=None):
+    """``fn`` recomputed in the backward (``torch.utils.checkpoint``,
+    non-reentrant) when ``cfg.remat`` and the call can be differentiated:
+    a training forward with grad on and no caches. The JAX package's
+    ``"dots"`` policy (keep the weight products, recompute the rest) has
+    no checkpoint counterpart in torch, so both policies recompute the
+    whole block. A forward that nothing differentiates runs ``fn`` as it
+    is."""
+    if not cfg.remat or caches is not None or not torch.is_grad_enabled():
+        return fn
+
+    def remat(*args, **kwargs):
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, **kwargs)
+    return remat
+
+
 def _layer(tree, i: int):
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def _layers(tree, n: int):
+    """The n per-layer trees of a stacked tree, as views. One ``unbind``
+    per leaf: its backward stacks the n layer gradients once, where
+    indexing layer by layer would give each index's backward a zero
+    tensor of the whole stack to accumulate into."""
+    parts = {k: _layers(v, n) if isinstance(v, dict) else v.unbind(0)
+             for k, v in tree.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
 # ======================================================== backbone passes ==
@@ -119,11 +150,15 @@ def backbone_apply(cfg, params, x, *, positions, caches=None, cur_pos=None,
         x = _hybrid_apply(cfg, params, x, positions=positions, caches=caches,
                           cur_pos=cur_pos, window=window)
         return x, caches, torch.zeros((), device=x.device)
-    for i in range(cfg.n_layers):
+
+    def body(h, p_l, c_l):
+        return _attn_block_apply(cfg, p_l, h, positions=positions,
+                                 cache=c_l, cur_pos=cur_pos,
+                                 window=window)[0]
+    body = _maybe_remat(cfg, body, caches)
+    for i, p_l in enumerate(_layers(params["blocks"], cfg.n_layers)):
         c_l = None if caches is None else _layer(caches, i)
-        x, _ = _attn_block_apply(
-            cfg, _layer(params["blocks"], i), x, positions=positions,
-            cache=c_l, cur_pos=cur_pos, window=window)
+        x = body(x, p_l, c_l)
     return x, caches, torch.zeros((), device=x.device)
 
 
@@ -132,16 +167,21 @@ def _hybrid_apply(cfg, params, x, *, positions, caches, cur_pos, window):
     followed by the shared attention block (one set of weights, its own KV
     cache slice per site)."""
     ssm_states, attn_caches = (None, None) if caches is None else caches
-    for s in range(cfg.n_layers // cfg.attn_every):
-        p_sup = _layer(params["blocks"], s)
-        for j in range(cfg.attn_every):
+
+    def super_body(h, p_sup, shared, s):
+        for j, p_l in enumerate(_layers(p_sup, cfg.attn_every)):
             st = (None if ssm_states is None
                   else {k: v[s, j] for k, v in ssm_states.items()})
-            x = _mamba_block_apply(cfg, _layer(p_sup, j), x, state=st)
-        x, _ = _attn_block_apply(
-            cfg, params["shared_block"], x, positions=positions,
+            h = _mamba_block_apply(cfg, p_l, h, state=st)
+        h, _ = _attn_block_apply(
+            cfg, shared, h, positions=positions,
             cache=None if attn_caches is None else _layer(attn_caches, s),
             cur_pos=cur_pos, window=window)
+        return h
+    super_body = _maybe_remat(cfg, super_body, caches)
+    n_super = cfg.n_layers // cfg.attn_every
+    for s, p_sup in enumerate(_layers(params["blocks"], n_super)):
+        x = super_body(x, p_sup, params["shared_block"], s)
     return x
 
 
@@ -176,3 +216,28 @@ def forward(cfg, params, inputs, *, caches=None, cur_pos=None, window=0):
     h = apply_norm(cfg, params["final_norm"], h)
     logits = unembed(params["lm_head"], h)
     return logits, new_caches, aux
+
+
+# ================================================================= loss ====
+
+def lm_loss(cfg, params, inputs, *, window=0, label_mask=None):
+    """Next-token CE over the text positions. Returns (loss, aux_dict)."""
+    logits, _, aux = forward(cfg, params, inputs, window=window)
+    labels = inputs["labels"]
+    ce = softmax_xent(logits[:, :-1], labels[:, 1:], cfg.padded_vocab)
+    mask = (torch.ones(labels[:, 1:].shape, dtype=torch.float32,
+                       device=labels.device) if label_mask is None
+            else label_mask[:, 1:].float())
+    loss = torch.sum(ce * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return loss + aux, {"aux": aux}
+
+
+def softmax_xent(logits, labels, vocab):
+    """Stable CE in the JAX package's masked-reduction form (log-sum-exp
+    minus the gold logit picked by an iota compare), in f32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    vidx = torch.arange(logits.shape[-1], device=logits.device)
+    gold = torch.sum(torch.where(vidx == labels[..., None].long(), logits,
+                                 0.0), dim=-1)
+    return lse - gold

@@ -12,19 +12,24 @@ import torch
 
 from repro.analysis import tags as j_tags
 from repro import configs as j_configs
+from repro.configs.base import INPUT_SHAPES as J_INPUT_SHAPES
 from repro.configs.base import ModelConfig as JModelConfig
+from repro.configs.base import ShapeConfig as JShapeConfig
+from repro.configs.base import TrainConfig as JTrainConfig
 from repro.configs.base import VFLConfig as JVFLConfig
 from repro.configs.paper_mlp import PaperMLPConfig as JPaperMLPConfig
 from repro.core import methods as j_methods
 from repro.core import privacy as j_privacy
+from repro.data import pipeline as j_pipeline
 from repro.data import synthetic as j_synthetic
 from repro.federation.transport import Transport as JTransport
 from repro_torch import configs
 from repro_torch.analysis import tags
-from repro_torch.configs.base import ModelConfig, VFLConfig
+from repro_torch.configs.base import (INPUT_SHAPES, ModelConfig,
+                                      ShapeConfig, TrainConfig, VFLConfig)
 from repro_torch.configs.paper_mlp import PaperMLPConfig
 from repro_torch.core import methods, privacy
-from repro_torch.data import synthetic
+from repro_torch.data import pipeline, synthetic
 from repro_torch.federation.transport import Transport
 
 METHODS = ("cascaded", "vafl", "split", "zoo-vfl", "syn-zoo")
@@ -58,7 +63,8 @@ def test_method_tables_equal():
 
 @pytest.mark.parametrize("ours,theirs", [(VFLConfig, JVFLConfig),
                                          (PaperMLPConfig, JPaperMLPConfig),
-                                         (ModelConfig, JModelConfig)])
+                                         (ModelConfig, JModelConfig),
+                                         (TrainConfig, JTrainConfig)])
 def test_config_fields_and_defaults_equal(ours, theirs):
     def fields(cls):
         return [(f.name, str(f.type), f.default)
@@ -66,6 +72,49 @@ def test_config_fields_and_defaults_equal(ours, theirs):
     assert fields(ours) == fields(theirs)
     assert dataclasses.asdict(ours()) == dataclasses.asdict(theirs())
     assert ours.__dataclass_params__.frozen
+
+
+def test_input_shapes_equal():
+    assert ({k: dataclasses.asdict(v) for k, v in INPUT_SHAPES.items()}
+            == {k: dataclasses.asdict(v) for k, v in J_INPUT_SHAPES.items()})
+    for name, shape in INPUT_SHAPES.items():
+        assert shape.is_decode == J_INPUT_SHAPES[name].is_decode
+    assert ([f.name for f in dataclasses.fields(ShapeConfig)]
+            == [f.name for f in dataclasses.fields(JShapeConfig)])
+    assert TrainConfig().shape == INPUT_SHAPES["train_4k"]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7])
+def test_lm_token_batches_byte_equal(seed):
+    """The same token stream for a seed (the train driver's data)."""
+    for vocab, batch, seq in ((512, 4, 32), (32064, 8, 128)):
+        ours = synthetic.lm_token_batches(seed, vocab, batch, seq,
+                                          n_batches=3)
+        theirs = j_synthetic.lm_token_batches(seed, vocab, batch, seq,
+                                              n_batches=3)
+        n = 0
+        for a, b in zip(ours, theirs, strict=True):
+            assert sorted(a) == sorted(b) == ["labels", "tokens"]
+            for k in a:
+                assert a[k].dtype == b[k].dtype == np.int32
+                assert a[k].tobytes() == b[k].tobytes()
+            n += 1
+        assert n == 3
+
+
+def test_epoch_minibatches_equal():
+    ours = list(pipeline.epoch_minibatches(np.random.default_rng(3), 50, 8))
+    theirs = list(j_pipeline.epoch_minibatches(np.random.default_rng(3), 50,
+                                               8))
+    assert len(ours) == len(theirs) == 6
+    for a, b in zip(ours, theirs):
+        np.testing.assert_array_equal(a, b)
+    it = pipeline.BatchIterator(iter([{"tokens": np.arange(4)}]),
+                                device="cpu")
+    batch = next(it)
+    assert torch.equal(batch["tokens"], torch.arange(4))
+    with pytest.raises(StopIteration):
+        next(it)
 
 
 def _model_cfg_view(cfg):

@@ -19,10 +19,13 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.rmsnorm import kernel as rms_kernel
 from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.kernels.rmsnorm import ref as rms_ref
 from repro_torch.kernels.ssd_chunk import kernel as ssd_kernel
 from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+from repro_torch.kernels.ssd_chunk import ref as ssd_ref
 from repro_torch.kernels.zoo_dual_matmul import kernel as zoo_kernel
 from repro_torch.kernels.zoo_dual_matmul import ops as zoo_ops
 
@@ -37,7 +40,13 @@ SLICE_MODULES = ("repro_torch.kernels.zoo_dual_matmul.ops",
                  "repro_torch.kernels.ssd_chunk.kernel",
                  "repro_torch.kernels.ssd_chunk.ref",
                  "repro_torch.models.ssm", "repro_torch.models.transformer",
-                 "repro_torch.launch.serve")
+                 "repro_torch.launch.serve",
+                 "repro_torch.kernels._plain_grad",
+                 "repro_torch.optim.optimizers", "repro_torch.optim.schedule",
+                 "repro_torch.data.pipeline", "repro_torch.core.cascade",
+                 "repro_torch.checkpoint.io",
+                 "repro_torch.federation.parties",
+                 "repro_torch.launch.train")
 
 
 def _port_files():
@@ -198,3 +207,121 @@ def test_serve_runs_on_the_card_unless_asked_for_the_cpu():
         serve("phi3-mini-3.8b", n_clients=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve("phi3-mini-3.8b", n_clients=0)
+
+
+# ------------------------------------------------------ differentiability --
+
+def _fake_launches(monkeypatch):
+    """Every wrapper takes its CUDA branch on CPU tensors, and each kernel
+    launch writes its plain version's output instead."""
+    def flash(q, k, v, o, *, causal, window, q_offset):
+        o.copy_(flash_ref.flash_attention_bshd_ref(
+            q, k, v, causal=causal, window=window, q_offset=q_offset))
+
+    def rms(x, scale, y, eps, way, shape=(0, 0, 0)):
+        y.copy_(rms_ref.rmsnorm_ref(x, scale, eps))
+
+    def ssd(xh, a, dt, bm, cm, state0, y, state_out, scratch, chunk):
+        y_ref, s_ref = ssd_ref.ssd_states_ref(xh, a, dt, bm, cm, state0)
+        y.copy_(y_ref.to(y.dtype) if y.ndim == 4 else y_ref[:, :, 0])
+        if state_out is not None:
+            state_out.copy_(s_ref)
+
+    for ops in (flash_ops, rms_ops, ssd_ops):
+        monkeypatch.setattr(ops, "_validate", lambda *a: True)
+    monkeypatch.setattr(flash_kernel, "launch", flash)
+    monkeypatch.setattr(rms_kernel, "launch", rms)
+    monkeypatch.setattr(rms_ops, "route", lambda x, scale=None: "general")
+    monkeypatch.setattr(ssd_kernel, "launch", ssd)
+    monkeypatch.setattr(ssd_kernel, "scratch_bytes", lambda *a: 0)
+
+
+def _operands(which, g):
+    """(wrapper call, plain call, operands) of each differentiable kernel,
+    at small shapes in f32."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g)
+    if which == "flash_attention":
+        q, k, v = rnd(2, 8, 4, 16), rnd(2, 8, 2, 16), rnd(2, 8, 2, 16)
+        kw = dict(causal=True, window=5)
+        return (lambda q, k, v: flash_ops.flash_attention_bshd(q, k, v, **kw),
+                lambda q, k, v: flash_ref.flash_attention_bshd_ref(
+                    q, k, v, **kw), [q, k, v])
+    if which == "rmsnorm":
+        x, scale = rnd(6, 32), 1.0 + 0.1 * rnd(32)
+        return (lambda x, s: rms_ops.rmsnorm(x, s),
+                lambda x, s: rms_ref.rmsnorm_ref(x, s), [x, scale])
+    B, S, H, P, N = 2, 8, 3, 4, 5
+    ops_args = [rnd(B, S, H, P), torch.sigmoid(rnd(B, S, H)),
+                torch.nn.functional.softplus(rnd(B, S, H)), rnd(B, S, N),
+                rnd(B, S, N)]
+    return (lambda *t: ssd_ops.ssd_chunk_bshp(*t, chunk=4),
+            lambda *t: ssd_ref.ssd_chunked_ref(*t, 4), ops_args)
+
+
+def _first(out):
+    return out[0] if isinstance(out, tuple) else out
+
+
+@pytest.mark.parametrize("which", ["flash_attention", "rmsnorm",
+                                   "ssd_chunk"])
+def test_wrappers_differentiate_through_their_plain_version(monkeypatch,
+                                                            which):
+    """On the card a wrapper whose operand requires grad returns an output
+    with a grad_fn (the kernel's forward, the plain version's autograd
+    backward), and its gradients equal autograd through the plain
+    version; with grad off it launches the kernel outside the Function."""
+    _fake_launches(monkeypatch)
+    ops = {"flash_attention": flash_ops, "rmsnorm": rms_ops,
+           "ssd_chunk": ssd_ops}[which]
+    call, plain, operands = _operands(which, torch.Generator().manual_seed(0))
+    fn = {"flash_attention": flash_ops.FlashAttentionFn,
+          "rmsnorm": rms_ops.RMSNormFn, "ssd_chunk": ssd_ops.SSDChunkFn}[which]
+    entered = []
+    apply = fn.apply
+    monkeypatch.setattr(fn, "apply", lambda *a: entered.append(1) or apply(*a))
+
+    name = next(iter(ops.launches))
+    before = ops.launches[name]
+    with torch.no_grad():
+        out = _first(call(*[t.requires_grad_(True) for t in operands]))
+    assert out.grad_fn is None and not entered
+    assert ops.launches[name] == before + 1
+    torch.testing.assert_close(out, _first(plain(*operands)).detach())
+
+    leaves = [t.detach().requires_grad_(True) for t in operands]
+    got = _first(call(*leaves))
+    assert got.grad_fn is not None and entered == [1]
+    assert ops.launches[name] == before + 2
+    weight = torch.randn(got.shape, generator=torch.Generator().manual_seed(1))
+    grads = torch.autograd.grad((got * weight).sum(), leaves)
+    ref_leaves = [t.detach().requires_grad_(True) for t in operands]
+    want = torch.autograd.grad((_first(plain(*ref_leaves)) * weight).sum(),
+                               ref_leaves)
+    for g_got, g_want in zip(grads, want):
+        torch.testing.assert_close(g_got, g_want, rtol=1e-5, atol=1e-6)
+
+    # only the operands that require grad get a gradient
+    part = [t.detach().requires_grad_(i == 0) for i, t in enumerate(operands)]
+    (g0,) = torch.autograd.grad((_first(call(*part)) * weight).sum(),
+                                part[:1])
+    torch.testing.assert_close(g0, want[0], rtol=1e-5, atol=1e-6)
+
+
+def test_zoo_kernel_refuses_operands_that_require_grad(monkeypatch,
+                                                       tmp_path):
+    """The ZOO fan-out has no backward: on the card, an operand requiring
+    grad raises before any launch instead of losing its gradient."""
+    x = torch.ones(2, 4, 8)
+    w = torch.ones(2, 8, 4, requires_grad=True)
+    us = torch.ones(2, 1, 8, 4)
+    before = dict(zoo_ops.launches)
+    _fake_card(monkeypatch, tmp_path, zoo_ops, zoo_kernel)
+    try:
+        with pytest.raises(ValueError, match="no backward"):
+            zoo_ops.zoo_dual_matmul_stacked(x, w, us, 1e-3)
+        with torch.no_grad(), pytest.raises(RuntimeError, match="nvcc"):
+            zoo_ops.zoo_dual_matmul_stacked(x, w, us, 1e-3)
+    finally:
+        zoo_kernel._launcher.cache_clear()
+    assert zoo_ops.launches == before
