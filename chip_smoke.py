@@ -71,12 +71,46 @@ and prints no result):
    gradient reaching the first Mamba2 layer's in_proj); and Phi-3 at full
    width with 2 layers trained 4 steps, saved, resumed to 8, against 8
    without a break (bitwise equal losses and params);
-6. a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
+6. continuous split serving through ``Federation.serve`` (the paged
+   ``ServeScheduler``) at full width: 16 requests queued up front
+   (prompts 1024, 1024, 768, 768, 512, 512, 256, 256 twice over,
+   generations 128, 96, 64, 32 in turn, greedy) over 8 slots with 8-token
+   pages and 2 client parties, seq_len 1152. Phi-3-mini at full depth
+   with the worst-case pool (run A) and with half of it plus 2 pages and
+   preemption (run B, which must preempt), Zamba2-2.7B cut to 12 layers
+   (run A). Each run holds every request's wire ledger to
+   ``Transport.account_serve``'s formula (plus a preempted request's
+   re-prefill), host transfers to one a retirement wave and one an
+   eviction, the launch counts to their derivation from the scheduler's
+   prefill chunks, decode steps and replayed tokens, every serve kernel
+   against its plain version on the drain's own inputs (the first and last
+   site of each new chunk shape, offset and wave width, captured during
+   the drain), and each request's tokens by a teacher-forced gap: re-run
+   solo through ``server_prefill``, the reference's max logit minus its
+   logit of the chosen token, at most 2 x the solo ``fed.decode`` path's
+   worst gap on the longest and the shortest request (floored at 2e-2 x
+   the largest |logit|). The requests of 32 tokens are also re-run through
+   the B = 1 serve step on their own tokens: their gap at most 4 x and
+   their final logits within 2 x the larger of one bf16 step at the
+   largest |logit| and the solo path's B = 8 against B = 1 reading. It
+   logs decode tokens/s, peak pages and memory, a profile of one 8-step
+   block (launches a step, the device's busy share, the paged gather's
+   time a step), a sampled drain (temperature 0.8: its time, peak memory
+   and noise table; seeds sharing a prompt must draw different streams)
+   and the phase's time;
+7. a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 
-It needs one card, and builds into ``build/`` at first use.
+It needs one card, and builds into ``build/`` at first use. The whole
+script took 251–272 s on an NVIDIA H100 80GB HBM3 at 700 W, phase 6
+129–134 s of it (107–162 s before phase 6), host speed setting the
+spread. Phase 6's modules have CPU tests of their own against the JAX
+package: ``tests/test_torch_paging.py`` and
+``tests/test_torch_serve_continuous.py``.
 """
 import contextlib
+import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -903,12 +937,15 @@ class Capture:
 
     def __call__(self, *args, **kw):
         if self.calls in self.keep:
-            self.inputs[self.calls] = (
-                [a.clone() for a in args],
-                {k: v.clone() if isinstance(v, torch.Tensor) else v
-                 for k, v in kw.items()})
+            self.store(args, kw)
         self.calls += 1
         return self.inner(*args, **kw)
+
+    def store(self, args, kw):
+        self.inputs[self.calls] = (
+            [a.clone() for a in args],
+            {k: v.clone() if isinstance(v, torch.Tensor) else v
+             for k, v in kw.items()})
 
     def __enter__(self):
         setattr(self.module, self.attr, self)
@@ -916,6 +953,77 @@ class Capture:
 
     def __exit__(self, *exc):
         setattr(self.module, self.attr, self.inner)
+
+
+# each serve kernel's entry point in its ops module
+KERNEL_ENTRIES = {"flash_attention": "flash_attention_bshd",
+                  "rmsnorm": "rmsnorm", "ssd_chunk": "ssd_chunk_bshp"}
+
+
+def call_signature(args, kw):
+    """A kernel call's shapes and options: tensors by shape and dtype."""
+    def one(v):
+        return (tuple(v.shape), str(v.dtype)) if isinstance(
+            v, torch.Tensor) else v
+    return (tuple(one(a) for a in args),
+            tuple(sorted((k, one(v)) for k, v in kw.items())))
+
+
+class GroupCapture(Capture):
+    """Capture by the path's structure: the calls come in groups of
+    ``per_group`` (one forward pass's calls of the kernel, site by site).
+    At the first group of each new call signature (a new chunk shape,
+    offset or wave width), keep copies of the calls at ``positions`` in
+    that group."""
+
+    def __init__(self, module, attr, per_group, positions):
+        super().__init__(module, attr, ())
+        self.per_group, self.positions = per_group, set(positions)
+        self.seen, self.keeping = {}, False
+
+    def __call__(self, *args, **kw):
+        j = self.calls % self.per_group
+        if j == 0:
+            sig = call_signature(args, kw)
+            self.keeping = sig not in self.seen
+            self.seen.setdefault(sig, self.calls)
+        if self.keeping and j in self.positions:
+            self.store(args, kw)
+        self.calls += 1
+        return self.inner(*args, **kw)
+
+
+def hold_calls(name, ops, ref, inputs, where, what):
+    """Re-run captured calls of kernel ``name`` through its wrapper and its
+    plain version; log each error, raise on a disagreement, return the
+    worst error. ``where(i, args, kw)`` describes call ``i``."""
+    worst = 0.0
+    for i, (args, kw) in sorted(inputs.items()):
+        if name == "flash_attention":
+            got = [ops.flash_attention_bshd(*args, **kw)]
+            want = [ref.flash_attention_bshd_ref(*args, **kw)]
+            tols = [SERVE_TOL]
+        elif name == "rmsnorm":
+            got = [ops.rmsnorm(*args, **kw)]
+            want = [ref.rmsnorm_ref(*args, **kw)]
+            tols = [SERVE_TOL]
+        else:
+            got = list(ops.ssd_chunk_bshp(*args, **kw))
+            want = list(ref.ssd_states_ref(*args, state0=kw.get("state0")))
+            tols = [ssd_tol(w, SSD_TOL[torch.float32]) for w in want]
+        torch.cuda.synchronize()
+        checks = [_err_ok(g, w, t) for g, w, t in zip(got, want, tols)]
+        err = max(e for e, _ in checks)
+        ok = all(o for _, o in checks)
+        worst = max(worst, err)
+        log(f"{what} tensors: {name} call {i} ({where(i, args, kw)}): "
+            f"max_abs_err {err:.3e}, output max |.| "
+            f"{max(float(w.float().abs().max()) for w in want):.4g} (tol "
+            f"{tols}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees on the {what} path's "
+                                 "tensors")
+    return worst
 
 
 def profile_decode(fed, params, serving, steps: int = 8) -> None:
@@ -1065,6 +1173,23 @@ def serve_plan(cfg):
         "ssd_chunk": mamba * n_chunks})
 
 
+def call_site(name, i, args, kw, plan):
+    """Where call ``i`` of kernel ``name`` sits on a serve path: the
+    forward pass (a prefill chunk; for norms, any forward) and the site
+    in it."""
+    if name == "flash_attention":
+        return (f"site {i % plan['sites']}, chunk {i // plan['sites']}, q "
+                f"{tuple(args[0].shape)}, q_offset {kw.get('q_offset')}")
+    if name == "rmsnorm":
+        per_fwd = plan["per_fwd"]
+        return (f"forward {i // per_fwd}, norm {i % per_fwd}, x "
+                f"{tuple(args[0].shape)}, input max |.| "
+                f"{float(args[0].float().abs().max()):.4g}")
+    return (f"Mamba2 layer {i % plan['mamba']}, chunk "
+            f"{i // plan['mamba']}, x {tuple(args[0].shape)}, chunk length "
+            f"{kw['chunk']}")
+
+
 def serve_phase(rows, arch, zoo_ops, kernels):
     """Phase 4: the split serve path of ``arch`` at full width and depth.
     ``kernels`` maps each serve kernel's name to its (ops, ref) modules."""
@@ -1078,8 +1203,6 @@ def serve_phase(rows, arch, zoo_ops, kernels):
     # the first and last attention site and Mamba2 layer of both prefill
     # chunks; the first two norms and the last two before the final norm
     # of both prefill chunks and the first decode step
-    entries = {"flash_attention": "flash_attention_bshd",
-               "rmsnorm": "rmsnorm", "ssd_chunk": "ssd_chunk_bshp"}
     keep = {"flash_attention": [0, A - 1, A, 2 * A - 1],
             "rmsnorm": [f * per_fwd + j for f in (0, 1, 2)
                         for j in (0, 1, per_fwd - 3, per_fwd - 2)],
@@ -1089,7 +1212,8 @@ def serve_phase(rows, arch, zoo_ops, kernels):
     torch.cuda.reset_peak_memory_stats()
     with contextlib.ExitStack() as stack:
         caps = {name: stack.enter_context(
-                    Capture(kernels[name][0], entries[name], keep[name]))
+                    Capture(kernels[name][0], KERNEL_ENTRIES[name],
+                            keep[name]))
                 for name in kernels}
         t0 = time.perf_counter()
         res = serve_mod.serve(arch, use_reduced=False, temperature=0.0,
@@ -1139,47 +1263,13 @@ def serve_phase(rows, arch, zoo_ops, kernels):
     # inputs (launches here come after the counts were read)
     serve_err = {}
     for name, cap in caps.items():
-        ops, ref = kernels[name]
-        serve_err[name] = 0.0
         if len(cap.inputs) != len(keep[name]):
             raise AssertionError(f"the serve run missed a captured {name} "
                                  "call")
-        for i, (args, kw) in sorted(cap.inputs.items()):
-            if name == "flash_attention":
-                got = [ops.flash_attention_bshd(*args, **kw)]
-                want_o = [ref.flash_attention_bshd_ref(*args, **kw)]
-                where = (f"site {i % A}, chunk {i // A}, q "
-                         f"{tuple(args[0].shape)}, q_offset "
-                         f"{kw.get('q_offset')}")
-                tols = [SERVE_TOL]
-            elif name == "rmsnorm":
-                got = [ops.rmsnorm(*args, **kw)]
-                want_o = [ref.rmsnorm_ref(*args, **kw)]
-                where = (f"forward {i // per_fwd}, norm {i % per_fwd}, x "
-                         f"{tuple(args[0].shape)}, input max |.| "
-                         f"{float(args[0].float().abs().max()):.4g}")
-                tols = [SERVE_TOL]
-            else:
-                got = list(ops.ssd_chunk_bshp(*args, **kw))
-                want_o = list(ref.ssd_states_ref(*args,
-                                                 state0=kw.get("state0")))
-                where = (f"Mamba2 layer {i % M}, chunk {i // M}, x "
-                         f"{tuple(args[0].shape)}, chunk length "
-                         f"{kw['chunk']}")
-                tols = [ssd_tol(w, SSD_TOL[torch.float32]) for w in want_o]
-            torch.cuda.synchronize()
-            checks = [_err_ok(g_, w_, t_)
-                      for g_, w_, t_ in zip(got, want_o, tols)]
-            err = max(e for e, _ in checks)
-            ok = all(o for _, o in checks)
-            serve_err[name] = max(serve_err[name], err)
-            log(f"serve tensors: {name} call {i} ({where}): max_abs_err "
-                f"{err:.3e}, output max |.| "
-                f"{max(float(w_.float().abs().max()) for w_ in want_o):.4g} "
-                f"(tol {tols}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"{name} disagrees on the serve path's "
-                                     "tensors")
+        serve_err[name] = hold_calls(
+            name, *kernels[name], cap.inputs,
+            lambda i, args, kw: call_site(name, i, args, kw, plan),
+            "serve")
     for name in kernels:
         if want[name]:
             rows[name]["launches"] += launches[name]
@@ -1899,6 +1989,515 @@ def train_resume(card) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ----------------------------------------- phase 6: continuous serving --
+
+# 16 requests queued before the drain: prompt lengths 1024 ... 256 twice
+# over (waves of width 2), generation lengths 128, 96, 64, 32 in turn,
+# greedy; 8 slots over a page pool of 8-token pages, 2 client parties,
+# seq_len 1152 (the phase-4 window)
+CONT_PROMPTS = (1024, 1024, 768, 768, 512, 512, 256, 256) * 2
+CONT_GENS = (128, 96, 64, 32)
+CONT = dict(max_batch=8, page_size=8)
+CONT_GAP_FLOOR = 2e-2   # x the reference's largest |logit|
+CONT_ZAMBA_LAYERS = 12  # two shared-attention sites
+CONT_PROFILE_STEPS = 8
+CONT_STEP_GEN = 32      # requests held to the B = 1 step reference
+CONT_SAMPLED_T = 0.8
+
+
+def cont_traffic(vocab: int, device):
+    """[(prompt, gen_len)]: the prompts drawn in one call on the card from
+    seed 1, fetched once."""
+    g = torch.Generator(device).manual_seed(1)
+    toks = torch.randint(0, vocab, (len(CONT_PROMPTS), max(CONT_PROMPTS)),
+                         generator=g, device=device).cpu().numpy()
+    return [(toks[i, :p].astype(np.int32), CONT_GENS[i % len(CONT_GENS)])
+            for i, p in enumerate(CONT_PROMPTS)]
+
+
+def cont_launch_plan(cfg, srv) -> dict:
+    """The launches a drain makes, derived from the config and the
+    scheduler's counters: each prefill chunk runs flash attention once an
+    attention site and the SSD scan once a Mamba2 layer; every forward
+    pass (a prefill chunk, a decode step of all slots, a replayed token)
+    runs each norm once."""
+    plan = serve_plan(cfg)
+    fwd = srv.prefill_chunks + srv.steps + srv.replay_steps
+    return {"flash_attention": plan["sites"] * srv.prefill_chunks,
+            "rmsnorm": plan["per_fwd"] * fwd,
+            "ssd_chunk": plan["mamba"] * srv.prefill_chunks}
+
+
+def picked_gap(ref, tokens, vocab_size) -> float:
+    """At each generated position, the reference's max logit minus its
+    logit of the token chosen there; the worst. ``ref`` (G, vocab). The
+    sampler clamps its argmax into the unpadded vocabulary, so the last
+    id stands for every padded one too (Phi-3 pads 32064 to 32256)."""
+    chosen = torch.from_numpy(tokens.astype(np.int64)).to(ref.device)
+    last = vocab_size - 1
+    picked = torch.where(chosen == last, ref[:, last:].max(-1).values,
+                         ref.gather(1, chosen[:, None])[:, 0])
+    return float((ref.max(-1).values - picked).max())
+
+
+def teacher_forced_gap(fed, params, prompt, tokens):
+    """Re-run ``prompt`` + ``tokens`` solo at B = 1 through
+    ``client_embed`` and ``server_prefill`` over the span plan, keeping
+    every position's logits; return (the worst :func:`picked_gap` over
+    the generated positions, the reference's largest |logit|). The last
+    token's own logits are not read: feeding it keeps every chunk at a
+    length whose SSD chunk divisor is at least 32 (P + G - 1 can be
+    prime)."""
+    from repro_torch.federation import serving
+    from repro_torch.tree import tree_map
+    P, G = prompt.size, tokens.size
+    seq = torch.from_numpy(np.concatenate([prompt, tokens])[None]).to(
+        fed.device).long()
+    caches = serving.zero_caches(fed.adapter, 1, P + G, fed.device)
+    span = fed.seq_len // fed.n_clients
+    rows = []
+    with torch.no_grad():
+        for t0, t1, m in serving.prefill_plan(P + G, span):
+            e = fed.adapter.client_embed(
+                tree_map(lambda a: a[m], params["clients"]), seq[:, t0:t1])
+            lg, caches = fed.adapter.server_prefill(params["server"], e,
+                                                    caches, t0)
+            rows.append(lg[0, max(P - 1 - t0, 0):].float()
+                        if t1 > P - 1 else None)
+    ref = torch.cat([r for r in rows if r is not None])[:G]   # (G, vocab)
+    return (picked_gap(ref, tokens, fed.model_cfg.vocab_size),
+            float(ref.abs().max()))
+
+
+def step_reference(fed, params, prompt, tokens, batch: int = 1,
+                   prefill_batch: int = 0):
+    """The solo serve path teacher-forced on ``prompt`` + ``tokens``, the
+    row replicated: the prompt's chunked prefill at ``prefill_batch``
+    rows (default ``batch``), then one ``fed.serve_step`` a token at
+    ``batch`` rows, over a ``seq_len`` cache (the paged extent). Returns
+    row 0's logits, (G + 1, vocab) f32: after the prompt, then after each
+    token."""
+    from repro_torch.federation import paging, serving
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    P, w = prompt.size, prefill_batch or batch
+    seq = torch.from_numpy(np.concatenate([prompt, tokens]).astype(
+        np.int32)).to(fed.device)[None]
+    caches = serving.zero_caches(fed.adapter, w, fed.seq_len, fed.device)
+    step = fed.serve_step()
+    out = []
+    with torch.no_grad():
+        for t0, t1, m in serving.prefill_plan(P, fed.seq_len
+                                              // fed.n_clients):
+            lg, caches = serving.prefill_chunk(
+                fed.adapter, params, seq[:, t0:t1].expand(w, -1).contiguous(),
+                caches, t0, m)
+        out.append(lg[0, -1].float())
+        if w != batch:      # row 0's caches, replicated to ``batch`` rows
+            plans = tree_leaves(paging.leaf_plans(
+                fed.adapter.cache_specs(1, fed.seq_len)))
+            caches = tree_unflatten(caches, [
+                torch.cat([leaf.narrow(p.batch_axis, 0, 1)] * batch,
+                          dim=p.batch_axis)
+                for leaf, p in zip(tree_leaves(caches), plans)])
+        seq = seq.expand(batch, -1).contiguous()
+        for i in range(tokens.size):
+            lg, caches = step(params, seq[:, P + i:P + i + 1], caches, P + i)
+            out.append(lg[0, -1].float())
+    return torch.stack(out)
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 numbers at |x| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def cont_drain(fed, params, traffic, counters, **kw):
+    """Queue every request, then drain them in one ``run()``; the launch
+    counts are set to 0 just before the run and read just after. Returns
+    (scheduler, results, launches, readings): the run's wall time, the
+    memory allocated before it and its peak, in GiB."""
+    srv = fed.serve(params, **CONT, **kw)
+    for prompt, gen in traffic:
+        srv.submit(prompt, gen)
+    for ops in counters:
+        ops.reset_launches()
+    gc.collect()                # the references' caches, before the peak
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    results = srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return srv, results, _launches(counters), dict(
+        wall=wall, before=before,
+        peak=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def check_drain(what, cfg, fed, params, srv, results, traffic, launches,
+                run, solo):
+    """Hold one drain: statuses, the wire per request, host transfers,
+    pages, launches, the teacher-forced gap against the chunked-prefill
+    reference (every request) and against the B = 1 step reference (the
+    requests of CONT_STEP_GEN tokens: their gaps and final logits); log
+    its speed and memory. ``run`` holds :func:`cont_drain`'s readings
+    and the bytes of the kernel inputs captured during the drain;
+    ``solo`` is :func:`solo_baseline`'s reading."""
+    from repro_torch.federation import Transport
+    d = cfg.d_model
+    if [r.status for r in results] != ["ok"] * len(traffic) or any(
+            r.tokens.shape != (g,) for r, (_, g) in zip(results, traffic)):
+        raise AssertionError(f"{what}: statuses "
+                             f"{[r.status for r in results]}")
+    replayed = 0
+    for (prompt, gen), r in zip(traffic, results):
+        base = Transport().account_serve(
+            batch=1, embed=d, n_steps=prompt.size + gen,
+            n_gen=gen).total_bytes
+        extra, up = r.wire_bytes - base, d * 4
+        # a preempted request re-uploads its prompt and its generated
+        # tokens at each re-admission (the JAX package's metering)
+        n_up, rest = divmod(extra, up)
+        if rest or n_up < r.preemptions * prompt.size or (
+                not r.preemptions and extra):
+            raise AssertionError(f"{what}: request {r.rid} wire "
+                                 f"{r.wire_bytes} B, formula {base} B, "
+                                 f"{r.preemptions} preemptions")
+        replayed += n_up - r.preemptions * prompt.size
+    if replayed != srv.replay_steps:
+        raise AssertionError(f"{what}: re-prefilled tokens {replayed}, "
+                             f"replay steps {srv.replay_steps}")
+    waves = len({r.finished_at for r in results})
+    want = cont_launch_plan(cfg, srv)
+    worst_pages = srv.max_batch * srv.pages_per_seq
+    gaps = [teacher_forced_gap(fed, params, p, r.tokens)
+            for (p, _), r in zip(traffic, results)]
+    gap, absmax = max(g for g, _ in gaps), max(a for _, a in gaps)
+    gate = max(2 * solo["gap"], CONT_GAP_FLOOR * absmax)
+    # the step reference: what the solo path computes at B = 1 along the
+    # same tokens. The scheduler's logits may differ from it by 2 x the
+    # solo path's own B = 8 against B = 1 reading (at least one bf16 step
+    # at the largest |logit|), and its gap by twice that (an argmax can
+    # flip only where two logits lie within their summed errors)
+    held = [i for i, (_, g) in enumerate(traffic) if g == CONT_STEP_GEN]
+    step_gap = step_err = ref_max = 0.0
+    for i in held:
+        ref = step_reference(fed, params, traffic[i][0], results[i].tokens)
+        step_gap = max(step_gap, picked_gap(ref[:-1], results[i].tokens,
+                                            cfg.vocab_size))
+        got = torch.from_numpy(results[i].logits[0]).to(ref.device)
+        step_err = max(step_err, float((got - ref[-1]).abs().max()))
+        ref_max = max(ref_max, float(ref.abs().max()))
+    eps = max(solo["delta"], bf16_ulp(ref_max))
+    # the replica reference: the scheduler's own shapes without the pages
+    # (prefill at the request's wave width, steps at max_batch, the row
+    # replicated). Every op is row-independent, so it should compute each
+    # row as the scheduler does. Without preemption only: a resumed
+    # request's last tenancy (its replay length) is not in its result
+    replica = None
+    if not srv.preemptions:
+        width = {}
+        for (p, _), r in zip(traffic, results):
+            key = (r.admitted_at, p.size)
+            width[key] = width.get(key, 0) + 1
+        replica = [0.0, 0.0]
+        for i in held:
+            r = results[i]
+            ref = step_reference(
+                fed, params, traffic[i][0], r.tokens, batch=srv.max_batch,
+                prefill_batch=width[(r.admitted_at, traffic[i][0].size)])
+            got = torch.from_numpy(r.logits[0]).to(ref.device)
+            replica = [max(replica[0], picked_gap(ref[:-1], r.tokens,
+                                                  cfg.vocab_size)),
+                       max(replica[1], float((got - ref[-1]).abs().max()))]
+    log(f"{what}: {len(results)} requests, {srv.steps} scheduler steps, "
+        f"{srv.generated_tokens} tokens in {srv.last_run_s:.4f} s = "
+        f"{srv.generated_tokens / srv.last_run_s:.1f} decode tokens/s "
+        f"(prefills included; whole run() {run['wall']:.4f} s), peak "
+        f"memory {run['peak']:.2f} GiB from {run['before']:.2f} allocated "
+        f"before the run (weights and the pool), the "
+        f"{run['captured']:.2f} GiB of kernel inputs captured for the "
+        f"checks included; "
+        f"{srv.prefill_chunks} prefill chunks, {srv.replay_steps} replayed "
+        f"tokens, {srv.preemptions} preemptions; host transfers "
+        f"{srv.host_transfers} = {waves} retirement waves + "
+        f"{srv.preemptions} evictions; pages peak "
+        f"{srv.allocator.peak_in_use} of {srv.allocator.capacity} (worst "
+        f"case {worst_pages}); launches {launches}, derived {want}; wire "
+        f"{sum(r.wire_bytes for r in results)} B, every request at its "
+        f"formula; teacher-forced worst gap {gap:.5g} (gate {gate:.5g}: "
+        f"2 x the solo decode's {solo['gap']:.5g}, floor {CONT_GAP_FLOOR} "
+        f"x max |logit| {absmax:.5g}); against the B = 1 step reference "
+        f"on requests {held}: worst gap {step_gap:.5g} (gate "
+        f"{4 * eps:.5g}), final logits max |err| {step_err:.5g} (gate "
+        f"{2 * eps:.5g}; the solo path's B = 8 vs B = 1 reading "
+        f"{solo['delta']:.5g}, a bf16 step at max |logit| {ref_max:.5g} "
+        f"{bf16_ulp(ref_max):.5g}); against the replica reference (wave "
+        f"width, then B = {srv.max_batch}): "
+        + ("not run (requests were preempted)" if replica is None else
+           f"worst gap {replica[0]:.5g} (gate {4 * bf16_ulp(ref_max):.5g}), "
+           f"final logits max |err| {replica[1]:.5g} (gate "
+           f"{2 * bf16_ulp(ref_max):.5g}: 2 bf16 steps)"))
+    if srv.host_transfers != waves + srv.preemptions:
+        raise AssertionError(f"{what}: host transfers are not one a wave "
+                             "and one an eviction")
+    if {k: launches[k] for k in want} != want or any(
+            v for k, v in launches.items() if k not in want):
+        raise AssertionError(f"{what}: launches {launches}, want {want}")
+    if not gap <= gate:
+        raise AssertionError(f"{what}: teacher-forced gap {gap} over "
+                             f"{gate}")
+    if not (step_gap <= 4 * eps and step_err <= 2 * eps):
+        raise AssertionError(f"{what}: against the step reference, gap "
+                             f"{step_gap} (gate {4 * eps}), final logits "
+                             f"{step_err} (gate {2 * eps})")
+    if replica is not None and not (replica[0] <= 4 * bf16_ulp(ref_max)
+                                    and replica[1] <= 2 * bf16_ulp(ref_max)):
+        raise AssertionError(f"{what}: against the replica reference, gap "
+                             f"{replica[0]}, final logits {replica[1]}")
+    return dict(launches=want, gap=gap, step_gap=step_gap,
+                step_err=step_err, tok_s=srv.generated_tokens
+                / srv.last_run_s, peak_pages=srv.allocator.peak_in_use,
+                worst_pages=worst_pages)
+
+
+def solo_baseline(fed, params, traffic) -> dict:
+    """The existing solo ``fed.decode`` path under the same checks: its
+    worst teacher-forced gap against the chunked-prefill reference on the
+    longest and the shortest request, and on the shortest the bf16
+    batch-invariance reading: the largest |logit| difference along its
+    tokens between the step reference at B = 8 (the row replicated) and
+    at B = 1."""
+    sizes = [p.size + g for p, g in traffic]
+    gap = 0.0
+    for i in (sizes.index(max(sizes)), sizes.index(min(sizes))):
+        prompt, gen = traffic[i]
+        tokens = fed.decode(params, prompt[None], gen_len=gen).tokens[0]
+        gap = max(gap, teacher_forced_gap(fed, params, prompt, tokens)[0])
+    one = step_reference(fed, params, prompt, tokens)
+    eight = step_reference(fed, params, prompt, tokens, batch=8)
+    delta = float((eight - one).abs().max())
+    log(f"solo baseline: worst gap {gap:.5g} against the prefill "
+        f"reference; request {i} ({prompt.size} + {gen}) at B = 8 vs B = 1 "
+        f"along its tokens: logits max |diff| {delta:.5g}; its own gap "
+        f"under the B = 1 step reference "
+        f"{picked_gap(one[:-1], tokens, fed.model_cfg.vocab_size):.5g}")
+    return dict(gap=gap, delta=delta)
+
+
+def sampled_drain(fed, params, traffic) -> None:
+    """One drain at temperature CONT_SAMPLED_T: 8 requests of 256 + 32
+    tokens (two prompts, seeds 0-7, one wave), on the same session. Logs
+    its time, its peak memory and noise table, and the time to draw one
+    request's noise rows at the traffic's largest admission (1024 + 128);
+    requests that share a prompt must sample different streams."""
+    from repro_torch.federation import serving
+    reqs = [traffic[6 + i % 2][0] for i in range(8)]
+    srv = fed.serve(params, temperature=CONT_SAMPLED_T, **CONT)
+    for i, prompt in enumerate(reqs):
+        srv.submit(prompt, CONT_STEP_GEN, seed=i)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    results = srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    vocab = results[0].logits.shape[-1]
+    draws, times = serving.PositionGumbel(0), []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        draws.rows(1024, 128, vocab, fed.device)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    streams = [r.tokens.tobytes() for r in results]
+    log(f"sampled drain (temperature {CONT_SAMPLED_T}): 8 x (256 + "
+        f"{CONT_STEP_GEN}) tokens in {srv.last_run_s:.4f} s = "
+        f"{srv.generated_tokens / srv.last_run_s:.1f} decode tokens/s "
+        f"(whole run() {wall:.4f} s), peak memory {peak:.2f} GiB ({before:.2f}"
+        f" GiB allocated before the run: weights and the pool), noise "
+        f"table {srv.max_batch} x {CONT_STEP_GEN} x {vocab} f32 = "
+        f"{srv.max_batch * CONT_STEP_GEN * vocab * 4 / 2**20:.2f} MiB; one "
+        f"request's 128 noise rows drawn in {min(times):.3f} ms (best of "
+        f"5; {128 * vocab * 4 / 2**20:.2f} MiB)")
+    if [r.status for r in results] != ["ok"] * 8 or any(
+            r.tokens.shape != (CONT_STEP_GEN,) or r.tokens.min() < 0
+            or r.tokens.max() >= fed.model_cfg.vocab_size for r in results):
+        raise AssertionError("sampled drain: a request failed or sampled "
+                             "outside the vocabulary")
+    if len(set(streams)) != len(streams):
+        raise AssertionError("sampled drain: two seeds drew one stream")
+
+
+# the paged gather's device kernel (``flat[gather_rows]``: PyTorch's
+# vectorized index gather), one for K and one for V a layer a step
+PAGED_GATHER_KERNEL = r"vectorized_gather_kernel"
+
+
+def profile_block(fed, params, cfg, traffic) -> dict:
+    """One K-step block of 8 busy slots under torch.profiler (8 steps):
+    launches a step, the device's busy share, and the paged gather's
+    device time a step (K and V of every attention layer)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    srv = fed.serve(params, **CONT)
+    for prompt, _ in traffic[6:8] * 4:            # 8 x (256 + 64)
+        srv.submit(prompt, 4 * CONT_PROFILE_STEPS)
+    srv.run(max_steps=CONT_PROFILE_STEPS)         # admission + a block
+    torch.cuda.synchronize()
+    # the device's activity only: the host's op events of a block (three
+    # or more a launch) made the trace's processing take half a minute
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        srv.run(max_steps=CONT_PROFILE_STEPS)     # one block, no admission
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    srv.run()
+    steps = CONT_PROFILE_STEPS
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(dev_us(e) for e in kernels)
+    gather = [e for e in kernels if re.search(PAGED_GATHER_KERNEL, e.key)]
+    out = dict(wall_us=wall_us / steps, busy_us=busy / steps,
+               launches=sum(e.count for e in kernels) / steps,
+               gather_us=(sum(dev_us(e) for e in gather) / steps
+                          if gather else None),
+               gathers=sum(e.count for e in gather) / steps)
+    if not busy:
+        log("continuous profile: the profiler saw no CUDA kernel time; "
+            "device busy share not measured")
+        return out
+    log(f"continuous profile, one {steps}-step block of 8 busy slots "
+        f"(cache extent {fed.seq_len}, {srv.n_pages} pages) under "
+        f"torch.profiler: wall {out['wall_us']:.1f} us a step, device busy "
+        f"{out['busy_us']:.1f} us a step ({busy / wall_us:.2%} of wall), "
+        f"{out['launches']:.1f} kernel launches a step; the paged gather "
+        + (f"{out['gather_us']:.1f} us a step ({out['gathers']:.1f} "
+           f"gathers a step for {2 * serve_plan(cfg)['sites']} K and V "
+           f"reads, {out['gather_us'] / out['busy_us']:.2%} of device "
+           f"time)" if gather else "not found: not measured"))
+    for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
+        log(f"  {dev_us(e) / steps:9.2f} us/step  x{e.count / steps:6.2f}"
+            f"  {e.key[:90]}")
+    return out
+
+
+def cont_captures(stack, kernels, plan):
+    """GroupCaptures on the serve kernels a drain of ``plan``'s model
+    launches: the first and last attention site and Mamba2 layer of each
+    new prefill chunk signature (shape, offset, wave width), and the first
+    two norms and the last two before the final norm of each new forward
+    signature (prefill chunks, batched decode steps, replayed tokens)."""
+    groups = {"flash_attention": (plan["sites"], (0, plan["sites"] - 1)),
+              "rmsnorm": (plan["per_fwd"], (0, 1, plan["per_fwd"] - 3,
+                                            plan["per_fwd"] - 2)),
+              "ssd_chunk": (plan["mamba"], (0, plan["mamba"] - 1))}
+    return {name: stack.enter_context(GroupCapture(
+                kernels[name][0], KERNEL_ENTRIES[name], *groups[name]))
+            for name in kernels if groups[name][0]}
+
+
+def continuous_phase(rows, card, counters, kernels) -> None:
+    """Phase 6: continuous split serving through ``Federation.serve`` at
+    full width: Phi-3-mini at full depth with the worst-case pool (run A)
+    and with half of it plus preemption (run B), and Zamba2-2.7B cut to
+    12 layers (run A). Each drain holds the kernels against their plain
+    versions on its own captured inputs. ``kernels`` maps each serve
+    kernel's name to its (ops, ref) modules."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_mod
+    t_phase = time.perf_counter()
+    spent = {}
+
+    def lap(name, t0):
+        spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+        return time.perf_counter()
+
+    for arch, layers in (("phi3-mini-3.8b", None),
+                         ("zamba2-2.7b", CONT_ZAMBA_LAYERS)):
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        plan = serve_plan(cfg)
+        fed, gp = serve_mod.build_session(
+            cfg, n_clients=SERVE["n_clients"],
+            prompt_len=SERVE["prompt_len"], gen_len=SERVE["gen_len"],
+            seed=0)
+        params = fed.params_from_global(gp)
+        del gp
+        traffic = cont_traffic(cfg.vocab_size, fed.device)
+        torch.cuda.synchronize()
+        t0 = lap(f"{arch} weights and traffic", t0)
+        base = solo_baseline(fed, params, traffic)
+        t0 = lap(f"{arch} solo baseline (2 decodes, 2 prefill and 2 step "
+                 "references)", t0)
+        runs = [("A", {})]
+        if layers is None:
+            runs.append(("B", dict(n_pages=CONT["max_batch"]
+                                   * (fed.seq_len // CONT["page_size"])
+                                   // 2 + 2, preempt=True)))
+        for run, kw in runs:
+            what = (f"continuous {arch} ({cfg.n_layers} layers) run {run}"
+                    + (f", {kw['n_pages']} pages, preempt" if kw else
+                       ", worst-case pool"))
+            with contextlib.ExitStack() as stack:
+                caps = cont_captures(stack, kernels, plan)
+                srv, results, launches, readings = cont_drain(
+                    fed, params, traffic, counters, **kw)
+            readings["captured"] = sum(
+                t.numel() * t.element_size() for cap in caps.values()
+                for args, kwargs in cap.inputs.values()
+                for t in list(args) + list(kwargs.values())
+                if isinstance(t, torch.Tensor)) / 2**30
+            t0 = lap(f"{arch} run {run} drain", t0)
+            got = check_drain(what, cfg, fed, params, srv, results, traffic,
+                              launches, readings, base)
+            t0 = lap(f"{arch} run {run} checks (16 prefill and "
+                     f"{len([g for _, g in traffic if g == CONT_STEP_GEN])} "
+                     "step references)", t0)
+            if run == "A" and not got["peak_pages"] < got["worst_pages"]:
+                raise AssertionError(f"{what}: the pool peaked at its worst "
+                                     "case")
+            if run == "B" and not srv.preemptions:
+                raise AssertionError(f"{what}: no preemption happened")
+            path = f"continuous {arch} run {run}"
+            for name, cap in caps.items():
+                n_sigs = len(cap.seen)
+                if len(cap.inputs) != n_sigs * len(cap.positions):
+                    raise AssertionError(f"{what}: a captured {name} group "
+                                         "was cut short")
+                log(f"{what}: {name} holds {len(cap.inputs)} captured calls "
+                    f"of {cap.calls}, {n_sigs} call signatures")
+                rows[name].setdefault("serve_max_abs_err", {})[path] = \
+                    hold_calls(name, *kernels[name], cap.inputs,
+                               lambda i, args, kw, name=name: call_site(
+                                   name, i, args, kw, plan), path)
+            t0 = lap(f"{arch} run {run} kernels on its tensors", t0)
+            for name, n in got["launches"].items():
+                if n:
+                    rows[name]["launches"] += n
+                    rows[name].setdefault("launches_by_path", {})[path] = n
+            del srv, results, caps
+        if layers is None:
+            profile_block(fed, params, cfg, traffic)
+            t0 = lap(f"{arch} block profile", t0)
+            sampled_drain(fed, params, traffic)
+            t0 = lap(f"{arch} sampled drain", t0)
+        del fed, params
+        torch.cuda.empty_cache()
+    log("continuous phase time: " + "; ".join(
+        f"{name} {sec:.1f} s" for name, sec in spent.items()))
+    log(f"continuous phase: {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
 def count_mma(build, name: str, pattern: str) -> int:
     """Tensor-core instructions (``pattern``: HGMMA for wgmma, HMMA for
     mma.sync) in the built library ``name``'s SASS."""
@@ -2095,7 +2694,11 @@ def main() -> int:
     # ---- phase 5: LM training on the card --------------------------------
     train_phase(rows, card, (ops, flash_ops, rms_ops, ssd_ops))
 
-    # ---- phase 6: the record -------------------------------------------
+    # ---- phase 6: continuous split serving at full width ---------------
+    continuous_phase(rows, card, (ops, flash_ops, rms_ops, ssd_ops),
+                     serve_kernels)
+
+    # ---- phase 7: the record -------------------------------------------
     report_rates(rows)
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -62,6 +62,12 @@ class ModelAdapter:
       consume a whole (bs, chunk, d) span upload in one pass (positions
       t0 .. t0 + chunk) — the chunked-prefill hook.
     * ``cache_specs(batch, max_seq)``     -> decode-state spec tree.
+    * ``server_decode_paged(server, x, caches, tables, cur_pos, active,
+      page_size)`` -> (logits, caches): the continuous scheduler's batched
+      step — every slot advances one token at its OWN position (``cur_pos``
+      and ``active`` are (n_slots,) device tensors), the KV leaves are
+      shared page pools addressed through ``tables``, and nothing syncs
+      with the host.
     """
     name: str
     client_forward: Callable
@@ -73,6 +79,7 @@ class ModelAdapter:
     server_decode: Optional[Callable] = None
     server_prefill: Optional[Callable] = None
     cache_specs: Optional[Callable] = None
+    server_decode_paged: Optional[Callable] = None
 
     def init_params(self, generator: torch.Generator, device=None):
         return common.materialize(self.param_specs(), generator,
@@ -202,6 +209,27 @@ def from_model_config(cfg: ModelConfig, *, n_clients: int = 2,
         positions = int(t0) + torch.arange(x.shape[1], device=x.device)
         return _decode_tail(server, x, caches, t0, positions)
 
+    @tags.party("server")
+    def server_decode_paged(server, x, caches, tables, cur_pos, active,
+                            page_size):
+        """Batched paged decode: x (n_slots, 1, d), every slot at its own
+        position. Per-row positions (n_slots, 1) drive RoPE, the learned
+        position table and the attention mask, so each active row computes
+        what the B = 1 ``server_decode`` would; the positions stay on the
+        device."""
+        positions = cur_pos[:, None]
+        paging = common.PageContext.for_step(tables, active, cur_pos,
+                                             page_size)
+        if "pos_embed" in server:
+            pos_table = server["pos_embed"]
+            pe = pos_table[positions.clamp(0, pos_table.shape[0] - 1).long()]
+            x = x + pe.to(x.dtype)
+        h, new_caches, _ = transformer.backbone_apply(
+            cfg, server, x, positions=positions, caches=caches,
+            cur_pos=cur_pos, paging=paging)
+        h = apply_norm(cfg, server["final_norm"], h)
+        return unembed(server["lm_head"], h), new_caches
+
     def cache_specs(batch, max_seq):
         return model_api.build_cache_specs(cfg, batch, max_seq)
 
@@ -216,4 +244,5 @@ def from_model_config(cfg: ModelConfig, *, n_clients: int = 2,
         server_decode=server_decode,
         server_prefill=server_prefill,
         cache_specs=cache_specs,
+        server_decode_paged=server_decode_paged,
     )

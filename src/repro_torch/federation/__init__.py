@@ -7,12 +7,17 @@ transports over wires.
     step = fed.sync_step(opt)                 # the sync LM training step
     fed.save(path, params, step=k, opt_state=opt_state)
     fed, params, state = Federation.restore(path)
+    srv = fed.serve(params, max_batch=8)      # continuous batching
+    srv.submit(prompt, gen_len); results = srv.run()
 """
 from repro_torch.core.privacy import GaussianLossChannel
 from repro_torch.federation.parties import (ClientParty, Parties,
                                             ServerParty)
+from repro_torch.federation.scheduler import (QueueFull, RequestResult,
+                                              SchedulerState, ServeScheduler)
 from repro_torch.federation.session import Federation, SessionState
 from repro_torch.federation.transport import Transport
 
 __all__ = ["ClientParty", "Federation", "GaussianLossChannel", "Parties",
+           "QueueFull", "RequestResult", "SchedulerState", "ServeScheduler",
            "ServerParty", "SessionState", "Transport"]

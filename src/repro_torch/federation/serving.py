@@ -33,6 +33,11 @@ Sampling at temperature > 0 is ``argmax(logits / T + g)`` with Gumbel
 noise ``g`` — what ``jax.random.categorical`` computes — taken from a
 draw source (:class:`TorchGumbel` by default), so tests can hand the port
 the JAX package's own noise. Greedy decoding draws nothing.
+:class:`PositionGumbel` is one request's noise as a pure function of its
+seed and the absolute position, the source the continuous scheduler
+draws a request's table from at admission (the JAX package's
+``fold_in(key, 100 + t)`` stream plays that part there); ``fed.decode``
+takes it too, so a request decodes alike solo and in a batch.
 """
 from __future__ import annotations
 
@@ -92,6 +97,68 @@ class TorchGumbel:
         u = torch.rand(shape, generator=self.generator, device=device)
         u = u.clamp_min(torch.finfo(torch.float32).tiny)
         return -torch.log(-torch.log(u))
+
+
+def _position_seed(seed: int, t: int) -> int:
+    """A 32-bit key for (seed, position t): the splitmix64 finaliser of
+    ``seed * 2**32 + 100 + t``, cut to 32 bits."""
+    z = (seed * 2 ** 32 + 100 + t) & 0xFFFFFFFFFFFFFFFF
+    z = (z + 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+    return (z ^ (z >> 31)) & 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c mod 2**32`` for int64 ``x`` in [0, 2**32) and a 32-bit
+    constant, with no int64 overflow: x's high half meets only c's low 16
+    bits."""
+    lo, hi = x & 0xFFFF, x >> 16
+    return (lo * c + (((hi * (c & 0xFFFF)) & 0xFFFF) << 16)) & 0xFFFFFFFF
+
+
+def _fmix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3's 32-bit finaliser on int64 tensors of 32-bit values."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+class PositionGumbel:
+    """One request's Gumbel noise as a pure function of (``seed``,
+    position ``t``): entry v of position t's row is a counter-based hash
+    of (``_position_seed(seed, t)``, v), the same integers on any device.
+    So a request's tokens do not depend on what shares its batch, on when
+    it was admitted or on a preemption. :meth:`rows` draws a whole table
+    in one pass of elementwise device work (the scheduler's admission);
+    :meth:`gumbel` is the :class:`GumbelSource` of a B = 1
+    ``fed.decode``."""
+
+    def __init__(self, seed: int) -> None:
+        if not 0 <= int(seed) < 2 ** 31:
+            raise ValueError(f"seed must lie in [0, 2**31), got {seed}")
+        self.seed = int(seed)
+
+    def rows(self, t0: int, n: int, vocab: int,
+             device: torch.device) -> torch.Tensor:
+        """(n, vocab) f32 noise for positions ``t0 .. t0 + n - 1``."""
+        keys = torch.tensor([_position_seed(self.seed, t0 + i)
+                             for i in range(n)], dtype=torch.int64,
+                            device=device)
+        cols = _fmix32(_mul32(torch.arange(vocab, dtype=torch.int64,
+                                           device=device), 0x9E3779B9))
+        h = _fmix32(keys[:, None] ^ cols[None, :])
+        # 23 bits as an odd multiple of 2**-24: u in (0, 1), exact in f32
+        u = ((h >> 9) * 2 + 1).to(torch.float32) * 2.0 ** -24
+        return -torch.log(-torch.log(u))
+
+    def gumbel(self, t, shape, device):
+        if len(shape) != 2 or shape[0] != 1:
+            raise ValueError(f"PositionGumbel is one request's noise: shape "
+                             f"(1, vocab), got {tuple(shape)}")
+        return self.rows(int(t), 1, shape[1], device)
 
 
 def _require_serve_plane(adapter: ModelAdapter):

@@ -31,7 +31,9 @@ and the session runs:
   split inference with the SAME party split as training (clients embed
   their token spans, the server owns backbone + head + caches), routed
   through the ``Transport`` so serve-time wire traffic lands in the
-  ledger.
+  ledger; :meth:`Federation.serve` returns the continuous-batching
+  :class:`repro_torch.federation.scheduler.ServeScheduler` over paged
+  caches, whose mid-drain snapshot ``save(serve_state=)`` persists.
 """
 from __future__ import annotations
 
@@ -78,13 +80,16 @@ class SessionState:
     """The non-parameter state a checkpoint carries: everything a resumed
     run needs to continue EXACTLY (not just approximately) — the step
     clock, the optimizer/schedule state, the Transport ledger totals, and
-    the DP accountant's release count. (The JAX package's state also
-    carries the population engine's and the serve scheduler's planes,
-    which are not ported yet: ROADMAP.md, Queue 1 items 4 and 10.)"""
+    the DP accountant's release count — and, for a mid-drain serve
+    checkpoint, the serve scheduler's plane (``serve_state``, a
+    ``scheduler.SchedulerState``). (The JAX package's state also carries
+    the population engine's plane, which is not ported yet: ROADMAP.md,
+    Queue 1 item 10.)"""
     step: int = 0
     opt_state: Optional[Any] = None
     ledger: Ledger = dataclasses.field(default_factory=Ledger)
     dp_releases: int = 0
+    serve_state: Optional[Any] = None
     # the free-form metadata the saver passed to ``fed.save`` (driver
     # knobs like batch/seed/schedule live here, not in the session)
     metadata: dict = dataclasses.field(default_factory=dict)
@@ -269,7 +274,9 @@ class Federation:
         Transport — pass ``ledger`` to extend a training run's totals.
 
         At ``temperature`` > 0 the Gumbel noise comes from ``draws``
-        (default: :class:`serving.TorchGumbel` seeded with ``seed``).
+        (default: :class:`serving.TorchGumbel` seeded with ``seed``); a
+        B = 1 decode given ``serving.PositionGumbel(s)`` samples the tokens
+        the continuous scheduler gives a request submitted with ``seed=s``.
         ``chunked_prefill=False`` prefills token by token (the oracle).
         ``use_scan`` is the JAX package's choice between its compiled scan
         and its step loop; the port has one device-resident decode loop
@@ -290,18 +297,62 @@ class Federation:
             temperature=temperature, draws=draws, ledger=ledger,
             chunked_prefill=chunked_prefill)
 
-    def serve(self, params, **_kwargs):
-        """Continuous batching (the JAX package's ``ServeScheduler``)
-        belongs to the scheduler slice."""
-        raise NotImplementedError(
-            "continuous batching (Federation.serve, the paged scheduler) is "
-            "not ported yet (ROADMAP.md, Queue 1 item 4); use "
-            "Federation.decode")
+    def serve(self, params, *, max_batch: int = 4,
+              temperature: float = 0.0, page_size: Optional[int] = None,
+              n_pages: Optional[int] = None,
+              max_queue: Optional[int] = None, preempt: bool = False,
+              state: Optional[Any] = None):
+        """A continuous-batching serve session over the split plane, on the
+        session's device.
+
+        Returns a :class:`repro_torch.federation.scheduler.ServeScheduler`:
+        ``submit(prompt, gen_len=...)`` queues requests, ``run()`` drains
+        them through ``max_batch`` fixed slots — new requests are admitted
+        as slots free up mid-flight, K-step decode blocks serve the
+        churning mix, and each request gets its own exact wire ledger.
+        Slot caches live in a shared page pool (``page_size`` must divide
+        ``seq_len``; ``n_pages`` caps pool memory and gates admission on
+        free pages when set below the ``max_batch`` worst case).
+
+        Failure policy: ``max_queue`` bounds admission (``submit`` raises
+        ``QueueFull`` past it) and ``preempt=True`` lets a page-starved
+        queue head evict the in-flight request with the fewest tokens
+        remaining. Pass a restored ``SessionState.serve_state`` as
+        ``state`` to resume a mid-drain snapshot — the scheduler's shape
+        and pool config then come from the snapshot, not from the
+        keyword defaults."""
+        from repro_torch.federation.scheduler import ServeScheduler
+        if self.model_cfg is None:
+            raise ValueError(
+                "serve needs a ModelConfig-built session (tabular/adapter "
+                "sessions have no serve plane)")
+        if not is_engine_layout(params):
+            params = self.params_from_global(params)
+        if state is not None:
+            cfg = state.meta["config"]
+            max_batch = int(cfg["max_batch"])
+            temperature = float(cfg["temperature"])
+            page_size = int(cfg["page_size"])
+            n_pages = int(cfg["n_pages"])
+            max_queue = cfg["max_queue"]
+            preempt = bool(cfg["preempt"])
+        srv = ServeScheduler(
+            self.adapter, self.transport, params=params,
+            n_clients=self.n_clients, seq_len=self.seq_len,
+            embed_dim=self.model_cfg.d_model,
+            vocab_size=self.model_cfg.vocab_size, device=self.device,
+            max_batch=max_batch, temperature=temperature,
+            page_size=page_size, n_pages=n_pages, max_queue=max_queue,
+            preempt=preempt)
+        if state is not None:
+            srv._load_state(state)
+        return srv
 
     # ------------------------------------------------- checkpoint plane ---
     def save(self, path: str, params, *, step: int = 0,
              opt_state: Optional[Any] = None,
              ledger: Optional[Ledger] = None, dp_releases: int = 0,
+             serve_state: Optional[Any] = None,
              metadata: Optional[dict] = None) -> str:
         """Party-scoped checkpoint: one directory per party + session state.
 
@@ -314,6 +365,10 @@ class Federation:
               clients/         the client partition (global layout)
               opt_server/, opt_clients/   optimizer state, split on the
                                           same party boundary (optional)
+              serve_plane/     the serve scheduler's full state (optional
+                               — a mid-drain ``srv.snapshot()``; the
+                               resumed drain's tokens and ledgers equal
+                               an unbroken one's)
 
         The isolation is structural (:mod:`repro_torch.federation.parties`):
         the server handle cannot address a client leaf, so its directory
@@ -346,6 +401,8 @@ class Federation:
                             step=step)
             save_checkpoint(os.path.join(path, "opt_clients"), opt_c,
                             step=step)
+        if serve_state is not None:
+            serve_state.save(os.path.join(path, "serve_plane"))
 
         ledger = ledger if ledger is not None else Ledger()
         eps, delta = self.transport.privacy_spent(dp_releases)
@@ -367,11 +424,11 @@ class Federation:
             "dp_releases": int(dp_releases),
             "dp_spent": [eps if math.isfinite(eps) else None, delta],
             "async_plane": False,
-            "serve_plane": False,
+            "serve_plane": serve_state is not None,
             "metadata": metadata or {},
         }
         # atomic + last: a session.json on disk always certifies complete
-        # party directories next to it
+        # party and plane directories next to it
         atomic_write(os.path.join(path, SESSION_MANIFEST),
                      lambda f: json.dump(manifest, f, indent=2), mode="w")
         return path
@@ -397,11 +454,10 @@ class Federation:
             raise ValueError(
                 f"checkpoint version {manifest['version']} != "
                 f"{CHECKPOINT_VERSION}")
-        if manifest.get("async_plane") or manifest.get("serve_plane"):
+        if manifest.get("async_plane"):
             raise NotImplementedError(
-                "the checkpoint carries the population engine's or the serve "
-                "scheduler's plane, which are not ported yet (ROADMAP.md, "
-                "Queue 1 items 4 and 10)")
+                "the checkpoint carries the population engine's plane, which "
+                "is not ported yet (ROADMAP.md, Queue 1 item 10)")
 
         model = cls._model_from_manifest(manifest["model"], model_cfg)
         vfl_d = dict(manifest["vfl"])
@@ -437,10 +493,16 @@ class Federation:
             opt_state = fed._merge_opt_state(
                 opt_c, opt_s, manifest["layout"] == "engine")
 
+        serve_state = None
+        if manifest.get("serve_plane"):
+            from repro_torch.federation.scheduler import SchedulerState
+            serve_state = SchedulerState.load(
+                os.path.join(path, "serve_plane"))
+
         state = SessionState(
             step=manifest["step"], opt_state=opt_state,
             ledger=Ledger.from_counts(manifest["ledger_counts"]),
-            dp_releases=manifest["dp_releases"],
+            dp_releases=manifest["dp_releases"], serve_state=serve_state,
             metadata=manifest.get("metadata", {}))
         return fed, params, state
 

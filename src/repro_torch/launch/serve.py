@@ -8,23 +8,34 @@ lands in the Transport's ledger. ``n_clients=0`` is the global path (one
 party, prefill token by token through the decode step), the oracle the
 split path equals on replicated client tables.
 
+``--continuous`` serves ``--batch`` independent requests through the
+continuous-batching scheduler (``fed.serve``) over ``--max-batch`` slots
+instead of one fused batch, with the failure policy exposed:
+``--max-queue`` bounds admission (the driver drains a step on
+``QueueFull`` and retries), ``--preempt``/``--n-pages`` enable page-pool
+preemption under memory pressure, and ``--deadline`` gives every request
+that many scheduler steps to retire.
+
 Ported from the JAX package's ``launch/serve.py`` for the dense attention
-and the hybrid (Mamba2 + shared attention) families; continuous batching (``--continuous``) belongs to the scheduler
-slice and raises. ``--reduced`` / ``--no-reduced`` picks the smoke-size
-variant or the full published width (the JAX package's flag cannot turn
-reduction off).
+and the hybrid (Mamba2 + shared attention) families. ``--reduced`` /
+``--no-reduced`` picks the smoke-size variant or the full published width
+(the JAX package's flag cannot turn reduction off).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b \\
         --batch 8 --prompt-len 1024 --gen-len 128 --no-reduced
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
         --batch 8 --prompt-len 1024 --gen-len 128 --no-reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve --continuous \
+        --batch 16 --max-batch 8 --prompt-len 1024 --gen-len 128 --no-reduced
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --continuous --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import json
 import time
+from typing import Optional
 
 import torch
 
@@ -63,19 +74,33 @@ def _check_logits(logits) -> float:
 def serve(arch: str, *, batch: int = 4, prompt_len: int = 16,
           gen_len: int = 16, use_reduced: bool = True, seed: int = 0,
           temperature: float = 0.0, n_clients: int = 0,
-          continuous: bool = False, device: DeviceLike = None) -> dict:
+          continuous: bool = False, max_batch: int = 4,
+          max_queue: Optional[int] = None, preempt: bool = False,
+          n_pages: Optional[int] = None, deadline: Optional[int] = None,
+          device: DeviceLike = None) -> dict:
     """``n_clients >= 1`` routes through the session's split serve plane;
     ``n_clients=0`` is the global decode, equal to the split path on
-    replicated client tables. Weights are random, drawn from ``seed`` on
-    the run's device (the card unless ``device="cpu"``)."""
-    if continuous:
-        raise NotImplementedError(
-            "continuous batching is not ported yet (ROADMAP.md, Queue 1 "
-            "item 4: paging.py, scheduler.py)")
+    replicated client tables. ``continuous=True`` serves ``batch``
+    independent requests through the continuous-batching scheduler
+    (``fed.serve``) over ``max_batch`` slots, with ``max_queue``,
+    ``preempt``, ``n_pages`` and ``deadline`` as the scheduler takes them.
+    Weights are random, drawn from ``seed`` on the run's device (the card
+    unless ``device="cpu"``)."""
     cfg = get_config(arch)
     if use_reduced:
         cfg = reduced(cfg, remat=False)
     device = resolve_device(device)
+    if continuous:
+        if not n_clients:
+            raise ValueError("continuous batching serves the split plane: "
+                             "pass n_clients >= 1")
+        return _serve_continuous(arch, cfg, batch=batch,
+                                 prompt_len=prompt_len, gen_len=gen_len,
+                                 seed=seed, temperature=temperature,
+                                 n_clients=n_clients, max_batch=max_batch,
+                                 max_queue=max_queue, preempt=preempt,
+                                 n_pages=n_pages, deadline=deadline,
+                                 device=device)
     if n_clients:
         return _serve_federated(arch, cfg, batch=batch,
                                 prompt_len=prompt_len, gen_len=gen_len,
@@ -129,6 +154,62 @@ def _serve_federated(arch: str, cfg, *, batch: int, prompt_len: int,
         "wire_has_gradients": res.transmits_gradients,
         "final_logits_absmax": absmax,
         "sample_output": res.tokens[0, :8].tolist(),
+    }
+
+
+# ------------------------------------------- continuous-batching path ---
+
+def _serve_continuous(arch: str, cfg, *, batch: int, prompt_len: int,
+                      gen_len: int, seed: int, temperature: float,
+                      n_clients: int, max_batch: int,
+                      max_queue: Optional[int], preempt: bool,
+                      n_pages: Optional[int], deadline: Optional[int],
+                      device: torch.device) -> dict:
+    from repro_torch.federation import QueueFull
+    fed, params = build_session(cfg, n_clients=n_clients,
+                                prompt_len=prompt_len, gen_len=gen_len,
+                                seed=seed, device=device)
+    srv = fed.serve(params, max_batch=max_batch, temperature=temperature,
+                    max_queue=max_queue, preempt=preempt, n_pages=n_pages)
+    # every request's prompt in one draw on the device, fetched in one
+    # transfer; request i samples from seed + i
+    prompts = _prompts(cfg, batch, prompt_len, seed, fed.device).cpu()
+    queue_retries = 0
+    for i in range(batch):
+        while True:
+            try:
+                srv.submit(prompts[i].numpy(), gen_len, seed=seed + i,
+                           deadline=deadline)
+                break
+            except QueueFull:
+                # bounded admission is recoverable by design: drain a
+                # step, then offer the request again
+                queue_retries += 1
+                srv.run(max_steps=1)
+    srv.run()
+    results = [srv.results[rid] for rid in sorted(srv.results)]
+    if len(results) != batch:
+        raise RuntimeError(f"drained {len(results)} requests of {batch}")
+    ok = [r for r in results if r.status == "ok"]
+    total_tokens = sum(r.tokens.size for r in ok)
+    statuses = {}
+    for r in results:
+        statuses[r.status] = statuses.get(r.status, 0) + 1
+    return {
+        "arch": arch, "batch": batch, "mode": "continuous",
+        "clients": n_clients, "slots": max_batch, "seq_len": fed.seq_len,
+        "prompt_len": prompt_len, "gen_len": gen_len,
+        "device": str(fed.device),
+        "steps": srv.steps,
+        "compile_s": srv.compile_s,
+        "decode_tok_per_s": total_tokens / max(srv.last_run_s, 1e-9),
+        "statuses": statuses,
+        "preemptions": srv.preemptions,
+        "deadline_misses": srv.deadline_misses,
+        "queue_retries": queue_retries,
+        "wire_bytes": sum(r.wire_bytes for r in results),
+        "wire_has_gradients": any(r.transmits_gradients for r in results),
+        "sample_output": (ok[0] if ok else results[0]).tokens[:8].tolist(),
     }
 
 
@@ -190,7 +271,15 @@ def main(argv=None):
                     default=True)
     # 0 = the global path; >= 1 serves split via fed.decode
     ap.add_argument("--clients", type=int, default=2)
+    # continuous batching: drain --batch requests through --max-batch slots
     ap.add_argument("--continuous", action="store_true")
+    ap.add_argument("--max-batch", type=int, default=4)
+    # failure policy (continuous path only): bounded admission, page-pool
+    # preemption, and a per-request step deadline
+    ap.add_argument("--max-queue", type=int, default=None)
+    ap.add_argument("--preempt", action="store_true")
+    ap.add_argument("--n-pages", type=int, default=None)
+    ap.add_argument("--deadline", type=int, default=None)
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card; 'cpu' for the CPU")
     args = ap.parse_args(argv)
@@ -198,7 +287,11 @@ def main(argv=None):
                            prompt_len=args.prompt_len, gen_len=args.gen_len,
                            temperature=args.temperature, seed=args.seed,
                            use_reduced=args.reduced, n_clients=args.clients,
-                           continuous=args.continuous, device=args.device),
+                           continuous=args.continuous,
+                           max_batch=args.max_batch,
+                           max_queue=args.max_queue, preempt=args.preempt,
+                           n_pages=args.n_pages, deadline=args.deadline,
+                           device=args.device),
                      indent=2))
 
 

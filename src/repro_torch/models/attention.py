@@ -6,17 +6,21 @@ Ported from the JAX package's ``models/attention.py`` (the non-MLA part):
   softmax per chunk), the JAX package's XLA path;
 * :func:`decode_attend` — one new token against the cache, a masked
   einsum over the full cache (plain PyTorch, as the JAX package has no
-  kernel for it);
+  kernel for it), at one shared position (a Python int, the solo path)
+  or at a per-row ``(B,)`` position tensor (the continuous scheduler);
+* :func:`paged_update_gather` — the paged pool's in-place row write and
+  the gather of each slot's whole masked extent;
 * :func:`attention_apply` — the sub-layer, with its no-cache, decode
-  (S = 1) and chunked-prefill (S > 1 with a cache) branches. On a CUDA
-  tensor the no-cache and chunked-prefill branches run the hand-written
-  flash-attention kernel (``repro_torch.kernels.flash_attention``); on the
-  CPU they run :func:`mha_chunked`.
+  (S = 1), chunked-prefill (S > 1 with a cache) and paged-decode
+  (``paging=``) branches. On a CUDA tensor the no-cache and
+  chunked-prefill branches run the hand-written flash-attention kernel
+  (``repro_torch.kernels.flash_attention``); on the CPU they run
+  :func:`mha_chunked`.
 
-The KV cache is updated in place (the JAX package returns a new cache
-through ``dynamic_update_slice`` with donation). MLA, the paged-pool
-branch and cross-attention (``kv_override``) belong to later slices
-(``ROADMAP.md``) and raise ``NotImplementedError``.
+The KV cache and the page pool are updated in place (the JAX package
+returns new ones through ``dynamic_update_slice`` and ``.at[].set`` with
+donation). MLA and cross-attention (``kv_override``) belong to later
+slices (``ROADMAP.md``) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -33,8 +37,8 @@ NEG_INF = -1e30
 
 def _later_slice(what: str):
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, Queue 1: the scheduler and "
-        "model-family slices)")
+        f"{what} is not ported yet (ROADMAP.md, Queue 1: the model-family "
+        "slices)")
 
 
 # ------------------------------------------------------------ param specs --
@@ -129,23 +133,28 @@ def _attend(cfg, q, k, v, *, causal: bool, window: int, q_offset: int = 0):
 
 # ------------------------------------------------------------ decode path --
 
-def decode_attend(q, k_cache, v_cache, cur_pos: int, *, window: int = 0,
+def decode_attend(q, k_cache, v_cache, cur_pos, *, window: int = 0,
                   logit_softcap: float = 0.0, window_gather: bool = False,
                   scale: Optional[float] = None):
     """One-token decode. q: (B, 1, Hq, hd); caches: (B, S, Hkv, hd).
 
-    Reads the full cache with a position mask. With ``window_gather`` and
-    window > 0, slices only the live window (same result, fewer bytes).
+    ``cur_pos`` is a Python int shared by the batch (the solo path), or a
+    (B,) tensor of per-row positions (the continuous scheduler's batched
+    step: it stays on the device, no host sync). Reads the full cache with
+    a position mask. With ``window_gather`` and window > 0, a shared
+    position slices only the live window (same result, fewer bytes).
     """
     B, _, Hq, hd = q.shape
     _, S, Hkv, _ = k_cache.shape
     vd = v_cache.shape[-1]
     G = Hq // Hkv
     scale = hd ** -0.5 if scale is None else scale
-    cur_pos = int(cur_pos)
+    per_row = isinstance(cur_pos, torch.Tensor) and cur_pos.ndim == 1
+    if not per_row:
+        cur_pos = int(cur_pos)
     qr = q.reshape(B, Hkv, G, hd).float() * scale
 
-    if window_gather and 0 < window < S:
+    if window_gather and 0 < window < S and not per_row:
         start = min(max(cur_pos + 1 - window, 0), S - window)
         k_cache = k_cache[:, start:start + window]
         v_cache = v_cache[:, start:start + window]
@@ -156,13 +165,39 @@ def decode_attend(q, k_cache, v_cache, cur_pos: int, *, window: int = 0,
     s = torch.einsum("bhgd,bkhd->bhgk", qr, k_cache.float())
     if logit_softcap > 0.0:
         s = logit_softcap * torch.tanh(s / logit_softcap)
-    mask = kpos <= cur_pos
-    if window > 0:
-        mask &= kpos > (cur_pos - window)
+    if per_row:
+        cur = cur_pos[:, None]
+        mask = kpos[None, :] <= cur
+        if window > 0:
+            mask &= kpos[None, :] > (cur - window)
+        mask = mask[:, None, None, :]
+    else:
+        mask = kpos <= cur_pos
+        if window > 0:
+            mask &= kpos > (cur_pos - window)
     s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
     return o.reshape(B, 1, Hq, vd).to(q.dtype)
+
+
+# ------------------------------------------------------- paged cache ops --
+
+def paged_update_gather(pool, row, dest_page, in_page, gather_rows):
+    """Write one row per batch element into the page pool IN PLACE, then
+    gather each element's full (masked) sequence extent back out.
+
+    pool: (n_pages, page_size, *tail); row: (B, *tail) the new entry;
+    dest_page/in_page: (B,) write coordinates (inactive rows land on the
+    trash page, never read); gather_rows: (B, S_pad) flat pool rows.
+    Returns (pool, gathered (B, S_pad, *tail)). Several inactive rows may
+    write the trash page's same row: which one lands is unspecified on the
+    card (an ``index_put_`` with duplicate indices), and nothing reads it.
+    """
+    P, pg = pool.shape[:2]
+    flat = pool.view((P * pg,) + tuple(pool.shape[2:]))
+    flat[dest_page * pg + in_page] = row.to(pool.dtype)
+    return pool, flat[gather_rows]
 
 
 # -------------------------------------------------------------- GQA block --
@@ -174,10 +209,12 @@ def attention_apply(cfg, p, x, *, positions, cache=None, cur_pos=None,
 
     cache: dict(k=(B, S, Hkv, hd), v=...) for this layer, or None; this
     step's k/v are written into it in place at ``cur_pos`` (a Python int)
-    and the same dict is returned.
+    and the same dict is returned. With ``paging`` (a
+    :class:`repro_torch.models.common.PageContext`: the continuous
+    scheduler's batched decode step) the cache leaves are shared page
+    pools (n_pages, page_size, Hkv, hd) instead, ``cur_pos`` is a per-row
+    (B,) tensor, and the new k/v row goes through the slot's block table.
     """
-    if paging is not None:
-        raise _later_slice("paged attention (the continuous scheduler)")
     if kv_override is not None:
         raise _later_slice("cross-attention (kv_override)")
     B, S, _ = x.shape
@@ -194,7 +231,24 @@ def attention_apply(cfg, p, x, *, positions, cache=None, cur_pos=None,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
-    if cache is not None:
+    if paging is not None:
+        # paged decode: one token per slot. Write the new k/v row into the
+        # shared pool through the slot's block table, gather the slot's
+        # full seq_len extent back, and attend with the per-row position
+        # mask: masked positions (stale page contents, the zero page)
+        # contribute exactly 0.0, as over the dense slot cache
+        if S != 1:
+            raise ValueError(f"paged attention decodes one token per slot, "
+                             f"got S={S}")
+        _, k_cache = paged_update_gather(cache["k"], k[:, 0],
+                                         paging.dest_page, paging.in_page,
+                                         paging.gather_rows)
+        _, v_cache = paged_update_gather(cache["v"], v[:, 0],
+                                         paging.dest_page, paging.in_page,
+                                         paging.gather_rows)
+        o = decode_attend(q, k_cache, v_cache, cur_pos, window=window,
+                          logit_softcap=cfg.attn_logit_softcap)
+    elif cache is not None:
         # write this step's k/v at cur_pos, attend over the cache
         cur_pos = int(cur_pos)
         k_cache, v_cache = cache["k"], cache["v"]

@@ -5,7 +5,8 @@ A model is described by a tree of :class:`ParamSpec` leaves, the same
 specs as the JAX package's, so both packages agree on every shape, dtype
 and key path. Weights keep the ``(in, out)`` layout used as ``x @ w``;
 weights from the JAX package load with :func:`params_from_numpy` and no
-transposes.
+transposes. :class:`PageContext` and :func:`freeze_state` carry the
+continuous scheduler's batched paged decode step through the models.
 """
 from __future__ import annotations
 
@@ -75,6 +76,62 @@ def param_count(tree) -> int:
 def param_bytes(tree) -> int:
     return int(sum(math.prod(s.shape) * torch_dtype(s.dtype).itemsize
                    for s in tree_leaves(tree)))
+
+
+# ---------------------------------------------------------------------------
+# paged decode context
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PageContext:
+    """Batched paged-decode context threaded through ``backbone_apply``.
+
+    Present only on the continuous scheduler's batched decode step:
+    sequence-indexed cache leaves arrive as shared page pools
+    ``(n_pages, page_size, *tail)`` per layer instead of slot-stacked
+    ``(B, S, *tail)`` slices. The context holds where each slot's rows
+    live and where this step's row lands (inactive slots write to the
+    reserved trash page), as device tensors: no host sync. One context
+    serves one step: :meth:`for_step` computes its row maps once and every
+    attention layer of the step reads them (the JAX package recomputes
+    them per layer inside one compiled program, where they cost
+    nothing)."""
+    active: torch.Tensor       # (B,) int32 — 0 routes writes to TRASH_PAGE
+    gather_rows: torch.Tensor  # (B, pages_per_seq * page_size) pool rows
+    dest_page: torch.Tensor    # (B,) the page this step's row lands in
+    in_page: torch.Tensor      # (B,) its row within that page
+
+    @classmethod
+    def for_step(cls, tables: torch.Tensor, active: torch.Tensor,
+                 cur_pos: torch.Tensor, page_size: int,
+                 trash_page: int = 1) -> "PageContext":
+        """The context of one step. ``tables`` (B, pages_per_seq) int32
+        page ids; ``cur_pos`` (B,) each slot's position. ``gather_rows``
+        covers each slot's full (masked) sequence extent. A retired slot's
+        position may sit one past its table (a request that filled
+        ``seq_len``); its page index is clamped, as JAX clamps a gather,
+        and its write goes to the trash page all the same."""
+        B, npt = tables.shape
+        pages = tables.long()
+        rows = (pages[:, :, None] * page_size
+                + torch.arange(page_size, device=tables.device)[None, None])
+        cur = cur_pos.long()
+        page_of = (cur // page_size).clamp(max=npt - 1)
+        dest = torch.gather(pages, 1, page_of[:, None])[:, 0]
+        dest = torch.where(active > 0, dest, torch.full_like(dest,
+                                                             trash_page))
+        return cls(active=active, gather_rows=rows.reshape(B, npt * page_size),
+                   dest_page=dest, in_page=cur % page_size)
+
+
+def freeze_state(active, new, old):
+    """``where(active, new, old)`` with (B,)-active broadcast to any rank:
+    inactive slots' recurrent state stays EXACTLY frozen under the batched
+    decode step (their inputs are zeroed, but decay would still drift the
+    state). The result keeps the carried state's dtype: an f32 conv tail
+    stays f32 after a bf16 step."""
+    a = active.reshape(active.shape + (1,) * (new.ndim - 1))
+    return torch.where(a > 0, new.to(old.dtype), old)
 
 
 def stack_layer_specs(layer_tree, n_layers: int, axis_name: str = "layers"):

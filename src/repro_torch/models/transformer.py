@@ -7,7 +7,10 @@ stacked params (a leading layer axis on every block leaf, the JAX
 package's layout; the hybrid trunk is stacked (n_super, attn_every, ...));
 its ``lax.scan`` over them becomes a Python loop over that axis, and the
 per-layer KV caches and SSM states are views into the stacked caches,
-updated in place. With ``cfg.remat``, a training forward (no caches,
+updated in place. The continuous scheduler's batched decode step passes
+a ``paging`` context (``models/common.PageContext``): the KV leaves are
+then shared page pools, and the Mamba2 states of inactive slots stay
+frozen (``freeze_state``). With ``cfg.remat``, a training forward (no caches,
 grad on) recomputes each block (a hybrid super-block) in the backward,
 as the JAX package's ``jax.checkpoint`` over the scan body does.
 Sharding constraints have no meaning on one device and are left out.
@@ -24,7 +27,8 @@ import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import ParamSpec, stack_layer_specs
+from repro_torch.models.common import (ParamSpec, freeze_state,
+                                       stack_layer_specs)
 from repro_torch.models.layers import (apply_norm, embed_lookup, norm_specs,
                                        unembed)
 from repro_torch.models.mlp import mlp_apply, mlp_specs
@@ -82,24 +86,28 @@ def backbone_specs(cfg, max_seq: int):
 # ============================================================== blocks =====
 
 def _attn_block_apply(cfg, p, x, *, positions, cache=None, cur_pos=None,
-                      window=0):
+                      window=0, paging=None):
     h = apply_norm(cfg, p["ln1"], x)
     a, new_cache = attn.attention_apply(
         cfg, p["attn"], h, positions=positions, cache=cache,
-        cur_pos=cur_pos, window=window)
+        cur_pos=cur_pos, window=window, paging=paging)
     x = x + a
     h = apply_norm(cfg, p["ln2"], x)
     return x + mlp_apply(cfg, p["mlp"], h), new_cache
 
 
-def _mamba_block_apply(cfg, p, x, *, state=None):
+def _mamba_block_apply(cfg, p, x, *, state=None, active=None):
     """A Mamba2 block; ``state`` (views into the stacked SSM state) is
-    updated in place."""
+    updated in place. With ``active`` (B,) the rows of inactive slots keep
+    their state exactly (``freeze_state``)."""
     h = apply_norm(cfg, p["ln1"], x)
     s, new_state = ssm_mod.ssm_apply(cfg, p["ssm"], h, state=state)
     if state is not None:
         for name, leaf in state.items():
-            leaf.copy_(new_state[name])
+            new = new_state[name]
+            if active is not None:
+                new = freeze_state(active, new, leaf)
+            leaf.copy_(new)
     return x + s
 
 
@@ -138,23 +146,26 @@ def _layers(tree, n: int):
 # ======================================================== backbone passes ==
 
 def backbone_apply(cfg, params, x, *, positions, caches=None, cur_pos=None,
-                   window=0):
+                   window=0, paging=None):
     """Run the stacked blocks. x: (B, S, d) embeddings.
 
     caches: {"k", "v"} stacked over layers (leading dim), or for the
     hybrid family the tuple (ssm_states, attn_caches), or None; each layer
-    writes its slice in place. Returns (hidden (B, S, d), caches, aux loss
-    0.0)."""
+    writes its slice in place. ``paging`` (a ``PageContext``) switches the
+    KV leaves to the paged-pool layout with per-row positions (the
+    continuous scheduler's batched decode step); the recurrent state
+    leaves are then slot-stacked and frozen on inactive rows. Returns
+    (hidden (B, S, d), caches, aux loss 0.0)."""
     check_family(cfg)
     if cfg.family == "hybrid":
         x = _hybrid_apply(cfg, params, x, positions=positions, caches=caches,
-                          cur_pos=cur_pos, window=window)
+                          cur_pos=cur_pos, window=window, paging=paging)
         return x, caches, torch.zeros((), device=x.device)
 
     def body(h, p_l, c_l):
         return _attn_block_apply(cfg, p_l, h, positions=positions,
                                  cache=c_l, cur_pos=cur_pos,
-                                 window=window)[0]
+                                 window=window, paging=paging)[0]
     body = _maybe_remat(cfg, body, caches)
     for i, p_l in enumerate(_layers(params["blocks"], cfg.n_layers)):
         c_l = None if caches is None else _layer(caches, i)
@@ -162,21 +173,23 @@ def backbone_apply(cfg, params, x, *, positions, caches=None, cur_pos=None,
     return x, caches, torch.zeros((), device=x.device)
 
 
-def _hybrid_apply(cfg, params, x, *, positions, caches, cur_pos, window):
+def _hybrid_apply(cfg, params, x, *, positions, caches, cur_pos, window,
+                  paging=None):
     """The Mamba2 trunk in super-blocks of ``attn_every`` layers, each
     followed by the shared attention block (one set of weights, its own KV
     cache slice per site)."""
     ssm_states, attn_caches = (None, None) if caches is None else caches
+    active = None if paging is None else paging.active
 
     def super_body(h, p_sup, shared, s):
         for j, p_l in enumerate(_layers(p_sup, cfg.attn_every)):
             st = (None if ssm_states is None
                   else {k: v[s, j] for k, v in ssm_states.items()})
-            h = _mamba_block_apply(cfg, p_l, h, state=st)
+            h = _mamba_block_apply(cfg, p_l, h, state=st, active=active)
         h, _ = _attn_block_apply(
             cfg, shared, h, positions=positions,
             cache=None if attn_caches is None else _layer(attn_caches, s),
-            cur_pos=cur_pos, window=window)
+            cur_pos=cur_pos, window=window, paging=paging)
         return h
     super_body = _maybe_remat(cfg, super_body, caches)
     n_super = cfg.n_layers // cfg.attn_every

@@ -392,14 +392,24 @@ def test_train_resume_rejects_exhausted_steps(tmp_path):
 
 
 def test_restore_refuses_planes_not_ported(lm_session, tmp_path):
+    """The population engine's plane and a sharded session are refused; the
+    serve scheduler's plane restores (``test_torch_serve_continuous.py``
+    resumes one)."""
     cfg, fed = lm_session
-    path = fed.save(str(tmp_path / "ck"), fed.init_params(_gen()))
+    params = fed.init_params(_gen())
+    srv = fed.serve(params, max_batch=1)
+    srv.submit(np.zeros(3, np.int32), 2)
+    srv.run(max_steps=1)
+    path = fed.save(str(tmp_path / "ck"), params,
+                    serve_state=srv.snapshot())
+    _, _, state = Federation.restore(path, device="cpu")
+    assert state.serve_state.meta["config"]["max_batch"] == 1
     manifest_path = os.path.join(path, "session.json")
     manifest = json.load(open(manifest_path))
-    for key, value in (("async_plane", True), ("serve_plane", True)):
-        json.dump(dict(manifest, **{key: value}), open(manifest_path, "w"))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Federation.restore(path, device="cpu")
+    assert manifest["serve_plane"] is True
+    json.dump(dict(manifest, async_plane=True), open(manifest_path, "w"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Federation.restore(path, device="cpu")
     engine = dict(manifest["engine"], mesh_shards=2)
     json.dump(dict(manifest, engine=engine), open(manifest_path, "w"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -46,7 +46,9 @@ SLICE_MODULES = ("repro_torch.kernels.zoo_dual_matmul.ops",
                  "repro_torch.data.pipeline", "repro_torch.core.cascade",
                  "repro_torch.checkpoint.io",
                  "repro_torch.federation.parties",
-                 "repro_torch.launch.train")
+                 "repro_torch.launch.train",
+                 "repro_torch.federation.paging",
+                 "repro_torch.federation.scheduler")
 
 
 def _port_files():
@@ -207,6 +209,27 @@ def test_serve_runs_on_the_card_unless_asked_for_the_cpu():
         serve("phi3-mini-3.8b", n_clients=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve("phi3-mini-3.8b", n_clients=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve("phi3-mini-3.8b", n_clients=2, continuous=True)
+
+
+def test_continuous_scheduler_lives_on_the_sessions_device():
+    """``Federation.serve`` puts every tensor of the serve plane on the
+    session's device: the card unless the session was built for the CPU."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.federation import Federation
+    from repro_torch.tree import tree_leaves
+    cfg = reduced(get_config("phi3-mini-3.8b"), n_layers=1)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Federation.build(cfg, seq_len=8)
+    fed = Federation.build(cfg, seq_len=8, device="cpu")
+    params = fed.init_params(torch.Generator().manual_seed(0))
+    srv = fed.serve(params, max_batch=2)
+    state = [srv._t_st, srv._gen_pos_st, srv._rem_st, srv._gen_buf_st,
+             *tree_leaves(srv._caches_st)]
+    assert srv.device == fed.device == torch.device("cpu")
+    assert {t.device for t in state} == {fed.device}
 
 
 # ------------------------------------------------------ differentiability --

@@ -16,7 +16,8 @@ attention block at 2 sites, the tuple cache of SSM states and KV).
   (tokens exact, logits to 1e-4), ``prefill_plan`` span-aligned.
 * The driver: split and global paths agree, the wire bytes equal the
   JAX driver's and ``Transport.account_serve``'s formula, ``--no-reduced``
-  selects full width, and the unported continuous path raises.
+  selects full width, and the continuous path serves the same prompts to
+  the same greedy tokens and wire bytes.
 """
 import jax
 import jax.numpy as jnp
@@ -31,7 +32,7 @@ from repro.launch import serve as j_serve
 from repro.models import common as j_common
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.privacy import Ledger
-from repro_torch.federation import Federation, Transport
+from repro_torch.federation import Federation, ServeScheduler, Transport
 from repro_torch.federation.serving import prefill_plan
 from repro_torch.launch import serve
 from repro_torch.models import common
@@ -197,8 +198,8 @@ def test_decode_rejects_what_it_cannot_serve(case):
     fed = case["fed"]
     with pytest.raises(ValueError, match="seq_len"):
         fed.decode(case["tp"], case["toks"], gen_len=GL + 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fed.serve(case["tp"])
+    srv = fed.serve(case["tp"])          # continuous batching serves now
+    assert isinstance(srv, ServeScheduler) and srv.device == fed.device
     ssm = Federation.build(reduced(get_config("rwkv6-7b")), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ssm.decode({}, case["toks"], gen_len=1)
@@ -222,8 +223,13 @@ def test_serve_driver_split_and_global(case):
     assert split["wire_bytes"] == Transport().account_serve(
         batch=3, embed=reduced(d).d_model, n_steps=11, n_gen=5).total_bytes
     assert split["seq_len"] == 12 and not split["wire_has_gradients"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.serve("phi3-mini-3.8b", continuous=True, device="cpu")
+    # the continuous path serves the same prompts one request each
+    with torch_threads(2):
+        cont = serve.serve(arch, batch=3, prompt_len=6, gen_len=5,
+                           n_clients=2, continuous=True, device="cpu")
+    assert cont["mode"] == "continuous" and cont["statuses"] == {"ok": 3}
+    assert cont["sample_output"] == split["sample_output"]
+    assert cont["wire_bytes"] == split["wire_bytes"]
 
 
 def test_serve_cli_reduced_flag(monkeypatch, capsys):

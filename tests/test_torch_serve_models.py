@@ -2,8 +2,8 @@
 package's, on ``reduced(phi3-mini-3.8b)`` in f32 (``param_dtype`` and
 ``dtype`` float32) with params carried from ``repro`` through
 ``params_from_numpy``: norms, RoPE, activations, embeddings, the MLP,
-attention (plain chunked, decode, and the sub-layer's no-cache, decode and
-chunked-prefill branches) and the full forward with its KV cache; and the
+attention (plain chunked, decode, and the sub-layer's no-cache, decode,
+chunked-prefill and paged-decode branches) and the full forward with its KV cache; and the
 param spec trees and init kinds.
 
 Tolerance: f32 2e-5 on activations of order one (f32 math both sides,
@@ -252,13 +252,69 @@ def test_attention_apply_branches(phi3):
                                        to_numpy(jcache[name]), rtol=1e-2)
 
 
+def test_paged_decode_equals_solo_decode(phi3):
+    """The ``paging=`` branch: three slots over a shared page pool (page
+    size 2), each at its own position, the third inactive. Each active
+    row's output equals the dense decode of that row alone at its
+    position (B = 1, the solo path), its new k/v row lands in its own
+    page, and the inactive row writes only the trash page."""
+    _, cfg, _, tp = phi3
+    tpa = _layer0(tp["blocks"]["attn"])
+    pg, n_pages, S = 2, 20, 10
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(3, S, cfg.d_model, generator=g)
+    hd, hkv = cfg.resolved_head_dim, cfg.n_kv_heads
+    spec = build_cache_specs(cfg, 1, S)
+    # dense per-row caches after a prefill of each row's prefix
+    cur = torch.tensor([6, 3, 5])
+    dense = []
+    for b in range(3):
+        cache = {k: torch.zeros(s.shape[1:], dtype=torch.bfloat16)
+                 for k, s in spec.items()}
+        n = int(cur[b])
+        attention.attention_apply(cfg, tpa, x[b:b + 1, :n],
+                                  positions=torch.arange(n), cache=cache,
+                                  cur_pos=0)
+        dense.append(cache)
+    tables = torch.tensor([[5, 9, 2, 14, 7], [11, 3, 16, 4, 8],
+                           [0, 0, 0, 0, 0]], dtype=torch.int32)
+    active = torch.tensor([1, 1, 0])
+    pool = {k: torch.full((n_pages, pg, hkv, hd), 7.0, dtype=torch.bfloat16)
+            for k in ("k", "v")}
+    for k in pool:
+        pool[k][0] = 0                                # the zero page
+        for b in range(2):
+            rows = (tables[b, :, None].long() * pg
+                    + torch.arange(pg)).reshape(-1)
+            pool[k].view(n_pages * pg, hkv, hd)[rows] = dense[b][k][0]
+    ctx = common.PageContext.for_step(tables, active, cur, pg)
+    step = x[torch.arange(3), cur][:, None]
+    out, got_pool = attention.attention_apply(
+        cfg, tpa, step, positions=cur[:, None], cache=pool, cur_pos=cur,
+        paging=ctx)
+    assert got_pool is pool
+    for b in range(2):
+        n = int(cur[b])
+        solo, _ = attention.attention_apply(
+            cfg, tpa, step[b:b + 1], positions=torch.tensor([n]),
+            cache=dense[b], cur_pos=n)
+        # the sub-layer tolerance above (a B = 3 product against B = 1),
+        # and the bf16 cache rows to one relative bf16 step
+        _close(out[b:b + 1], solo, atol=1e-3, rtol=ATOL)
+        for k in pool:
+            page, slot = int(tables[b, n // pg]), n % pg
+            np.testing.assert_allclose(to_numpy(pool[k][page, slot]),
+                                       to_numpy(dense[b][k][0, n]),
+                                       rtol=1e-2)
+    # the inactive row wrote the trash page, never its table's zero page
+    assert not pool["k"][0].any()
+    assert (pool["k"][1] != 7.0).any()
+
+
 def test_unported_branches_raise(phi3):
     _, cfg, _, tp = phi3
     tpa = _layer0(tp["blocks"]["attn"])
     x = torch.zeros(1, 1, 128)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.attention_apply(cfg, tpa, x, positions=torch.zeros(1),
-                                  paging=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         attention.attention_apply(cfg, tpa, x, positions=torch.zeros(1),
                                   kv_override=x)
