@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port (``repro_torch``) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases 4,6     # the build and the phases named
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
@@ -47,14 +48,22 @@ and prints no result):
    random weights from a seed), each through ``launch.serve.serve`` of
    8 requests of 1024 prompt + 128 generated tokens over 2 client parties:
    Phi-3-mini (32 layers, d_model 3072) and Zamba2-2.7B (54 Mamba2 layers
-   and a shared attention block at 9 sites, d_model 2560). For each, the
-   launch counts of flash attention, RMSNorm and the SSD scan read around
-   the run and held to the counts derived from the config (every RMSNorm
-   launch on the vector kernel), the wire bytes
+   and a shared attention block at 9 sites, d_model 2560), decoding
+   through the captured step (a CUDA graph replayed once a token). For
+   each, the launch counts of flash attention, RMSNorm and the SSD scan
+   read around the run (the eager launches plus the captured ones times
+   the replays) and held to the counts derived from the config (every
+   RMSNorm launch on the vector kernel), the wire bytes
    against the serve ledger's formula, the kernels held to their plain
    versions on the inputs they saw in the first and last layer of both
-   prefill chunks (and, for RMSNorm, one decode step), a profile of
-   decode steps and, for Zamba2, a profile of one prefill split by kernel
+   prefill chunks (and, for RMSNorm, the first decode step: the graph's
+   warm-up, run eagerly), the greedy tokens and final logits against an
+   eager ``use_scan=False`` decode of the same prompts (tokens equal,
+   logits within 2 bf16 steps; capture seconds, graph nodes, tokens/s and
+   peak memory of both), a profile of replays of the captured step (the
+   device's busy share; the RMSNorm kernels a replay, by the kernel's
+   name, equal to the launches the capture recorded) and, for Zamba2, a
+   profile of one prefill split by kernel
    family, whose device kernels show every SSD call on the tensor cores
    (one pre-pass and one scan a call, and no f32-route kernel);
 5. LM training on the card: each differentiable kernel's gradients (flash
@@ -78,11 +87,15 @@ and prints no result):
    pages and 2 client parties, seq_len 1152. Phi-3-mini at full depth
    with the worst-case pool (run A) and with half of it plus 2 pages and
    preemption (run B, which must preempt), Zamba2-2.7B cut to 12 layers
-   (run A). Each run holds every request's wire ledger to
+   (run A), every drain through the scheduler's CUDA graphs (one batched
+   step replayed K times a block; a preempted request's replay through
+   the captured B = 1 step). Each run holds every request's wire ledger to
    ``Transport.account_serve``'s formula (plus a preempted request's
    re-prefill), host transfers to one a retirement wave and one an
    eviction, the launch counts to their derivation from the scheduler's
-   prefill chunks, decode steps and replayed tokens, every serve kernel
+   prefill chunks, decode steps and replayed tokens (counted through the
+   replays, and the replayed share held to its own derivation), every
+   serve kernel
    against its plain version on the drain's own inputs (the first and last
    site of each new chunk shape, offset and wave width, captured during
    the drain), and each request's tokens by a teacher-forced gap: re-run
@@ -92,20 +105,23 @@ and prints no result):
    the largest |logit|). The requests of 32 tokens are also re-run through
    the B = 1 serve step on their own tokens: their gap at most 4 x and
    their final logits within 2 x the larger of one bf16 step at the
-   largest |logit| and the solo path's B = 8 against B = 1 reading. It
-   logs decode tokens/s, peak pages and memory, a profile of one 8-step
+   largest |logit| and the solo path's B = 8 against B = 1 reading.
+   Phi-3's run A is held to one eager drain (``use_scan=False``) of the
+   same traffic: the same steps, launches and tokens, final logits within
+   2 bf16 steps. It logs the graphs' captures and nodes, a replayed
+   token's device time, decode tokens/s, peak pages and memory, a
+   profile of one 8-step
    block (launches a step, the device's busy share, the paged gather's
    time a step), a sampled drain (temperature 0.8: its time, peak memory
    and noise table; seeds sharing a prompt must draw different streams)
    and the phase's time;
 7. a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 
-It needs one card, and builds into ``build/`` at first use. The whole
-script took 251–272 s on an NVIDIA H100 80GB HBM3 at 700 W, phase 6
-129–134 s of it (107–162 s before phase 6), host speed setting the
-spread. Phase 6's modules have CPU tests of their own against the JAX
-package: ``tests/test_torch_paging.py`` and
-``tests/test_torch_serve_continuous.py``.
+It needs one card, and builds into ``build/`` at first use. It logs each
+phase's time and its own; ``PERF.md`` keeps the readings. Phase 6's
+modules have CPU tests of their own against the JAX package:
+``tests/test_torch_paging.py``, ``tests/test_torch_serve_continuous.py``
+and ``tests/test_torch_serve_scan.py``.
 """
 import contextlib
 import gc
@@ -927,7 +943,10 @@ def check_ssd_kernel(ssd_ops, ssd_ref, ssd_kernel, build_report):
 class Capture:
     """Wrap a kernel entry point (at the script's level, by replacing the
     ``ops`` module's attribute for one run) and keep copies of the inputs
-    of the calls whose 0-based index is in ``keep``."""
+    of the calls whose 0-based index is in ``keep``. Calls made while a
+    CUDA graph is being captured are passed through and not counted: their
+    inputs hold no values yet (the graph's warm-up step, made eagerly just
+    before, is counted with its real inputs)."""
 
     def __init__(self, module, attr, keep):
         self.module, self.attr, self.keep = module, attr, set(keep)
@@ -936,6 +955,8 @@ class Capture:
         self.inputs = {}
 
     def __call__(self, *args, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            return self.inner(*args, **kw)
         if self.calls in self.keep:
             self.store(args, kw)
         self.calls += 1
@@ -982,6 +1003,8 @@ class GroupCapture(Capture):
         self.seen, self.keeping = {}, False
 
     def __call__(self, *args, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            return self.inner(*args, **kw)
         j = self.calls % self.per_group
         if j == 0:
             sig = call_signature(args, kw)
@@ -1026,32 +1049,43 @@ def hold_calls(name, ops, ref, inputs, where, what):
     return worst
 
 
-def profile_decode(fed, params, serving, steps: int = 8) -> None:
-    """Where a full-width decode step's time goes: torch.profiler over
-    ``steps`` one-token steps (sampling included) against the 1152-slot
-    cache, after two warm-up steps."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    B, seq = SERVE["batch"], fed.seq_len
-    caches = serving.zero_caches(fed.adapter, B, seq, fed.device)
-    step = fed.serve_step()
-    tok = torch.zeros(B, 1, dtype=torch.int32, device=fed.device)
-    t = SERVE["prompt_len"]
-    vocab = fed.model_cfg.vocab_size
+# the RMSNorm library's device kernels, by name
+RMS_DEVICE_KERNELS = r"rmsnorm_(?:vec|general)_kernel"
 
-    def run(n):
-        nonlocal tok, t, caches
-        for _ in range(n):
-            logits, caches = step(params, tok, caches, t)
-            tok = serving.sample_token(logits, t, 0.0, vocab)[:, None]
-            t += 1
+
+def profile_graph(what, graph, rewind, steps: int = 8) -> dict:
+    """``steps`` replays of a captured step under torch.profiler (the
+    device's busy share, device events a replay, the top kernels), after
+    one replay in the profiler's warm-up (traced and dropped: a trace can
+    miss the first launches it sees), then ``steps`` more between CUDA
+    events; ``rewind()`` sets back the position that the replays advance
+    (the buffers hold ``steps + 1`` of them). The profiler's count of
+    RMSNorm kernels a replay, by the kernel's own name, must equal the
+    launches the capture recorded; raises if the profiler saw no device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    rewind()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        graph.replay(1)
         torch.cuda.synchronize()
-    run(2)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+        prof.step()
         t0 = time.perf_counter()
-        run(steps)
+        graph.replay(steps)
+        torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        prof.step()
+    rewind()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay(steps)
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / steps
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
 
@@ -1060,18 +1094,46 @@ def profile_decode(fed, params, serving, steps: int = 8) -> None:
                        getattr(e, "self_cuda_time_total", 0.0))
     busy = sum(dev_us(e) for e in kernels)
     if not busy:
-        log("serve profile: the profiler saw no CUDA kernel time; device "
-            "busy share not measured")
-        return
-    log(f"serve profile, {steps} full-width decode steps (B={B}, cache "
-        f"{seq}) under torch.profiler: wall {wall_us / steps:.1f} us per "
-        f"step, device busy {busy / steps:.1f} us per step "
-        f"({busy / wall_us:.2%} of wall), "
-        f"{sum(e.count for e in kernels) / steps:.1f} kernel launches per "
-        f"step")
+        raise AssertionError(f"{what}: the profiler saw no CUDA kernel time "
+                             "in the graph's replays")
+    rms = sum(e.count for e in kernels
+              if re.search(RMS_DEVICE_KERNELS, e.key)) / steps
+    captured = graph.captured["rmsnorm"]["rmsnorm"]
+    log(f"{what}: {steps} replays ({graph.nodes} graph nodes, "
+        f"{graph.kernel_nodes} kernel nodes, captured in "
+        f"{graph.capture_s:.4f} s) under torch.profiler: wall "
+        f"{wall_us / steps:.1f} us a step, device busy {busy / steps:.1f} us "
+        f"a step ({busy / wall_us:.2%} of wall), "
+        f"{sum(e.count for e in kernels) / steps:.1f} device events a step, "
+        f"{rms:.1f} RMSNorm kernels a step by name (the capture recorded "
+        f"{captured}); CUDA events: {step_ms:.4f} ms a replay")
     for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
         log(f"  {dev_us(e) / steps:9.2f} us/step  x{e.count / steps:6.2f}"
             f"  {e.key[:90]}")
+    if rms != captured:
+        raise AssertionError(f"{what}: a replay ran {rms} RMSNorm kernels, "
+                             f"the capture recorded {captured}")
+    return dict(busy_share=busy / wall_us, step_ms=step_ms)
+
+
+def profile_decode(fed, params, serving, steps: int = 8) -> dict:
+    """Where a full-width decode step's time goes once it is captured: the
+    decode scan's step graph (B = 8 from position 1024, the 1152-slot
+    cache) captured over ``steps + 1`` tokens, then profiled
+    (:func:`profile_graph`)."""
+    B, seq, P = SERVE["batch"], fed.seq_len, SERVE["prompt_len"]
+    dtype = params["server"]["lm_head"]["table"].dtype
+    logits = torch.zeros((B, 1, fed.model_cfg.padded_vocab), dtype=dtype,
+                         device=fed.device)
+    st = serving.decode_buffers(
+        logits, serving.zero_caches(fed.adapter, B, seq, fed.device), P,
+        steps + 1)
+    graph = serving.make_decode_scan(
+        fed.adapter, fed.n_clients, seq, P, steps + 1, 0.0,
+        fed.model_cfg.vocab_size)(params, st)
+    return profile_graph(f"decode profile of the captured step (B = {B}, "
+                         f"cache {seq})", graph,
+                         lambda: st["pos"].fill_(P), steps)
 
 
 # the SSD library's device kernels: the bf16 route's pre-pass and scan on
@@ -1191,8 +1253,10 @@ def call_site(name, i, args, kw, plan):
 
 
 def serve_phase(rows, arch, zoo_ops, kernels):
-    """Phase 4: the split serve path of ``arch`` at full width and depth.
+    """Phase 4: the split serve path of ``arch`` at full width and depth,
+    decoding through the captured step (``use_scan``, the default).
     ``kernels`` maps each serve kernel's name to its (ops, ref) modules."""
+    from repro_torch import graphs
     from repro_torch.configs import get_config
     from repro_torch.federation import Transport, serving
     from repro_torch.launch import serve as serve_mod
@@ -1209,6 +1273,7 @@ def serve_phase(rows, arch, zoo_ops, kernels):
             "ssd_chunk": [0, M - 1, M, 2 * M - 1] if M else []}
     for ops in [zoo_ops] + [ops for ops, _ in kernels.values()]:
         ops.reset_launches()
+    graphs.reset_replayed()
     torch.cuda.reset_peak_memory_stats()
     with contextlib.ExitStack() as stack:
         caps = {name: stack.enter_context(
@@ -1224,6 +1289,22 @@ def serve_phase(rows, arch, zoo_ops, kernels):
     for ops, _ in kernels.values():
         launches.update(ops.launches)
     want = plan["launches"]
+    # the launches through the graph: one capture recorded a decode
+    # step's norms (its warm-up, the first token, ran eagerly) and the
+    # other gen_len - 1 tokens replayed them
+    dg = res["decode_graph"]
+    replayed = {k: graphs.replayed[k][k] for k in want}
+    want_replayed = {"flash_attention": 0, "ssd_chunk": 0,
+                     "rmsnorm": per_fwd * (SERVE["gen_len"] - 1)}
+    log(f"serve path: {arch} decode graph: captured in {dg['capture_s']:.4f}"
+        f" s, {dg['nodes']} nodes ({dg['kernel_nodes']} kernel nodes), "
+        f"{dg['replays']} replays of {dg['launches_a_replay']} launches: "
+        f"launches replayed {replayed} (derived {want_replayed}), eager "
+        f"{ {k: launches[k] - replayed[k] for k in want} }")
+    if replayed != want_replayed or dg["launches_a_replay"] != {
+            "rmsnorm": per_fwd}:
+        raise AssertionError(f"serve launches through the graph "
+                             f"{replayed}, want {want_replayed}")
     log(f"serve path: {arch} full width ({cfg.n_layers} layers, d_model "
         f"{cfg.d_model}), batch {SERVE['batch']}, prompt "
         f"{SERVE['prompt_len']} + {SERVE['gen_len']} generated, "
@@ -1297,9 +1378,44 @@ def serve_phase(rows, arch, zoo_ops, kernels):
                                  "pre-pass and one tensor-core scan")
         rows["ssd_chunk"]["device_kernels_per_call"] = (
             sum(seen[k] for k in SSD_DEVICE_KERNELS) / seen["calls"])
+    scan_vs_eager(fed, fed_params, cfg)
     profile_decode(fed, fed_params, serving)
     del fed, params, fed_params
     torch.cuda.empty_cache()
+
+
+def scan_vs_eager(fed, params, cfg) -> None:
+    """The serve traffic's prompts decoded eagerly (``use_scan=False``)
+    and through the captured step (the default) on one session: the
+    greedy tokens must be equal, and the final logits within 2 bf16 steps
+    at their largest |.| (bitwise expected: the same kernels in the same
+    order); logs both decodes' tokens/s and peak memory."""
+    from repro_torch.launch import serve as serve_mod
+    B, P, G = SERVE["batch"], SERVE["prompt_len"], SERVE["gen_len"]
+    toks = serve_mod._prompts(cfg, B, P, 0, fed.device)
+    out = {}
+    for use_scan in (False, True):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated() / 2**30
+        r = fed.decode(params, toks, gen_len=G, use_scan=use_scan)
+        out[use_scan] = (r, before, torch.cuda.max_memory_allocated() / 2**30)
+    (eager, e0, epk), (scan, s0, spk) = out[False], out[True]
+    diff = float((eager.logits.float() - scan.logits.float()).abs().max())
+    gate = 2 * bf16_ulp(float(eager.logits.float().abs().max()))
+    log(f"decode, {cfg.arch_id}: eager loop {B * G / eager.decode_s:.1f} "
+        f"tokens/s ({eager.decode_s:.4f} s), peak {epk:.3f} GiB from "
+        f"{e0:.3f}; captured step {B * G / scan.decode_s:.1f} tokens/s "
+        f"({scan.decode_s:.4f} s; capture {scan.graph.capture_s:.4f} s in "
+        f"compile_s {scan.compile_s:.4f} s; {scan.graph.nodes} nodes), peak "
+        f"{spk:.3f} GiB from {s0:.3f}; tokens equal: "
+        f"{np.array_equal(eager.tokens, scan.tokens)}; final logits max "
+        f"|diff| {diff:.5g} (bitwise: {torch.equal(eager.logits, scan.logits)}"
+        f"; gate {gate:.5g})")
+    if not np.array_equal(eager.tokens, scan.tokens) or not diff <= gate:
+        raise AssertionError(f"{cfg.arch_id}: the captured decode differs "
+                             "from the eager loop")
 
 
 def profile_rounds(fed, params, x_parts, y) -> None:
@@ -2115,7 +2231,9 @@ def cont_drain(fed, params, traffic, counters, **kw):
     """Queue every request, then drain them in one ``run()``; the launch
     counts are set to 0 just before the run and read just after. Returns
     (scheduler, results, launches, readings): the run's wall time, the
-    memory allocated before it and its peak, in GiB."""
+    memory allocated before it and its peak, in GiB, and the launches the
+    graphs' replays made."""
+    from repro_torch import graphs
     srv = fed.serve(params, **CONT, **kw)
     for prompt, gen in traffic:
         srv.submit(prompt, gen)
@@ -2125,13 +2243,16 @@ def cont_drain(fed, params, traffic, counters, **kw):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated() / 2**30
+    graphs.reset_replayed()
     t0 = time.perf_counter()
     results = srv.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return srv, results, _launches(counters), dict(
         wall=wall, before=before,
-        peak=torch.cuda.max_memory_allocated() / 2**30)
+        peak=torch.cuda.max_memory_allocated() / 2**30,
+        replayed={k: graphs.replayed[k][k] for k in graphs.replayed
+                  if k in _launches(counters)})
 
 
 def check_drain(what, cfg, fed, params, srv, results, traffic, launches,
@@ -2169,6 +2290,14 @@ def check_drain(what, cfg, fed, params, srv, results, traffic, launches,
                              f"replay steps {srv.replay_steps}")
     waves = len({r.finished_at for r in results})
     want = cont_launch_plan(cfg, srv)
+    # through the graphs (use_scan on the card): every block step and
+    # replayed token but each capture's warm-up, which ran eagerly,
+    # replayed one decode forward's norms
+    graphed = (srv.steps + srv.replay_steps - srv.graph_captures
+               if srv.use_scan else 0)
+    want_replayed = {k: 0 for k in want}
+    want_replayed["rmsnorm"] = serve_plan(cfg)["per_fwd"] * graphed
+    step_graph, replay_graph = srv._step_graph, srv._replay_graph
     worst_pages = srv.max_batch * srv.pages_per_seq
     gaps = [teacher_forced_gap(fed, params, p, r.tokens)
             for (p, _), r in zip(traffic, results)]
@@ -2181,6 +2310,7 @@ def check_drain(what, cfg, fed, params, srv, results, traffic, launches,
     # flip only where two logits lie within their summed errors)
     held = [i for i, (_, g) in enumerate(traffic) if g == CONT_STEP_GEN]
     step_gap = step_err = ref_max = 0.0
+    t_ref = time.perf_counter()
     for i in held:
         ref = step_reference(fed, params, traffic[i][0], results[i].tokens)
         step_gap = max(step_gap, picked_gap(ref[:-1], results[i].tokens,
@@ -2188,6 +2318,9 @@ def check_drain(what, cfg, fed, params, srv, results, traffic, launches,
         got = torch.from_numpy(results[i].logits[0]).to(ref.device)
         step_err = max(step_err, float((got - ref[-1]).abs().max()))
         ref_max = max(ref_max, float(ref.abs().max()))
+    # the B = 1 references step eagerly, one token at a time
+    ref_ms = ((time.perf_counter() - t_ref) * 1e3
+              / (len(held) * (CONT_STEP_GEN + 1)))
     eps = max(solo["delta"], bf16_ulp(ref_max))
     # the replica reference: the scheduler's own shapes without the pages
     # (prefill at the request's wave width, steps at max_batch, the row
@@ -2223,7 +2356,17 @@ def check_drain(what, cfg, fed, params, srv, results, traffic, launches,
         f"{srv.host_transfers} = {waves} retirement waves + "
         f"{srv.preemptions} evictions; pages peak "
         f"{srv.allocator.peak_in_use} of {srv.allocator.capacity} (worst "
-        f"case {worst_pages}); launches {launches}, derived {want}; wire "
+        f"case {worst_pages}); launches {launches}, derived {want}; "
+        f"graphs: {srv.graph_captures} captures, {srv.compile_s:.4f} s of "
+        f"capture (step graph "
+        + ("none" if step_graph is None else f"{step_graph.nodes} nodes, "
+           f"{step_graph.replays} replays")
+        + ", replay graph "
+        + ("none" if replay_graph is None else f"{replay_graph.nodes} nodes"
+           f", {replay_graph.replays} replays")
+        + f"), launches replayed {run['replayed']} (derived "
+        f"{want_replayed}); the B = 1 step reference {ref_ms:.2f} ms a token "
+        f"(eager, prefill included); wire "
         f"{sum(r.wire_bytes for r in results)} B, every request at its "
         f"formula; teacher-forced worst gap {gap:.5g} (gate {gate:.5g}: "
         f"2 x the solo decode's {solo['gap']:.5g}, floor {CONT_GAP_FLOOR} "
@@ -2244,6 +2387,15 @@ def check_drain(what, cfg, fed, params, srv, results, traffic, launches,
     if {k: launches[k] for k in want} != want or any(
             v for k, v in launches.items() if k not in want):
         raise AssertionError(f"{what}: launches {launches}, want {want}")
+    outside = srv.use_scan and (
+        step_graph is None
+        or (srv.replay_steps > 0) != (replay_graph is not None))
+    if outside or {k: run["replayed"].get(k, 0) for k in want} != \
+            want_replayed or any(v for k, v in run["replayed"].items()
+                                 if k not in want):
+        raise AssertionError(f"{what}: launches replayed {run['replayed']}, "
+                             f"want {want_replayed}; the drain ran "
+                             "outside its graphs")
     if not gap <= gate:
         raise AssertionError(f"{what}: teacher-forced gap {gap} over "
                              f"{gate}")
@@ -2259,6 +2411,38 @@ def check_drain(what, cfg, fed, params, srv, results, traffic, launches,
                 step_err=step_err, tok_s=srv.generated_tokens
                 / srv.last_run_s, peak_pages=srv.allocator.peak_in_use,
                 worst_pages=worst_pages)
+
+
+def eager_drain(what, cfg, fed, params, traffic, counters, srv,
+                results) -> None:
+    """The drain of ``srv`` (through the graphs) run again with
+    ``use_scan=False`` (eager steps): the same schedule, launches and
+    tokens, and final logits within 2 bf16 steps at their largest |.|
+    (bitwise expected: the same kernels in the same order)."""
+    esrv, eres, elaunches, er = cont_drain(fed, params, traffic, counters,
+                                           use_scan=False)
+    same = all(np.array_equal(a.tokens, b.tokens)
+               for a, b in zip(results, eres))
+    diff = max(float(np.abs(a.logits - b.logits).max())
+               for a, b in zip(results, eres))
+    bitwise = all(np.array_equal(a.logits, b.logits)
+                  for a, b in zip(results, eres))
+    absmax = max(float(np.abs(b.logits).max()) for b in eres)
+    gate = 2 * bf16_ulp(absmax)
+    log(f"{what} against one eager drain (use_scan=False) of the same "
+        f"traffic: eager {esrv.generated_tokens / esrv.last_run_s:.1f} "
+        f"decode tokens/s (whole run() {er['wall']:.4f} s, peak "
+        f"{er['peak']:.2f} GiB from {er['before']:.2f}), through the graphs "
+        f"{srv.generated_tokens / srv.last_run_s:.1f}; {esrv.steps} steps "
+        f"({srv.steps}), launches {elaunches}; tokens equal: {same}; final "
+        f"logits max |diff| {diff:.5g} (bitwise: {bitwise}; gate "
+        f"{gate:.5g})")
+    want = cont_launch_plan(cfg, esrv)
+    if (not same or not diff <= gate or esrv.steps != srv.steps
+            or {k: elaunches[k] for k in want} != want
+            or esrv.graph_captures or any(er["replayed"].values())):
+        raise AssertionError(f"{what}: the drain through the graphs differs "
+                             "from the eager drain")
 
 
 def solo_baseline(fed, params, traffic) -> dict:
@@ -2468,6 +2652,17 @@ def continuous_phase(rows, card, counters, kernels) -> None:
                                      "case")
             if run == "B" and not srv.preemptions:
                 raise AssertionError(f"{what}: no preemption happened")
+            if run == "B":
+                # after the drain: the prefill buffer's contents are spent
+                profile_graph(f"{what}: replayed tokens through the "
+                              "captured B = 1 step", srv._replay_graph,
+                              lambda: srv._replay_st["pos"].fill_(
+                                  SERVE["prompt_len"]))
+                t0 = lap(f"{arch} run B replay profile", t0)
+            if run == "A" and layers is None:
+                eager_drain(what, cfg, fed, params, traffic, counters, srv,
+                            results)
+                t0 = lap(f"{arch} run A eager drain", t0)
             path = f"continuous {arch} run {run}"
             for name, cap in caps.items():
                 n_sigs = len(cap.seen)
@@ -2508,20 +2703,25 @@ def count_mma(build, name: str, pattern: str) -> int:
     return len(re.findall(pattern, out))
 
 
+def parse_phases(argv) -> set:
+    """``--phases 4,6`` runs the build (phase 1) and the phases named, for
+    work on one path; with no arguments every phase runs, and only then
+    is the result printed."""
+    if not argv:
+        return set(range(1, 8))
+    if len(argv) != 2 or argv[0] != "--phases":
+        raise SystemExit("usage: python3 chip_smoke.py [--phases N,N,...]")
+    return {1} | {int(n) for n in argv[1].split(",")}
+
+
 def main() -> int:
     t_start = time.perf_counter()
+    phases = parse_phases(sys.argv[1:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one "
               "card", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
-    from repro_torch.configs.base import VFLConfig
-    from repro_torch.configs.paper_mlp import PaperMLPConfig
-    from repro_torch.core.adapters import tabular_adapter
-    from repro_torch.core.async_engine import EngineConfig
-    from repro_torch.core.draws import TorchDraws
-    from repro_torch.data import make_classification, vertical_partition
-    from repro_torch.federation import Federation
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention import ref as flash_ref
@@ -2532,7 +2732,6 @@ def main() -> int:
     from repro_torch.kernels.ssd_chunk import ops as ssd_ops
     from repro_torch.kernels.ssd_chunk import ref as ssd_ref
     from repro_torch.kernels.zoo_dual_matmul import ops, ref
-    from repro_torch.models import tabular
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2562,14 +2761,76 @@ def main() -> int:
         raise AssertionError("the SSD library's SASS has no HMMA or HGMMA: "
                              "the bf16 scan does not run on the tensor cores")
 
-    # ---- phase 2: kernels against their plain versions -----------------
-    rows = check_kernels(ops, ref)
-    rows.update(check_flash_kernel(flash_ops, flash_ref))
-    rows.update(check_rmsnorm(rms_ops, rms_ref, rms_kernel))
-    rows.update(check_ssd_kernel(ssd_ops, ssd_ref, ssd_kernel,
-                                 reports["ssd_chunk"]))
+    spent = {"build": time.perf_counter() - t_start}
 
-    # ---- phase 3: the tabular main path at the paper's width -----------
+    def lap(phase, t0):
+        spent[phase] = time.perf_counter() - t0
+        log(f"phase {phase}: {spent[phase]:.1f} s")
+        return time.perf_counter()
+
+    # ---- phase 2: kernels against their plain versions -----------------
+    t0 = time.perf_counter()
+    if 2 in phases:
+        rows = check_kernels(ops, ref)
+        rows.update(check_flash_kernel(flash_ops, flash_ref))
+        rows.update(check_rmsnorm(rms_ops, rms_ref, rms_kernel))
+        rows.update(check_ssd_kernel(ssd_ops, ssd_ref, ssd_kernel,
+                                     reports["ssd_chunk"]))
+        t0 = lap(2, t0)
+    else:
+        rows = {name: {"name": name, "launches": 0}
+                for name in list(KERNELS) + list(KERNEL_ENTRIES)}
+    if 3 in phases:
+        tabular_phase(rows, ops, flash_ops, rms_ops, ssd_ops, kind, card)
+        t0 = lap(3, t0)
+
+    # ---- phase 4: the split serve path at full width -------------------
+    serve_kernels = {"flash_attention": (flash_ops, flash_ref),
+                     "rmsnorm": (rms_ops, rms_ref),
+                     "ssd_chunk": (ssd_ops, ssd_ref)}
+    if 4 in phases:
+        for arch in SERVE_ARCHS:
+            serve_phase(rows, arch, ops, serve_kernels)
+        t0 = lap(4, t0)
+
+    # ---- phase 5: LM training on the card --------------------------------
+    if 5 in phases:
+        train_phase(rows, card, (ops, flash_ops, rms_ops, ssd_ops))
+        t0 = lap(5, t0)
+
+    # ---- phase 6: continuous split serving at full width ---------------
+    if 6 in phases:
+        continuous_phase(rows, card, (ops, flash_ops, rms_ops, ssd_ops),
+                         serve_kernels)
+        t0 = lap(6, t0)
+
+    wall = time.perf_counter() - t_start
+    log(f"chip_smoke wall time: {wall:.1f} s (" + "; ".join(
+        f"phase {k} {v:.1f} s" for k, v in spent.items()) + f") on {card}")
+    if phases != set(range(1, 8)):
+        log(f"partial run (phases {sorted(phases)}): no result line")
+        return 0
+
+    # ---- phase 7: the record -------------------------------------------
+    report_rates(rows)
+    log(card)
+    log(json.dumps({"kernels": list(rows.values())}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def tabular_phase(rows, ops, flash_ops, rms_ops, ssd_ops, kind, card):
+    """Phase 3: the tabular main path at the paper's width."""
+    from repro_torch.configs.base import VFLConfig
+    from repro_torch.configs.paper_mlp import PaperMLPConfig
+    from repro_torch.core.adapters import tabular_adapter
+    from repro_torch.core.async_engine import EngineConfig
+    from repro_torch.core.draws import TorchDraws
+    from repro_torch.data import make_classification, vertical_partition
+    from repro_torch.federation import Federation
+    from repro_torch.models import tabular
     cfg = PaperMLPConfig()
     X, y = make_classification(seed=0, n=60000, n_features=cfg.n_features,
                                n_classes=cfg.n_classes)
@@ -2683,30 +2944,6 @@ def main() -> int:
         f"{qres.losses[-25:].mean():.4f}")
     if not acc > 0.9:
         raise AssertionError(f"quickstart accuracy {acc} <= 0.9")
-
-    # ---- phase 4: the split serve path at full width -------------------
-    serve_kernels = {"flash_attention": (flash_ops, flash_ref),
-                     "rmsnorm": (rms_ops, rms_ref),
-                     "ssd_chunk": (ssd_ops, ssd_ref)}
-    for arch in SERVE_ARCHS:
-        serve_phase(rows, arch, ops, serve_kernels)
-
-    # ---- phase 5: LM training on the card --------------------------------
-    train_phase(rows, card, (ops, flash_ops, rms_ops, ssd_ops))
-
-    # ---- phase 6: continuous split serving at full width ---------------
-    continuous_phase(rows, card, (ops, flash_ops, rms_ops, ssd_ops),
-                     serve_kernels)
-
-    # ---- phase 7: the record -------------------------------------------
-    report_rates(rows)
-    log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
-    log(card)
-    log(json.dumps({"kernels": list(rows.values())}))
-    log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
-        "count": torch.cuda.device_count()}}))
-    return 0
 
 
 if __name__ == "__main__":

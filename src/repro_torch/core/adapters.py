@@ -198,7 +198,15 @@ def from_model_config(cfg: ModelConfig, *, n_clients: int = 2,
 
     @tags.party("server")
     def server_decode(server, x, caches, cur_pos):
-        positions = torch.full((1,), int(cur_pos), device=x.device)
+        """x (bs, 1, d) at position ``cur_pos``, shared by the batch: a
+        Python int (the eager loop), or a 0-d or (1,) int64 device tensor
+        (the captured step: positions are built on the device, the cache
+        row written at a device index). Both forms compute the same."""
+        if isinstance(cur_pos, torch.Tensor):
+            cur_pos = cur_pos.reshape(1)
+            positions = cur_pos
+        else:
+            positions = torch.full((1,), int(cur_pos), device=x.device)
         return _decode_tail(server, x, caches, cur_pos, positions)
 
     @tags.party("server")

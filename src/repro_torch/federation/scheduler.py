@@ -20,8 +20,13 @@ The host stays out of the loop:
   device value on the host or branches on one. K is the largest power of two no
   larger than the host mirror's smallest ``remaining``, so a block never
   overshoots a retirement. The JAX package compiles the block as one
-  ``lax.scan``; here it is a Python loop of K eager steps, written so that
-  a later change can capture it as a CUDA graph.
+  ``lax.scan``; on the card the port captures ONE batched step as a CUDA
+  graph on the slot tensors and replays it K times (the block tables are
+  one device tensor of fixed shape that a change is copied into; the
+  graph is captured again only when the noise table grows or a restore
+  replaces the slot tensors: ``graph_captures`` counts them). On the CPU,
+  and with ``use_scan=False``, a block is a Python loop of K eager steps
+  of the same step function.
 * **wave retirement** — after a block, every slot whose host-mirrored
   ``remaining`` hit zero retires together: ONE device-to-host fetch per
   wave (``host_transfers`` counts it) carries the tokens, the final
@@ -67,7 +72,10 @@ request may also carry any source with ``rows(t0, n, vocab, device)``
   slots that progressed since admission: livelock-free) and re-queue it.
   On re-admission it re-prefills its prompt, replays its generated tokens
   through the per-token serve step and resumes at the same position, so
-  its tokens equal the unpreempted run's. The overhead is metered: the
+  its tokens equal the unpreempted run's (on the card the replay is the
+  B = 1 serve step captured as a CUDA graph on the persistent width-1
+  prefill buffer, fed from a static token buffer and replayed once a
+  token, sharing the block graph's memory pool). The overhead is metered: the
   evicted tenancy's generation at eviction, the whole re-prefill (prompt
   and replayed tokens) at re-admission;
 * **poison isolation** — a request whose logits go non-finite fails with
@@ -89,6 +97,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import graphs
 from repro_torch.analysis import tags
 from repro_torch.checkpoint.io import (_flatten_with_path, load_tree,
                                        save_checkpoint)
@@ -209,32 +218,23 @@ class SchedulerState:
 
 # ================================================== the device programs ==
 
-def _slot_embed(params, owner, tok):
-    """(n, 1, d) uplink embeddings: slot i's owning client ``owner[i]``
-    looks up ``tok[i]`` in its own table. One gather from the stacked
-    (M, vocab, d) tables — no per-slot copy of a client's table (one is
-    32064 x 3072 bf16 at Phi-3 width). It gives the rows ``client_embed``
-    gives (the one-hot form of ``iota_embed`` picks the same rows)."""
-    table = params["clients"]["embed"]["table"]
-    return table[owner, tok.long()][:, None]
+def make_paged_decode_step(adapter: ModelAdapter, n_clients: int,
+                           seq_len: int, temperature: float,
+                           vocab_size: int, page_size: int):
+    """One continuous-batching decode step over all slots.
 
-
-def make_paged_decode_block(adapter: ModelAdapter, n_clients: int,
-                            seq_len: int, temperature: float,
-                            vocab_size: int, page_size: int, n_slots: int,
-                            n_steps: int):
-    """A block of ``n_steps`` continuous-batching decode steps.
-
-    ``block(params, tables, noise_st, logits_st, caches_st, t_st,
-    gen_pos_st, rem_st, gen_buf_st)`` updates the slot state in place.
-    Per step every slot samples from its carried logits on its own noise
-    rows, the owning client embeds the token, and the server runs ONE
-    batched paged decode over all slots (``server_decode_paged``). The
-    active mask derives on the device from ``rem > 0``, so the host never
-    reads the loop's state: a slot that hits zero freezes (its uplink
-    embedding is zeroed, its recurrent state held, its KV row routed to
-    the trash page). Inactive slots still pay their row of the backbone's
-    work, as in the JAX package.
+    ``step(params, tables, noise_st, logits_st, caches_st, t_st,
+    gen_pos_st, rem_st, gen_buf_st, sl)`` updates the slot state in place
+    (``sl`` is ``arange(n_slots)``). Every slot samples from its carried
+    logits on its own noise rows, the owning client embeds the token, and
+    the server runs ONE batched paged decode over all slots
+    (``server_decode_paged``). The active mask derives on the device from
+    ``rem > 0``, so the host never reads the step's state: a slot that
+    hits zero freezes (its uplink embedding is zeroed, its recurrent state
+    held, its KV row routed to the trash page). Inactive slots still pay
+    their row of the backbone's work, as in the JAX package. It reads and
+    writes only its arguments, so it can be captured as a CUDA graph on
+    them.
     """
     serving._require_serve_plane(adapter)
     if adapter.server_decode_paged is None:
@@ -263,7 +263,7 @@ def make_paged_decode_block(adapter: ModelAdapter, n_clients: int,
         idx = gen_pos_st.clamp(0, seq_len - 1)
         gen_buf_st[sl, idx] = torch.where(active, nxt, gen_buf_st[sl, idx])
         owner = torch.where(active, t_st, 0) // span
-        e = _slot_embed(params, owner, nxt)
+        e = serving.slot_embed(params, owner, nxt)
         e = e * active.to(e.dtype)[:, None, None]
         logits, _ = adapter.server_decode_paged(
             params["server"], e, caches_st, tables, t_st, act, page_size)
@@ -271,6 +271,21 @@ def make_paged_decode_block(adapter: ModelAdapter, n_clients: int,
         t_st.add_(act)
         gen_pos_st.add_(act)
         rem_st.sub_(act)
+
+    return step
+
+
+def make_paged_decode_block(adapter: ModelAdapter, n_clients: int,
+                            seq_len: int, temperature: float,
+                            vocab_size: int, page_size: int, n_slots: int,
+                            n_steps: int):
+    """A block of ``n_steps`` eager decode steps
+    (:func:`make_paged_decode_step`): ``block(params, tables, noise_st,
+    logits_st, caches_st, t_st, gen_pos_st, rem_st, gen_buf_st)``. The
+    scheduler's block on the CPU and with ``use_scan=False``; on the card
+    it replays the step's CUDA graph instead."""
+    step = make_paged_decode_step(adapter, n_clients, seq_len, temperature,
+                                  vocab_size, page_size)
 
     def block(params, tables, noise_st, logits_st, caches_st, t_st,
               gen_pos_st, rem_st, gen_buf_st):
@@ -342,6 +357,9 @@ class ServeScheduler:
     queue head may evict the in-flight request with the fewest tokens
     remaining (see the module docstring). ``max_queue`` bounds the
     admission queue (``submit`` raises :class:`QueueFull` past it).
+    ``use_scan`` runs the decode blocks and the resume replay as CUDA
+    graphs on the card (``use_scan=False``: eager steps, the same
+    results).
     """
 
     def __init__(self, adapter: ModelAdapter, transport, *, params,
@@ -351,7 +369,7 @@ class ServeScheduler:
                  page_size: Optional[int] = None,
                  n_pages: Optional[int] = None,
                  max_queue: Optional[int] = None,
-                 preempt: bool = False):
+                 preempt: bool = False, use_scan: bool = True):
         serving._require_serve_plane(adapter)
         if adapter.server_decode_paged is None or \
                 adapter.server_prefill is None:
@@ -376,6 +394,8 @@ class ServeScheduler:
         self.temperature = float(temperature)
         self.max_queue = max_queue
         self.preempt = bool(preempt)
+        self.use_scan = bool(use_scan)
+        self._graphs = self.use_scan and self.device.type == "cuda"
 
         self.page_size = (paging.default_page_size(seq_len)
                           if page_size is None else int(page_size))
@@ -395,7 +415,11 @@ class ServeScheduler:
         self._admitted_at = np.zeros(max_batch, np.int64)
         self._tables = np.full((max_batch, self.pages_per_seq),
                                paging.ZERO_PAGE, np.int32)
-        self._tables_dev = None     # device mirror, rebuilt on change
+        # its device mirror: one tensor (the block graph reads it where it
+        # was captured) that a changed host table is copied into
+        self._tables_dev = torch.from_numpy(self._tables.copy()).to(
+            self.device)
+        self._tables_dirty = False
         self._results: Dict[int, RequestResult] = {}
 
         # device-side slot state. Sequence cache leaves live in the shared
@@ -426,10 +450,19 @@ class ServeScheduler:
         self._prefill_caches = None
         self._blocks: Dict[int, Any] = {}     # block functions by length
         self._install = make_install_prog(adapter, seq_len)
+        # the CUDA graphs (use_scan on the card): the block's step on the
+        # slot tensors, the replay's B = 1 step on the prefill buffer, in
+        # one memory pool; the replay's static buffers
+        self._graph_pool = None
+        self._step_graph: Optional[graphs.StepGraph] = None
+        self._replay_graph: Optional[graphs.StepGraph] = None
+        self._replay_st: Optional[Dict[str, torch.Tensor]] = None
 
         # perf + failure counters
         self.steps = 0
-        self.compile_s = 0.0        # first-use kernel build on the card
+        self.compile_s = 0.0        # first-use kernel build and the
+                                    # graphs' captures on the card
+        self.graph_captures = 0     # CUDA graphs captured
         self.generated_tokens = 0
         self.last_run_s = 0.0
         self.host_transfers = 0     # device->host fetches (one per wave)
@@ -551,11 +584,54 @@ class ServeScheduler:
         pl = req.prompt.size
         gen = torch.from_numpy(np.asarray(req.generated, np.int32)).to(
             self.device)
-        for i in range(gen.shape[0]):
-            logits, caches = step(self.params, gen[i:i + 1][None], caches,
-                                  pl + i)
-            self.replay_steps += 1
-        return logits, caches
+        if not self.use_scan:
+            for i in range(gen.shape[0]):
+                logits, caches = step(self.params, gen[i:i + 1][None],
+                                      caches, pl + i)
+                self.replay_steps += 1
+            return logits, caches
+        # the same step at a device position, fed from a static token
+        # buffer: captured once on the persistent width-1 prefill buffer
+        # (a replay wave is one request) and replayed once a token
+        if caches is not self._prefill_caches:
+            raise RuntimeError("a replay runs on the width-1 prefill buffer")
+        st = self._replay_st
+        if st is None:
+            st = self._replay_st = {
+                "toks": torch.zeros((1, self.seq_len), dtype=torch.int32,
+                                    device=self.device),
+                "pos": torch.zeros(1, dtype=torch.int64, device=self.device),
+                "logits": torch.zeros_like(logits)}
+        st["toks"][0, pl:pl + gen.shape[0]] = gen
+        st["pos"].fill_(pl)
+
+        def body():
+            lg, _ = step(self.params, st["toks"].index_select(1, st["pos"]),
+                         caches, st["pos"])
+            st["logits"].copy_(lg)
+            st["pos"].add_(1)
+        n = gen.shape[0]
+        with torch.no_grad():
+            if not self._graphs:
+                for _ in range(n):
+                    body()
+            elif self._replay_graph is None:
+                self._replay_graph = self._capture(body)
+                self._replay_graph.replay(n - 1)
+            else:
+                self._replay_graph.replay(n)
+        self.replay_steps += n
+        return st["logits"], caches
+
+    def _capture(self, body) -> graphs.StepGraph:
+        """Capture ``body`` (its warm-up is a real step) in the scheduler's
+        graph pool; the capture's seconds go to ``compile_s``."""
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = graphs.StepGraph(body, self.device, self._graph_pool)
+        self.graph_captures += 1
+        self.compile_s += graph.capture_s
+        return graph
 
     def _admit_wave(self, slots: List[int], reqs: List[ServeRequest]):
         """Prefill a wave of requests, allocate their pages, and install
@@ -607,7 +683,7 @@ class ServeScheduler:
         for slot, req, page_ids in zip(slots, reqs, pages):
             self._tables[slot, :] = paging.ZERO_PAGE
             self._tables[slot, :len(page_ids)] = page_ids
-            self._tables_dev = None
+            self._tables_dirty = True
             self._slot_pages[slot] = page_ids
             self._slot_req[slot] = req
             self._remaining[slot] = req.gen_len - req.generated.size
@@ -632,6 +708,7 @@ class ServeScheduler:
         if have:
             grown[:, :have] = self._noise_st
         self._noise_st = grown
+        self._step_graph = None     # it was captured on the old table
 
     def _expire_queue(self):
         """Fail queued requests that can no longer meet their deadline (an
@@ -714,11 +791,12 @@ class ServeScheduler:
         return 1 << (max(m, 1).bit_length() - 1)    # pow2 floor <= min rem
 
     def _device_tables(self):
-        """Device mirror of the block tables, uploaded once per change
-        (admission / retirement) instead of once per block."""
-        if self._tables_dev is None:
-            self._tables_dev = torch.from_numpy(self._tables.copy()).to(
-                self.device)
+        """Device mirror of the block tables, copied from the host table
+        once per change (admission / retirement) instead of once per
+        block."""
+        if self._tables_dirty:
+            self._tables_dev.copy_(torch.from_numpy(self._tables))
+            self._tables_dirty = False
         return self._tables_dev
 
     @tags.hot_loop
@@ -729,20 +807,42 @@ class ServeScheduler:
         if n_occ == 0:
             return
         k = self._block_len(budget)
-        block = self._blocks.get(k)
-        if block is None:
-            block = make_paged_decode_block(
-                self.adapter, self.n_clients, self.seq_len, self.temperature,
-                self.vocab_size, self.page_size, self.max_batch, k)
-            self._blocks[k] = block
-        block(self.params, self._device_tables(), self._noise_st,
-              self._logits_st, self._caches_st, self._t_st,
-              self._gen_pos_st, self._rem_st, self._gen_buf_st)
+        tables = self._device_tables()
+        if self._graphs:
+            self._graph_block(tables, k)
+        else:
+            block = self._blocks.get(k)
+            if block is None:
+                block = make_paged_decode_block(
+                    self.adapter, self.n_clients, self.seq_len,
+                    self.temperature, self.vocab_size, self.page_size,
+                    self.max_batch, k)
+                self._blocks[k] = block
+            block(self.params, tables, self._noise_st, self._logits_st,
+                  self._caches_st, self._t_st, self._gen_pos_st,
+                  self._rem_st, self._gen_buf_st)
         self.steps += k
         self.generated_tokens += k * n_occ
         for slot, req in enumerate(self._slot_req):
             if req is not None:
                 self._remaining[slot] -= k
+
+    def _graph_block(self, tables, k: int) -> None:
+        """K steps through the step's CUDA graph, captured on first use
+        (its warm-up is the block's first step) and kept while the slot
+        tensors and the noise table stay the same tensors."""
+        if self._step_graph is None:
+            step = make_paged_decode_step(
+                self.adapter, self.n_clients, self.seq_len, self.temperature,
+                self.vocab_size, self.page_size)
+            args = (self.params, tables, self._noise_st, self._logits_st,
+                    self._caches_st, self._t_st, self._gen_pos_st,
+                    self._rem_st, self._gen_buf_st,
+                    torch.arange(self.max_batch, device=self.device))
+            with torch.no_grad():
+                self._step_graph = self._capture(lambda: step(*args))
+            k -= 1
+        self._step_graph.replay(k)
 
     # ---------------------------------------------------- slot teardown --
     @tags.host_boundary("eviction fetch: one device->host transfer pulls "
@@ -785,7 +885,7 @@ class ServeScheduler:
         self.allocator.free_(self._slot_pages[slot])
         self._slot_pages[slot] = None
         self._tables[slot, :] = paging.ZERO_PAGE
-        self._tables_dev = None
+        self._tables_dirty = True
         self._slot_req[slot] = None
         self._remaining[slot] = 0
         self._rem_st[slot] = 0
@@ -1055,7 +1155,9 @@ class ServeScheduler:
         self._gen_buf_st = flat["slot_gen_buf"].to(dev, torch.int32)
         # copy: the table is mutated in place
         self._tables = np.array(flat["slot_tables"].numpy(), np.int32)
-        self._tables_dev = None
+        self._tables_dirty = True
+        # the graphs were captured on the slot tensors this replaces
+        self._step_graph = self._replay_graph = None
         if cfg["has_logits"]:
             self._logits_st = flat["slot_logits"].to(dev)
         self.allocator = paging.PageAllocator.restore(

@@ -11,9 +11,15 @@ the ``Transport``.
 
 Ported from the JAX package's ``federation/serving.py``:
 
-* **decode loop** — the JAX package's one compiled ``lax.scan`` becomes a
-  Python loop that samples on the device, keeps the sampled tokens on the
-  device, and transfers them to the host once at the end;
+* **decode scan** — the JAX package's one compiled ``lax.scan``
+  (:func:`make_decode_scan`) becomes one generated token captured as a
+  CUDA graph on static buffers (the carried logits, the caches, a device
+  position, the token buffer, the noise table) and replayed once a token,
+  with no host work between replays (``repro_torch/graphs.py``); on the
+  CPU the same step body runs in a Python loop. ``use_scan=False`` is the
+  eager loop of one-token steps at a Python-int position, as in the JAX
+  package. Both sample on the device, keep the tokens there and transfer
+  them to the host once at the end;
 * **chunked prefill** — each owning client embeds its WHOLE span of the
   prompt in one ``client_embed`` call and the server consumes the
   ``(B, chunk, d_model)`` upload through the adapter's ``server_prefill``
@@ -25,7 +31,9 @@ Ported from the JAX package's ``federation/serving.py``:
 
 The JAX package's ahead-of-time compilation cache has no counterpart:
 ``compile_s`` reports the first-use build of the card's kernels that fell
-inside the call (0.0 when they were built earlier, or on the CPU), and
+inside the call (0.0 when they were built earlier, or on the CPU) plus
+the decode graph's capture and instantiation (kept out of ``decode_s``,
+as the JAX package keeps compile time out of its decode time), and
 ``prefill_s``/``decode_s`` are host-clock times that end in a
 ``torch.cuda.synchronize()``.
 
@@ -48,6 +56,7 @@ from typing import List, Optional, Protocol, Tuple
 import numpy as np
 import torch
 
+from repro_torch import graphs
 from repro_torch.analysis import tags
 from repro_torch.core.adapters import ModelAdapter
 from repro_torch.core.privacy import Ledger
@@ -68,7 +77,9 @@ class ServeResult:
     ledger: Ledger
     prefill_s: float = 0.0          # host clock, ends in a synchronize
     decode_s: float = 0.0           # host clock, ends in the token fetch
-    compile_s: float = 0.0          # first-use kernel build in this call
+    compile_s: float = 0.0          # first-use kernel build and the decode
+                                    # graph's capture in this call
+    graph: Optional[graphs.StepGraph] = None   # the captured decode step
 
     @property
     def wire_bytes(self) -> int:
@@ -173,6 +184,17 @@ def _client(params, m: int):
     return tree_map(lambda a: a[m], params["clients"])
 
 
+def slot_embed(params, owner, tok):
+    """(n, 1, d) uplink embeddings: row i's owning client ``owner[i]``
+    looks up ``tok[i]`` in its own table, the owner picked on the device.
+    One gather from the stacked (M, vocab, d) tables — no copy of a
+    client's table (one is 32064 x 3072 bf16 at Phi-3 width), as ``a[m]``
+    with a tensor ``m`` would make. It gives the rows ``client_embed``
+    gives (the one-hot form of ``iota_embed`` picks the same rows)."""
+    table = params["clients"]["embed"]["table"]
+    return table[owner, tok.long()][:, None]
+
+
 # ===================================================== one-token step ======
 
 def make_serve_step(adapter: ModelAdapter, n_clients: int, seq_len: int):
@@ -180,18 +202,107 @@ def make_serve_step(adapter: ModelAdapter, n_clients: int, seq_len: int):
 
     ``step(params, tok, caches, t)``: the client owning position ``t``
     embeds ``tok`` (the other parties' tables are never read), the server
-    decodes against its caches (updated in place)."""
+    decodes against its caches (updated in place). ``t`` is a Python int
+    (the eager loop) or a 0-d or (1,) int64 device tensor (the captured
+    step: the owner is picked and the cache row written on the device);
+    both compute the same."""
     _require_serve_plane(adapter)
     span = seq_len // n_clients
 
     @tags.wire("up", accounted_by="Transport.account_serve", kind="embedding",
                reason="split-inference uplink: the owning client's one-token "
                       "embedding; logits and caches stay server-side")
-    def step(params, tok, caches, t: int):
-        e = adapter.client_embed(_client(params, t // span), tok)
+    def step(params, tok, caches, t):
+        if isinstance(t, torch.Tensor):
+            owner = (t.reshape(1) // span).expand(tok.shape[0])
+            e = slot_embed(params, owner, tok[:, 0])
+        else:
+            e = adapter.client_embed(_client(params, t // span), tok)
         return adapter.server_decode(params["server"], e, caches, t)
 
     return step
+
+
+def make_decode_scan(adapter: ModelAdapter, n_clients: int, seq_len: int,
+                     prompt_len: int, gen_len: int, temperature: float,
+                     vocab_size: int):
+    """The whole generation as one device program: the counterpart of the
+    JAX package's compiled ``lax.scan``.
+
+    ``scan(params, st)`` generates ``gen_len`` tokens on the static
+    buffers ``st`` (:func:`decode_buffers`): ``logits`` (B, 1, vocab) the
+    carried logits, ``caches``, ``pos`` (1,) int64 the device position,
+    ``out`` (B, gen_len) int32 the tokens, ``noise`` (gen_len, B, vocab)
+    f32 or None. Per token the body samples from the carried logits (the
+    eager loop's sampler, its noise read at the device position), writes
+    the token, has the owning client embed it (:func:`slot_embed`), steps
+    the server and advances the position. On a CUDA device the first
+    token runs eagerly, the body is captured as a CUDA graph and replayed
+    for the rest (the :class:`repro_torch.graphs.StepGraph` is returned;
+    a failed capture raises); on the CPU the body runs in a Python loop
+    (None is returned). Either way the result equals the eager loop's:
+    the same kernels in the same order, the same draws."""
+    step = make_serve_step(adapter, n_clients, seq_len)
+
+    @tags.wire("up", accounted_by="Transport.account_serve", kind="embedding",
+               reason="scan-form decode: per step one-token uplink; the "
+                      "token ids stay on the device until the one fetch "
+                      "after the scan")
+    def body(params, st):
+        i = st["pos"] - prompt_len
+        lg = st["logits"][:, -1].float()
+        if temperature > 0:
+            lg = lg / temperature + st["noise"].index_select(0, i)[0]
+        nxt = torch.clamp(torch.argmax(lg, dim=-1),
+                          max=vocab_size - 1).to(torch.int32)
+        st["out"].index_copy_(1, i, nxt[:, None])
+        logits, _ = step(params, nxt[:, None], st["caches"], st["pos"])
+        st["logits"].copy_(logits)
+        st["pos"].add_(1)
+
+    def scan(params, st) -> Optional[graphs.StepGraph]:
+        if gen_len < 1:
+            return None
+        with torch.no_grad():
+            if st["pos"].device.type != "cuda":
+                for _ in range(gen_len):
+                    body(params, st)
+                return None
+            graph = graphs.StepGraph(lambda: body(params, st),
+                                     st["pos"].device)
+            graph.replay(gen_len - 1)
+        return graph
+
+    return scan
+
+
+def decode_buffers(logits, caches, prompt_len: int, gen_len: int,
+                   noise: Optional[torch.Tensor] = None) -> dict:
+    """:func:`make_decode_scan`'s static buffers, seeded from the
+    prefill's last logits (copied) and the caches (taken as they are)."""
+    B, device = logits.shape[0], logits.device
+    return {"logits": logits.clone(), "caches": caches,
+            "pos": torch.full((1,), prompt_len, dtype=torch.int64,
+                              device=device),
+            "out": torch.zeros((B, gen_len), dtype=torch.int32,
+                               device=device),
+            "noise": noise}
+
+
+def noise_table(draws: "GumbelSource", prompt_len: int, gen_len: int,
+                batch: int, vocab: int, device) -> torch.Tensor:
+    """The whole generation's Gumbel noise, (gen_len, B, vocab) f32, as
+    the eager loop draws it: a source with ``rows`` (one request's noise,
+    :class:`PositionGumbel`) fills it in one call; any other source is
+    called once a position, in position order, so a seeded generator's
+    stream advances as it does in the loop."""
+    if hasattr(draws, "rows"):
+        if batch != 1:
+            raise ValueError(f"{type(draws).__name__} is one request's "
+                             f"noise: batch 1, got {batch}")
+        return draws.rows(prompt_len, gen_len, vocab, device)[:, None]
+    return torch.stack([draws.gumbel(t, (batch, vocab), device)
+                        for t in range(prompt_len, prompt_len + gen_len)])
 
 
 @tags.wire("up", accounted_by="Transport.account_serve", kind="embedding",
@@ -262,11 +373,13 @@ def run_decode(adapter: ModelAdapter, transport, *, n_clients: int,
                prompts, gen_len: int, device: torch.device,
                temperature: float = 0.0,
                draws: Optional[GumbelSource] = None,
-               ledger: Optional[Ledger] = None,
+               ledger: Optional[Ledger] = None, use_scan: bool = True,
                chunked_prefill: bool = True) -> ServeResult:
     """Prefill + decode through the split serve plane (the
-    ``Federation.decode`` engine). ``chunked_prefill=False`` prefills
-    with the per-token step loop (the equivalence oracle)."""
+    ``Federation.decode`` engine). ``use_scan`` decodes through
+    :func:`make_decode_scan` (a CUDA graph on the card); ``use_scan=False``
+    runs the eager loop of one-token steps. ``chunked_prefill=False``
+    prefills with the per-token step loop (the equivalence oracle)."""
     if not isinstance(prompts, torch.Tensor):
         prompts = torch.from_numpy(np.array(prompts))
     prompts = prompts.to(device=device, dtype=torch.int32)
@@ -300,14 +413,32 @@ def run_decode(adapter: ModelAdapter, transport, *, n_clients: int,
     # the owning client (never the logits); tokens stay on the device
     # until the one fetch after the loop
     tic = time.perf_counter()
-    out = torch.empty((B, gen_len), dtype=torch.int32, device=device)
-    for i, t in enumerate(range(prompt_len, max_seq)):
-        nxt = sample_token(logits, t, temperature, vocab_size, draws)
-        out[:, i] = nxt
-        logits, caches = step(params, nxt[:, None], caches, t)
+    graph = None
+    if use_scan:
+        noise = None
+        if temperature > 0:
+            if draws is None:
+                raise ValueError("sampling at temperature > 0 needs a "
+                                 "Gumbel draw source")
+            noise = noise_table(draws, prompt_len, gen_len, B,
+                                logits.shape[-1], device)
+        st = decode_buffers(logits, caches, prompt_len, gen_len, noise)
+        graph = make_decode_scan(adapter, n_clients, seq_len, prompt_len,
+                                 gen_len, float(temperature),
+                                 vocab_size)(params, st)
+        out, logits = st["out"], st["logits"]
+    else:
+        out = torch.empty((B, gen_len), dtype=torch.int32, device=device)
+        for i, t in enumerate(range(prompt_len, max_seq)):
+            nxt = sample_token(logits, t, temperature, vocab_size, draws)
+            out[:, i] = nxt
+            logits, caches = step(params, nxt[:, None], caches, t)
     out_tokens = out.cpu().numpy()
     _sync(device)
     decode_s = time.perf_counter() - tic
+    if graph is not None:
+        compile_s += graph.capture_s
+        decode_s -= graph.capture_s
 
     # every step uploads one embedding; only the gen_len sampled tokens
     # cross back down (the clients already hold the prompt)
@@ -316,4 +447,4 @@ def run_decode(adapter: ModelAdapter, transport, *, n_clients: int,
                                      ledger=ledger)
     return ServeResult(tokens=out_tokens, logits=logits, ledger=ledger,
                        prefill_s=prefill_s, decode_s=decode_s,
-                       compile_s=compile_s)
+                       compile_s=compile_s, graph=graph)

@@ -278,9 +278,12 @@ class Federation:
         B = 1 decode given ``serving.PositionGumbel(s)`` samples the tokens
         the continuous scheduler gives a request submitted with ``seed=s``.
         ``chunked_prefill=False`` prefills token by token (the oracle).
-        ``use_scan`` is the JAX package's choice between its compiled scan
-        and its step loop; the port has one device-resident decode loop
-        and runs it for either value."""
+        ``use_scan`` (the default) decodes as the JAX package's compiled
+        scan does, with no host work per token: on the card one generated
+        token is captured as a CUDA graph and replayed (its capture time
+        lands in ``compile_s``; a failed capture raises); on the CPU the
+        same step body runs in a loop. ``use_scan=False`` is the eager loop
+        of one-token steps; both give the same tokens and logits."""
         if self.model_cfg is None:
             raise ValueError(
                 "decode needs a ModelConfig-built session (tabular/adapter "
@@ -295,13 +298,13 @@ class Federation:
             vocab_size=self.model_cfg.vocab_size, params=params,
             prompts=prompts, gen_len=gen_len, device=self.device,
             temperature=temperature, draws=draws, ledger=ledger,
-            chunked_prefill=chunked_prefill)
+            use_scan=use_scan, chunked_prefill=chunked_prefill)
 
     def serve(self, params, *, max_batch: int = 4,
               temperature: float = 0.0, page_size: Optional[int] = None,
               n_pages: Optional[int] = None,
               max_queue: Optional[int] = None, preempt: bool = False,
-              state: Optional[Any] = None):
+              state: Optional[Any] = None, use_scan: bool = True):
         """A continuous-batching serve session over the split plane, on the
         session's device.
 
@@ -320,7 +323,10 @@ class Federation:
         remaining. Pass a restored ``SessionState.serve_state`` as
         ``state`` to resume a mid-drain snapshot — the scheduler's shape
         and pool config then come from the snapshot, not from the
-        keyword defaults."""
+        keyword defaults. ``use_scan`` (the port's addition, named as in
+        :meth:`decode`): on the card the decode block and the resume
+        replay run as CUDA graphs; ``use_scan=False`` runs them as eager
+        steps, with the same results."""
         from repro_torch.federation.scheduler import ServeScheduler
         if self.model_cfg is None:
             raise ValueError(
@@ -343,7 +349,7 @@ class Federation:
             vocab_size=self.model_cfg.vocab_size, device=self.device,
             max_batch=max_batch, temperature=temperature,
             page_size=page_size, n_pages=n_pages, max_queue=max_queue,
-            preempt=preempt)
+            preempt=preempt, use_scan=use_scan)
         if state is not None:
             srv._load_state(state)
         return srv

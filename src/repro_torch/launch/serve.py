@@ -154,6 +154,11 @@ def _serve_federated(arch: str, cfg, *, batch: int, prompt_len: int,
         "wire_has_gradients": res.transmits_gradients,
         "final_logits_absmax": absmax,
         "sample_output": res.tokens[0, :8].tolist(),
+        "decode_graph": None if res.graph is None else {
+            "capture_s": res.graph.capture_s, "nodes": res.graph.nodes,
+            "kernel_nodes": res.graph.kernel_nodes,
+            "replays": res.graph.replays,
+            "launches_a_replay": res.graph.launches()},
     }
 
 

@@ -116,7 +116,10 @@ def mha_chunked(q, k, v, *, causal: bool = True, window: int = 0,
 
 def _attend(cfg, q, k, v, *, causal: bool, window: int, q_offset: int = 0):
     """Full (or chunk-against-cache) attention: the flash kernel on a CUDA
-    tensor, :func:`mha_chunked` on the CPU."""
+    tensor, :func:`mha_chunked` on the CPU. Eager only: the bf16 kernel's
+    launcher encodes TMA maps of the operands' addresses on the host, so a
+    CUDA graph that captured this call would replay them as they were
+    (``repro_torch/graphs.py``)."""
     if not q.is_cuda:
         return mha_chunked(q, k, v, causal=causal, window=window,
                            logit_softcap=cfg.attn_logit_softcap,
@@ -138,23 +141,27 @@ def decode_attend(q, k_cache, v_cache, cur_pos, *, window: int = 0,
                   scale: Optional[float] = None):
     """One-token decode. q: (B, 1, Hq, hd); caches: (B, S, Hkv, hd).
 
-    ``cur_pos`` is a Python int shared by the batch (the solo path), or a
-    (B,) tensor of per-row positions (the continuous scheduler's batched
-    step: it stays on the device, no host sync). Reads the full cache with
-    a position mask. With ``window_gather`` and window > 0, a shared
-    position slices only the live window (same result, fewer bytes).
+    ``cur_pos`` is a Python int shared by the batch (the eager solo
+    path), a 0-d or (1,) device tensor shared by the batch (the captured
+    solo step), or a (B,) tensor of per-row positions (the continuous
+    scheduler's batched step). A tensor position stays on the device (no
+    host sync). Reads the full cache with a position mask; a shared
+    position's mask holds the same entries whatever its form, so the
+    three forms compute the same result. With ``window_gather`` and
+    window > 0, a Python-int position slices only the live window (same
+    result, fewer bytes).
     """
     B, _, Hq, hd = q.shape
     _, S, Hkv, _ = k_cache.shape
     vd = v_cache.shape[-1]
     G = Hq // Hkv
     scale = hd ** -0.5 if scale is None else scale
-    per_row = isinstance(cur_pos, torch.Tensor) and cur_pos.ndim == 1
-    if not per_row:
+    on_device = isinstance(cur_pos, torch.Tensor)
+    if not on_device:
         cur_pos = int(cur_pos)
     qr = q.reshape(B, Hkv, G, hd).float() * scale
 
-    if window_gather and 0 < window < S and not per_row:
+    if window_gather and 0 < window < S and not on_device:
         start = min(max(cur_pos + 1 - window, 0), S - window)
         k_cache = k_cache[:, start:start + window]
         v_cache = v_cache[:, start:start + window]
@@ -165,8 +172,8 @@ def decode_attend(q, k_cache, v_cache, cur_pos, *, window: int = 0,
     s = torch.einsum("bhgd,bkhd->bhgk", qr, k_cache.float())
     if logit_softcap > 0.0:
         s = logit_softcap * torch.tanh(s / logit_softcap)
-    if per_row:
-        cur = cur_pos[:, None]
+    if on_device:
+        cur = cur_pos.reshape(-1, 1)                # (B, 1) or (1, 1)
         mask = kpos[None, :] <= cur
         if window > 0:
             mask &= kpos[None, :] > (cur - window)
@@ -208,8 +215,10 @@ def attention_apply(cfg, p, x, *, positions, cache=None, cur_pos=None,
     """Full attention sub-layer. Returns (out, cache).
 
     cache: dict(k=(B, S, Hkv, hd), v=...) for this layer, or None; this
-    step's k/v are written into it in place at ``cur_pos`` (a Python int)
-    and the same dict is returned. With ``paging`` (a
+    step's k/v are written into it in place at ``cur_pos`` (a Python int,
+    or for a one-token step a 0-d or (1,) int64 device tensor: the
+    captured decode step writes at a device index) and the same dict is
+    returned. With ``paging`` (a
     :class:`repro_torch.models.common.PageContext`: the continuous
     scheduler's batched decode step) the cache leaves are shared page
     pools (n_pages, page_size, Hkv, hd) instead, ``cur_pos`` is a per-row
@@ -250,10 +259,20 @@ def attention_apply(cfg, p, x, *, positions, cache=None, cur_pos=None,
                           logit_softcap=cfg.attn_logit_softcap)
     elif cache is not None:
         # write this step's k/v at cur_pos, attend over the cache
-        cur_pos = int(cur_pos)
         k_cache, v_cache = cache["k"], cache["v"]
-        k_cache[:, cur_pos:cur_pos + S] = k.to(k_cache.dtype)
-        v_cache[:, cur_pos:cur_pos + S] = v.to(v_cache.dtype)
+        if isinstance(cur_pos, torch.Tensor):
+            # a device position (the captured decode step): the row is
+            # written at a device index, with no host read
+            if S != 1:
+                raise ValueError(f"a device position writes one token, got "
+                                 f"S={S}")
+            at = cur_pos.reshape(1)
+            k_cache.index_copy_(1, at, k.to(k_cache.dtype))
+            v_cache.index_copy_(1, at, v.to(v_cache.dtype))
+        else:
+            cur_pos = int(cur_pos)
+            k_cache[:, cur_pos:cur_pos + S] = k.to(k_cache.dtype)
+            v_cache[:, cur_pos:cur_pos + S] = v.to(v_cache.dtype)
         if S == 1:
             o = decode_attend(q, k_cache, v_cache, cur_pos, window=window,
                               logit_softcap=cfg.attn_logit_softcap)

@@ -48,7 +48,8 @@ SLICE_MODULES = ("repro_torch.kernels.zoo_dual_matmul.ops",
                  "repro_torch.federation.parties",
                  "repro_torch.launch.train",
                  "repro_torch.federation.paging",
-                 "repro_torch.federation.scheduler")
+                 "repro_torch.federation.scheduler",
+                 "repro_torch.graphs")
 
 
 def _port_files():
