@@ -113,15 +113,43 @@ and prints no result):
    profile of one 8-step
    block (launches a step, the device's busy share, the paged gather's
    time a step), a sampled drain (temperature 0.8: its time, peak memory
-   and noise table; seeds sharing a prompt must draw different streams)
-   and the phase's time;
-7. a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
+   and noise table; seeds sharing a prompt must draw different streams),
+   a sampled drain of mixed generation lengths (32 to 128 tokens, the
+   noise table growing while the block graph exists, so the graph is
+   captured again) held token for token to one eager drain of the same
+   traffic and seeds, and the phase's time;
+7. asynchronous LM training over the wire plane: (a)
+   ``launch.train.train_population`` of Phi-3-mini at full width and
+   depth, 40 rounds at the population CLI's defaults (4 client parties
+   behind loopback wires, batch 8 x 32 tokens, q = 1, cascaded): a
+   finite, falling loss, no gradient on the wire, the ledger's serialized
+   bytes equal to the emb/loss frames measured as sent (the f32 payload
+   formula beside them), the flash-attention and RMSNorm launches equal
+   to their derivation from the config, the rounds and the admitted
+   clients, both kernels held to their plain versions on the first and
+   last layer of round 0's server update and of its loss lanes, ms a
+   round, peak memory and one round cycle profiled by kernel family; (b)
+   at full width cut to 2 layers: ``run_population`` against
+   ``Federation.run`` over 10 rounds (losses, params, table, delays
+   bitwise), ``until=5`` + ``fed.save(async_state=)`` +
+   ``Federation.restore`` + resume against 10 unbroken rounds (bitwise),
+   and party 2's ``ClientWorker`` in another process on the card behind
+   a ``SocketBackend`` against the loopback run (bitwise, ledger
+   included); (c) a run with drops, latency, jitter, straggler admission
+   and staleness forcing whose counters and virtual clock equal the same
+   plan's on the CPU, and a socket worker ``kill -9``'d at its 2nd frame
+   (declared dead, the run completes); (d) one round on reduced phi3 in
+   f32 on the card against the CPU;
+8. a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 
 It needs one card, and builds into ``build/`` at first use. It logs each
 phase's time and its own; ``PERF.md`` keeps the readings. Phase 6's
 modules have CPU tests of their own against the JAX package:
 ``tests/test_torch_paging.py``, ``tests/test_torch_serve_continuous.py``
-and ``tests/test_torch_serve_scan.py``.
+and ``tests/test_torch_serve_scan.py``; phase 7's are
+``tests/test_torch_wire.py`` and ``tests/test_torch_population.py``. Phase
+7 starts worker processes of this script (``--pop-worker``) and stops
+them before it returns.
 """
 import contextlib
 import gc
@@ -1053,31 +1081,59 @@ def hold_calls(name, ops, ref, inputs, where, what):
 RMS_DEVICE_KERNELS = r"rmsnorm_(?:vec|general)_kernel"
 
 
-def profile_graph(what, graph, rewind, steps: int = 8) -> dict:
+def profile_graph(what, graph, rewind, steps: int = 8,
+                  traces: int = 5) -> dict:
     """``steps`` replays of a captured step under torch.profiler (the
     device's busy share, device events a replay, the top kernels), after
     one replay in the profiler's warm-up (traced and dropped: a trace can
     miss the first launches it sees), then ``steps`` more between CUDA
     events; ``rewind()`` sets back the position that the replays advance
-    (the buffers hold ``steps + 1`` of them). The profiler's count of
-    RMSNorm kernels a replay, by the kernel's own name, must equal the
-    launches the capture recorded; raises if the profiler saw no device
-    time."""
+    (the buffers hold ``steps + 1`` of them). Every node of the graph is
+    one device event a replay, so a trace with fewer than ``graph.nodes``
+    a replay lost records (the tracer drops a few now and then); it is
+    logged and taken again, up to ``traces`` times. On a complete trace the profiler's count of RMSNorm kernels a
+    replay, by the kernel's own name, must equal the launches the
+    capture recorded; raises if the profiler saw no device time or no
+    trace was complete."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
-    rewind()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        graph.replay(1)
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    captured = graph.captured["rmsnorm"]["rmsnorm"]
+    for attempt in range(1, traces + 1):
+        rewind()
         torch.cuda.synchronize()
-        prof.step()
-        t0 = time.perf_counter()
-        graph.replay(steps)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-        prof.step()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            graph.replay(1)
+            torch.cuda.synchronize()
+            prof.step()
+            t0 = time.perf_counter()
+            graph.replay(steps)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+            prof.step()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        busy = sum(dev_us(e) for e in kernels)
+        if not busy:
+            raise AssertionError(f"{what}: the profiler saw no CUDA kernel "
+                                 "time in the graph's replays")
+        events = sum(e.count for e in kernels)
+        rms = sum(e.count for e in kernels
+                  if re.search(RMS_DEVICE_KERNELS, e.key)) / steps
+        if events >= graph.nodes * steps:
+            break
+        log(f"{what}: trace {attempt} of {traces} lost "
+            f"{graph.nodes * steps - events} of {graph.nodes * steps} "
+            f"device records ({rms} RMSNorm kernels a replay); traced "
+            "again")
+    else:
+        raise AssertionError(f"{what}: each of {traces} traces lost device "
+                             "records")
     rewind()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1086,25 +1142,12 @@ def profile_graph(what, graph, rewind, steps: int = 8) -> dict:
     end.record()
     end.synchronize()
     step_ms = start.elapsed_time(end) / steps
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-    busy = sum(dev_us(e) for e in kernels)
-    if not busy:
-        raise AssertionError(f"{what}: the profiler saw no CUDA kernel time "
-                             "in the graph's replays")
-    rms = sum(e.count for e in kernels
-              if re.search(RMS_DEVICE_KERNELS, e.key)) / steps
-    captured = graph.captured["rmsnorm"]["rmsnorm"]
     log(f"{what}: {steps} replays ({graph.nodes} graph nodes, "
         f"{graph.kernel_nodes} kernel nodes, captured in "
-        f"{graph.capture_s:.4f} s) under torch.profiler: wall "
-        f"{wall_us / steps:.1f} us a step, device busy {busy / steps:.1f} us "
-        f"a step ({busy / wall_us:.2%} of wall), "
-        f"{sum(e.count for e in kernels) / steps:.1f} device events a step, "
+        f"{graph.capture_s:.4f} s) under torch.profiler (trace {attempt}): "
+        f"wall {wall_us / steps:.1f} us a step, device busy "
+        f"{busy / steps:.1f} us a step ({busy / wall_us:.2%} of wall), "
+        f"{events / steps:.1f} device events a step, "
         f"{rms:.1f} RMSNorm kernels a step by name (the capture recorded "
         f"{captured}); CUDA events: {step_ms:.4f} ms a replay")
     for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
@@ -1113,7 +1156,7 @@ def profile_graph(what, graph, rewind, steps: int = 8) -> dict:
     if rms != captured:
         raise AssertionError(f"{what}: a replay ran {rms} RMSNorm kernels, "
                              f"the capture recorded {captured}")
-    return dict(busy_share=busy / wall_us, step_ms=step_ms)
+    return dict(busy_share=busy / wall_us, step_ms=step_ms, traces=attempt)
 
 
 def profile_decode(fed, params, serving, steps: int = 8) -> dict:
@@ -1365,8 +1408,15 @@ def serve_phase(rows, arch, zoo_ops, kernels):
         gen_len=SERVE["gen_len"], seed=0)
     fed_params = fed.params_from_global(params)
     if cfg.family == "hybrid":
-        seen = profile_prefill(fed, fed_params, serving,
-                               kernels["ssd_chunk"][0])
+        for trace in range(1, 4):
+            seen = profile_prefill(fed, fed_params, serving,
+                                   kernels["ssd_chunk"][0])
+            # fewer device kernels than launches: the trace lost records
+            # (see profile_graph); take it again
+            if min(seen[k] for k in SSD_DEVICE_KERNELS[:2]) >= seen["calls"]:
+                break
+            log(f"prefill profile: trace {trace} of 3 lost SSD kernel "
+                "records; traced again")
         # one prefill runs the SSD scan once per Mamba2 layer and chunk, as
         # the serve run did; every call takes the tensor cores: one
         # pre-pass and one scan kernel, and never the f32 route's kernel
@@ -1603,22 +1653,33 @@ def profile_train_step(step, args):
     backward, SGD update, direction draws), else to its name's family
     (the forward kernels, also when remat recomputes them in the
     backward; cuBLAS), else to the rest."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        # the trace can miss a region's first launches (on an H100 it
-        # has dropped a step's first five, its direction draws):
-        # throwaway launches go first, in a range the split leaves out
-        with record_function(PROFILE_WARMUP):
-            x = torch.zeros(1, device="cuda")
-            for _ in range(32):
-                x.add_(1)
-            torch.cuda.synchronize()
+        profiler_warmup()
         t0 = time.perf_counter()
         out = step(*args)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    return out, split_profile(prof, wall_us)
+
+
+def profiler_warmup() -> None:
+    """The trace can miss a region's first launches (on an H100 it has
+    dropped a step's first five, its direction draws): throwaway launches
+    go first, in a range the split leaves out."""
+    from torch.profiler import record_function
+    with record_function(PROFILE_WARMUP):
+        x = torch.zeros(1, device="cuda")
+        for _ in range(32):
+            x.add_(1)
+        torch.cuda.synchronize()
+
+
+def split_profile(prof, wall_us) -> dict:
+    """A profile's device time by family (see ``profile_train_step``),
+    the busy time, the kernels and the host's top events."""
+    from torch.autograd import DeviceType
     ranges = ("plain backward", "SGD update", "direction draws",
               PROFILE_WARMUP)
     split, by_name, n_kernels = {}, {}, 0
@@ -1653,8 +1714,8 @@ def profile_train_step(step, args):
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CPU),
                   key=lambda kv: -kv[1])[:12]
-    return out, dict(wall_us=wall_us, busy_us=busy, split=split,
-                     by_name=by_name, kernels=n_kernels, host=host)
+    return dict(wall_us=wall_us, busy_us=busy, split=split,
+                by_name=by_name, kernels=n_kernels, host=host)
 
 
 def log_profile(what, prof) -> None:
@@ -2515,6 +2576,63 @@ def sampled_drain(fed, params, traffic) -> None:
         raise AssertionError("sampled drain: two seeds drew one stream")
 
 
+# the mixed sampled drain: 16 requests of 256-token prompts whose
+# generation lengths rise through the drain (the first 8, admitted first,
+# generate at most 64 tokens; later admissions up to 128), so the noise
+# table grows while the block graph exists
+CONT_MIXED_GENS = (32, 48, 64, 32, 48, 64, 32, 48,
+                   128, 96, 128, 64, 112, 32, 80, 128)
+
+
+def mixed_sampled_drain(fed, params, traffic) -> None:
+    """A sampled drain (temperature CONT_SAMPLED_T) of mixed generation
+    lengths through the scheduler's CUDA graphs, against one eager drain
+    (``use_scan=False``) of the same traffic and seeds: the tokens of
+    every request equal. The noise table grows when a longer generation
+    is admitted, and the block graph, captured on the old table, is
+    captured again: the graph drain must capture more than once."""
+    prompts = [traffic[6 + i % 2][0] for i in range(len(CONT_MIXED_GENS))]
+    out = {}
+    for use_scan in (True, False):
+        srv = fed.serve(params, temperature=CONT_SAMPLED_T,
+                        use_scan=use_scan, **CONT)
+        for i, (prompt, gen) in enumerate(zip(prompts, CONT_MIXED_GENS)):
+            srv.submit(prompt, gen, seed=100 + i)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        results = srv.run()
+        torch.cuda.synchronize()
+        out[use_scan] = (srv, results, time.perf_counter() - t0,
+                         torch.cuda.max_memory_allocated() / 2**30)
+    (gsrv, gres, gwall, gpeak), (esrv, eres, ewall, epeak) = \
+        out[True], out[False]
+    table = tuple(gsrv._noise_st.shape)
+    same = len(gres) == len(eres) == len(prompts) and all(
+        a.rid == b.rid and np.array_equal(a.tokens, b.tokens)
+        for a, b in zip(gres, eres))
+    log(f"mixed sampled drain (temperature {CONT_SAMPLED_T}, {len(prompts)} "
+        f"x 256-token prompts, generations {list(CONT_MIXED_GENS)}, seeds "
+        f"100..{99 + len(prompts)}): through the graphs "
+        f"{gsrv.generated_tokens / gsrv.last_run_s:.1f} decode tokens/s "
+        f"(whole run() {gwall:.3f} s, peak {gpeak:.2f} GiB), "
+        f"{gsrv.graph_captures} graph captures ({gsrv.compile_s:.3f} s), "
+        f"noise table {table} f32 = "
+        f"{np.prod(table) * 4 / 2**20:.2f} MiB at the end; eager "
+        f"{esrv.generated_tokens / esrv.last_run_s:.1f} decode tokens/s "
+        f"(whole run() {ewall:.3f} s, peak {epeak:.2f} GiB); "
+        f"{gsrv.steps} steps ({esrv.steps} eager); tokens equal: {same}")
+    if not same or [r.status for r in gres] != ["ok"] * len(prompts):
+        raise AssertionError("mixed sampled drain: the graph drain's tokens "
+                             "differ from the eager drain's")
+    if not (gsrv.graph_captures >= 2 and esrv.graph_captures == 0
+            and table[1] == max(CONT_MIXED_GENS)):
+        raise AssertionError(f"mixed sampled drain: {gsrv.graph_captures} "
+                             f"captures, table {table}: the re-capture "
+                             "after the table grew was not exercised")
+
+
 # the paged gather's device kernel (``flat[gather_rows]``: PyTorch's
 # vectorized index gather), one for K and one for V a layer a step
 PAGED_GATHER_KERNEL = r"vectorized_gather_kernel"
@@ -2686,11 +2804,635 @@ def continuous_phase(rows, card, counters, kernels) -> None:
             t0 = lap(f"{arch} block profile", t0)
             sampled_drain(fed, params, traffic)
             t0 = lap(f"{arch} sampled drain", t0)
+            mixed_sampled_drain(fed, params, traffic)
+            t0 = lap(f"{arch} mixed sampled drain and its eager drain", t0)
         del fed, params
         torch.cuda.empty_cache()
     log("continuous phase time: " + "; ".join(
         f"{name} {sec:.1f} s" for name, sec in spent.items()))
     log(f"continuous phase: {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
+# ---------------------------------- phase 7: population training ------
+
+# the population CLI's defaults (launch/train.py --engine population): 4
+# client parties over 128 rows, batch 8 x 32 tokens (span 8), q = 1,
+# cascaded, block 1, lr 0.01, mu 1e-3; 40 rounds
+POP = dict(steps=40, batch=8, seq=32, n_clients=4, rows=128,
+           zoo_queries=1, lr=0.01, mu=1e-3)
+POP_WARMUP = 3          # rounds before the timed ones
+POP_PROFILE_ROUND = 30  # the round cycle under torch.profiler
+# the bitwise and fault checks: Phi-3 full width cut to 2 layers, 10 rounds
+POP_SMALL = dict(layers=2, rounds=10, until=5)
+POP_FAULTS = dict(seed=7, drop=0.2, latency_ms=5.0, jitter_ms=3.0,
+                  max_retries=1)
+POP_ADMISSION = dict(admission_ms=8.0, staleness_bound=4)
+POP_WORKER = "--pop-worker"   # argv[1] of the socket worker process
+
+
+def pop_plan(cfg, q: int, rounds: int, admitted: int) -> dict:
+    """Kernel launches of ``rounds`` population rounds with ``admitted``
+    client activations admitted in all: each round's server update runs
+    one forward with grad (and with ``cfg.remat`` the backward recomputes
+    every block once; the final norm lies outside), and each admitted
+    client's loss downlink runs 1 + q forwards without grad. A forward
+    runs flash attention once a layer and RMSNorm at ln1 and ln2 of each
+    layer and the final norm."""
+    L, remat = cfg.n_layers, int(cfg.remat)
+    fwd = rounds + admitted * (1 + q)
+    launches = {"flash_attention": L * (fwd + rounds * remat),
+                "rmsnorm": (2 * L + 1) * fwd + 2 * L * rounds * remat,
+                "ssd_chunk": 0}
+    why = (f"[{rounds} server-update forwards + {admitted} admitted x "
+           f"{1 + q} lane forwards] x ({L} flash, {2 * L + 1} RMSNorm) + "
+           f"{rounds} x {remat} remat recompute x ({L} flash, {2 * L} "
+           f"RMSNorm)")
+    return dict(launches=launches, why=why)
+
+
+class RoundRecorder:
+    """Wraps the population engine's server update (at the script's
+    level, for one ``with``) to record the host clock at each round's
+    server update after a synchronise — the loop reads each round's
+    losses on the host anyway — and to run one round cycle (round
+    ``profile_round``'s server update to the next round's) under
+    torch.profiler."""
+
+    def __init__(self, profile_round=None):
+        from repro_torch.core import async_engine
+        self.engine, self.profile_round = async_engine, profile_round
+        self.starts, self.profile, self._prof = [], None, None
+
+    def __enter__(self):
+        self.inner = self.engine._population_fns
+        rec = self
+
+        def fns(*args):
+            server_update, losses_fn = rec.inner(*args)
+
+            def recorded(*a):
+                torch.cuda.synchronize()
+                now = time.perf_counter()
+                n = len(rec.starts)
+                rec.starts.append(now)
+                if n == rec.profile_round:
+                    from torch.profiler import ProfilerActivity, profile
+                    rec._prof = profile(activities=[ProfilerActivity.CPU,
+                                                    ProfilerActivity.CUDA])
+                    rec._prof.__enter__()
+                    profiler_warmup()
+                    rec._t0 = time.perf_counter()
+                elif rec._prof is not None and rec.profile is None:
+                    rec.stop(now)
+                return server_update(*a)
+            return recorded, losses_fn
+
+        self.engine._population_fns = fns
+        return self
+
+    def stop(self, now=None):
+        torch.cuda.synchronize()
+        wall_us = ((now or time.perf_counter()) - self._t0) * 1e6
+        self._prof.__exit__(None, None, None)
+        self.profile = split_profile(self._prof, wall_us)
+
+    def __exit__(self, *exc):
+        self.engine._population_fns = self.inner
+
+
+class FrameMeter:
+    """Sums the sizes of the data-plane frames (``emb`` up, ``loss``
+    down) every loopback endpoint sends, measured from the bytes the
+    backend queues — independent of the engine's ledger."""
+
+    def __init__(self):
+        from repro_torch.wire import backend, codec
+        self.backend, self.codec = backend, codec
+        self.bytes = self.frames = 0
+
+    def __enter__(self):
+        be = self.backend.LoopbackBackend
+        self.inner = be.send
+        meter = self
+
+        def send(endpoint, msg):
+            n = meter.inner(endpoint, msg)
+            if msg.tag in meter.codec.DATA_TAGS:
+                meter.bytes += n
+                meter.frames += 1
+            return n
+        be.send = send
+        return self
+
+    def __exit__(self, *exc):
+        self.backend.LoopbackBackend.send = self.inner
+
+
+class DetachedCapture(Capture):
+    """A Capture keeping detached copies (the server update's inputs carry
+    autograd history)."""
+
+    def store(self, args, kw):
+        self.inputs[self.calls] = (
+            [a.detach().clone() if isinstance(a, torch.Tensor) else a
+             for a in args],
+            {k: v.detach().clone() if isinstance(v, torch.Tensor) else v
+             for k, v in kw.items()})
+
+
+def pop_keeps(cfg, q: int) -> dict:
+    """Round 0's calls to hold: the first and last layer of the server
+    update's forward, and of its first and last loss-downlink lane."""
+    L, remat = cfg.n_layers, int(cfg.remat)
+    f0 = L * (1 + remat)                   # the first lane's first call
+    r0 = (2 * L + 1) + 2 * L * remat
+    return {"flash_attention": {0: "server update, layer 0",
+                                L - 1: f"server update, layer {L - 1}",
+                                f0: "loss lane 0, layer 0",
+                                f0 + (1 + q) * L - 1:
+                                    f"loss lane {q}, layer {L - 1}"},
+            "rmsnorm": {0: "server update, layer 0 ln1",
+                        2 * L: "server update, final norm",
+                        r0: "loss lane 0, layer 0 ln1",
+                        r0 + (1 + q) * (2 * L + 1) - 1:
+                            f"loss lane {q}, final norm"}}
+
+
+def population_phase(rows, card, counters, kernels) -> None:
+    """Phase 7: asynchronous LM training over the wire plane —
+    ``launch.train.train_population`` of Phi-3-mini at full width and
+    depth, the bitwise and fault checks at full width cut to 2 layers
+    (with worker processes on the card behind sockets), and one round on
+    reduced phi3 in f32 against the CPU."""
+    t_phase = time.perf_counter()
+    pop_full(rows, card, counters, kernels)
+    t0 = time.perf_counter()
+    log(f"population phase (a): {t0 - t_phase:.1f} s")
+    pop_small(counters)
+    t1 = time.perf_counter()
+    log(f"population phase (b, c): {t1 - t0:.1f} s")
+    pop_card_vs_cpu()
+    log(f"population phase (d): {time.perf_counter() - t1:.1f} s")
+    log(f"population phase: {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
+def pop_full(rows, card, counters, kernels) -> None:
+    """(a) 40 rounds of Phi-3-mini at full width and depth through
+    ``train_population`` at the CLI's defaults."""
+    from repro_torch.launch import train as train_mod
+    arch = "phi3-mini-3.8b"
+    cfg = train_mod.get_config(arch)
+    q, T = POP["zoo_queries"], POP["steps"]
+    keeps = pop_keeps(cfg, q)
+    flash_ops, rms_ops = kernels["flash_attention"][0], \
+        kernels["rmsnorm"][0]
+    with contextlib.ExitStack() as stack:
+        caps = {"flash_attention": stack.enter_context(DetachedCapture(
+                    flash_ops, KERNEL_ENTRIES["flash_attention"],
+                    keeps["flash_attention"])),
+                "rmsnorm": stack.enter_context(DetachedCapture(
+                    rms_ops, KERNEL_ENTRIES["rmsnorm"], keeps["rmsnorm"]))}
+        rec = stack.enter_context(RoundRecorder(POP_PROFILE_ROUND))
+        meter = stack.enter_context(FrameMeter())
+        for c in counters:
+            c.reset_launches()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = train_mod.train_population(
+            arch, use_reduced=False, steps=T, batch=POP["batch"],
+            seq=POP["seq"], n_clients=POP["n_clients"], rows=POP["rows"],
+            zoo_queries=q, lr=POP["lr"], mu=POP["mu"], seed=0)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        wall = t_end - t0
+        launches = _launches(counters)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    starts = rec.starts
+    head, tail = starts[0] - t0, t_end - starts[-1]
+    span = starts[POP_WARMUP:POP_PROFILE_ROUND]
+    ms = (span[-1] - span[0]) * 1e3 / (len(span) - 1)
+    log(f"population: {arch} full width and depth ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, bf16), cascaded, {POP['n_clients']} client "
+        f"parties over loopback wires, batch {POP['batch']} x {POP['seq']} "
+        f"(span {POP['seq'] // POP['n_clients']}), q = {q}, {T} rounds: "
+        f"{ms:.3f} ms a round (host clock at each round's server update "
+        f"after a synchronise, rounds {POP_WARMUP}..{POP_PROFILE_ROUND - 1}"
+        f"; the cycle from round {POP_PROFILE_ROUND} profiled) on {card}; "
+        f"peak memory {peak:.2f} GiB; train_population {res['wall_s']} s "
+        f"of run_population, whole call {wall:.2f} s: {head:.2f} s before "
+        f"round 0's server update (the weights drawn on the card, the "
+        f"table, round 0's uplink), {starts[-1] - starts[0]:.2f} s from it "
+        f"to round {T - 1}'s, {tail:.2f} s after (round {T - 1}'s "
+        f"downlink, the collect of {POP['n_clients']} client tables over "
+        f"the wire, stop)")
+    log(f"population result: {json.dumps(res)}")
+    admitted = round(res["participation"] * T)
+    plan = pop_plan(cfg, q, T, admitted)
+    log(f"population launches {launches}, derived {plan['launches']}: "
+        f"{plan['why']}")
+    if not (res["rounds"] == T and np.isfinite(res["loss_first"])
+            and np.isfinite(res["loss_last"])):
+        raise AssertionError(f"population run failed: {res}")
+    if not res["loss_last"] < res["loss_first"]:
+        raise AssertionError(f"population loss did not fall: {res}")
+    if res["wire_has_gradients"]:
+        raise AssertionError("gradients crossed the population's wire")
+    if {k: launches[k] for k in plan["launches"]} != plan["launches"] or \
+            any(launches[k] for k in launches if k not in plan["launches"]):
+        raise AssertionError(f"population launches {launches}, want "
+                             f"{plan['launches']} and no ZOO kernel")
+    log(f"population wire: serialized {res['serialized_bytes']} B in the "
+        f"ledger; {meter.frames} emb/loss frames measured as sent "
+        f"{meter.bytes} B; formula {res['formula_bytes']} B (f32 payloads: "
+        f"the bf16 embeddings cross at half); control {res['control_bytes']}"
+        f" B")
+    if res["serialized_bytes"] != meter.bytes or \
+            meter.frames != 2 * (1 + q) * admitted:
+        raise AssertionError("the ledger's serialized bytes differ from the "
+                             "frames sent")
+    log_profile(f"population profile, round cycle {POP_PROFILE_ROUND} of "
+                f"{arch} on {card}", rec.profile)
+    path = f"population:{arch}"
+    for name, cap in caps.items():
+        if sorted(cap.inputs) != sorted(keeps[name]):
+            raise AssertionError(f"population: {name} captured "
+                                 f"{sorted(cap.inputs)}")
+        rows[name].setdefault("serve_max_abs_err", {})[path] = hold_calls(
+            name, *kernels[name], cap.inputs,
+            lambda i, args, kw, name=name: keeps[name][i], "population")
+        rows[name]["launches"] += launches[name]
+        rows[name].setdefault("launches_by_path", {})[path] = launches[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class CpuRowDraws:
+    """``RowDraws`` drawn on the CPU and handed to a run on ``device``, so
+    a card run and a CPU run draw the same numbers. ``directions=False``
+    leaves the client directions to the card's own ``RowDraws`` (the
+    fault check needs only the schedule to agree)."""
+
+    def __init__(self, seed, device, directions=True):
+        from repro_torch.core.draws import RowDraws
+        self.cpu, self.dev = RowDraws(seed, "cpu"), torch.device(device)
+        self.card = None if directions else RowDraws(seed, device)
+
+    def schedule(self, *a):
+        return self.cpu.schedule(*a).to(self.dev)
+
+    def sample_indices(self, *a):
+        return self.cpu.sample_indices(*a).to(self.dev)
+
+    def row_key(self, t, r):
+        return self.cpu.row_key(t, r)
+
+    def directions(self, key, template, q):
+        from repro_torch.core import draws
+        from repro_torch.tree import tree_leaves, tree_map
+        if self.card is not None:
+            return self.card.directions(key, template, q)
+        seed, t, row = (int(w) for w in np.asarray(key).reshape(-1))
+        raw = draws._normals(draws._seeded((seed, draws._CLIENT, t, row),
+                                           "cpu"), template, (q,))
+        dev = tree_leaves(template)[0].device
+        return tree_map(lambda x: x.to(dev), raw)
+
+    def client_directions(self, t, template, n_rows, q):
+        from repro_torch.tree import tree_map
+        rows = [self.directions(self.row_key(t, r), template, q)
+                for r in range(n_rows)]
+        return tree_map(lambda *xs: torch.stack(xs), *rows)
+
+    def noise(self, *a):
+        return self.cpu.noise(*a).to(self.dev)
+
+
+def _pop_session(cfg, device, rounds, vfl=None):
+    """A population session of ``cfg`` at the CLI's shapes, its params
+    (drawn on ``device`` from seed 0) and its data."""
+    from repro_torch.configs import VFLConfig
+    from repro_torch.core.async_engine import EngineConfig
+    from repro_torch.data import lm_token_batches, vertical_partition
+    from repro_torch.federation import Federation
+    fed = Federation.build(
+        cfg, vfl or VFLConfig(mu=POP["mu"], lr_server=POP["lr"],
+                              lr_client=1e-5),
+        EngineConfig(method="cascaded", steps=rounds,
+                     batch_size=POP["batch"], seed=0),
+        n_clients=POP["n_clients"], seq_len=POP["seq"], device=device)
+    params = fed.init_params(torch.Generator(fed.device).manual_seed(0))
+    toks = next(lm_token_batches(1, cfg.vocab_size, POP["rows"],
+                                 POP["seq"]))["tokens"]
+    return fed, params, vertical_partition(toks, POP["n_clients"]), toks
+
+
+def _small_cfg():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("phi3-mini-3.8b"),
+                               n_layers=POP_SMALL["layers"])
+
+
+def pop_worker(argv) -> int:
+    """The socket worker process: ``chip_smoke.py --pop-worker PORT PARTY
+    [KILL_AT_FRAME]`` rebuilds the 2-layer session's party row on the card
+    (the same seeds as the engine) and serves it until the engine says
+    stop; KILL_AT_FRAME > 0 ``kill -9``'s it as it sends that frame."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.tree import tree_map
+    from repro_torch.wire import (ChaosBackend, ChaosPlan, ClientWorker,
+                                  SocketBackend)
+    port, party = int(argv[0]), int(argv[1])
+    kill = int(argv[2]) if len(argv) > 2 else 0
+    fed, params, xp, _ = _pop_session(_small_cfg(), "cuda",
+                                      POP_SMALL["rounds"])
+    row = tree_map(lambda a: a[party].clone(), params["clients"])
+    del params
+    backend = SocketBackend.connect("127.0.0.1", port)
+    if kill:
+        backend = ChaosBackend(backend, ChaosPlan(kill_at_frame=kill))
+    ClientWorker(fed.adapter, fed.vfl, row, xp[party], party,
+                 backend).serve(timeout=900.0)
+    print("POP_WORKER_OK", flush=True)
+    return 0
+
+
+def _start_worker(party, kill=0):
+    from repro_torch.wire import listen
+    listener, port = listen()
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), POP_WORKER,
+         str(port), str(party), str(kill)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return listener, proc
+
+
+def _stop_worker(listener, proc):
+    listener.close()
+    try:
+        out, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    return proc.returncode, out, err
+
+
+def _same_trees(a, b) -> bool:
+    from repro_torch.tree import tree_leaves
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                 tree_leaves(b)))
+
+
+def _tabular_faults(plan, admission):
+    """The fault check's CPU counterpart: the same plan, admission and
+    schedule (``RowDraws(0)`` over the same parties, rounds and rows) on a
+    small tabular model. The counters and the virtual clock depend on the
+    schedule and the plan's deliveries, never on the model or its frame
+    sizes, so they must equal the LM run's on the card."""
+    from repro_torch.configs import VFLConfig
+    from repro_torch.configs.paper_mlp import PaperMLPConfig
+    from repro_torch.core.async_engine import EngineConfig
+    from repro_torch.federation import Federation
+    M, n = POP["n_clients"], POP["rows"]
+    fed = Federation.build(
+        PaperMLPConfig(n_features=4 * M, n_classes=2, n_clients=M,
+                       client_embed=2, server_embed=4),
+        VFLConfig(), EngineConfig(method="cascaded",
+                                  steps=POP_SMALL["rounds"],
+                                  batch_size=POP["batch"], seed=0),
+        device="cpu")
+    rng = np.random.default_rng(0)
+    return fed.run_population(
+        fed.init_params(torch.Generator().manual_seed(0)),
+        rng.standard_normal((M, n, 4)).astype(np.float32),
+        rng.integers(0, 2, n), fault_plan=plan, population=admission)
+
+
+def pop_small(counters) -> None:
+    """(b) and (c) at Phi-3 full width cut to 2 layers on the card."""
+    import shutil
+    import tempfile
+    from repro_torch.core import async_engine
+    from repro_torch.core.async_engine import PopulationConfig
+    from repro_torch.core.draws import RowDraws
+    from repro_torch.federation import Federation
+    from repro_torch.wire import FaultPlan, accept
+    spent = {}
+
+    def lap(name, t0):
+        spent[name] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    # the worker processes start first: they take seconds to reach the card
+    t0 = time.perf_counter()
+    sock_l, sock_p = _start_worker(2)
+    kill_l, kill_p = _start_worker(1, kill=2)
+    try:
+        cfg = _small_cfg()
+        R, until = POP_SMALL["rounds"], POP_SMALL["until"]
+        fed, params, xp, toks = _pop_session(cfg, "cuda", R)
+        t0 = lap("session", t0)
+        x_d = torch.from_numpy(xp).to("cuda", torch.int64)
+        y_d = torch.from_numpy(toks).to("cuda", torch.int64)
+
+        # ---- (b) population == run, bitwise ---------------------------
+        t0 = time.perf_counter()
+        pop = fed.run_population(params, xp, toks)
+        t_pop = time.perf_counter() - t0
+        runner = async_engine._make_runner(fed.adapter, fed.transport,
+                                           fed.vfl, False, 1, False)
+        draws = RowDraws(0, "cuda")
+        M, n = x_d.shape[:2]
+        (p, table, delays), (losses, _) = runner(
+            params, fed.adapter.client_forward(params["clients"], x_d),
+            torch.zeros((M, n), dtype=torch.int32, device="cuda"),
+            draws.schedule(R, M, None, 1),
+            draws.sample_indices(R, POP["batch"], n), draws, x_d, y_d)
+        whole = fed.run(params, xp, toks, draws=RowDraws(0, "cuda"))
+        same = (np.array_equal(pop.losses, losses.cpu().numpy())
+                and np.array_equal(pop.losses, whole.losses)
+                and _same_trees(pop.params, p)
+                and _same_trees(pop.params, whole.params)
+                and torch.equal(pop.state.table, table.cpu())
+                and np.array_equal(pop.state.delays, delays.cpu().numpy()))
+        log(f"population == run: Phi-3 full width, {cfg.n_layers} layers, "
+            f"{R} rounds, FaultPlan.none(), RowDraws(0) on the card: "
+            f"losses {[round(float(x), 5) for x in pop.losses]}; losses, "
+            f"params, table and delays bitwise equal: {same} (population "
+            f"{t_pop:.2f} s)")
+        if not same:
+            raise AssertionError("the population run differs from run()")
+        t0 = lap("population == run (3 runs)", t0)
+
+        # ---- (b) until=5, save, restore, resume -------------------------
+        build = Path(__file__).resolve().parent / "build"
+        build.mkdir(exist_ok=True)
+        root = tempfile.mkdtemp(prefix="chip_smoke_pop_", dir=build)
+        try:
+            half = fed.run_population(params, xp, toks, until=until)
+            path = fed.save(f"{root}/ck", half.params, step=until,
+                            ledger=half.ledger, async_state=half.state)
+            fed2, params2, state = Federation.restore(
+                path, device=fed.device)
+            cont = fed2.run_population(params2, xp, toks,
+                                       state=state.async_state,
+                                       ledger=state.ledger)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        resumed = (np.array_equal(cont.losses, pop.losses[until:])
+                   and _same_trees(cont.params, pop.params)
+                   and torch.equal(cont.state.table, pop.state.table)
+                   and np.array_equal(cont.state.delays, pop.state.delays)
+                   and cont.serialized_bytes == pop.serialized_bytes)
+        log(f"population resume: until={until}, fed.save(async_state=), "
+            f"Federation.restore, resumed to {R}: losses, params, table, "
+            f"delays and serialized bytes bitwise equal to the unbroken "
+            f"run: {resumed}")
+        if not resumed:
+            raise AssertionError("the resumed population run differs")
+        t0 = lap("until, save, restore, resume", t0)
+
+        # ---- (b) party 2 behind a socket, its worker on the card --------
+        chan = accept(sock_l, timeout=300.0)
+        sock = fed.run_population(params, xp, toks, channels={2: chan})
+        rc, out, err = _stop_worker(sock_l, sock_p)
+        over = (rc == 0 and "POP_WORKER_OK" in out
+                and np.array_equal(sock.losses, pop.losses)
+                and _same_trees(sock.params, pop.params)
+                and sock.ledger.messages == pop.ledger.messages)
+        log(f"population over a socket: party 2's ClientWorker in another "
+            f"process on the card (exit {rc}); losses, params and ledger "
+            f"messages (measured bytes included) equal to the loopback "
+            f"run: {over}; control bytes {sock.control_bytes} vs "
+            f"{pop.control_bytes}")
+        if not over:
+            raise AssertionError(f"the socket run differs: {err[-2000:]}")
+        t0 = lap("socket party (worker start included)", t0)
+
+        # ---- (c) faults: card against the CPU ----------------------------
+        plan = FaultPlan(**POP_FAULTS)
+        admission = PopulationConfig(**POP_ADMISSION)
+        faulty = fed.run_population(
+            params, xp, toks, fault_plan=plan, population=admission,
+            draws=CpuRowDraws(0, "cuda", directions=False))
+        t1 = time.perf_counter()
+        cpu = _tabular_faults(plan, admission)
+        t_cpu = time.perf_counter() - t1
+        keys = ("uplink_drops", "stragglers", "downlink_drops", "forced",
+                "degraded_rounds", "retransmit_frames", "virtual_ms")
+        got = {k: faulty.stats[k] for k in keys}
+        want = {k: cpu.stats[k] for k in keys}
+        log(f"population faults: {POP_FAULTS}, {POP_ADMISSION}: card "
+            f"{got}; the same plan and schedule on the CPU (a tabular "
+            f"model: the counters and the clock do not depend on the "
+            f"model; {t_cpu:.2f} s) {want}; losses finite "
+            f"{bool(np.isfinite(faulty.losses).all())}")
+        if got != want or len(faulty.losses) != R or \
+                not np.isfinite(faulty.losses).all():
+            raise AssertionError("the faulty run's counters differ from "
+                                 "the CPU's")
+        # dropped attempts show as lost deliveries or as retransmits
+        if not (got["uplink_drops"] + got["downlink_drops"]
+                + got["retransmit_frames"]
+                and got["stragglers"] and got["forced"]):
+            raise AssertionError(f"the fault plan exercised nothing: {got}")
+        t0 = lap("faults", t0)
+
+        # ---- (c) kill -9 a socket worker mid-run ---------------------------
+        chan = accept(kill_l, timeout=300.0)
+        killed = fed.run_population(params, xp, toks, channels={1: chan},
+                                    wire_timeout_s=120.0)
+        rc, out, err = _stop_worker(kill_l, kill_p)
+        log(f"population kill -9: party 1's worker process exit {rc} at its "
+            f"2nd frame; {len(killed.losses)} rounds completed, dead "
+            f"parties {killed.stats['dead_parties']}, uplink drops "
+            f"{killed.stats['uplink_drops']}, participation "
+            f"{killed.stats['participation']:.3f}")
+        if not (rc == 9 and killed.stats["dead_parties"] == 1
+                and len(killed.losses) == R
+                and np.isfinite(killed.losses).all()
+                and _same_trees({k: v[1] for k, v in
+                                 killed.params["clients"]["embed"].items()},
+                                {k: v[1] for k, v in
+                                 params["clients"]["embed"].items()})):
+            raise AssertionError(f"the killed worker's run failed (exit "
+                                 f"{rc}): {err[-2000:]}")
+        lap("kill -9", t0)
+        log("population phase (b, c) time: " + "; ".join(
+            f"{k} {v:.1f} s" for k, v in spent.items()))
+    finally:
+        for listener, proc in ((sock_l, sock_p), (kill_l, kill_p)):
+            if proc.poll() is None:
+                _stop_worker(listener, proc)
+    del fed, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def pop_card_vs_cpu() -> None:
+    """(d) One population round on reduced phi3 in f32, on the card and on
+    the CPU from the same params and draws (drawn on the CPU), held as
+    phase 5 holds a step (``step_card_vs_cpu``): the loss at 1e-5, and
+    each leaf's step (new - old) entrywise within the rule
+    tests/test_torch_train_step.py holds a step to the JAX package's with
+    — 1e-4 (FOO server leaves) or 1e-2 (ZOO client leaves) of the CPU
+    step's largest entry, plus one f32 rounding of the leaf's largest
+    param — plus twice the f32 step's own error in that leaf (the CPU's
+    f32 step against the same round from f64 params)."""
+    from repro_torch.configs import VFLConfig, get_config, reduced
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = reduced(get_config("phi3-mini-3.8b"), param_dtype="float32",
+                  dtype="float32")
+    vfl = VFLConfig(**STEP_VFL)
+    cpu_fed, cpu_params, xp, toks = _pop_session(cfg, "cpu", 1, vfl)
+    card_fed, _, _, _ = _pop_session(cfg, "cuda", 1, vfl)
+    outs = {}
+    for name, fed, params, dev in (
+            ("card", card_fed, tree_map(lambda t: t.to("cuda"), cpu_params),
+             "cuda"),
+            ("cpu", cpu_fed, cpu_params, "cpu"),
+            ("f64", cpu_fed, tree_map(torch.Tensor.double, cpu_params),
+             "cpu")):
+        outs[name] = fed.run_population(params, xp, toks,
+                                        draws=CpuRowDraws(0, dev))
+    g, c, r = outs["card"], outs["cpu"], outs["f64"]
+    loss_rel = abs(float(g.losses[0]) - float(c.losses[0])) / abs(
+        float(c.losses[0]))
+    worst = f32_err = 0.0
+    bare = whole = -math.inf
+    worst_leaf = None
+    for part in ("server", "clients"):
+        tol = 1e-2 if part == "clients" else 1e-4
+        for x, y, z, p in zip(tree_leaves(g.params[part]),
+                              tree_leaves(c.params[part]),
+                              tree_leaves(r.params[part]),
+                              tree_leaves(cpu_params[part])):
+            want = (y - p).double()
+            gap = float(((x.cpu() - p).double() - want).abs().max())
+            own = float(((z - p.double()) - want).abs().max())
+            ulp = float(np.spacing(np.float32(p.abs().max())))
+            big = max(float(want.abs().max()), 1e-30)
+            rel = (gap - ulp - 2 * own) / (tol * big)
+            bare = max(bare, (gap - ulp) / (tol * big))
+            whole = max(whole, gap / (tol * big + ulp))
+            f32_err = max(f32_err, (own - ulp) / big)
+            if worst_leaf is None or rel > worst:
+                worst, worst_leaf = rel, (part, tuple(p.shape))
+    log(f"population round on the card vs the CPU, reduced phi3 f32 "
+        f"({STEP_VFL}): loss {float(g.losses[0]):.7f} vs "
+        f"{float(c.losses[0]):.7f} (relative {loss_rel:.3e}, tol 1e-5); "
+        f"worst leaf step gap beyond one rounding and twice the f32 step's "
+        f"own error {worst:.3f} of its allowance (leaf {worst_leaf}; 1e-4 "
+        f"x the server step's or 1e-2 x the client step's largest entry), "
+        f"{bare:.3f} of it without the own-error term (the gap over the "
+        f"allowance plus the rounding {whole:.3f}); the CPU f32 step's "
+        f"error against f64 params up to {f32_err:.3e} of the step")
+    if not (loss_rel <= 1e-5 and worst <= 1.0):
+        raise AssertionError("the population round on the card differs "
+                             "from the CPU's")
 
 
 def count_mma(build, name: str, pattern: str) -> int:
@@ -2708,7 +3450,7 @@ def parse_phases(argv) -> set:
     work on one path; with no arguments every phase runs, and only then
     is the result printed."""
     if not argv:
-        return set(range(1, 8))
+        return set(range(1, 9))
     if len(argv) != 2 or argv[0] != "--phases":
         raise SystemExit("usage: python3 chip_smoke.py [--phases N,N,...]")
     return {1} | {int(n) for n in argv[1].split(",")}
@@ -2716,6 +3458,8 @@ def parse_phases(argv) -> set:
 
 def main() -> int:
     t_start = time.perf_counter()
+    if sys.argv[1:2] == [POP_WORKER]:
+        return pop_worker(sys.argv[2:])
     phases = parse_phases(sys.argv[1:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one "
@@ -2804,14 +3548,20 @@ def main() -> int:
                          serve_kernels)
         t0 = lap(6, t0)
 
+    # ---- phase 7: asynchronous LM training over the wire plane ---------
+    if 7 in phases:
+        population_phase(rows, card, (ops, flash_ops, rms_ops, ssd_ops),
+                         serve_kernels)
+        t0 = lap(7, t0)
+
     wall = time.perf_counter() - t_start
     log(f"chip_smoke wall time: {wall:.1f} s (" + "; ".join(
         f"phase {k} {v:.1f} s" for k, v in spent.items()) + f") on {card}")
-    if phases != set(range(1, 8)):
+    if phases != set(range(1, 9)):
         log(f"partial run (phases {sorted(phases)}): no result line")
         return 0
 
-    # ---- phase 7: the record -------------------------------------------
+    # ---- phase 8: the record -------------------------------------------
     report_rates(rows)
     log(card)
     log(json.dumps({"kernels": list(rows.values())}))

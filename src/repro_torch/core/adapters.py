@@ -5,18 +5,22 @@ needs three things from a model: a per-client feature extractor, a
 server loss over the stacked client embeddings, and (optionally) a fused
 "lanes" forward that evaluates the clean + q ZOO-perturbed client
 forwards in one pass. Packaging those as a :class:`ModelAdapter` lets the
-same engine drive any client/server pair: the paper's tabular MLP, and
-(via :func:`from_model_config`) the serve plane of a registered
-decoder-only ``ModelConfig`` — the clients own the embedding, the server
-the transformer backbone plus head.
+same engine drive any client/server pair: the paper's tabular MLP, a
+SwiGLU-MLP stack (:func:`mlp_adapter`), and (via
+:func:`from_model_config`) a registered decoder-only ``ModelConfig`` —
+the clients own the embedding, the server the transformer backbone plus
+head — for training and for serving.
 
 Where the JAX engine ``vmap``-ed an adapter's hooks over the activated
 client block, the port calls them once with the block written out as
-leading batch dims, so every hook broadcasts over leading dims.
+leading batch dims, so every hook takes leading dims: the tabular hooks
+broadcast them through their products, the MLP and LM hooks loop over
+them (:func:`_over_lead`; the LM's kernels cannot be ``vmap``-ed).
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Callable, Optional
 
 import torch
@@ -24,10 +28,13 @@ import torch
 from repro_torch.analysis import tags
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.paper_mlp import PaperMLPConfig
+from repro_torch.core import zoo
 from repro_torch.core.partition import LM_CLIENT_KEYS, split_params
 from repro_torch.kernels.zoo_dual_matmul.ops import zoo_dual_matmul_stacked
-from repro_torch.models import common, model_api, tabular, transformer
+from repro_torch.models import common, mlp, model_api, tabular, transformer
+from repro_torch.models.common import ParamSpec
 from repro_torch.models.layers import apply_norm, embed_lookup, unembed
+from repro_torch.tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +102,36 @@ class ModelAdapter:
         return self.server_loss(params["server"], c, y_batch)
 
 
+def _over_lead(fn, args, bases):
+    """``fn(*args)`` for every index of the args' leading dims.
+
+    ``bases[i]`` is the number of trailing dims of every leaf of
+    ``args[i]`` (a tensor or a tree) that ``fn`` takes, or None for an
+    argument passed to every call as it is; the dims before them are
+    leading dims, broadcast across all leaves as numpy broadcasts
+    (right-aligned, size 1 repeats, by indexing: nothing is expanded or
+    copied). Returns ``fn``'s tensor results stacked into (*lead, ...),
+    or ``fn(*args)`` itself when there are no leading dims."""
+    leads = [leaf.shape[:leaf.ndim - base]
+             for a, base in zip(args, bases) if base is not None
+             for leaf in tree_leaves(a)]
+    lead = torch.broadcast_shapes(*leads)
+    if not lead:
+        return fn(*args)
+
+    def pick(leaf, base, idx):
+        own = leaf.shape[:leaf.ndim - base]
+        own_idx = idx[len(idx) - len(own):]
+        return leaf[tuple(i if n > 1 else 0 for i, n in zip(own_idx, own))]
+
+    outs = [fn(*(a if base is None else
+                 tree_map(lambda leaf, b=base: pick(leaf, b, idx), a)
+                 for a, base in zip(args, bases)))
+            for idx in itertools.product(*(range(n) for n in lead))]
+    out = torch.stack(outs)
+    return out.reshape(*lead, *out.shape[1:])
+
+
 # ========================================================== paper tabular ==
 
 def tabular_adapter(cfg: Optional[PaperMLPConfig] = None,
@@ -140,23 +177,106 @@ def tabular_adapter(cfg: Optional[PaperMLPConfig] = None,
     )
 
 
+# ======================================================== SwiGLU-MLP pair ==
+
+def mlp_adapter(*, n_clients: int = 4, features: int = 32,
+                client_embed: int = 32, d_ff: int = 64,
+                server_embed: int = 64, n_classes: int = 4,
+                act: str = "swiglu") -> ModelAdapter:
+    """Non-tabular client/server pair built from ``repro_torch.models.mlp``
+    blocks: each client projects its feature slice and applies a residual
+    SwiGLU MLP; the server does the same over the concatenated embeddings
+    before a linear head. Exercises the engine with a model whose client
+    partition is a multi-layer tree (not one FC layer)."""
+    acfg = ModelConfig(act=act, dtype="float32", param_dtype="float32")
+    f_per = features // n_clients
+    e, se = client_embed, server_embed
+
+    def param_specs():
+        client = {
+            "w_in": ParamSpec((f_per, e), "float32", (None, None), "scaled"),
+            "mlp": mlp.mlp_specs(acfg, e, d_ff),
+        }
+        return {
+            "clients": common.stack_layer_specs(client, n_clients,
+                                                axis_name="clients"),
+            "server": {
+                "w_in": ParamSpec((n_clients * e, se), "float32",
+                                  (None, None), "scaled"),
+                "mlp": mlp.mlp_specs(acfg, se, 2 * d_ff),
+                "head": ParamSpec((se, n_classes), "float32", (None, None),
+                                  "scaled"),
+            },
+        }
+
+    def _rms(h):
+        # parameter-free rms norm keeps the residual stack well-conditioned
+        # regardless of feature scale (ZOO loses to exploding logits fast)
+        return h * torch.rsqrt(torch.mean(torch.square(h), -1,
+                                          keepdim=True) + 1e-6)
+
+    def _client_one(client_m, x_m):
+        h = _rms(x_m @ client_m["w_in"])
+        return _rms(h + mlp.mlp_apply(acfg, client_m["mlp"],
+                                      h[:, None, :])[:, 0])
+
+    @tags.party("client")
+    def client_forward(client, x):
+        """x (..., bs, f_per) -> (..., bs, e)."""
+        return _over_lead(_client_one, (client, x), (2, 2))
+
+    def _server_one(server, c_all, y_batch):
+        M, B, _ = c_all.shape
+        h = _rms(c_all.transpose(0, 1).reshape(B, M * e) @ server["w_in"])
+        h = _rms(h + mlp.mlp_apply(acfg, server["mlp"],
+                                   h[:, None, :])[:, 0])
+        return tabular.xent(h @ server["head"], y_batch)
+
+    @tags.party("server")
+    def server_loss(server, c_all, y_batch):
+        """c_all (..., M, bs, e) -> loss (...)."""
+        return _over_lead(_server_one, (server, c_all, y_batch),
+                          (None, 3, None))
+
+    return ModelAdapter(name=f"mlp-{act}", client_forward=client_forward,
+                        server_loss=server_loss, param_specs=param_specs)
+
+
 # ================================================= ModelConfig bridge =====
 
 def from_model_config(cfg: ModelConfig, *, n_clients: int = 2,
-                      seq_len: int = 32) -> ModelAdapter:
-    """Derive the serve plane of a decoder-only ``ModelConfig``.
+                      seq_len: int = 32,
+                      active_rows: bool = True) -> ModelAdapter:
+    """Derive a :class:`ModelAdapter` for a decoder-only ``ModelConfig``
+    (the dense and hybrid families).
 
     The vertical split follows the paper's LM experiments: each of the M
     client parties owns a disjoint span of ``seq_len / M`` token positions
     plus its own copy of the embedding table (the bottom layer), and the
     server owns the backbone (for the hybrid family the Mamba2 trunk and
-    the shared attention block), final norm and LM head. The
-    serve hooks are the exact post-embedding half of
+    the shared attention block), final norm and LM head. A client's uplink
+    "embedding" is its span's token embeddings flattened to one
+    ``(batch, span·d_model)`` vector, so the engine's (M, n, e) table,
+    staleness bookkeeping and wire accounting all apply unchanged; the
+    server loss folds the M spans back into a (batch, S, d_model)
+    sequence and runs the post-embedding half of the model's loss. On the
+    card that reaches the flash-attention and RMSNorm kernels (and the
+    SSD scan for the hybrid family) exactly as the sync training step
+    does; a server loss over leading dims (the 1 + q lanes) runs one
+    forward per index.
+
+    ``active_rows=True`` (default) attaches a :attr:`ModelAdapter.row_mask`
+    hook restricting each client's ZOO perturbation to the embedding rows
+    its batch touches.
+
+    ``x_parts`` for the engine are integer token spans,
+    ``data.vertical_partition(tokens, M)``; ``y`` is the full (n, S) token
+    array. ``partition.lm_engine_params`` maps a global ``build_model``
+    parameter tree into the engine's {"clients", "server"} layout.
+
+    The serve hooks are the exact post-embedding half of
     ``transformer.forward``'s decode path, so split decode equals global
-    decode. The async engine's training hooks (``client_forward``,
-    ``client_lanes``, ``server_loss``, ``row_mask``) belong to the
-    async-engine LM plane and raise ``NotImplementedError``; the sync
-    training plane is ``Federation.sync_step``.
+    decode.
     """
     transformer.check_family(cfg)
     if n_clients < 1 or seq_len % n_clients:
@@ -166,13 +286,68 @@ def from_model_config(cfg: ModelConfig, *, n_clients: int = 2,
     model = model_api.build_model(cfg, max_seq=seq_len)
     client_spec, server_spec = split_params(model.param_specs,
                                             LM_CLIENT_KEYS)
+    span = seq_len // n_clients
+    d = cfg.d_model
 
-    def training_hook(*_args):
-        raise NotImplementedError(
-            "LM training through the async engine is not ported yet "
-            "(ROADMAP.md, Queue 1 item 10, the async-engine LM plane); this "
-            "adapter serves only — LM training runs through "
-            "Federation.sync_step and launch/train.py")
+    def _embed_one(client_m, x_m):
+        e = embed_lookup(client_m["embed"], x_m, iota=cfg.iota_embed)
+        return e.reshape(x_m.shape[0], span * d)
+
+    @tags.party("client")
+    def client_forward(client, x):
+        """x (..., bs, span) int tokens -> (..., bs, span·d) embedding."""
+        return _over_lead(_embed_one, (client, x), (2, 2))
+
+    @tags.party("client")
+    def client_lanes(client_blk, u_stack, mu, x_blk):
+        """Fused clean + q perturbed fan-out: client_blk leaves (R, V, d),
+        u_stack (R, q, V, d), x_blk (R, bs, span) -> (R, 1+q, bs, span·d).
+        Embedding lookup is linear in the table, so the q perturbed
+        forwards are one gather into the stacked direction tables instead
+        of q re-embeddings of a perturbed copy — equal to
+        perturb-then-lookup (the gather commutes with the elementwise
+        w + μu and the dtype round-trip)."""
+        clean = client_forward(client_blk, x_blk)           # (R, bs, e)
+        u_rows = _over_lead(
+            lambda u, x: embed_lookup(u["embed"], x),
+            (u_stack, x_blk.unsqueeze(-3)), (2, 2))   # (R, q, bs, span, d)
+        lead = u_rows.shape[:-3]
+        pert = (clean.unsqueeze(-3).float()
+                + mu * u_rows.reshape(*lead, x_blk.shape[-2], span * d)
+                ).to(clean.dtype)
+        return torch.cat([clean.unsqueeze(-3), pert], dim=-3)
+
+    def _loss_one(server, c_all, y_batch):
+        M, bs, _ = c_all.shape
+        x = (c_all.reshape(M, bs, span, d)
+             .transpose(0, 1).reshape(bs, seq_len, d))
+        positions = torch.arange(seq_len, device=x.device)
+        if "pos_embed" in server:
+            pos_table = server["pos_embed"]
+            pe = pos_table[positions.clamp(0, pos_table.shape[0] - 1)]
+            x = x + pe.to(x.dtype)
+        h, _, aux = transformer.backbone_apply(cfg, server, x,
+                                               positions=positions)
+        h = apply_norm(cfg, server["final_norm"], h)
+        logits = unembed(server["lm_head"], h)
+        ce = transformer.softmax_xent(logits[:, :-1], y_batch[:, 1:],
+                                      cfg.padded_vocab)
+        return torch.mean(ce) + aux
+
+    @tags.party("server")
+    def server_loss(server, c_all, y_batch):
+        """c_all (..., M, bs, span·d) client spans -> LM loss (...): the
+        post-embedding half of ``transformer.lm_loss`` (same ops, same
+        order), one forward per leading index."""
+        return _over_lead(_loss_one, (server, c_all, y_batch),
+                          (None, 3, None))
+
+    def row_mask(client, x):
+        """{"embed": {"table": (..., V)}}: the vocabulary rows each leading
+        index's tokens touch."""
+        vocab = client["embed"]["table"].shape[-2]
+        return {"embed": {"table": _over_lead(
+            lambda xx: zoo.embedding_row_mask(xx, vocab), (x,), (2,))}}
 
     def param_specs():
         return {"clients": common.stack_layer_specs(client_spec, n_clients,
@@ -243,11 +418,11 @@ def from_model_config(cfg: ModelConfig, *, n_clients: int = 2,
 
     return ModelAdapter(
         name=f"lm-{cfg.arch_id}-m{n_clients}-s{seq_len}",
-        client_forward=training_hook,
-        server_loss=training_hook,
+        client_forward=client_forward,
+        server_loss=server_loss,
         param_specs=param_specs,
-        client_lanes=training_hook,
-        row_mask=training_hook,
+        client_lanes=client_lanes,
+        row_mask=row_mask if active_rows else None,
         client_embed=client_embed,
         server_decode=server_decode,
         server_prefill=server_prefill,

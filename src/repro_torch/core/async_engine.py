@@ -47,10 +47,13 @@ from repro_torch.core import zoo
 from repro_torch.core.adapters import ModelAdapter, tabular_adapter
 from repro_torch.core.draws import make_schedule
 from repro_torch.core.methods import SYNC_METHODS
-from repro_torch.core.partition import tree_map
+from repro_torch.core.partition import (tree_leaves, tree_map,
+                                        tree_unflatten)
 from repro_torch.core.privacy import Ledger
 
-__all__ = ["EngineConfig", "EngineResult", "make_schedule", "run"]
+__all__ = ["AsyncPlaneState", "EngineConfig", "EngineResult",
+           "PopulationConfig", "PopulationResult", "make_schedule", "run",
+           "run_population"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -279,9 +282,24 @@ def _make_client_grad_fns(adapter: ModelAdapter, transport,
             return adapter.server_loss(
                 server, _replace_rows(c_stale, m_blk, cf[:, None]),
                 yb).sum()
-        return torch.func.grad(loss_sum)(client_blk)
+        return _value_and_grad(loss_sum, client_blk)[1]
 
     return client_zoo_grad, client_foo_grad
+
+
+def _value_and_grad(loss_fn, tree, *args):
+    """(loss, grad tree) of ``loss_fn(tree, *args)`` over ``tree``'s
+    leaves, by autograd: the LM server's kernels are autograd Functions
+    whose backward runs through their plain versions, which
+    ``torch.func`` transforms do not take. A leaf the loss does not
+    reach gets a zero gradient, as ``jax.grad`` gives."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(tree)]
+    with torch.enable_grad():
+        loss = loss_fn(tree_unflatten(tree, leaves), *args)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    return loss.detach(), tree_unflatten(tree, grads)
 
 
 def _server_update(adapter: ModelAdapter, method: str, vfl: VFLConfig,
@@ -292,8 +310,8 @@ def _server_update(adapter: ModelAdapter, method: str, vfl: VFLConfig,
     zoo-vfl estimates with the same q-point two-point oracle the client
     uses (vfl.zoo_queries — the server is a ZOO party too)."""
     if method in ("cascaded", "vafl"):
-        g_server, h = torch.func.grad_and_value(adapter.server_loss)(
-            server, c_batch.detach(), yb)
+        h, g_server = _value_and_grad(adapter.server_loss, server,
+                                      c_batch.detach(), yb)
     else:  # zoo-vfl: server trains itself with ZOO too
         def s_loss(s):
             return adapter.server_loss(s, c_batch, yb)
@@ -335,8 +353,11 @@ def _make_async_step(adapter: ModelAdapter, transport, vfl: VFLConfig,
         else:
             g_blk = client_zoo_grad(server, c_stale, m_blk, client_blk,
                                     x_blk, yb, t, draws)
-        for k, cm in client_blk.items():
-            clients[k][m_blk] = (cm - vfl.lr_client * g_blk[k]).to(cm.dtype)
+        new_blk = tree_map(
+            lambda cm, g: (cm - vfl.lr_client * g).to(cm.dtype), client_blk,
+            g_blk)
+        tree_map(lambda all_, new: all_.index_put_((m_blk,), new), clients,
+                 new_blk)
 
         # refresh the table with the block's (pre-update) fresh embeddings
         table[m_blk[:, None], idx[None, :]] = c_fresh
@@ -369,3 +390,480 @@ def _make_sync_step(adapter: ModelAdapter, transport, vfl: VFLConfig):
         return params, table, h
 
     return step
+
+
+# ===================================================== population plane ====
+
+@dataclasses.dataclass(frozen=True)
+class PopulationConfig:
+    """Population-scale knobs on top of the sampled activation schedule.
+
+    ``admission_ms``: a delivered uplink slower than this virtual budget
+    is a straggler — the round proceeds without that client (its stale
+    table row serves instead; it retries at its next activation).
+    ``staleness_bound``: a registered client whose table rows are older
+    than this many rounds is force-activated, replacing sampled block
+    members from the end (VAFL's bounded-delay assumption, enforced by
+    admission instead of assumed)."""
+    admission_ms: Optional[float] = None
+    staleness_bound: Optional[int] = None
+
+
+@dataclasses.dataclass
+class AsyncPlaneState:
+    """The population engine's FULL mutable state between rounds —
+    everything a checkpoint must carry for a killed run to resume
+    bitwise: the embedding table, the delay counters, the per-client
+    activity clock for bounded-staleness forcing, the virtual wall clock,
+    and the fault counters. The draws need no state: every stream
+    (schedule, batches, directions, noise, faults) is a pure function of
+    (seed, round). ``table`` is a CPU tensor (bfloat16 for a bf16 model);
+    the on-disk format is the JAX package's, so either package loads a
+    plane the other saved."""
+    step: int
+    table: torch.Tensor
+    delays: np.ndarray
+    last_active: np.ndarray
+    clock_ms: float = 0.0
+    max_delay_seen: int = 0
+    counters: dict = dataclasses.field(default_factory=dict)
+    seed: int = 0
+
+    def save(self, path: str) -> None:
+        from repro_torch.checkpoint.io import save_checkpoint
+        save_checkpoint(path, {
+            "table": torch.as_tensor(self.table).cpu(),
+            "delays": torch.from_numpy(np.asarray(self.delays, np.int32)),
+            "last_active": torch.from_numpy(
+                np.asarray(self.last_active, np.int32))},
+            step=self.step,
+            metadata={"clock_ms": float(self.clock_ms),
+                      "max_delay_seen": int(self.max_delay_seen),
+                      "counters": dict(self.counters),
+                      "seed": int(self.seed)})
+
+    @classmethod
+    def load(cls, path: str) -> "AsyncPlaneState":
+        from repro_torch.checkpoint.io import load_tree
+        tree, step, meta = load_tree(path)
+        return cls(step=int(step), table=tree["table"],
+                   delays=tree["delays"].numpy().astype(np.int32),
+                   last_active=tree["last_active"].numpy().astype(np.int32),
+                   clock_ms=float(meta["clock_ms"]),
+                   max_delay_seen=int(meta["max_delay_seen"]),
+                   counters=dict(meta["counters"]),
+                   seed=int(meta["seed"]))
+
+
+@dataclasses.dataclass
+class PopulationResult(EngineResult):
+    """:class:`EngineResult` plus the wire plane's measurements."""
+    state: Optional[AsyncPlaneState] = None
+    serialized_bytes: int = 0      # measured frame bytes (§V data plane)
+    overhead_bytes: int = 0        # serialization overhead over payloads
+    control_bytes: int = 0         # act/skip/collect/params frames
+    dp_releases: int = 0
+    stats: dict = dataclasses.field(default_factory=dict)
+
+
+def _population_fns(adapter: ModelAdapter, transport, vfl: VFLConfig,
+                    draws):
+    """The server-side compute of the population engine (the worker side
+    lives in ``repro_torch.wire.worker``): the in-process round's ops,
+    split at the wire — the server consumes UPLOADED embedding lanes
+    instead of running ``client_forward``."""
+    method = transport.method
+    q = vfl.zoo_queries
+
+    @tags.party("server")
+    def server_update(server, c_stale, c_fresh, m_adm, yb, t):
+        c_batch = c_stale.index_put((m_adm,), c_fresh)
+        return _server_update(adapter, method, vfl, server, c_batch, yb, t,
+                              draws)
+
+    @tags.party("server")
+    @tags.wire("down", accounted_by="Transport.account_wire", kind="loss",
+               reason="the (1+q) scalar losses of one admitted client, "
+                      "sanitized by transport.downlink before they leave")
+    @torch.no_grad()
+    def losses_fn(server, c_stale, m, emb_lanes, yb, t, r, n_rows):
+        """The (1+q) lanes' server losses for block row r (client m): the
+        server loss over a (1+q, M, bs, e) stack, one forward a lane for
+        the LM adapter (its kernels cannot be vmapped)."""
+        lanes = c_stale.unsqueeze(0).repeat(1 + q, 1, 1, 1)
+        lanes[:, m] = emb_lanes
+        losses = adapter.server_loss(server, lanes, yb)
+        noise = (None if transport.noise is None
+                 else draws.noise(t, n_rows, 1 + q)[r])
+        return transport.downlink(losses, noise)
+
+    return server_update, losses_fn
+
+
+def _fresh_counters() -> dict:
+    return {"rounds": 0, "activations": 0, "admitted": 0,
+            "uplink_drops": 0, "stragglers": 0, "downlink_drops": 0,
+            "forced": 0, "degraded_rounds": 0, "retransmit_frames": 0,
+            "dead_parties": 0}
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    """The numpy-style name of a tensor's dtype ("float32", "bfloat16"),
+    as the ledger records a measured frame's payload."""
+    return str(t.dtype).replace("torch.", "")
+
+
+def run_population(adapter: ModelAdapter, transport, vfl: VFLConfig,
+                   cfg_engine: EngineConfig, params, x_parts, y, *,
+                   draws, probs=None, fault_plan=None,
+                   population: Optional[PopulationConfig] = None,
+                   channels: Optional[dict] = None,
+                   state: Optional[AsyncPlaneState] = None,
+                   ledger: Optional[Ledger] = None, dp_releases: int = 0,
+                   until: Optional[int] = None,
+                   stop_workers: bool = True,
+                   wire_timeout_s: Optional[float] = None
+                   ) -> PopulationResult:
+    """The asynchronous protocol over a REAL wire with fault injection.
+
+    ``params``, ``x_parts`` and ``y`` are on the engine's device (the
+    ``Federation`` session puts them there). ``draws`` is a population
+    draw source (``repro_torch.core.draws``: the protocol plus
+    ``row_key`` and ``directions``).
+
+    Every registered client (M = ``x_parts.shape[0]``) sits behind a
+    ``repro_torch.wire`` endpoint — in-proc :class:`LoopbackBackend`
+    workers on the engine's device by default; pass ``channels={m:
+    backend}`` to place party m behind an already-connected endpoint
+    (e.g. a :class:`SocketBackend` whose worker process runs
+    ``ClientWorker.serve`` with the matching ``directions``). Per round
+    the sampled block is activated over the wire (act -> 1+q embedding
+    frames up -> 1+q loss frames down), the ledger meters each frame's
+    ACTUAL serialized bytes (``Message.wired``; the payload formula kept
+    as the cross-check), and ``fault_plan`` decides drops/latency/retries
+    in deterministic virtual time. Graceful degradation: a dropped or
+    straggling client simply misses the round (its stale embeddings
+    serve; the server still steps).
+
+    ``state``/``until`` make the plane durable: ``until=k`` stops after
+    round k and returns the full :class:`AsyncPlaneState`; passing that
+    state back (with the SAME configs/seed and the collected params)
+    continues bitwise. ``ledger``/``dp_releases`` extend a restored run's
+    accounting the same way.
+
+    With ``FaultPlan.none()``, no population knobs and the same
+    :class:`~repro_torch.core.draws.RowDraws` the result is bitwise equal
+    to ``Federation.run`` (losses, params, table, delays).
+
+    CRASH SEMANTICS for remote (``channels``-placed) parties: a party
+    whose wire dies mid-round — the process was ``kill -9``'d, the frame
+    stream corrupted, or ``wire_timeout_s`` elapsed without a frame — is
+    DECLARED DEAD. It then misses every later activation (its stale
+    embeddings keep serving), the round never hangs, and at collect time
+    its parameter row falls back to the initial params the engine holds.
+    ``counters["dead_parties"]`` reports the toll. Loopback parties never
+    take this path — their failures are real bugs and stay fail-fast.
+    """
+    from repro_torch.core.privacy import Message
+    from repro_torch.wire import codec
+    from repro_torch.wire.backend import (LoopbackBackend, WireClosed,
+                                          WireTimeout)
+    from repro_torch.wire.codec import FrameCorruption
+    from repro_torch.wire.faults import FaultPlan
+    from repro_torch.wire.worker import ClientWorker
+
+    method = transport.method
+    if method in SYNC_METHODS or method == "vafl":
+        raise ValueError(
+            f"run_population drives the asynchronous ZOO wire; {method!r} "
+            "is synchronous or sends gradients down (use run())")
+    if cfg_engine.use_lanes:
+        raise ValueError(
+            "use_lanes routes the fan-out through a fused server-side "
+            "kernel; the wire worker computes its own lanes")
+    if vfl.zoo_unrolled_oracle:
+        raise ValueError("the wire protocol speaks the stacked lane path; "
+                         "zoo_unrolled_oracle is the in-process test oracle")
+    if not hasattr(draws, "row_key"):
+        raise ValueError(
+            f"{type(draws).__name__} is not a population draw source (it "
+            "has no row_key/directions); use core.draws.RowDraws")
+
+    plan = fault_plan if fault_plan is not None else FaultPlan.none()
+    pop = population if population is not None else PopulationConfig()
+    M, n = x_parts.shape[:2]
+    T, bs = cfg_engine.steps, cfg_engine.batch_size
+    block = cfg_engine.block_size
+    q = vfl.zoo_queries
+    dev = x_parts.device
+
+    schedule_h = draws.schedule(T, M, probs, block).cpu().numpy()
+    idx_all = draws.sample_indices(T, bs, n).to(dev)
+    idx_h = idx_all.cpu().numpy()
+
+    server = params["server"]
+    if state is None:
+        table = adapter.client_forward(params["clients"], x_parts)
+        delays = np.zeros((M, n), np.int32)
+        last_active = np.zeros((M,), np.int32)
+        clock_ms, maxd, start = 0.0, 0, 0
+        counters = _fresh_counters()
+    else:
+        if state.seed != cfg_engine.seed:
+            raise ValueError(
+                f"resume state was produced under seed {state.seed}, "
+                f"engine runs seed {cfg_engine.seed} — the schedule/RNG "
+                "streams would diverge from the saved run")
+        table = state.table.to(dev).clone()
+        delays = np.array(state.delays, np.int32)
+        last_active = np.array(state.last_active, np.int32)
+        clock_ms, maxd = float(state.clock_ms), int(state.max_delay_seen)
+        counters = {**_fresh_counters(), **state.counters}
+        start = int(state.step)
+    stop_at = T if until is None else min(int(until), T)
+    if not start <= stop_at:
+        raise ValueError(f"resume step {start} is past until={stop_at}")
+    ledger = ledger if ledger is not None else Ledger()
+    control_bytes = int(counters.pop("control_bytes", 0))
+    noise_on = transport.noise is not None
+
+    # ---- wire up the population: loopback workers for unplaced parties --
+    channels = dict(channels or {})
+    remote = frozenset(channels)    # parties that can actually die
+    dead: set = set()
+    local_workers: dict = {}
+    for m in range(M):
+        if m not in channels:
+            eng_end, wk_end = LoopbackBackend.pair()
+            local_workers[m] = ClientWorker(
+                adapter, vfl, tree_map(lambda a: a[m], params["clients"]),
+                x_parts[m], m, wk_end, directions=draws.directions)
+            channels[m] = eng_end
+
+    # failures a dying REMOTE party can surface through its channel;
+    # anything else (protocol bugs, engine errors) stays fail-fast
+    _WIRE_DEATH = (WireClosed, WireTimeout, FrameCorruption,
+                   ConnectionError, OSError)
+
+    def _mark_dead(m):
+        dead.add(m)
+        counters["dead_parties"] += 1
+
+    def _pump(m):
+        if m in local_workers:
+            local_workers[m].pump()
+
+    def _send_control(m, msg):
+        nonlocal control_bytes
+        control_bytes += channels[m].send(msg)
+        _pump(m)
+
+    def _recv(m):
+        if m in remote and wire_timeout_s is not None:
+            return channels[m].recv(timeout=wire_timeout_s)
+        return channels[m].recv()
+
+    server_update, losses_fn = _population_fns(adapter, transport, vfl,
+                                               draws)
+    losses_out = []
+
+    for t in range(start, stop_at):
+        m_blk = [int(m) for m in schedule_h[t]]
+        idx = idx_h[t]
+        idx_d = idx_all[t]
+        yb = y[idx_d]
+        counters["rounds"] += 1
+
+        # ---- bounded-staleness forcing: overdue clients preempt the ----
+        # ---- sampled block (most-stale first, replacing from the end) --
+        if pop.staleness_bound is not None:
+            in_blk = set(m_blk)
+            overdue = sorted(
+                ((t - int(last_active[m]), m) for m in range(M)
+                 if m not in in_blk
+                 and t - int(last_active[m]) > pop.staleness_bound),
+                key=lambda sm: (-sm[0], sm[1]))
+            for i, (_, m) in enumerate(overdue[:len(m_blk)]):
+                m_blk[len(m_blk) - 1 - i] = m
+            counters["forced"] += min(len(overdue), len(m_blk))
+
+        # ---- phase 1: activate the block, collect uplinked lanes --------
+        admitted = []               # (r, m, emb lanes as CPU tensors)
+        emb_meter: list = [[] for _ in m_blk]   # (Message, copies)
+        loss_meter: list = [[] for _ in m_blk]
+        round_ms = 0.0
+        for r, m in enumerate(m_blk):
+            counters["activations"] += 1
+            if m in dead:
+                # declared dropout: the party misses the round outright —
+                # no frames, no metering, stale embeddings keep serving
+                counters["uplink_drops"] += 1
+                continue
+            lanes = []
+            try:
+                _send_control(m, codec.WireMessage(
+                    "act", "server", t, {"party": m},
+                    {"idx": idx.astype(np.int32),
+                     "key": draws.row_key(t, r)}))
+                for _ in range(1 + q):
+                    msg, nb = _recv(m)
+                    if msg.tag != "emb":  # pragma: no cover - protocol
+                        raise ValueError(
+                            f"expected emb frame, got {msg.tag!r}")
+                    arr = msg.payload["c"]
+                    lanes.append(arr)
+                    up = plan.delivery(t, m, "up")
+                    emb_meter[r].append((Message(
+                        "client", "embedding", tuple(arr.shape),
+                        _dtype_name(arr), wired=nb), up.attempts))
+            except _WIRE_DEATH:
+                if m not in remote:
+                    raise       # loopback failures are bugs, not churn
+                _mark_dead(m)
+                counters["uplink_drops"] += 1
+                emb_meter[r] = []   # nothing usable arrived — meter none
+                continue
+            counters["retransmit_frames"] += (up.attempts - 1) * (1 + q)
+            if not up.ok:
+                counters["uplink_drops"] += 1
+                _send_control(m, codec.WireMessage(
+                    "skip", "server", t, {"reason": "drop"}))
+            elif (pop.admission_ms is not None
+                  and up.elapsed_ms > pop.admission_ms):
+                counters["stragglers"] += 1
+                _send_control(m, codec.WireMessage(
+                    "skip", "server", t, {"reason": "straggler"}))
+            else:
+                admitted.append((r, m, lanes))
+            round_ms = max(round_ms, up.elapsed_ms)
+
+        # ---- phase 2: server step on stale table + admitted fresh -------
+        c_stale = table[:, idx_d]
+        if admitted:
+            m_adm = torch.tensor([m for _, m, _ in admitted], device=dev)
+            c_fresh = torch.stack([l[0] for _, _, l in admitted]).to(dev)
+        else:
+            counters["degraded_rounds"] += 1
+            m_adm = torch.zeros((0,), dtype=torch.int64, device=dev)
+            c_fresh = table.new_zeros((0, bs, table.shape[-1]))
+        server, h = server_update(server, c_stale, c_fresh, m_adm, yb, t)
+        losses_out.append(h)
+
+        # ---- phase 3: loss downlinks to admitted clients ----------------
+        for r, m, lanes in admitted:
+            emb_lanes = torch.stack(lanes).to(dev)
+            losses_h = losses_fn(server, c_stale, m, emb_lanes, yb, t, r,
+                                 len(m_blk)).cpu()
+            down = plan.delivery(t, m, "down")
+            try:
+                for lane in range(1 + q):
+                    nb = channels[m].send(codec.WireMessage(
+                        "loss", "server", t,
+                        {"lane": lane, "delivered": bool(down.ok)},
+                        {"h": losses_h[lane]}))
+                    loss_meter[r].append((Message(
+                        "server", "loss", (), _dtype_name(losses_h),
+                        wired=nb), down.attempts))
+            except _WIRE_DEATH:
+                # died between uplink and downlink: the server already
+                # consumed its fresh embeddings (they were real), the
+                # client just never gets this round's losses
+                if m not in remote:
+                    raise
+                _mark_dead(m)
+                counters["downlink_drops"] += 1
+                continue
+            _pump(m)
+            counters["retransmit_frames"] += (down.attempts - 1) * (1 + q)
+            if noise_on:
+                dp_releases += 1 + q
+            if not down.ok:
+                counters["downlink_drops"] += 1
+            round_ms = max(round_ms, plan.delivery(t, m, "up").elapsed_ms
+                           + down.elapsed_ms)
+
+        # ---- ledger: per client in block order, uplinks then downlinks --
+        for r in range(len(m_blk)):
+            for msg_rec, copies in emb_meter[r] + loss_meter[r]:
+                transport.account_wire(msg_rec, copies=copies,
+                                       ledger=ledger)
+        counters["admitted"] += len(admitted)
+
+        # ---- phase 4: table/delay/clock bookkeeping ---------------------
+        delays += 1
+        if admitted:
+            adm_rows = np.asarray([m for _, m, _ in admitted])
+            table[m_adm[:, None], idx_d[None, :]] = c_fresh
+            delays[adm_rows[:, None], idx[None, :]] = 0
+            last_active[adm_rows] = t
+        maxd = max(maxd, int(delays.max()))
+        clock_ms += round_ms
+
+    # ---- collect the population's parameters back over the wire --------
+    rows = []
+    for m in range(M):
+        fallback = tree_map(lambda a: a[m], params["clients"])
+        if m in dead:
+            rows.append(fallback)   # best knowledge: the initial row
+            continue
+        try:
+            _send_control(m, codec.WireMessage("collect", "server",
+                                               stop_at))
+            msg, nb = _recv(m)
+            if msg.tag != "params":  # pragma: no cover - protocol error
+                raise ValueError(f"expected params frame, got {msg.tag!r}")
+            control_bytes += nb
+            rows.append(tree_map(lambda t: t.to(dev),
+                                 codec.unflatten_tree(msg.payload)))
+        except _WIRE_DEATH:
+            if m not in remote:
+                raise
+            _mark_dead(m)
+            rows.append(fallback)
+    clients = tree_map(lambda *rs: torch.stack(rs), *rows)
+    if stop_workers:
+        for m in range(M):
+            if m in dead:
+                continue
+            try:
+                _send_control(m, codec.WireMessage("stop", "server",
+                                                   stop_at))
+            except _WIRE_DEATH:
+                if m not in remote:
+                    raise
+                _mark_dead(m)
+
+    counters["control_bytes"] = control_bytes
+    out_state = AsyncPlaneState(
+        step=stop_at, table=table.cpu(), delays=delays,
+        last_active=last_active, clock_ms=clock_ms, max_delay_seen=maxd,
+        counters=counters, seed=cfg_engine.seed)
+    eps, delta = transport.privacy_spent(dp_releases)
+    executed = stop_at - start
+    formula = transport.account(batch=bs, embed=int(table.shape[-1]),
+                                zoo_queries=q, n_clients=block,
+                                n_rounds=executed)
+    stats = {
+        "rounds_executed": executed,
+        "virtual_ms": clock_ms,
+        "formula_bytes": formula.total_bytes,
+        "participation": (counters["admitted"]
+                          / max(counters["activations"], 1)),
+        **{k: counters[k] for k in ("uplink_drops", "stragglers",
+                                    "downlink_drops", "forced",
+                                    "degraded_rounds",
+                                    "retransmit_frames",
+                                    "dead_parties")},
+    }
+    losses = (torch.stack(losses_out).cpu().numpy() if losses_out
+              else np.zeros((0,), np.float32))
+    return PopulationResult(
+        params={"clients": clients, "server": server},
+        losses=losses, max_delay_seen=maxd,
+        mean_delay=float(torch.from_numpy(delays).double().mean()),
+        wire_bytes=ledger.total_bytes,
+        transmits_gradients=ledger.transmits_gradients, ledger=ledger,
+        epsilon=eps, delta=delta, state=out_state,
+        serialized_bytes=ledger.serialized_bytes,
+        overhead_bytes=ledger.overhead_bytes, control_bytes=control_bytes,
+        dp_releases=dp_releases, stats=stats)

@@ -27,6 +27,22 @@ directions and the noise of step t through the same methods (one block
 row). :class:`StepDraws` answers them from a generator seeded by
 (seed, t, stream) alone, as the JAX driver's ``fold_in(key, t)`` does, so
 a run resumed at step k draws what an unbroken run draws from step k on.
+
+The population engine (``async_engine.run_population``) splits a round
+at the wire: each activated client party draws its own directions from a
+``key`` payload the engine sends in its ``act`` frame. A population draw
+source adds two methods to the protocol:
+
+* ``row_key(t, r)``                       -> the act frame's ``key``
+  payload for block row r of round t (a numpy array)
+* ``directions(key, template, q)``        -> the (q, *leaf) raw N(0, 1)
+  leaves that payload stands for, on the template's device
+
+:class:`RowDraws` is the addressable source: every draw is a pure
+function of (seed, stream, t, row), so its ``client_directions`` stacks
+the rows' ``directions`` and an in-process run (``Federation.run``) and a
+population run over the wire draw the same numbers, and a resumed run
+draws what an unbroken one draws.
 """
 from __future__ import annotations
 
@@ -37,7 +53,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from repro_torch.core.partition import tree_leaves, tree_unflatten
+from repro_torch.core.partition import tree_leaves, tree_map, tree_unflatten
 
 
 class DrawSource(Protocol):
@@ -125,6 +141,15 @@ class TorchDraws:
                            device=self.device)
 
 
+def _seeded(words, device) -> torch.Generator:
+    """A ``torch.Generator(device)`` seeded from the integer ``words``
+    through numpy's ``SeedSequence``."""
+    state = np.random.SeedSequence([int(w) for w in words])
+    g = torch.Generator(torch.device(device))
+    g.manual_seed(int(state.generate_state(1, np.uint64)[0]))
+    return g
+
+
 class StepDraws:
     """The sync training step's draws: step t's client directions, server
     directions and DP noise each come from a ``torch.Generator(device)``
@@ -139,10 +164,7 @@ class StepDraws:
         self.device = torch.device(device)
 
     def _generator(self, t: int, stream: int) -> torch.Generator:
-        state = np.random.SeedSequence([self.seed, int(t), stream])
-        g = torch.Generator(self.device)
-        g.manual_seed(int(state.generate_state(1, np.uint64)[0]))
-        return g
+        return _seeded((self.seed, t, stream), self.device)
 
     def client_directions(self, t, template, n_rows, q):
         with record_function("direction draws"):
@@ -157,3 +179,73 @@ class StepDraws:
         with record_function("direction draws"):
             return torch.randn((n_rows, n), generator=self._generator(
                 t, self.NOISE), device=self.device)
+
+
+# RowDraws' streams: every address is (seed, stream, t, row), four words
+_SCHEDULE, _INDICES, _CLIENT, _SERVER, _GLOBAL, _NOISE = range(6)
+
+
+def seed_directions(key, template, q: int):
+    """The default ``directions`` of a population party: ``key`` is the
+    (seed, t, row) words :meth:`RowDraws.row_key` sends; the (q, *leaf)
+    N(0, 1) leaves come from a generator on the template's device seeded
+    by those words alone, so a party in another process draws what the
+    engine's :class:`RowDraws` expects."""
+    seed, t, row = (int(w) for w in np.asarray(key).reshape(-1))
+    device = tree_leaves(template)[0].device
+    with record_function("direction draws"):
+        return _normals(_seeded((seed, _CLIENT, t, row), device), template,
+                        (q,))
+
+
+class RowDraws:
+    """The addressable draw source: the schedule, the sample indices, each
+    block row's client directions, the zoo-vfl server's and the
+    synchronous global directions, and each row's DP noise, every one
+    from a ``torch.Generator(device)`` seeded by (seed, stream, t, row)
+    alone. So draws do not depend on call order: the in-process engine
+    (which asks for a round's rows at once) and the population engine
+    over the wire (whose parties draw their own row) agree, and a resumed
+    run draws what an unbroken run draws."""
+
+    def __init__(self, seed: int, device) -> None:
+        self.seed = int(seed)
+        self.device = torch.device(device)
+
+    def _g(self, stream: int, t: int = 0, row: int = 0) -> torch.Generator:
+        return _seeded((self.seed, stream, t, row), self.device)
+
+    def schedule(self, steps, n_clients, probs=None, block_size=1):
+        s = make_schedule(self._g(_SCHEDULE), steps, n_clients, probs,
+                          block_size)
+        return s.reshape(steps, block_size)
+
+    def sample_indices(self, steps, batch, n):
+        return torch.randint(0, n, (steps, batch),
+                             generator=self._g(_INDICES), device=self.device)
+
+    def row_key(self, t: int, r: int) -> np.ndarray:
+        return np.asarray([self.seed, t, r], np.int64)
+
+    @staticmethod
+    def directions(key, template, q):
+        return seed_directions(key, template, q)
+
+    def client_directions(self, t, template, n_rows, q):
+        rows = [self.directions(self.row_key(t, r), template, q)
+                for r in range(n_rows)]
+        return tree_map(lambda *xs: torch.stack(xs), *rows)
+
+    def server_directions(self, t, template, q):
+        with record_function("direction draws"):
+            return _normals(self._g(_SERVER, t), template, (q,))
+
+    def global_directions(self, t, template, q):
+        with record_function("direction draws"):
+            return _normals(self._g(_GLOBAL, t), template, (q,))
+
+    def noise(self, t, n_rows, n):
+        with record_function("direction draws"):
+            return torch.stack([
+                torch.randn((n,), generator=self._g(_NOISE, t, r),
+                            device=self.device) for r in range(n_rows)])

@@ -38,6 +38,16 @@ from repro_torch.core.methods import (FOO_WIRE_METHODS, ZOO_WIRE_METHODS,
 GRADIENT_KINDS = frozenset({"partial_derivative", "gradient", "jacobian"})
 
 
+# dtype names numpy knows only through an extension package (the wire
+# codec's true-dtype names of bfloat16/float8 payloads)
+_EXTENSION_ITEMSIZE = {"bfloat16": 2, "float8_e4m3fn": 1, "float8_e5m2": 1}
+
+
+def _itemsize(dtype: str) -> int:
+    size = _EXTENSION_ITEMSIZE.get(dtype)
+    return np.dtype(dtype).itemsize if size is None else size
+
+
 @dataclasses.dataclass(frozen=True)
 class Message:
     sender: str        # "client" | "server"
@@ -53,7 +63,7 @@ class Message:
 
     @property
     def nbytes(self) -> int:
-        return int(np.prod(self.shape)) * np.dtype(self.dtype).itemsize
+        return int(np.prod(self.shape)) * _itemsize(self.dtype)
 
     @property
     def bytes_on_wire(self) -> int:

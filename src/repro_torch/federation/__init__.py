@@ -4,6 +4,8 @@ transports over wires.
     from repro_torch.federation import Federation
     fed = Federation.build(model_cfg, vfl_cfg, engine_cfg)   # on the card
     result = fed.run(params, x_parts, y)      # async protocol (staleness)
+    result = fed.run_population(params, x_parts, y,   # over the wire plane
+                                fault_plan=FaultPlan(drop=0.2))
     step = fed.sync_step(opt)                 # the sync LM training step
     fed.save(path, params, step=k, opt_state=opt_state)
     fed, params, state = Federation.restore(path)
@@ -14,10 +16,13 @@ from repro_torch.core.privacy import GaussianLossChannel
 from repro_torch.federation.parties import (ClientParty, Parties,
                                             ServerParty)
 from repro_torch.federation.scheduler import (QueueFull, RequestResult,
-                                              SchedulerState, ServeScheduler)
+                                              SchedulerState, ServeRequest,
+                                              ServeScheduler)
+from repro_torch.federation.serving import ServeResult
 from repro_torch.federation.session import Federation, SessionState
 from repro_torch.federation.transport import Transport
 
 __all__ = ["ClientParty", "Federation", "GaussianLossChannel", "Parties",
-           "QueueFull", "RequestResult", "SchedulerState", "ServeScheduler",
-           "ServerParty", "SessionState", "Transport"]
+           "QueueFull", "RequestResult", "SchedulerState", "ServeRequest",
+           "ServeResult", "ServeScheduler", "ServerParty", "SessionState",
+           "Transport"]

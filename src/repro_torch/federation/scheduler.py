@@ -205,14 +205,21 @@ class SchedulerState:
 
     @classmethod
     def load(cls, path: str) -> "SchedulerState":
+        """A snapshot written by either package. A greedy one (temperature
+        0) draws nothing, so the JAX package's loads here as it is; a
+        sampling one of the JAX package is refused: its requests sample
+        from threefry key data."""
         flat, _, meta = load_tree(path)
-        if "slot_keydata" in flat:
+        if "slot_keydata" in flat and float(meta["config"]["temperature"]):
             raise ValueError(
-                f"the serve state at {path} was written by the JAX package: "
-                "its requests sample from threefry key data (slot_keydata), "
-                "which the port cannot draw from — the port's requests "
-                "carry a seed for serving.PositionGumbel instead; restore "
-                "it with the JAX package, or re-submit its requests")
+                f"the serve state at {path} was written by the JAX package "
+                "for a sampling scheduler (temperature "
+                f"{meta['config']['temperature']}): its requests sample "
+                "from threefry key data (slot_keydata), which the port "
+                "cannot draw from — the port's requests carry a seed for "
+                "serving.PositionGumbel instead; restore it with the JAX "
+                "package, or re-submit its requests (a greedy snapshot "
+                "draws nothing and crosses)")
         return cls(flat=flat, meta=meta)
 
 
@@ -1039,7 +1046,9 @@ class ServeScheduler:
                 f"request {req.rid} samples from an injected draw source, "
                 "which a snapshot cannot record; submit it with seed= to "
                 "snapshot a sampling scheduler")
+        greedy = {} if self.temperature > 0 else {"key_data": [0, 0]}
         return {
+            **greedy,
             "rid": req.rid, "prompt": np.asarray(req.prompt).tolist(),
             "gen_len": int(req.gen_len), "seed": req.seed,
             "deadline": req.deadline,
@@ -1053,7 +1062,7 @@ class ServeScheduler:
 
     @staticmethod
     def _req_from_meta(d: dict) -> ServeRequest:
-        seed = d["seed"]
+        seed = d.get("seed")        # a JAX package greedy snapshot has none
         return ServeRequest(
             rid=int(d["rid"]),
             prompt=np.asarray(d["prompt"], np.int32),
@@ -1075,7 +1084,12 @@ class ServeScheduler:
         ``fed.serve(params, state=...)`` the scheduler continues the drain
         with equal token streams and byte-identical per-request ledgers.
         The noise tables are not stored: each in-flight request's rows are
-        drawn again from its seed at restore."""
+        drawn again from its seed at restore.
+
+        A greedy snapshot (temperature 0) is written in the JAX package's
+        layout — int32 slot counters, (slots, 1, 1, vocab) logits and an
+        all-zero key table its requests never draw from — so the JAX
+        package restores it too."""
         serving._sync(self.device)
         flat: Dict[str, torch.Tensor] = {}
         for parts, leaf in _flatten_with_path(self._caches_st):
@@ -1087,6 +1101,13 @@ class ServeScheduler:
         }
         if self._logits_st is not None:
             slot_arrays["logits"] = self._logits_st
+        if not self.temperature > 0:
+            for name in ("t", "gen_pos", "rem"):
+                slot_arrays[name] = slot_arrays[name].to(torch.int32)
+            slot_arrays["keydata"] = torch.zeros((self.max_batch, 2),
+                                                 dtype=torch.uint32)
+            if self._logits_st is not None:
+                slot_arrays["logits"] = self._logits_st.unsqueeze(1)
         for name, arr in slot_arrays.items():
             flat[f"slot_{name}"] = arr.cpu()
         meta = {
@@ -1159,7 +1180,10 @@ class ServeScheduler:
         # the graphs were captured on the slot tensors this replaces
         self._step_graph = self._replay_graph = None
         if cfg["has_logits"]:
-            self._logits_st = flat["slot_logits"].to(dev)
+            # (slots, 1, vocab); a greedy snapshot stores (slots, 1, 1,
+            # vocab), the JAX package's layout
+            self._logits_st = flat["slot_logits"].to(dev).reshape(
+                self.max_batch, 1, -1)
         self.allocator = paging.PageAllocator.restore(
             state.meta["allocator"])
         self._slot_req = [None if d is None else self._req_from_meta(d)
@@ -1202,5 +1226,6 @@ class ServeScheduler:
         self.preemptions = int(c["preemptions"])
         self.deadline_misses = int(c["deadline_misses"])
         self.poisoned = int(c["poisoned"])
-        self.prefill_chunks = int(c["prefill_chunks"])
-        self.replay_steps = int(c["replay_steps"])
+        # the port's own counters (a JAX package snapshot has none)
+        self.prefill_chunks = int(c.get("prefill_chunks", 0))
+        self.replay_steps = int(c.get("replay_steps", 0))

@@ -15,7 +15,10 @@ the choices every entry point wires together —
 and the session runs:
 
 * TRAIN — :meth:`Federation.run` drives the asynchronous engine
-  (staleness, blocks, all five methods) on that device, and
+  (staleness, blocks, all five methods) on that device,
+  :meth:`Federation.run_population` drives the same protocol over the
+  wire plane (``repro_torch.wire``: every client party behind a real
+  endpoint, fault injection, a durable async plane), and
   :meth:`Federation.sync_step` builds the cascade/baseline step over the
   global model's loss that the ``launch/train.py`` driver pumps batches
   through;
@@ -52,7 +55,7 @@ from repro_torch.configs.paper_mlp import PaperMLPConfig
 from repro_torch.core import async_engine, cascade
 from repro_torch.core.adapters import (ModelAdapter, from_model_config,
                                        tabular_adapter)
-from repro_torch.core.draws import DrawSource, TorchDraws
+from repro_torch.core.draws import DrawSource, RowDraws, TorchDraws
 from repro_torch.core.methods import canonical_method
 from repro_torch.core.partition import (lm_engine_params, merge_params,
                                         split_params, tree_leaves, tree_map)
@@ -80,15 +83,17 @@ class SessionState:
     """The non-parameter state a checkpoint carries: everything a resumed
     run needs to continue EXACTLY (not just approximately) — the step
     clock, the optimizer/schedule state, the Transport ledger totals, and
-    the DP accountant's release count — and, for a mid-drain serve
-    checkpoint, the serve scheduler's plane (``serve_state``, a
-    ``scheduler.SchedulerState``). (The JAX package's state also carries
-    the population engine's plane, which is not ported yet: ROADMAP.md,
-    Queue 1 item 10.)"""
+    the DP accountant's release count — and, for a checkpoint taken
+    mid-``run_population``, the population engine's plane
+    (``async_state``, an ``async_engine.AsyncPlaneState``: the resumed
+    wire run replays the remaining rounds bitwise), or for a mid-drain
+    serve checkpoint the serve scheduler's plane (``serve_state``, a
+    ``scheduler.SchedulerState``)."""
     step: int = 0
     opt_state: Optional[Any] = None
     ledger: Ledger = dataclasses.field(default_factory=Ledger)
     dp_releases: int = 0
+    async_state: Optional[async_engine.AsyncPlaneState] = None
     serve_state: Optional[Any] = None
     # the free-form metadata the saver passed to ``fed.save`` (driver
     # knobs like batch/seed/schedule live here, not in the session)
@@ -111,6 +116,8 @@ class Federation:
     seq_len: int = 32
     _adapter: Optional[ModelAdapter] = None
     _model: Optional[model_api.Model] = None
+    # a ModelConfig session's derived adapters, by vfl.active_rows_only
+    _lm_adapters: dict = dataclasses.field(default_factory=dict)
 
     @classmethod
     def build(cls, model_cfg: ModelLike,
@@ -159,13 +166,19 @@ class Federation:
     # ------------------------------------------------------- model plane --
     @property
     def adapter(self) -> ModelAdapter:
-        """The session's ModelAdapter, derived at first use for a
-        ModelConfig session."""
-        if self._adapter is None:
-            self._adapter = from_model_config(
+        """The session's ModelAdapter. A ModelConfig session derives it
+        (at first use) with the active-row ZOO mask that
+        ``vfl.active_rows_only`` selects, the flag the sync cascade's row
+        mask is gated on too, read at each access: a driver may replace
+        ``fed.vfl`` after the build."""
+        if self._adapter is not None:
+            return self._adapter
+        rows = bool(self.vfl.active_rows_only)
+        if rows not in self._lm_adapters:
+            self._lm_adapters[rows] = from_model_config(
                 self.model_cfg, n_clients=self.n_clients,
-                seq_len=self.seq_len)
-        return self._adapter
+                seq_len=self.seq_len, active_rows=rows)
+        return self._lm_adapters[rows]
 
     @property
     def model(self) -> Optional[model_api.Model]:
@@ -191,15 +204,57 @@ class Federation:
         ``params`` leaves may be numpy arrays or tensors too. ``draws``
         defaults to :class:`TorchDraws` seeded with ``engine.seed`` on the
         session's device."""
-        dev = self.device
-        params = tree_map(lambda a: _to_device(a, dev), params)
-        x_parts = _to_device(x_parts, dev, torch.float32)
-        y = _to_device(y, dev, torch.int64)
+        params, x_parts, y = self._engine_inputs(params, x_parts, y)
         if draws is None:
-            draws = TorchDraws(self.engine.seed, dev)
+            draws = TorchDraws(self.engine.seed, self.device)
         return async_engine._session_run(
             self.adapter, self.transport, self.vfl, self.engine, params,
             x_parts, y, draws=draws, probs=probs)
+
+    def _engine_inputs(self, params, x_parts, y):
+        """The engine's params and data on the session's device: float
+        features as f32, token spans (an LM session's ``x_parts``) and
+        labels as int64."""
+        dev = self.device
+        params = tree_map(lambda a: _to_device(a, dev), params)
+        xt = (x_parts if isinstance(x_parts, torch.Tensor)
+              else torch.from_numpy(np.asarray(x_parts)))
+        x_parts = xt.to(dev, torch.float32 if xt.is_floating_point()
+                        else torch.int64)
+        return params, x_parts, _to_device(y, dev, torch.int64)
+
+    def run_population(self, params, x_parts, y, *, probs=None,
+                       fault_plan=None, population=None, channels=None,
+                       state=None, ledger: Optional[Ledger] = None,
+                       dp_releases: int = 0, until: Optional[int] = None,
+                       stop_workers: bool = True, draws=None,
+                       wire_timeout_s: Optional[float] = None
+                       ) -> async_engine.PopulationResult:
+        """The asynchronous protocol over the REAL wire
+        (``repro_torch.wire``).
+
+        Same schedule/draw/staleness semantics as :meth:`run` — with
+        ``FaultPlan.none()`` and the same :class:`~repro_torch.core.draws.
+        RowDraws` the two are bitwise equal — but every client sits behind
+        a wire backend (in-proc loopback on the session's device by
+        default; ``channels={m: backend}`` places party m behind e.g. a
+        connected socket whose worker process runs
+        ``ClientWorker.serve``), frames are genuinely serialized and
+        metered at their actual byte size, and ``fault_plan`` injects
+        deterministic drops/latency. ``state``/``until``/``ledger``/
+        ``dp_releases`` continue a checkpointed run exactly (see
+        :meth:`save`'s ``async_state``). ``draws`` defaults to
+        ``RowDraws(engine.seed)`` on the session's device."""
+        params, x_parts, y = self._engine_inputs(params, x_parts, y)
+        if draws is None:
+            draws = RowDraws(self.engine.seed, self.device)
+        return async_engine.run_population(
+            self.adapter, self.transport, self.vfl, self.engine,
+            params, x_parts, y, draws=draws, probs=probs,
+            fault_plan=fault_plan, population=population, channels=channels,
+            state=state, ledger=ledger, dp_releases=dp_releases,
+            until=until, stop_workers=stop_workers,
+            wire_timeout_s=wire_timeout_s)
 
     def params_from_global(self, global_params):
         """Replicate a global ``build_model`` param tree into the engine
@@ -358,6 +413,7 @@ class Federation:
     def save(self, path: str, params, *, step: int = 0,
              opt_state: Optional[Any] = None,
              ledger: Optional[Ledger] = None, dp_releases: int = 0,
+             async_state: Optional[async_engine.AsyncPlaneState] = None,
              serve_state: Optional[Any] = None,
              metadata: Optional[dict] = None) -> str:
         """Party-scoped checkpoint: one directory per party + session state.
@@ -371,6 +427,9 @@ class Federation:
               clients/         the client partition (global layout)
               opt_server/, opt_clients/   optimizer state, split on the
                                           same party boundary (optional)
+              async_plane/     the population engine's table/delay/clock
+                               state (optional — mid-``run_population``
+                               checkpoints resume bitwise)
               serve_plane/     the serve scheduler's full state (optional
                                — a mid-drain ``srv.snapshot()``; the
                                resumed drain's tokens and ledgers equal
@@ -407,6 +466,8 @@ class Federation:
                             step=step)
             save_checkpoint(os.path.join(path, "opt_clients"), opt_c,
                             step=step)
+        if async_state is not None:
+            async_state.save(os.path.join(path, "async_plane"))
         if serve_state is not None:
             serve_state.save(os.path.join(path, "serve_plane"))
 
@@ -429,7 +490,7 @@ class Federation:
             "ledger_counts": ledger.to_counts(),
             "dp_releases": int(dp_releases),
             "dp_spent": [eps if math.isfinite(eps) else None, delta],
-            "async_plane": False,
+            "async_plane": async_state is not None,
             "serve_plane": serve_state is not None,
             "metadata": metadata or {},
         }
@@ -460,10 +521,6 @@ class Federation:
             raise ValueError(
                 f"checkpoint version {manifest['version']} != "
                 f"{CHECKPOINT_VERSION}")
-        if manifest.get("async_plane"):
-            raise NotImplementedError(
-                "the checkpoint carries the population engine's plane, which "
-                "is not ported yet (ROADMAP.md, Queue 1 item 10)")
 
         model = cls._model_from_manifest(manifest["model"], model_cfg)
         vfl_d = dict(manifest["vfl"])
@@ -499,6 +556,11 @@ class Federation:
             opt_state = fed._merge_opt_state(
                 opt_c, opt_s, manifest["layout"] == "engine")
 
+        async_state = None
+        if manifest.get("async_plane"):
+            async_state = async_engine.AsyncPlaneState.load(
+                os.path.join(path, "async_plane"))
+
         serve_state = None
         if manifest.get("serve_plane"):
             from repro_torch.federation.scheduler import SchedulerState
@@ -508,7 +570,8 @@ class Federation:
         state = SessionState(
             step=manifest["step"], opt_state=opt_state,
             ledger=Ledger.from_counts(manifest["ledger_counts"]),
-            dp_releases=manifest["dp_releases"], serve_state=serve_state,
+            dp_releases=manifest["dp_releases"], async_state=async_state,
+            serve_state=serve_state,
             metadata=manifest.get("metadata", {}))
         return fed, params, state
 

@@ -25,7 +25,7 @@ from repro_torch.analysis import tags
 from repro_torch.core.methods import (SYNC_METHODS, ZOO_WIRE_METHODS,
                                       canonical_method)
 from repro_torch.core.privacy import (GaussianLossChannel, Ledger,
-                                      serve_messages)
+                                      Message, serve_messages)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,6 +113,27 @@ class Transport:
         solo decode of the same request logs."""
         return self.account_serve(batch=batch, embed=embed, n_steps=1,
                                   n_gen=1 if gen else 0, ledger=ledger)
+
+    @tags.accounting
+    def account_wire(self, message: Message, *, copies: int = 1,
+                     ledger: Optional[Ledger] = None) -> Ledger:
+        """Meter one MEASURED wire frame from a ``repro_torch.wire``
+        backend.
+
+        ``message.wired`` carries the actual serialized byte count (frame
+        header + length prefix included), while ``message.nbytes`` stays
+        the per-round formula — so the ledger's ``serialized_bytes`` is a
+        measurement and ``total_bytes`` survives as its cross-check.
+        ``copies > 1`` logs retransmissions of the same frame (a
+        ``FaultPlan`` retry resends identical bytes)."""
+        if message.wired is None:
+            raise ValueError(
+                "account_wire meters measured frames; build the Message "
+                "with wired=<serialized byte count> (use account()/"
+                "log_round for formula-only accounting)")
+        ledger = Ledger() if ledger is None else ledger
+        ledger.messages.extend([message] * copies)
+        return ledger
 
     def releases(self, *, n_rounds: int, n_clients: int = 1,
                  zoo_queries: int = 1) -> int:

@@ -23,18 +23,32 @@ exactly continued (exactly equivalent for step-stationary schedules;
 decaying schedules keep their saved total_steps rather than silently
 re-stretching, running at the tail lr past the original horizon).
 
+``--engine population`` trains through the population engine over the
+wire plane instead (:func:`train_population`, ``fed.run_population``):
+``--clients`` client parties, each behind a loopback wire endpoint,
+with deterministic fault injection (``--fault-*``), straggler admission
+(``--admission-ms``) and bounded-staleness forcing
+(``--staleness-bound``); ``--until k --checkpoint DIR`` stops after round
+k with the async plane saved, and ``--resume DIR`` finishes the same
+horizon bitwise.
+
 Ported from the JAX package's ``launch/train.py``. Step t's ZOO
 directions and DP noise come from ``StepDraws(seed)``, seeded by
-(seed, t), where the JAX driver folds t into its key. ``--device``
-chooses where it runs: the card by default, ``cpu`` when asked. The run
-is single-device: ``--production-mesh`` and ``--engine population`` are
-later slices and raise.
+(seed, t), where the JAX driver folds t into its key; the population
+engine's come from ``RowDraws(seed)``, seeded by (seed, t, row).
+``--device`` chooses where it runs: the card by default, ``cpu`` when
+asked. The run is single-device: ``--production-mesh`` is a later
+slice and raises.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --steps 8 --batch 4 --seq 32
     PYTHONPATH=src python -m repro_torch.launch.train --full --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --resume ck/ \\
         --steps 200 --checkpoint ck2/
+    PYTHONPATH=src python -m repro_torch.launch.train --engine population \\
+        --device cpu --steps 40 --seq 32 --until 20 --checkpoint ck/
+    PYTHONPATH=src python -m repro_torch.launch.train --engine population \\
+        --full --steps 40 --seq 32
 """
 from __future__ import annotations
 
@@ -50,17 +64,19 @@ import numpy as np
 import torch
 
 from repro_torch.configs import VFLConfig, get_config, list_archs, reduced
-from repro_torch.core.async_engine import EngineConfig
+from repro_torch.core.async_engine import EngineConfig, PopulationConfig
 from repro_torch.core.draws import StepDraws
 from repro_torch.core.methods import METHOD_ALIASES, canonical_method
 from repro_torch.core.partition import split_params
 from repro_torch.core.privacy import GaussianLossChannel
-from repro_torch.data import BatchIterator, lm_token_batches
+from repro_torch.data import (BatchIterator, lm_token_batches,
+                              vertical_partition)
 from repro_torch.device import DeviceLike
 from repro_torch.federation import Federation, SessionState
 from repro_torch.models import common
 from repro_torch.optim import make_schedule, sgd
 from repro_torch.tree import tree_leaves
+from repro_torch.wire.faults import FaultPlan
 
 
 def train(arch: str = "", *, steps: int = 100, batch: int = 8,
@@ -191,6 +207,139 @@ def _normalized_lr_client(fed: Federation, lr: float) -> float:
     return lr / max(np.sqrt(d_client), 1.0)
 
 
+def train_population(arch: str = "", *, steps: int = 60, batch: int = 8,
+                     seq: int = 32, method: str = "cascaded",
+                     n_clients: int = 4, rows: int = 128, lr: float = 0.05,
+                     mu: float = 1e-3, lr_client: float = 0.0,
+                     use_reduced: bool = True, seed: int = 0,
+                     zoo_queries: int = 1, fault_drop: float = 0.0,
+                     fault_latency_ms: float = 0.0,
+                     fault_jitter_ms: float = 0.0, fault_seed: int = 0,
+                     admission_ms: Optional[float] = None,
+                     staleness_bound: Optional[int] = None,
+                     until: int = 0, checkpoint_path: str = "",
+                     noise: Optional[GaussianLossChannel] = None,
+                     resume: str = "", device: DeviceLike = None) -> dict:
+    """The population engine over the wire plane (``fed.run_population``).
+
+    Unlike the sync driver, the round horizon is FIXED at first build
+    (``steps`` = total rounds T; the activation schedule and fault stream
+    are drawn over T once). ``until=k`` stops after round k and — with
+    ``checkpoint_path`` — saves the full async-plane state, so a later
+    ``resume`` continues the SAME horizon bitwise; ``steps`` is ignored
+    on resume. ``device=None`` runs on the card and raises without one;
+    pass ``device="cpu"`` for the CPU.
+    """
+    if resume:
+        fed, params, state = Federation.restore(resume, device=device)
+        meta = state.metadata
+        if state.async_state is None or meta.get("engine") != "population":
+            raise ValueError(
+                f"checkpoint {resume!r} has no async plane — it was not "
+                "written by the population driver")
+        arch, rows, seq = meta["arch"], meta["rows"], meta["seq"]
+        seed, n_clients = meta["seed"], fed.n_clients
+        cfg = fed.model_cfg
+        # the saved run's fault stream and admission policy, NOT the
+        # caller's — resume-equivalence requires replaying the same plan
+        fault = (FaultPlan(**meta["fault_plan"]) if meta.get("fault_plan")
+                 else FaultPlan.none())
+        population = (PopulationConfig(**meta["population"])
+                      if meta.get("population") else None)
+        noise = fed.transport.noise
+    else:
+        cfg = get_config(arch)
+        if use_reduced:
+            cfg = reduced(cfg)
+        method = canonical_method(method)
+        vfl = VFLConfig(mu=mu, lr_server=lr, lr_client=lr_client,
+                        zoo_queries=zoo_queries)
+        fed = Federation.build(cfg, vfl,
+                               EngineConfig(method=method, steps=steps,
+                                            batch_size=batch, seed=seed),
+                               n_clients=n_clients, seq_len=seq,
+                               noise=noise, device=device)
+        if not lr_client:
+            fed.vfl = dataclasses.replace(
+                vfl, lr_client=_normalized_lr_client(fed, lr))
+        params = fed.init_params(torch.Generator(fed.device).manual_seed(seed))
+        state = SessionState()
+        fault = FaultPlan(seed=fault_seed, drop=fault_drop,
+                          latency_ms=fault_latency_ms,
+                          jitter_ms=fault_jitter_ms)
+        population = (PopulationConfig(admission_ms=admission_ms,
+                                       staleness_bound=staleness_bound)
+                      if (admission_ms or staleness_bound) else None)
+
+    horizon = fed.engine.steps
+    stop_at = min(until, horizon) if until else horizon
+    # deterministic dataset: the resumed run regenerates the exact rows
+    # the original drew, so every round samples identical batches
+    toks = next(lm_token_batches(seed + 1, cfg.vocab_size, rows,
+                                 seq))["tokens"]
+    x_parts = vertical_partition(toks, n_clients)
+
+    t0 = time.time()
+    res = fed.run_population(
+        params, x_parts, toks, fault_plan=fault, population=population,
+        state=state.async_state, ledger=state.ledger,
+        dp_releases=state.dp_releases,
+        until=stop_at if stop_at < horizon else None)
+    wall = time.time() - t0
+
+    stats = res.stats
+    executed = stats["rounds_executed"]
+    result = {
+        "arch": arch, "method": fed.transport.method,
+        "engine": "population", "clients": n_clients,
+        "device": str(fed.device),
+        "rounds": int(res.state.step), "horizon": horizon,
+        "loss_first": float(res.losses[0]),
+        "loss_last": float(np.mean(res.losses[-5:])),
+        "wall_s": round(wall, 1),
+        "rounds_per_s": round(executed / max(wall, 1e-9), 2),
+        "virtual_ms": stats["virtual_ms"],
+        "participation": stats["participation"],
+        "max_delay_seen": int(res.max_delay_seen),
+        # the §V wire, measured (serialized frames) vs the formula
+        "serialized_bytes": int(res.serialized_bytes),
+        "formula_bytes": int(stats["formula_bytes"]),
+        "control_bytes": int(res.control_bytes),
+        "wire_has_gradients": res.transmits_gradients,
+        "faults": {
+            "drop": fault.drop, "latency_ms": fault.latency_ms,
+            "jitter_ms": fault.jitter_ms,
+            "uplink_drops": stats["uplink_drops"],
+            "downlink_drops": stats["downlink_drops"],
+            "stragglers": stats["stragglers"],
+            "forced": stats["forced"],
+            "degraded_rounds": stats["degraded_rounds"],
+        },
+    }
+    if resume:
+        result["resumed_from"] = resume
+        result["start_step"] = int(state.async_state.step)
+    if noise is not None:
+        result["dp_epsilon"], result["dp_delta"] = res.epsilon, res.delta
+    if checkpoint_path:
+        fed.save(checkpoint_path, res.params, step=res.state.step,
+                 ledger=res.ledger, dp_releases=res.dp_releases,
+                 async_state=res.state,
+                 metadata={"engine": "population", "arch": arch,
+                           "rows": rows, "seq": seq, "seed": seed,
+                           "fault_plan": {
+                               "seed": fault.seed, "drop": fault.drop,
+                               "latency_ms": fault.latency_ms,
+                               "jitter_ms": fault.jitter_ms},
+                           "population": (
+                               None if population is None else
+                               {"admission_ms": population.admission_ms,
+                                "staleness_bound":
+                                    population.staleness_bound})})
+        result["checkpoint"] = checkpoint_path
+    return result
+
+
 def _driver_metadata(path: str, meta: dict) -> dict:
     """Validate the driver knobs ``fed.save`` stashed in the session."""
     missing = {"arch", "batch", "seq", "seed", "lr", "schedule"} - set(meta)
@@ -231,10 +380,28 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dp-epsilon", type=float, default=0.0)
     ap.add_argument("--dp-delta", type=float, default=1e-5)
     ap.add_argument("--dp-clip", type=float, default=10.0)
-    # sync: the lockstep driver. population: N client parties behind the
-    # wire plane (not ported yet; raises)
+    # --- population engine (the wire plane) ---------------------------
+    # sync: the lockstep driver (default). population: N client parties
+    # behind repro_torch.wire endpoints with fault injection and a
+    # durable async plane (--until k + --checkpoint, then --resume).
     ap.add_argument("--engine", choices=("sync", "population"),
                     default="sync")
+    ap.add_argument("--clients", type=int, default=4,
+                    help="population: number of client parties")
+    ap.add_argument("--rows", type=int, default=128,
+                    help="population: dataset rows each round samples")
+    ap.add_argument("--until", type=int, default=0,
+                    help="population: stop after this round (0 = run the "
+                         "full --steps horizon); pair with --checkpoint")
+    ap.add_argument("--fault-drop", type=float, default=0.0)
+    ap.add_argument("--fault-latency-ms", type=float, default=0.0)
+    ap.add_argument("--fault-jitter-ms", type=float, default=0.0)
+    ap.add_argument("--fault-seed", type=int, default=0)
+    ap.add_argument("--admission-ms", type=float, default=0.0,
+                    help="population: straggler budget in virtual ms")
+    ap.add_argument("--staleness-bound", type=int, default=0,
+                    help="population: force-activate clients staler than "
+                         "this many rounds")
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card; 'cpu' for the CPU")
     return ap
@@ -242,23 +409,33 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.engine == "population":
-        raise NotImplementedError(
-            "the population engine (train_population, run_population over "
-            "the wire plane) is not ported yet (ROADMAP.md, Queue 1 item 10, "
-            "the async-engine LM plane)")
     noise = (GaussianLossChannel(clip=args.dp_clip, epsilon=args.dp_epsilon,
                                  delta=args.dp_delta)
              if args.dp_epsilon > 0 else None)
-    res = train(args.arch, steps=args.steps, batch=args.batch,
-                seq=args.seq, method=canonical_method(args.method),
-                lr=args.lr, mu=args.mu, use_reduced=args.reduced,
-                seed=args.seed, zoo_queries=args.zoo_queries,
-                active_rows=args.active_rows,
-                production_mesh=args.production_mesh,
-                checkpoint_path=args.checkpoint,
-                schedule=args.schedule, noise=noise,
-                resume=args.resume, device=args.device)
+    if args.engine == "population":
+        res = train_population(
+            args.arch, steps=args.steps, batch=args.batch, seq=args.seq,
+            method=canonical_method(args.method), n_clients=args.clients,
+            rows=args.rows, lr=args.lr, mu=args.mu, seed=args.seed,
+            use_reduced=args.reduced, zoo_queries=args.zoo_queries,
+            fault_drop=args.fault_drop,
+            fault_latency_ms=args.fault_latency_ms,
+            fault_jitter_ms=args.fault_jitter_ms,
+            fault_seed=args.fault_seed,
+            admission_ms=args.admission_ms or None,
+            staleness_bound=args.staleness_bound or None,
+            until=args.until, checkpoint_path=args.checkpoint,
+            noise=noise, resume=args.resume, device=args.device)
+    else:
+        res = train(args.arch, steps=args.steps, batch=args.batch,
+                    seq=args.seq, method=canonical_method(args.method),
+                    lr=args.lr, mu=args.mu, use_reduced=args.reduced,
+                    seed=args.seed, zoo_queries=args.zoo_queries,
+                    active_rows=args.active_rows,
+                    production_mesh=args.production_mesh,
+                    checkpoint_path=args.checkpoint,
+                    schedule=args.schedule, noise=noise,
+                    resume=args.resume, device=args.device)
     print(json.dumps(res, indent=2))
 
 

@@ -392,9 +392,9 @@ def test_train_resume_rejects_exhausted_steps(tmp_path):
 
 
 def test_restore_refuses_planes_not_ported(lm_session, tmp_path):
-    """The population engine's plane and a sharded session are refused; the
-    serve scheduler's plane restores (``test_torch_serve_continuous.py``
-    resumes one)."""
+    """A sharded session is refused; the serve scheduler's plane restores
+    (``test_torch_serve_continuous.py`` resumes one), and so does the
+    population engine's (``test_torch_population.py``)."""
     cfg, fed = lm_session
     params = fed.init_params(_gen())
     srv = fed.serve(params, max_batch=1)
@@ -407,9 +407,6 @@ def test_restore_refuses_planes_not_ported(lm_session, tmp_path):
     manifest_path = os.path.join(path, "session.json")
     manifest = json.load(open(manifest_path))
     assert manifest["serve_plane"] is True
-    json.dump(dict(manifest, async_plane=True), open(manifest_path, "w"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Federation.restore(path, device="cpu")
     engine = dict(manifest["engine"], mesh_shards=2)
     json.dump(dict(manifest, engine=engine), open(manifest_path, "w"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

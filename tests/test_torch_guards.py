@@ -109,6 +109,33 @@ def test_entry_point_runs_on_the_card_unless_asked_for_the_cpu():
             resolve_device("cuda")
 
 
+def test_worker_restart_runs_on_the_card_unless_asked_for_the_cpu(tmp_path):
+    """A client party restarted from its checkpoint loads its row onto the
+    card by default (raising without one) and onto the CPU only when
+    asked."""
+    from repro_torch.checkpoint.io import save_checkpoint
+    from repro_torch.configs.base import VFLConfig
+    from repro_torch.configs.paper_mlp import PaperMLPConfig
+    from repro_torch.core.adapters import tabular_adapter
+    from repro_torch.models.common import materialize
+    from repro_torch.models.tabular import param_specs
+    from repro_torch.wire import ClientWorker, LoopbackBackend
+    cfg = PaperMLPConfig(n_features=8, n_classes=2, n_clients=2,
+                         client_embed=4, server_embed=8)
+    params = materialize(param_specs(cfg), torch.Generator().manual_seed(0))
+    row = {k: v[1] for k, v in params["clients"].items()}
+    save_checkpoint(str(tmp_path / "client_01"), row)
+    args = (tabular_adapter(cfg), VFLConfig(zoo_queries=1), str(tmp_path), 1,
+            torch.zeros((16, 4)), LoopbackBackend.pair()[1])
+    worker = ClientWorker.from_checkpoint(*args, device="cpu")
+    assert worker.device.type == "cpu"
+    if torch.cuda.is_available():
+        assert ClientWorker.from_checkpoint(*args).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ClientWorker.from_checkpoint(*args)
+
+
 def test_kernel_build_location_and_nvcc():
     """The build goes to the git-ignored build/ directory under a name
     that changes with the source, and needs the CUDA toolkit's nvcc."""

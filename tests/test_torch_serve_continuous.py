@@ -523,16 +523,58 @@ def test_serve_kill_mid_drain_resumes(tmp_path):
 
 
 def test_repro_serve_snapshot_is_refused(tmp_path):
-    """A serve snapshot written by repro samples from threefry key data,
-    which the port cannot draw from: its restore says so."""
+    """A SAMPLING serve snapshot written by repro draws from threefry key
+    data, which the port cannot draw from: its restore says so (a greedy
+    one crosses: ``test_greedy_serve_snapshot_crosses_both_ways``)."""
     jfed, jparams, _, _, _ = _build("dense", 12)
-    jsrv = jfed.serve(jparams, max_batch=2)
-    jsrv.submit(np.zeros(4, np.int32), 6)
+    jsrv = jfed.serve(jparams, max_batch=2, temperature=0.8)
+    jsrv.submit(np.zeros(4, np.int32), 6, seed=3)
     jsrv.run(max_steps=2)
     path = jfed.save(str(tmp_path / "ck"), jparams,
                      serve_state=jsrv.snapshot())
     with pytest.raises(ValueError, match="threefry"):
         Federation.restore(path, device="cpu")
+
+
+@pytest.mark.parametrize("writer", ["repro", "port"])
+def test_greedy_serve_snapshot_crosses_both_ways(tmp_path, writer):
+    """A greedy snapshot draws nothing, so it crosses: one package drains
+    part of the traffic, saves the session with its serve plane, and the
+    OTHER package restores it and finishes the drain. Tokens, statuses
+    and ordered ledgers equal the writer's own uninterrupted drain."""
+    jfed, jparams, fed, params, cfg = _build("dense", 12)
+    specs = [(4, 8), (3, 5), (6, 6), (2, 3)]
+    prompts = _prompts(cfg, specs, 71)
+
+    def drain(sess, p, steps=None):
+        srv = sess.serve(p, max_batch=2)
+        for prompt, (_, gl) in zip(prompts, specs):
+            srv.submit(prompt, gl)
+        srv.run(max_steps=steps)
+        return srv
+
+    ref = drain(*((jfed, jparams) if writer == "repro" else (fed, params)))
+    srv = drain(*((jfed, jparams) if writer == "repro" else (fed, params)),
+                steps=6)
+    assert srv.active > 0 and srv.pending > 0 and srv.results
+    writer_fed, writer_params = ((jfed, jparams) if writer == "repro"
+                                 else (fed, params))
+    path = writer_fed.save(str(tmp_path / "ck"), writer_params,
+                           serve_state=srv.snapshot())
+    if writer == "repro":
+        fed2, params2, state = Federation.restore(path, device="cpu")
+    else:
+        fed2, params2, state = JFederation.restore(path)
+    srv2 = fed2.serve(params2, state=state.serve_state)
+    srv2.run()
+    assert set(srv2.results) == set(ref.results)
+    for rid, want in ref.results.items():
+        got = srv2.results[rid]
+        np.testing.assert_array_equal(np.asarray(got.tokens),
+                                      np.asarray(want.tokens))
+        assert got.status == want.status
+        assert ledger_tuples(got.ledger) == ledger_tuples(want.ledger)
+    assert srv2.allocator.in_use == 0
 
 
 # ------------------------------------------------------------ the driver --

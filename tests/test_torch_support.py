@@ -18,7 +18,7 @@ import torch
 from repro.core.async_engine import _row_keys
 from repro.core.async_engine import make_schedule as jax_make_schedule
 from repro.federation.transport import NOISE_SALT
-from repro_torch.core.partition import tree_unflatten
+from repro_torch.core.partition import tree_map, tree_unflatten
 from repro_torch.models.common import params_from_numpy
 
 
@@ -301,3 +301,20 @@ def assert_round_parity(method, j, t):
     # the harness's replay of the JAX round loop is the run() it checks
     np.testing.assert_array_equal(_flat(jr.params)["server/w1"],
                                   _flat(j["params"])["server/w1"])
+
+
+class JaxPopulationDraws(JaxReplayDraws):
+    """:class:`JaxReplayDraws` as a population draw source: the act
+    frame's ``key`` payload is the threefry key data of block row r's key
+    (``_row_keys``), as ``repro``'s ``run_population`` sends it, and
+    ``directions`` turns key data back into that key's raw normals — the
+    draws ``repro``'s ``ClientWorker`` makes from the same frame."""
+
+    def row_key(self, t, r):
+        return np.asarray(jax.random.key_data(self._rows(t, r + 1)[r]))
+
+    @staticmethod
+    def directions(key, template, q):
+        kd = jnp.asarray(np.asarray(key, np.uint32))
+        raw = raw_normals(jax.random.wrap_key_data(kd), template, q)
+        return tree_map(lambda r, leaf: r.to(leaf.device), raw, template)

@@ -2,7 +2,10 @@
 a short run on reduced phi3 whose loss falls and whose wire ledger is
 exact and gradient-free, the CLI's alias surface (the JAX package's
 ``tests/test_federation.py::test_cli_accepts_every_alias_spelling``), the
-card by default, and the later slices refused by name."""
+card by default, the later slices refused by name, and
+``--engine population``: its flags against the JAX package's, and a run
+that stops with ``--until`` and a ``--resume`` that finishes it equal to
+an unbroken run."""
 import json
 
 import pytest
@@ -12,7 +15,8 @@ from repro.core.methods import METHOD_ALIASES as J_METHOD_ALIASES
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.methods import METHOD_ALIASES
 from repro_torch.federation import Transport
-from repro_torch.launch.train import build_parser, main, train
+from repro_torch.launch.train import (build_parser, main, train,
+                                      train_population)
 from test_torch_support import torch_threads
 
 
@@ -65,9 +69,75 @@ def test_train_runs_on_the_card_unless_asked_for_the_cpu():
 
 
 def test_later_slices_raise_with_their_roadmap_items():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        main(["--engine", "population", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         main(["--production-mesh", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train("rwkv6-7b", steps=1, device="cpu")
+
+
+POP = ["--engine", "population", "--device", "cpu", "--steps", "10",
+       "--seq", "16", "--batch", "4", "--rows", "32", "--clients", "2",
+       "--lr", "0.05"]
+
+
+def _cli(capsys, argv):
+    main(argv)
+    out = capsys.readouterr().out
+    return json.loads(out[out.index("{"):])
+
+
+def test_population_cli_flags_match_reference():
+    """The population flags and their defaults are the JAX package's."""
+    from repro.launch.train import build_parser as j_build_parser
+    flags = ("--engine", "--clients", "--rows", "--until", "--fault-drop",
+             "--fault-latency-ms", "--fault-jitter-ms", "--fault-seed",
+             "--admission-ms", "--staleness-bound")
+    ours = {a.option_strings[0]: (a.default, a.type, a.choices)
+            for a in build_parser()._actions if a.option_strings}
+    ref = {a.option_strings[0]: (a.default, a.type, a.choices)
+           for a in j_build_parser()._actions if a.option_strings}
+    assert {f: ours[f] for f in flags} == {f: ref[f] for f in flags}
+
+
+def test_population_cli_until_resume_equals_unbroken(capsys, tmp_path):
+    """``--until 4 --checkpoint`` then ``--resume`` finishes the 10-round
+    horizon with the unbroken run's losses, wire bytes and fault counters,
+    under drops, latency, admission and staleness forcing."""
+    faults = ["--fault-drop", "0.2", "--fault-latency-ms", "3",
+              "--fault-jitter-ms", "2", "--admission-ms", "6",
+              "--staleness-bound", "3"]
+    whole = _cli(capsys, POP + faults + ["--checkpoint",
+                                         str(tmp_path / "w")])
+    half = _cli(capsys, POP + faults + ["--until", "4", "--checkpoint",
+                                        str(tmp_path / "a")])
+    assert half["rounds"] == 4 and half["horizon"] == 10
+    # --resume takes the plan and knobs from the checkpoint, not the CLI
+    rest = _cli(capsys, ["--engine", "population", "--device", "cpu",
+                         "--resume", str(tmp_path / "a"), "--checkpoint",
+                         str(tmp_path / "b")])
+    assert rest["start_step"] == 4 and rest["rounds"] == 10
+    assert rest["loss_last"] == whole["loss_last"]
+    assert rest["faults"] == whole["faults"]
+    assert rest["virtual_ms"] == whole["virtual_ms"]
+    assert rest["max_delay_seen"] == whole["max_delay_seen"]
+    assert rest["serialized_bytes"] == whole["serialized_bytes"]
+    assert not rest["wire_has_gradients"] and rest["device"] == "cpu"
+    from repro_torch.checkpoint import load_tree
+    from repro_torch.tree import tree_leaves
+    for party in ("server", "client_00", "client_01", "async_plane"):
+        a = load_tree(str(tmp_path / "w" / party))[0]
+        b = load_tree(str(tmp_path / "b" / party))[0]
+        assert all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                     tree_leaves(b)))
+    # a sync driver's checkpoint carries no async plane
+    train("phi3-mini-3.8b", steps=1, batch=2, seq=16, device="cpu",
+          checkpoint_path=str(tmp_path / "sync"))
+    with pytest.raises(ValueError, match="no async plane"):
+        train_population(resume=str(tmp_path / "sync"), device="cpu")
+
+
+def test_population_runs_on_the_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: train_population would run on it")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--engine", "population", "--steps", "1"])
