@@ -16,10 +16,11 @@ and prints no result):
    the fused ZOO fan-out at the tabular main path's shapes and ragged
    ones, f32 (TF32 off, 1e-4) and bf16 (1.5e-1); flash attention (f32 on
    the CUDA cores, bf16 on the tensor cores) over head dims 48 to 128
-   (Phi-3's 96 and Zamba2's 80 at both prefill chunks), causal, window 64,
+   (Phi-3's 96, Zamba2's 80 and Qwen3's 128 with GQA 8:1 at both prefill
+   chunks), causal, window 64,
    non-causal Sq != Skv, q_offset 0 and 576 over a 1152-slot cache, ragged
    Sq and Skv and GQA, and RMSNorm (RMS_CASES: M = 8, 4608, 3584, 50, 1;
-   d = 3072, 2560, 5120, 7168 and 128 on the one-pass vector kernel,
+   d = 3072, 2560, 2048, 5120, 7168 and 128 on the one-pass vector kernel,
    ragged d, d = 9000 and a misaligned x on the general kernel, each case
    held to its route), f32 (1e-4 / 1e-5) and bf16 (2e-2 plus a relative
    2e-2); the SSD chunked scan at the TPU test's shapes, at the
@@ -140,14 +141,37 @@ and prints no result):
    plan's on the CPU, and a socket worker ``kill -9``'d at its 2nd frame
    (declared dead, the run completes); (d) one round on reduced phi3 in
    f32 on the card against the CPU;
-8. a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
+8. the RWKV6 and MoE families and the paper's attacks: (a) phase 4's
+   split serve path and its checks for Qwen3-30B-A3B at full width and
+   depth (48 layers, d_model 2048, 128 experts top-8, 56.9 GiB of bf16
+   weights; every cached prefill chunk and decode step on the MoE dense
+   form; flash attention at head dim 128 with GQA 8:1, RMSNorm at d =
+   2048) and (b) for RWKV6-7B (32 layers, d_model 4096; no kernel: it
+   runs LayerNorm and the plain wkv6 form), then the MoE gather form
+   captured as a CUDA graph and held bitwise to its eager steps; (c)
+   phase 6's run A for RWKV6-7B at full width cut to 8 layers; (d)
+   ``launch.train.train`` at full width, Qwen3 cut to 4 layers (server
+   lr 1.0; its run at the CLI's 0.01, flat in 10 steps, logged beside)
+   and RWKV6 to 8 (lr 0.01), 10 cascaded steps each (a finite, falling
+   loss, launches
+   derived from the config, the wire formula; for Qwen3 the gradient at
+   the first block's experts and router, and the aux loss's own at the
+   router), and one reduced f32 cascaded step of each on the card
+   against the CPU; (e) Table I's label attack (2048 queries, 10
+   classes; FOO 1.0 and 1.0, ZOO below 0.35 and within 0.05 of chance)
+   and the feature attack on the card, each equal to the CPU's on the
+   card's draws;
+9. a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 
 It needs one card, and builds into ``build/`` at first use. It logs each
 phase's time and its own; ``PERF.md`` keeps the readings. Phase 6's
 modules have CPU tests of their own against the JAX package:
 ``tests/test_torch_paging.py``, ``tests/test_torch_serve_continuous.py``
 and ``tests/test_torch_serve_scan.py``; phase 7's are
-``tests/test_torch_wire.py`` and ``tests/test_torch_population.py``. Phase
+``tests/test_torch_wire.py`` and ``tests/test_torch_population.py``;
+phase 8's ``tests/test_torch_rwkv.py``, ``tests/test_torch_moe.py`` and
+``tests/test_torch_attacks.py`` and the families' cases of the serve and
+training tests. Phase
 7 starts worker processes of this script (``--pop-worker``) and stops
 them before it returns.
 """
@@ -225,6 +249,10 @@ FLASH_CASES = [(2, 576, 1152, 4, 4, 96, True, 0, 0),
                (2, 576, 1152, 4, 4, 80, True, 0, 0),
                (2, 448, 1152, 4, 4, 80, True, 0, 576),
                (2, 37, 1152, 4, 4, 80, True, 0, 576),
+               # Qwen3-30B-A3B's head dim 128 with GQA 8:1 (32:4) at
+               # both prefill chunks
+               (2, 576, 1152, 8, 1, 128, True, 0, 0),
+               (2, 448, 1152, 8, 1, 128, True, 0, 576),
                # tile edges: Sq and Skv off the 128-row and 128-key tiles,
                # three d panels (64 + 32 + 16), 48 = 32 + 16, MQA
                (2, 300, 300, 2, 2, 96, True, 0, 0),
@@ -256,7 +284,9 @@ RMS_CASES = [(8, 3072, 0, (V, V)), (4608, 3072, 0, (V, V)),
              (64, 5120, 0, (V, V)), (64, 7168, 0, (V, V)),
              (50, 100, 0, (V, G)), (50, 130, 0, (G, G)),
              (16, 9000, 0, (G, G)), (1, 3072, 0, (V, V)),
-             (1, 2560, 0, (V, V)), (64, 3072, 1, (G, G))]
+             (1, 2560, 0, (V, V)), (64, 3072, 1, (G, G)),
+             # Qwen3-30B-A3B's d_model 2048: a prefill chunk, a decode step
+             (4608, 2048, 0, (V, V)), (8, 2048, 0, (V, V))]
 # the SSD scan: repro's f32 tolerance (1e-4, absolute and relative); bf16
 # outputs round separately on both sides: one bf16 step, SERVE_TOL
 SSD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: SERVE_TOL}
@@ -1256,22 +1286,34 @@ def profile_prefill(fed, params, serving, ssd_ops) -> dict:
     return {"calls": calls, **seen}
 
 
-def serve_plan(cfg):
-    """What one serve call launches, derived from the config: per forward
-    pass the attention sites and Mamba2 layers (dense: every layer is an
-    attention block; hybrid: n_layers // attn_every super-blocks of
-    attn_every Mamba2 layers and one shared attention block) and the
-    norms (ln1 and ln2 of each attention block, ln1 of each Mamba2 layer,
-    the final norm). Each prefill chunk runs flash attention once per
-    attention site and the SSD scan once per Mamba2 layer; decode steps
-    run neither (plain decode attention; the S = 1 state step)."""
+def kernel_sites(cfg):
+    """(attention sites, Mamba2 layers, RMSNorm launches of the blocks, of
+    the final norm) of one forward pass: dense and MoE, every layer is an
+    attention block; hybrid, n_layers // attn_every super-blocks of
+    attn_every Mamba2 layers and one shared attention block; ssm (RWKV6),
+    neither. RMSNorm configs norm ln1 and ln2 of each attention block,
+    ln1 of each Mamba2 layer and the final hidden state; a LayerNorm
+    config (RWKV6) runs no RMSNorm kernel."""
     if cfg.family == "hybrid":
         sites = cfg.n_layers // cfg.attn_every
         mamba = sites * cfg.attn_every
+    elif cfg.family == "ssm":
+        sites, mamba = 0, 0
     else:
         sites, mamba = cfg.n_layers, 0
+    rms = cfg.norm != "layernorm"
+    return sites, mamba, (2 * sites + mamba) * rms, int(rms)
+
+
+def serve_plan(cfg):
+    """What one serve call launches, derived from the config
+    (:func:`kernel_sites`). Each prefill chunk runs flash attention once
+    per attention site and the SSD scan once per Mamba2 layer; decode
+    steps run neither (plain decode attention; the S = 1 state step);
+    every forward pass runs each RMSNorm once."""
+    sites, mamba, block_norms, final_norm = kernel_sites(cfg)
     n_chunks = 2                    # prompt 1024 over spans of 576
-    per_fwd = 2 * sites + mamba + 1
+    per_fwd = block_norms + final_norm
     n_fwd = n_chunks + SERVE["gen_len"]    # two prefill chunks + each step
     return dict(sites=sites, mamba=mamba, per_fwd=per_fwd, launches={
         "flash_attention": sites * n_chunks, "rmsnorm": per_fwd * n_fwd,
@@ -1313,16 +1355,21 @@ def serve_phase(rows, arch, zoo_ops, kernels):
     keep = {"flash_attention": [0, A - 1, A, 2 * A - 1],
             "rmsnorm": [f * per_fwd + j for f in (0, 1, 2)
                         for j in (0, 1, per_fwd - 3, per_fwd - 2)],
-            "ssd_chunk": [0, M - 1, M, 2 * M - 1] if M else []}
+            "ssd_chunk": [0, M - 1, M, 2 * M - 1]}
+    # a kernel the path never launches (RWKV6 runs none) is not captured
+    keep = {name: at for name, at in keep.items()
+            if plan["launches"][name]}
     for ops in [zoo_ops] + [ops for ops, _ in kernels.values()]:
         ops.reset_launches()
     graphs.reset_replayed()
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     with contextlib.ExitStack() as stack:
         caps = {name: stack.enter_context(
                     Capture(kernels[name][0], KERNEL_ENTRIES[name],
                             keep[name]))
-                for name in kernels}
+                for name in keep}
         t0 = time.perf_counter()
         res = serve_mod.serve(arch, use_reduced=False, temperature=0.0,
                               **SERVE)
@@ -1344,8 +1391,8 @@ def serve_phase(rows, arch, zoo_ops, kernels):
         f"{dg['replays']} replays of {dg['launches_a_replay']} launches: "
         f"launches replayed {replayed} (derived {want_replayed}), eager "
         f"{ {k: launches[k] - replayed[k] for k in want} }")
-    if replayed != want_replayed or dg["launches_a_replay"] != {
-            "rmsnorm": per_fwd}:
+    if replayed != want_replayed or dg["launches_a_replay"] != (
+            {"rmsnorm": per_fwd} if per_fwd else {}):
         raise AssertionError(f"serve launches through the graph "
                              f"{replayed}, want {want_replayed}")
     log(f"serve path: {arch} full width ({cfg.n_layers} layers, d_model "
@@ -1572,21 +1619,16 @@ def train_plan(cfg, q: int = 1, steps: int = 1) -> dict:
     attention site, the SSD scan once per Mamba2 layer, and RMSNorm at ln1
     and ln2 of each attention block, ln1 of each Mamba2 layer and the
     final norm."""
-    if cfg.family == "hybrid":
-        sites = cfg.n_layers // cfg.attn_every
-        mamba = sites * cfg.attn_every
-    else:
-        sites, mamba = cfg.n_layers, 0
-    block_norms = 2 * sites + mamba
+    sites, mamba, block_norms, final_norm = kernel_sites(cfg)
     fwd, remat = 1 + q, int(cfg.remat)
     launches = {"flash_attention": steps * sites * (fwd + remat),
-                "rmsnorm": steps * ((block_norms + 1) * fwd
+                "rmsnorm": steps * ((block_norms + final_norm) * fwd
                                     + block_norms * remat),
                 "ssd_chunk": steps * mamba * (fwd + remat)}
     why = (f"{steps} steps x [{fwd} forwards (clean + {q} perturbed) + "
            f"{remat} remat recompute] x ({sites} attention sites -> flash; "
-           f"{mamba} Mamba2 layers -> SSD; {block_norms} block norms, + 1 "
-           f"final norm a forward not recomputed -> RMSNorm)")
+           f"{mamba} Mamba2 layers -> SSD; {block_norms} block norms, + "
+           f"{final_norm} final norm a forward not recomputed -> RMSNorm)")
     return dict(launches=launches, why=why)
 
 
@@ -1738,18 +1780,48 @@ def log_profile(what, prof) -> None:
         log(f"  {us:11.1f} us  x{count:6d}  {name[:80]}")
 
 
+def train_kernel_cases(cfg):
+    """(flash cases, RMSNorm cases) at ``cfg``'s training shapes (TRAIN's
+    batch x seq): flash (dtype, query heads, KV heads, head dim, window)
+    in f32 and bf16, causal, at the config's window; RMSNorm (rows, d,
+    dtype, route) at d_model on the vector route."""
+    M = TRAIN["batch"] * TRAIN["seq"]
+    flash = tuple((dtype, cfg.n_heads, cfg.n_kv_heads,
+                   cfg.resolved_head_dim, cfg.window_size)
+                  for dtype in (torch.float32, torch.bfloat16))
+    rms = tuple((M, cfg.d_model, dtype, "vector")
+                for dtype in (torch.bfloat16, torch.float32))
+    return flash, rms
+
+
+# phase 5's: flash at Phi-3's d = 96 and Zamba2's 80, causal and window
+# 64, 32 heads; RMSNorm on the vector route at both d_models and on the
+# general one (d = 100)
+TRAIN_FLASH_CASES = tuple((dtype, 32, 32, d, window)
+                          for dtype in (torch.float32, torch.bfloat16)
+                          for d in (96, 80) for window in (0, 64))
+TRAIN_RMS_CASES = tuple((TRAIN["batch"] * TRAIN["seq"], d, dtype, route)
+                        for d, dtype, route in (
+                            (3072, torch.bfloat16, "vector"),
+                            (2560, torch.bfloat16, "vector"),
+                            (3072, torch.float32, "vector"),
+                            (100, torch.bfloat16, "general")))
+
+
 def check_kernel_grads(rows, flash_ops, flash_ref, rms_ops, rms_ref,
-                       ssd_ops, ssd_ref) -> None:
+                       ssd_ops=None, ssd_ref=None,
+                       flash_cases=TRAIN_FLASH_CASES,
+                       rms_cases=TRAIN_RMS_CASES) -> None:
     """Each differentiable kernel at the training shapes: the wrapper's
     output carries a grad_fn, and its gradients (torch.autograd.grad of
     a fixed random weighting of the output) equal autograd through the
     plain version on the same inputs (equal by construction: the
     backward is that autograd, so this holds the wiring), and its forward
     output (the kernel's) equals the plain version's at the forward's
-    tolerance. Flash attention: f32 and bf16,
-    causal and window 64, d = 96 (Phi-3) and 80 (Zamba2); RMSNorm: the
-    vector route (1024 x 3072, 1024 x 2560) and the general one (d = 100
-    bf16); the SSD scan: f32 and bf16 at the hybrid training shape."""
+    tolerance. Flash attention at ``flash_cases`` (dtype, query heads,
+    KV heads, head dim, window; causal), RMSNorm at ``rms_cases`` (rows,
+    d, dtype, route), and where ``ssd_ops`` is given the SSD scan in f32
+    and bf16 at the hybrid training shape."""
     g = torch.Generator("cuda").manual_seed(11)
     B, S = TRAIN["batch"], TRAIN["seq"]
 
@@ -1811,28 +1883,25 @@ def check_kernel_grads(rows, flash_ops, flash_ref, rms_ops, rms_ref,
         row["train_fwd_max_abs_err"] = max(
             row.get("train_fwd_max_abs_err", 0.0), fwd_err)
 
-    for dtype in (torch.float32, torch.bfloat16):
-        for d in (96, 80):
-            for window in (0, 64):
-                kw = dict(causal=True, window=window)
-                check("flash_attention",
-                      f"{dtype}, q/k/v ({B}, {S}, 32, {d}), causal, window "
-                      f"{window}",
-                      lambda q, k, v, kw=kw: flash_ops.flash_attention_bshd(
-                          q, k, v, **kw),
-                      lambda q, k, v, kw=kw:
-                          flash_ref.flash_attention_bshd_ref(q, k, v, **kw),
-                      [rnd(B, S, 32, d, dtype=dtype) for _ in range(3)],
-                      dtype, lambda _, t=FLASH_TOL[dtype]: t)
-    for M, d, dtype, route in ((B * S, 3072, torch.bfloat16, "vector"),
-                               (B * S, 2560, torch.bfloat16, "vector"),
-                               (B * S, 3072, torch.float32, "vector"),
-                               (B * S, 100, torch.bfloat16, "general")):
+    for dtype, hq, hkv, d, window in flash_cases:
+        kw = dict(causal=True, window=window)
+        check("flash_attention",
+              f"{dtype}, q ({B}, {S}, {hq}, {d}), k/v ({B}, {S}, {hkv}, "
+              f"{d}), causal, window {window}",
+              lambda q, k, v, kw=kw: flash_ops.flash_attention_bshd(
+                  q, k, v, **kw),
+              lambda q, k, v, kw=kw:
+                  flash_ref.flash_attention_bshd_ref(q, k, v, **kw),
+              [rnd(B, S, h, d, dtype=dtype) for h in (hq, hkv, hkv)],
+              dtype, lambda _, t=FLASH_TOL[dtype]: t)
+    for M, d, dtype, route in rms_cases:
         check("rmsnorm", f"{dtype}, x ({M}, {d}), {route} route",
               lambda x, s: rms_ops.rmsnorm(x, s),
               lambda x, s: rms_ref.rmsnorm_ref(x, s),
               [rnd(M, d, dtype=dtype, scale=3.0), 1.0 + 0.1 * rnd(d)],
               dtype, lambda _, t=RMS_TOL[dtype]: t, route)
+    if ssd_ops is None:
+        return
     H, P, N, chunk = 80, 64, 64, 128
     for dtype in (torch.float32, torch.bfloat16):
         xh = rnd(B, S, H, P, dtype=dtype)
@@ -1847,10 +1916,12 @@ def check_kernel_grads(rows, flash_ops, flash_ref, rms_ops, rms_ref,
               lambda want: ssd_tol(want, SSD_TOL[torch.float32]))
 
 
-def step_card_vs_cpu(counters) -> None:
+def step_card_vs_cpu(counters, arch="phi3-mini-3.8b",
+                     methods=("cascaded", "vafl", "zoo-vfl")) -> None:
     """One step of the cascaded, first-order (vafl) and full-ZOO (zoo-vfl)
-    factories on reduced phi3 in f32 (flash attention on the CUDA cores,
-    the RMSNorm vector kernel), on the card and on the CPU from the same
+    factories (``methods``) on ``arch`` reduced, in f32 (flash attention
+    on the CUDA cores, the RMSNorm vector kernel, where the family runs
+    them), on the card and on the CPU from the same
     params, batch and draws: losses and gradient norms agree at 1e-4
     relative; every updated leaf at 1e-4 of max(its largest |entry|, 1);
     and every leaf's step (new − old) entrywise, so an entrywise-wrong
@@ -1871,7 +1942,7 @@ def step_card_vs_cpu(counters) -> None:
     from repro_torch.models.model_api import build_model
     from repro_torch.optim import sgd
     from repro_torch.tree import tree_leaves, tree_map
-    cfg = reduced(get_config("phi3-mini-3.8b"), param_dtype="float32")
+    cfg = reduced(get_config(arch), param_dtype="float32")
     model = build_model(cfg, max_seq=TRAIN["seq"])
     cpu = common.materialize(model.param_specs,
                              torch.Generator().manual_seed(0))
@@ -1881,7 +1952,7 @@ def step_card_vs_cpu(counters) -> None:
                                TRAIN["seq"]))
     batches = {dev: {k: torch.from_numpy(v).to(dev) for k, v in nb.items()}
                for dev in ("cpu", "cuda")}
-    for method in ("cascaded", "vafl", "zoo-vfl"):
+    for method in methods:
         outs = {}
         for dev, params in (("card", card), ("cpu", cpu), ("f64", cpu64)):
             step = cascade.make_step_for_method(
@@ -1924,7 +1995,7 @@ def step_card_vs_cpu(counters) -> None:
             f32_err = max(f32_err, (own - ulp) / big)
             if worst_leaf is None or rel > step_err:
                 step_err, worst_leaf = rel, tuple(p.shape)
-        log(f"step on the card vs the CPU, {method}, reduced phi3 f32, "
+        log(f"step on the card vs the CPU, {method}, reduced {arch} f32, "
             f"batch {TRAIN['batch']} x {TRAIN['seq']}: loss "
             f"{float(g_out.loss):.6f} vs {float(c_out.loss):.6f}, "
             f"perturbed {float(g_out.loss_perturbed):.6f}, |g_c| "
@@ -1943,9 +2014,10 @@ def step_card_vs_cpu(counters) -> None:
             raise AssertionError(f"{method} step: updated leaves differ by "
                                  f"{leaf_err}, their steps by {step_err} of "
                                  "the largest step entry")
-        if not (ran["flash_attention"] and ran["rmsnorm"]):
+        want = train_plan(cfg)["launches"]
+        if any(bool(ran[k]) != bool(n) for k, n in want.items()):
             raise AssertionError(f"{method} step on the card launched "
-                                 f"{ran}")
+                                 f"{ran}, the family runs {want}")
 
 
 def train_phase(rows, card, counters) -> None:
@@ -1974,7 +2046,6 @@ def _launches(counters):
 
 
 def train_phi3(rows, card, counters) -> None:
-    from repro_torch.federation import Transport
     from repro_torch.launch import train as train_mod
     arch = "phi3-mini-3.8b"
     cfg = train_mod.get_config(arch)
@@ -2015,19 +2086,7 @@ def train_phi3(rows, card, counters) -> None:
             any(launches[k] for k in launches if k not in plan["launches"]):
         raise AssertionError(f"training launches {launches}, want "
                              f"{plan['launches']} and no ZOO kernel")
-    B, d = TRAIN["batch"], cfg.d_model
-    formula = 2 * (B * d * 4 + B * 4)
-    ledger = Transport("cascaded").account(batch=B, embed=d,
-                                           n_rounds=TRAIN_STEPS)
-    log(f"train wire: {res['wire_bytes_per_round']} B a round; formula "
-        f"(1 + q) x ({B} x {d} f32 embeddings up + {B} f32 losses down) = "
-        f"{formula} B; Transport.account {ledger.total_bytes} B over "
-        f"{TRAIN_STEPS} rounds; gradients on the wire: "
-        f"{res['wire_has_gradients']}")
-    if not (res["wire_bytes_per_round"] == formula
-            == ledger.total_bytes // TRAIN_STEPS) \
-            or res["wire_has_gradients"]:
-        raise AssertionError("training wire differs from the formula")
+    check_train_wire(arch, cfg, res, TRAIN_STEPS)
     log_profile(f"train profile, step {TRAIN_STEPS - 1} of {arch} on "
                 f"{card}", rec.profile)
     for name, n in plan["launches"].items():
@@ -2035,6 +2094,24 @@ def train_phi3(rows, card, counters) -> None:
             rows[name]["launches"] += launches[name]
             rows[name].setdefault("launches_by_path", {})[
                 f"train:{arch}"] = launches[name]
+
+
+def check_train_wire(arch, cfg, res, steps) -> None:
+    """A training run's wire bytes a round (``res`` of
+    ``launch.train.train``) against the formula and the ledger."""
+    from repro_torch.federation import Transport
+    B, d = TRAIN["batch"], cfg.d_model
+    formula = 2 * (B * d * 4 + B * 4)
+    ledger = Transport("cascaded").account(batch=B, embed=d, n_rounds=steps)
+    log(f"train wire, {arch}: {res['wire_bytes_per_round']} B a round; "
+        f"formula (1 + q) x ({B} x {d} f32 embeddings up + {B} f32 losses "
+        f"down) = {formula} B; Transport.account {ledger.total_bytes} B "
+        f"over {steps} rounds; gradients on the wire: "
+        f"{res['wire_has_gradients']}")
+    if not (res["wire_bytes_per_round"] == formula
+            == ledger.total_bytes // steps) or res["wire_has_gradients"]:
+        raise AssertionError(f"{arch} training wire differs from the "
+                             "formula")
 
 
 def train_zamba2(rows, counters) -> None:
@@ -2705,13 +2782,18 @@ def cont_captures(stack, kernels, plan):
             for name in kernels if groups[name][0]}
 
 
-def continuous_phase(rows, card, counters, kernels) -> None:
+CONT_ARCHS = (("phi3-mini-3.8b", None), ("zamba2-2.7b", CONT_ZAMBA_LAYERS))
+
+
+def continuous_phase(rows, card, counters, kernels, archs=CONT_ARCHS,
+                     label="continuous phase") -> None:
     """Phase 6: continuous split serving through ``Federation.serve`` at
     full width: Phi-3-mini at full depth with the worst-case pool (run A)
     and with half of it plus preemption (run B), and Zamba2-2.7B cut to
     12 layers (run A). Each drain holds the kernels against their plain
     versions on its own captured inputs. ``kernels`` maps each serve
-    kernel's name to its (ops, ref) modules."""
+    kernel's name to its (ops, ref) modules. ``archs`` lists (arch, layers
+    or None for full depth); a cut model runs run A only."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as serve_mod
@@ -2722,8 +2804,7 @@ def continuous_phase(rows, card, counters, kernels) -> None:
         spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
         return time.perf_counter()
 
-    for arch, layers in (("phi3-mini-3.8b", None),
-                         ("zamba2-2.7b", CONT_ZAMBA_LAYERS)):
+    for arch, layers in archs:
         t0 = time.perf_counter()
         cfg = get_config(arch)
         if layers:
@@ -2808,9 +2889,9 @@ def continuous_phase(rows, card, counters, kernels) -> None:
             t0 = lap(f"{arch} mixed sampled drain and its eager drain", t0)
         del fed, params
         torch.cuda.empty_cache()
-    log("continuous phase time: " + "; ".join(
+    log(f"{label} time: " + "; ".join(
         f"{name} {sec:.1f} s" for name, sec in spent.items()))
-    log(f"continuous phase: {time.perf_counter() - t_phase:.1f} s on {card}")
+    log(f"{label}: {time.perf_counter() - t_phase:.1f} s on {card}")
 
 
 # ---------------------------------- phase 7: population training ------
@@ -3435,6 +3516,405 @@ def pop_card_vs_cpu() -> None:
                              "from the CPU's")
 
 
+# ------------------------------- phase 8: the RWKV6 and MoE families ----
+
+# (a, b) the split serve path of both families at full width and depth
+FAMILY_SERVE_ARCHS = ("qwen3-moe-30b-a3b", "rwkv6-7b")
+# (c) continuous serving of RWKV6 at full width, cut to this many layers
+CONT_RWKV_LAYERS = 8
+# (d) training at full width, cut to (arch, layers), at the server lr
+# whose run is gated; 10 cascaded steps. At the CLI's lr 0.01 Qwen3's
+# bf16 SGD moves its loss by less than the batches' spread in 10 steps
+# (most updates fall below half a bf16 step of the weights they land on;
+# train_family logs the share at both lrs): that run is logged, and the
+# gated one takes lr 1.0
+FAMILY_TRAIN = (("qwen3-moe-30b-a3b", 4, 1.0), ("rwkv6-7b", 8, 0.01))
+FAMILY_TRAIN_STEPS, FAMILY_TRAIN_WARMUP = 10, 3
+CLI_LR = 0.01
+# the MoE gather form under capture: batch 2 (B·k = 16 <= 128 experts)
+GATHER_CASE = dict(batch=2, layers=2, steps=4)
+# (e) the attacks at Table I's size; the feature attack at repro's
+ATTACK = dict(n_classes=10, n_samples=2048)
+# the second draw of each attack, beside the entry points' defaults (0, 1)
+ATTACK_SEEDS = dict(label=2, feature=3)
+ATTACK_MSE_RTOL = 1e-4
+
+
+def train_run(arch, layers, lr, counters):
+    """One ``launch.train.train`` run at full width cut to ``layers``:
+    (result, losses, ms a step, peak bytes, wall s, launches)."""
+    from repro_torch.launch import train as train_mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    with StepRecorder() as rec:
+        for c in counters:
+            c.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = train_mod.train(arch, use_reduced=False, n_layers=layers,
+                              steps=FAMILY_TRAIN_STEPS, method="cascaded",
+                              lr=lr, log_every=5, **TRAIN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches(counters)
+    timed = rec.ends[FAMILY_TRAIN_WARMUP - 1:]
+    ms = (timed[-1] - timed[0]) * 1e3 / (len(timed) - 1)
+    return (res, rec.losses, ms, torch.cuda.max_memory_allocated(), wall,
+            launches)
+
+
+def lost_updates(w, g, lr, chunk=1 << 26) -> int:
+    """Entries of ``w`` whose SGD step lr·|g| is under half of the step
+    between ``w``'s neighbours in its own type (2^(e - 1 - mantissa bits)
+    for |w| in [2^(e-1), 2^e)): rounded to the nearest, the update leaves
+    the entry where it was. An entry at 0 loses no update."""
+    # eps = 2^-(mantissa bits)
+    half_exp = -2 + round(math.log2(torch.finfo(w.dtype).eps))
+    wf, gf = w.reshape(-1), g.reshape(-1)
+    lost = 0
+    for i in range(0, wf.numel(), chunk):
+        wa = wf[i:i + chunk].float().abs()
+        half = torch.ldexp(torch.ones_like(wa), torch.frexp(wa)[1] + half_exp)
+        lost += int(((lr * gf[i:i + chunk].float().abs() < half)
+                     & (wa > 0)).sum())
+    return lost
+
+
+def log_lost_updates(arch, params, grads, keys, lrs) -> None:
+    """Log, for each server lr in ``lrs``, the share of the server's
+    entries (the leaves under ``keys``) whose first SGD update is lost to
+    rounding (:func:`lost_updates`), over all of them, over lm_head and
+    over the experts, and the median |w| and lr·|g| of lm_head."""
+    def walk(path, w, gr):
+        if isinstance(w, dict):
+            for k in w:
+                yield from walk(path + (k,), w[k], gr[k])
+        else:
+            yield path, w, gr
+    leaves = [leaf for k in keys for leaf in walk((k,), params[k], grads[k])]
+    head = [(w, gr) for path, w, gr in leaves if path[0] == "lm_head"]
+    med_w, med_g = (float(torch.cat([t[i].float().abs().flatten()[::97]
+                                     for t in head]).median())
+                    for i in (0, 1))
+    for lr in lrs:
+        lost = {"all": [0, 0], "lm_head": [0, 0], "experts": [0, 0]}
+        for path, w, gr in leaves:
+            n = lost_updates(w, gr, lr)
+            groups = ["all"] + (["lm_head"] if path[0] == "lm_head" else []) \
+                + (["experts"] if "moe" in path and path[-1] in
+                   ("w_up", "w_gate", "w_down") else [])
+            for name in groups:
+                lost[name][0] += n
+                lost[name][1] += w.numel()
+        share = {k: n / max(total, 1) for k, (n, total) in lost.items()}
+        log(f"train: {arch} at server lr {lr}: the first SGD step loses "
+            f"{share['all']:.4f} of the server's "
+            f"{lost['all'][1]:,} entries to rounding (lr·|g| under half "
+            f"the step to the weight's neighbour in its type), "
+            f"{share['lm_head']:.4f} of lm_head's, "
+            f"{share['experts']:.4f} of the experts'; lm_head median "
+            f"|w| {med_w:.4g}, median lr·|g| {lr * med_g:.4g}")
+
+
+def train_family(rows, card, counters, arch, layers, lr) -> None:
+    """``launch.train.train`` of ``arch`` at full width cut to ``layers``:
+    FAMILY_TRAIN_STEPS cascaded steps of 8 x 128 tokens at server lr
+    ``lr`` (a run at the CLI's lr first, logged, where ``lr`` is another).
+    First the family's kernels at its training shapes
+    (:func:`check_kernel_grads`); then a finite, falling loss, the
+    launches derived from the config, the wire formula, ms a step and
+    peak memory; for the MoE family the server gradient reaching the
+    first block's experts and router, the aux loss's own gradient
+    reaching the router, and the share of SGD updates a bf16 weight
+    loses at each lr (:func:`log_lost_updates`)."""
+    import dataclasses
+    from repro_torch.configs import VFLConfig, get_config
+    from repro_torch.core import cascade
+    from repro_torch.core.partition import LM_CLIENT_KEYS
+    from repro_torch.data import BatchIterator, lm_token_batches
+    from repro_torch.federation import Federation
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm import ref as rms_ref
+    from repro_torch.models import common
+    steps = FAMILY_TRAIN_STEPS
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    sites, _, block_norms, _ = kernel_sites(cfg)
+    if sites or block_norms:
+        flash_cases, rms_cases = train_kernel_cases(cfg)
+        check_kernel_grads(rows, flash_ops, flash_ref, rms_ops, rms_ref,
+                           flash_cases=flash_cases if sites else (),
+                           rms_cases=rms_cases if block_norms else ())
+    plan = train_plan(cfg, q=1, steps=steps)
+    if lr != CLI_LR:
+        _, at_cli, ms, _, _, _ = train_run(arch, layers, CLI_LR, counters)
+        log(f"train: {arch} at {layers} layers at the CLI's lr {CLI_LR} "
+            f"(logged, not gated but finite): {ms:.3f} ms per step, losses "
+            f"{[round(x, 4) for x in at_cli]}; first {at_cli[0]:.4f}, mean "
+            f"of the last 5 {float(np.mean(at_cli[-5:])):.4f}")
+        if not np.isfinite(at_cli).all():
+            raise AssertionError(f"{arch} losses at lr {CLI_LR} not "
+                                 f"finite: {at_cli}")
+    res, losses, ms, peak, wall, launches = train_run(arch, layers, lr,
+                                                      counters)
+    log(f"train: {arch} full width cut to {layers} layers (d_model "
+        f"{cfg.d_model}, {cfg.param_count() / 1e9:.3f} B params, bf16), "
+        f"cascaded through launch.train.train, batch {TRAIN['batch']} x "
+        f"{TRAIN['seq']}, SGD lr {lr}, mu 1e-3, q = 1: {steps} steps, "
+        f"{ms:.3f} ms per step (host clock after a synchronise, steps "
+        f"{FAMILY_TRAIN_WARMUP}..{steps - 1} after {FAMILY_TRAIN_WARMUP} "
+        f"warm-up steps) on {card}; peak memory {peak / 2**30:.2f} GiB; "
+        f"whole call {wall:.2f} s (weights drawn on the card included); "
+        f"losses {[round(x, 4) for x in losses]}; launches {launches}, "
+        f"derived {plan['launches']}: {plan['why']}")
+    first, last5 = losses[0], float(np.mean(losses[-5:]))
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"{arch} training losses not finite: {losses}")
+    if not last5 < first:
+        raise AssertionError(f"{arch} training loss did not fall: first "
+                             f"{first}, mean of the last 5 {last5}")
+    if {k: launches[k] for k in plan["launches"]} != plan["launches"] or \
+            any(launches[k] for k in launches if k not in plan["launches"]):
+        raise AssertionError(f"{arch} training launches {launches}, want "
+                             f"{plan['launches']} and no ZOO kernel")
+    check_train_wire(arch, cfg, res, steps)
+    for name, n in plan["launches"].items():
+        if n:
+            rows[name]["launches"] += launches[name]
+            rows[name].setdefault("launches_by_path", {})[
+                f"train:{arch}"] = launches[name]
+    if not cfg.n_experts:
+        return
+    # the run's own first step: seed-0 weights, the batch of seed 1
+    fed = Federation.build(cfg, VFLConfig(), seq_len=TRAIN["seq"])
+    params = common.materialize(fed.model.param_specs,
+                                torch.Generator(fed.device).manual_seed(0),
+                                device=fed.device)
+    batch = next(iter(BatchIterator(lm_token_batches(
+        1, cfg.vocab_size, TRAIN["batch"], TRAIN["seq"]), fed.device)))
+    server_keys = [k for k in params if k not in LM_CLIENT_KEYS]
+    _, g = cascade._value_and_grad(fed.model.loss_fn, params, batch,
+                                   server_keys)
+    log_lost_updates(arch, params, g, server_keys, (CLI_LR, lr))
+    aux_of = (lambda p, b: (fed.model.loss_fn(p, b)[1]["aux"],))
+    aux, g_aux = cascade._value_and_grad(aux_of, params, batch, ["blocks"])
+    moe = g["blocks"]["moe"]
+    norms = {k: float(moe[k][0].float().norm()) for k in
+             ("w_up", "w_gate", "w_down", "router")}
+    aux_router = float(g_aux["blocks"]["moe"]["router"][0].norm())
+    finite = all(bool(torch.isfinite(moe[k][0]).all()) for k in norms)
+    log(f"train: {arch} gradient of the loss at the first MoE block: "
+        f"norms {norms}, finite {finite}; aux loss {float(aux):.6g}, its "
+        f"own gradient at the first block's router: norm {aux_router:.4g}")
+    if not (finite and min(norms.values()) > 0 and float(aux) > 0
+            and aux_router > 0):
+        raise AssertionError(f"{arch}: the gradient does not reach the first "
+                             "block's experts, router and aux loss")
+    del fed, params, g, g_aux
+    torch.cuda.empty_cache()
+
+
+def gather_under_capture() -> None:
+    """The MoE gather form (``gather_experts``: a decode batch reads only
+    its routed experts' weights) captured as a CUDA graph: Qwen3 at full
+    width cut to GATHER_CASE's layers, B = 2, one token a step at a device
+    position through ``backbone_apply``; the replays must equal the same
+    steps run eagerly on copies of the caches (bitwise: the same kernels
+    on the same inputs)."""
+    import dataclasses
+    from repro_torch import graphs
+    from repro_torch.configs import get_config
+    from repro_torch.models import common, moe, transformer
+    from repro_torch.models.model_api import build_cache_specs, build_model
+    from repro_torch.tree import tree_map
+    B, steps = GATHER_CASE["batch"], GATHER_CASE["steps"]
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"),
+                              n_layers=GATHER_CASE["layers"])
+    if B * cfg.top_k > cfg.n_experts:
+        raise AssertionError("the gather case does not take the gather form")
+    model = build_model(cfg, max_seq=16, gather_experts=True)
+    params = common.materialize(model.param_specs,
+                                torch.Generator("cuda").manual_seed(0),
+                                device="cuda")
+    g = torch.Generator("cuda").manual_seed(3)
+    xs = torch.randn(steps + 1, B, 1, cfg.d_model, device="cuda",
+                     generator=g).to(torch.bfloat16)
+
+    def zero():
+        return tree_map(lambda s: torch.zeros(
+            s.shape, dtype=common.torch_dtype(s.dtype), device="cuda"),
+            build_cache_specs(cfg, B, 16))
+
+    calls = {"gather": 0}
+    inner = moe.moe_apply_gather
+
+    def counted(*a, **k):
+        calls["gather"] += 1
+        return inner(*a, **k)
+
+    def body_of(st):
+        def body():
+            h, _, _ = transformer.backbone_apply(
+                cfg, params, st["x"].index_select(0, st["pos"])[0],
+                positions=st["pos"], caches=st["caches"],
+                cur_pos=st["pos"], gather_experts=True)
+            st["out"].index_copy_(0, st["pos"], h[None])
+            st["pos"].add_(1)
+        return body
+
+    def state():
+        return {"x": xs, "caches": zero(),
+                "pos": torch.zeros(1, dtype=torch.int64, device="cuda"),
+                "out": torch.zeros(steps + 1, B, 1, cfg.d_model,
+                                   dtype=torch.bfloat16, device="cuda")}
+    moe.moe_apply_gather = counted
+    try:
+        eager = state()
+        with torch.no_grad():
+            for _ in range(steps + 1):
+                body_of(eager)()
+        n_eager = calls["gather"]
+        cap = state()
+        with torch.no_grad():
+            graph = graphs.StepGraph(body_of(cap), "cuda")
+            graph.replay(steps)
+        torch.cuda.synchronize()
+    finally:
+        moe.moe_apply_gather = inner
+    same = torch.equal(eager["out"], cap["out"])
+    diff = float((eager["out"].float() - cap["out"].float()).abs().max())
+    log(f"MoE gather form under capture: {cfg.arch_id} full width cut to "
+        f"{cfg.n_layers} layers, B = {B}, {steps + 1} steps ({n_eager} "
+        f"gather calls eagerly; the warm-up and the capture through the "
+        f"gather form too): {graph.nodes} graph nodes, replays equal the "
+        f"eager steps: {same} (max |diff| {diff:.3g})")
+    if not same or n_eager != (steps + 1) * cfg.n_layers:
+        raise AssertionError("the captured gather form differs from its "
+                             "eager steps")
+    del params, eager, cap, graph
+    torch.cuda.empty_cache()
+
+
+class FixedAttackDraws:
+    """An attack draw source that hands back the given draws of one
+    attack, moved to ``device``: the card's draws replayed on the CPU."""
+
+    def __init__(self, draws, device):
+        self.draws = tuple(t.to(device) for t in draws)
+
+    def label_draws(self, n_samples, n_classes):
+        return self.draws
+
+    def feature_draws(self, n, f, e):
+        return self.draws
+
+
+def attacks_on_card(card) -> None:
+    """(e) The paper's Table I attacks on the card at its size (2048
+    queries, 10 classes), through the entry points with their default
+    draws (a generator on the card: seed 0 for the label attack, 1 for
+    the feature attack) and with a second draw (ATTACK_SEEDS) replayed on
+    the CPU: FOO leaks (1.0 and 1.0), ZOO defends (the curious client
+    below 0.35, the eavesdropper within 0.05 of chance), the black-box
+    feature attack at chance; on the second draw each accuracy equal to
+    the CPU's, each MSE within ATTACK_MSE_RTOL of it."""
+    from repro_torch.core import attacks
+    n, C = ATTACK["n_samples"], ATTACK["n_classes"]
+    label = attacks.TorchAttackDraws(ATTACK_SEEDS["label"],
+                                     "cuda").label_draws(n, C)
+    feature = attacks.TorchAttackDraws(ATTACK_SEEDS["feature"],
+                                       "cuda").feature_draws(512, 16, 32)
+    out = {}
+    t0 = time.perf_counter()
+    for framework in ("foo", "zoo"):
+        out[framework] = tuple(
+            attacks.run_label_inference(C, n, framework=framework, draws=d)
+            for d in (None, FixedAttackDraws(label, "cuda"),
+                      FixedAttackDraws(label, "cpu")))
+    feat = tuple(attacks.run_feature_inference(draws=d)
+                 for d in (None, FixedAttackDraws(feature, "cuda"),
+                           FixedAttackDraws(feature, "cpu")))
+    wall = time.perf_counter() - t0
+    for framework, (default, card_r, cpu_r) in out.items():
+        log(f"attack: label inference, {framework.upper()}, {n} queries, "
+            f"{C} classes on the card, seed {ATTACK_SEEDS['label']}: "
+            f"curious client "
+            f"{card_r.curious_client_acc:.6f}, eavesdropper "
+            f"{card_r.eavesdropper_acc:.6f} (the CPU on the same draws: "
+            f"{cpu_r.curious_client_acc:.6f}, {cpu_r.eavesdropper_acc:.6f};"
+            f" the entry point's default draws, seed 0: "
+            f"{default.curious_client_acc:.6f}, "
+            f"{default.eavesdropper_acc:.6f})")
+        for r in (default, card_r):
+            if framework == "foo":
+                ok = r.curious_client_acc == 1.0 == r.eavesdropper_acc
+            else:
+                ok = (r.curious_client_acc < 0.35
+                      and abs(r.eavesdropper_acc - 0.10) < 0.05)
+            if not ok:
+                raise AssertionError(f"the {framework} label attack reads "
+                                     f"{r} on the card")
+        if not (abs(card_r.curious_client_acc - cpu_r.curious_client_acc)
+                <= 1e-5 and abs(card_r.eavesdropper_acc
+                                - cpu_r.eavesdropper_acc) <= 1e-5):
+            raise AssertionError(f"the {framework} label attack differs on "
+                                 f"the card ({card_r}) and the CPU "
+                                 f"({cpu_r})")
+    default, card_f, cpu_f = feat
+    gaps = {k: abs(getattr(card_f, k) - getattr(cpu_f, k))
+            / max(abs(getattr(cpu_f, k)), 1e-12)
+            for k in ("mse_with_model_access", "mse_black_box", "mse_chance")}
+    log(f"attack: feature inference on the card, seed "
+        f"{ATTACK_SEEDS['feature']}: {card_f}; the CPU on the "
+        f"same draws {cpu_f} (relative gaps {gaps}, tol {ATTACK_MSE_RTOL}); "
+        f"the entry point's default draws (seed 1) {default}; all attacks "
+        f"{wall:.2f} s on {card}")
+    for r in (default, card_f):
+        if not (r.mse_with_model_access < 0.2 * r.mse_black_box
+                and r.mse_black_box > 0.9 * r.mse_chance):
+            raise AssertionError(f"the feature attack reads {r} on the card")
+    if max(gaps.values()) > ATTACK_MSE_RTOL:
+        raise AssertionError(f"the feature attack differs on the card and "
+                             f"the CPU: {gaps}")
+
+
+def families_phase(rows, card, counters, kernels) -> None:
+    """Phase 8: the RWKV6 and MoE families and the attacks. (a) the split
+    serve path of Qwen3-30B-A3B and (b) of RWKV6-7B at full width and
+    depth (phase 4's checks); the MoE gather form under capture; (c)
+    continuous serving of RWKV6-7B at full width cut to 8 layers (phase
+    6's run A); (d) training of both at full width, cut to 4 and 8
+    layers, and a reduced f32 step of each on the card against the CPU;
+    (e) the attacks of Table I."""
+    t_phase = time.perf_counter()
+    spent = {}
+
+    def lap(name, t0):
+        spent[name] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    t0 = time.perf_counter()
+    for arch, what in zip(FAMILY_SERVE_ARCHS, "ab"):
+        serve_phase(rows, arch, counters[0], kernels)
+        t0 = lap(f"({what}) serve {arch}", t0)
+    gather_under_capture()
+    t0 = lap("the gather form under capture", t0)
+    continuous_phase(rows, card, counters, kernels,
+                     archs=(("rwkv6-7b", CONT_RWKV_LAYERS),),
+                     label="phase 8 (c) continuous rwkv6-7b")
+    t0 = lap("(c) continuous rwkv6-7b", t0)
+    for arch, layers, lr in FAMILY_TRAIN:
+        train_family(rows, card, counters, arch, layers, lr)
+        step_card_vs_cpu(counters, arch=arch, methods=("cascaded",))
+        t0 = lap(f"(d) train {arch}", t0)
+    attacks_on_card(card)
+    lap("(e) attacks", t0)
+    log("phase 8 time: " + "; ".join(f"{name} {sec:.1f} s"
+                                     for name, sec in spent.items()))
+    log(f"phase 8: {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
 def count_mma(build, name: str, pattern: str) -> int:
     """Tensor-core instructions (``pattern``: HGMMA for wgmma, HMMA for
     mma.sync) in the built library ``name``'s SASS."""
@@ -3450,7 +3930,7 @@ def parse_phases(argv) -> set:
     work on one path; with no arguments every phase runs, and only then
     is the result printed."""
     if not argv:
-        return set(range(1, 9))
+        return set(range(1, 10))
     if len(argv) != 2 or argv[0] != "--phases":
         raise SystemExit("usage: python3 chip_smoke.py [--phases N,N,...]")
     return {1} | {int(n) for n in argv[1].split(",")}
@@ -3554,14 +4034,20 @@ def main() -> int:
                          serve_kernels)
         t0 = lap(7, t0)
 
+    # ---- phase 8: the RWKV6 and MoE families, and the attacks ----------
+    if 8 in phases:
+        families_phase(rows, card, (ops, flash_ops, rms_ops, ssd_ops),
+                       serve_kernels)
+        t0 = lap(8, t0)
+
     wall = time.perf_counter() - t_start
     log(f"chip_smoke wall time: {wall:.1f} s (" + "; ".join(
         f"phase {k} {v:.1f} s" for k, v in spent.items()) + f") on {card}")
-    if phases != set(range(1, 9)):
+    if phases != set(range(1, 10)):
         log(f"partial run (phases {sorted(phases)}): no result line")
         return 0
 
-    # ---- phase 8: the record -------------------------------------------
+    # ---- phase 9: the record -------------------------------------------
     report_rates(rows)
     log(card)
     log(json.dumps({"kernels": list(rows.values())}))

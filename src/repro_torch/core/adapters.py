@@ -248,20 +248,23 @@ def from_model_config(cfg: ModelConfig, *, n_clients: int = 2,
                       seq_len: int = 32,
                       active_rows: bool = True) -> ModelAdapter:
     """Derive a :class:`ModelAdapter` for a decoder-only ``ModelConfig``
-    (the dense and hybrid families).
+    (the dense, MoE, ssm and hybrid families).
 
     The vertical split follows the paper's LM experiments: each of the M
     client parties owns a disjoint span of ``seq_len / M`` token positions
     plus its own copy of the embedding table (the bottom layer), and the
     server owns the backbone (for the hybrid family the Mamba2 trunk and
-    the shared attention block), final norm and LM head. A client's uplink
+    the shared attention block; for the ssm family the RWKV blocks; for
+    the MoE family every block's experts and router), final norm and LM
+    head. A client's uplink
     "embedding" is its span's token embeddings flattened to one
     ``(batch, span·d_model)`` vector, so the engine's (M, n, e) table,
     staleness bookkeeping and wire accounting all apply unchanged; the
     server loss folds the M spans back into a (batch, S, d_model)
-    sequence and runs the post-embedding half of the model's loss. On the
-    card that reaches the flash-attention and RMSNorm kernels (and the
-    SSD scan for the hybrid family) exactly as the sync training step
+    sequence and runs the post-embedding half of the model's loss, the
+    MoE load-balance loss included. On the card that reaches the
+    flash-attention and RMSNorm kernels (and the SSD scan for the hybrid
+    family; the ssm family runs none) exactly as the sync training step
     does; a server loss over leading dims (the 1 + q lanes) runs one
     forward per index.
 

@@ -26,8 +26,9 @@ Ported from the JAX package's ``federation/serving.py``:
   hook; on the card each chunk runs the flash-attention kernel once per
   attention layer and, for the hybrid family, the SSD kernel once per
   Mamba2 layer;
-* the caches (KV, and the hybrid family's SSM and conv states) are
-  updated in place (the JAX package donates them).
+* the caches (KV; the ssm family's wkv and token-shift states; the
+  hybrid family's SSM and conv states) are updated in place (the JAX
+  package donates them).
 
 The JAX package's ahead-of-time compilation cache has no counterpart:
 ``compile_s`` reports the first-use build of the card's kernels that fell

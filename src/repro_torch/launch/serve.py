@@ -16,8 +16,9 @@ instead of one fused batch, with the failure policy exposed:
 preemption under memory pressure, and ``--deadline`` gives every request
 that many scheduler steps to retire.
 
-Ported from the JAX package's ``launch/serve.py`` for the dense attention
-and the hybrid (Mamba2 + shared attention) families. ``--reduced`` /
+Ported from the JAX package's ``launch/serve.py`` for the dense
+attention, MoE (qwen3-moe), ssm (rwkv6) and hybrid (Mamba2 + shared
+attention) families. ``--reduced`` /
 ``--no-reduced`` picks the smoke-size variant or the full published width
 (the JAX package's flag cannot turn reduction off).
 
@@ -25,8 +26,15 @@ and the hybrid (Mamba2 + shared attention) families. ``--reduced`` /
         --batch 8 --prompt-len 1024 --gen-len 128 --no-reduced
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
         --batch 8 --prompt-len 1024 --gen-len 128 --no-reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen3-moe-30b-a3b --batch 8 --prompt-len 1024 --gen-len 128 \
+        --no-reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+        --batch 8 --prompt-len 1024 --gen-len 128 --no-reduced
     PYTHONPATH=src python -m repro_torch.launch.serve --continuous \
         --batch 16 --max-batch 8 --prompt-len 1024 --gen-len 128 --no-reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+        --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --continuous --device cpu
 """

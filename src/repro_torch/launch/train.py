@@ -1,9 +1,10 @@
 """End-to-end cascaded VFL training driver, on the card.
 
-Trains a decoder-only architecture (the dense and hybrid families) with
-the paper's cascaded hybrid optimization (ZOO client / FOO server) — or
-any baseline method — on synthetic LM data. ``--reduced`` (the default)
-runs the smoke-size config; ``--full`` the published width.
+Trains a decoder-only architecture (the dense, MoE, ssm and hybrid
+families) with the paper's cascaded hybrid optimization (ZOO client / FOO
+server) — or any baseline method — on synthetic LM data. ``--reduced``
+(the default) runs the smoke-size config; ``--full`` the published
+width; ``--layers N`` cuts the depth to N layers at either width.
 
 Training is constructed through the ``repro_torch.federation`` session
 API: ``Federation.build(cfg, vfl, engine_cfg)`` resolves the model plane,
@@ -43,6 +44,10 @@ slice and raises.
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --steps 8 --batch 4 --seq 32
     PYTHONPATH=src python -m repro_torch.launch.train --full --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --arch qwen3-moe-30b-a3b --steps 8 --batch 4 --seq 32
+    PYTHONPATH=src python -m repro_torch.launch.train --full \
+        --arch rwkv6-7b --layers 8 --steps 10
     PYTHONPATH=src python -m repro_torch.launch.train --resume ck/ \\
         --steps 200 --checkpoint ck2/
     PYTHONPATH=src python -m repro_torch.launch.train --engine population \\
@@ -87,9 +92,12 @@ def train(arch: str = "", *, steps: int = 100, batch: int = 8,
           active_rows: bool = False, production_mesh: bool = False,
           checkpoint_path: str = "", schedule: str = "constant",
           noise: Optional[GaussianLossChannel] = None,
-          resume: str = "", device: DeviceLike = None) -> dict:
+          resume: str = "", device: DeviceLike = None,
+          n_layers: int = 0) -> dict:
     """``device=None`` runs on the card and raises without one; pass
-    ``device="cpu"`` for the CPU. A resumed run restores onto ``device``."""
+    ``device="cpu"`` for the CPU. A resumed run restores onto ``device``.
+    ``n_layers`` > 0 cuts the model's depth to that many layers (a new
+    run only: a resumed one keeps its saved config)."""
     if production_mesh:
         raise NotImplementedError(
             "the production mesh (sharded params, PARAM_RULES) is not ported "
@@ -123,6 +131,8 @@ def train(arch: str = "", *, steps: int = 100, batch: int = 8,
         cfg = get_config(arch)
         if use_reduced:
             cfg = reduced(cfg)
+        if n_layers:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
         method = canonical_method(method)
         vfl = VFLConfig(mu=mu, lr_server=lr, lr_client=lr_client or lr,
                         zoo_queries=zoo_queries, active_rows_only=active_rows)
@@ -368,6 +378,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--active-rows", action="store_true")
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0 = the "
+                         "config's)")
     ap.add_argument("--production-mesh", action="store_true")
     ap.add_argument("--checkpoint", default="")
     # continue a saved session; --steps then means TOTAL steps (the run
@@ -435,7 +448,8 @@ def main(argv=None):
                     production_mesh=args.production_mesh,
                     checkpoint_path=args.checkpoint,
                     schedule=args.schedule, noise=noise,
-                    resume=args.resume, device=args.device)
+                    resume=args.resume, device=args.device,
+                    n_layers=args.layers)
     print(json.dumps(res, indent=2))
 
 

@@ -45,26 +45,43 @@ def torch_dtype(name: str) -> torch.dtype:
     return dt
 
 
+# a leaf of more elements than this is drawn one slice of its leading
+# axis at a time (``materialize``)
+SLICED_DRAW_ELEMENTS = 1 << 31
+
+
 def materialize(tree, generator: torch.Generator, *,
                 device=None, dtype_override: Optional[str] = None):
     """Concrete init, drawn from ``generator`` leaf by leaf in sorted-key
     order (it need not match the JAX package's threefry draws; tests that
     compare the two carry weights across with :func:`params_from_numpy`).
-    The draws happen on the generator's device and land on ``device``."""
+    The draws happen on the generator's device and land on ``device``.
+
+    A leaf is drawn whole in f32 and then cast, unless it has more than
+    ``SLICED_DRAW_ELEMENTS`` elements: such a leaf (Qwen3-30B-A3B's
+    stacked experts, 9.7e9 values, would be a 38.7 GB f32 draw) is drawn
+    one slice of its leading axis at a time, each slice cast straight into
+    the leaf, so no f32 copy of the whole leaf exists."""
+    def draw(shape, fan_in, s: ParamSpec):
+        out = torch.randn(shape, generator=generator,
+                          device=generator.device, dtype=torch.float32)
+        if s.init == "scaled":          # fan-in scaled
+            return out * (1.0 / math.sqrt(max(fan_in, 1)))
+        return out * s.scale
+
     def init_one(s: ParamSpec):
         dt = torch_dtype(dtype_override or s.dtype)
         if s.init == "zeros":
             return torch.zeros(s.shape, dtype=dt, device=device)
         if s.init == "ones":
             return torch.ones(s.shape, dtype=dt, device=device)
-        draw = torch.randn(s.shape, generator=generator,
-                           device=generator.device, dtype=torch.float32)
-        if s.init == "scaled":          # fan-in scaled
-            fan_in = s.shape[0] if s.shape else 1
-            draw = draw * (1.0 / math.sqrt(max(fan_in, 1)))
-        else:
-            draw = draw * s.scale
-        return draw.to(device=device, dtype=dt)
+        fan_in = s.shape[0] if s.shape else 1
+        if math.prod(s.shape) <= SLICED_DRAW_ELEMENTS:
+            return draw(s.shape, fan_in, s).to(device=device, dtype=dt)
+        out = torch.empty(s.shape, dtype=dt, device=device)
+        for i in range(s.shape[0]):
+            out[i] = draw(s.shape[1:], fan_in, s)
+        return out
 
     return tree_map(init_one, tree)
 

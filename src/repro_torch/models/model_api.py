@@ -8,9 +8,9 @@
                                partitions it)
 * ``forward_fn(params, inputs)``                 -> logits
 * ``decode_fn(params, inputs, caches, cur_pos)`` -> (logits, caches); the
-                               caches (KV, and for the hybrid family also
-                               the SSM states) are updated in place and
-                               returned
+                               caches (KV; the RWKV states of the ssm
+                               family; the hybrid family's KV and SSM
+                               states) are updated in place and returned
 * ``input_specs(shape)``     — ParamSpec stand-ins for the data inputs of
                                a ``ShapeConfig``
 * ``client_keys``            — top-level param keys forming the ZOO client
@@ -27,6 +27,7 @@ from typing import Any, Callable, Dict, Tuple
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer
 from repro_torch.models.common import ParamSpec
@@ -53,8 +54,10 @@ def _client_keys(cfg: ModelConfig) -> Tuple[str, ...]:
 
 
 def build_model(cfg: ModelConfig, *, max_seq: int = 8192,
-                window: int = 0) -> Model:
-    """window > 0 selects the sliding-window attention variant."""
+                window: int = 0, gather_experts: bool = False) -> Model:
+    """window > 0 selects the sliding-window attention variant;
+    ``gather_experts`` lets a small decode batch read only its routed
+    experts' weights (``moe.moe_apply_gather``)."""
     specs = transformer.backbone_specs(cfg, max_seq)
 
     def loss_fn(params, batch):
@@ -66,7 +69,7 @@ def build_model(cfg: ModelConfig, *, max_seq: int = 8192,
     def decode_fn(params, inputs, caches, cur_pos):
         logits, new_caches, _ = transformer.forward(
             cfg, params, inputs, caches=caches, cur_pos=cur_pos,
-            window=window)
+            window=window, gather_experts=gather_experts)
         return logits, new_caches
 
     return Model(cfg=cfg, param_specs=specs, loss_fn=loss_fn,
@@ -93,9 +96,12 @@ def build_input_specs(cfg: ModelConfig,
 
 def build_cache_specs(cfg: ModelConfig, batch: int, seq: int):
     """Stacked per-layer decode state: the KV cache spec tree of the
-    attention families; for the hybrid family the tuple (ssm_states,
-    attn_caches), the JAX package's layout."""
+    attention families; for the ssm family the sequence-independent f32
+    RWKV states {"wkv", "shift", "shift_c"}; for the hybrid family the
+    tuple (ssm_states, attn_caches), the JAX package's layout."""
     transformer.check_family(cfg)
+    if cfg.family == "ssm":
+        return rwkv_mod.rwkv_state_specs(cfg, batch, cfg.d_model)
     if cfg.family == "hybrid":
         n_super = cfg.n_layers // cfg.attn_every
         d_in = cfg.ssm_expand * cfg.d_model

@@ -1,22 +1,28 @@
 """Decoder-only transformer assembly: the dense attention family
-(internlm2 / granite / phi3 / nemotron) and the hybrid family (zamba2: a
-Mamba2 trunk with a shared attention block every ``attn_every`` layers).
+(internlm2 / granite / phi3 / nemotron), the MoE family without MLA
+(qwen3-moe: every block's MLP is a routed mixture of experts), the ssm
+family (rwkv6: time-mix and channel-mix blocks, attention-free) and the
+hybrid family (zamba2: a Mamba2 trunk with a shared attention block every
+``attn_every`` layers).
 
 Ported from the JAX package's ``models/transformer.py``. Layers are
 stacked params (a leading layer axis on every block leaf, the JAX
 package's layout; the hybrid trunk is stacked (n_super, attn_every, ...));
 its ``lax.scan`` over them becomes a Python loop over that axis, and the
-per-layer KV caches and SSM states are views into the stacked caches,
-updated in place. The continuous scheduler's batched decode step passes
-a ``paging`` context (``models/common.PageContext``): the KV leaves are
-then shared page pools, and the Mamba2 states of inactive slots stay
-frozen (``freeze_state``). With ``cfg.remat``, a training forward (no caches,
-grad on) recomputes each block (a hybrid super-block) in the backward,
-as the JAX package's ``jax.checkpoint`` over the scan body does.
-Sharding constraints have no meaning on one device and are left out.
-``lm_loss`` is the training loss. The RWKV, MoE, MLA, MTP, multimodal and
-encoder-decoder families belong to later slices and raise
-``NotImplementedError``.
+per-layer KV caches and recurrent states are views into the stacked
+caches, updated in place. The continuous scheduler's batched decode step
+passes a ``paging`` context (``models/common.PageContext``): the KV
+leaves are then shared page pools, and the Mamba2 and RWKV states of
+inactive slots stay frozen (``freeze_state``). With ``cfg.remat``, a
+training forward (no caches, grad on) recomputes each block (a hybrid
+super-block) in the backward, as the JAX package's ``jax.checkpoint``
+over the scan body does. The MoE load-balance loss of every block is
+summed through the layer loop and added to the loss in ``lm_loss``; a
+call with caches (decode, and a cached prefill chunk) takes the MoE dense
+form, as in the JAX package. Sharding constraints have no meaning on one
+device and are left out. ``lm_loss`` is the training loss. MLA,
+``first_k_dense``, MTP, the multimodal and the encoder-decoder families
+belong to later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,6 +32,8 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ParamSpec, freeze_state,
                                        stack_layer_specs)
@@ -35,24 +43,35 @@ from repro_torch.models.mlp import mlp_apply, mlp_specs
 
 
 def check_family(cfg) -> None:
-    """Raise for the families this slice does not run."""
-    if (cfg.family in ("ssm", "vlm", "audio") or cfg.n_experts
-            or cfg.use_mla or cfg.first_k_dense or cfg.is_encoder_decoder
-            or cfg.frontend_dim):
+    """Raise for the families the port does not run yet."""
+    if (cfg.family in ("vlm", "audio") or cfg.use_mla or cfg.first_k_dense
+            or cfg.n_mtp or cfg.is_encoder_decoder or cfg.frontend_dim):
         raise NotImplementedError(
             f"{cfg.arch_id!r} (family {cfg.family!r}) is not ported yet: "
-            "the port runs the dense attention and the hybrid families; "
-            "RWKV, MoE, MLA and the multimodal families are later slices "
+            "the port runs the dense attention, MoE (without MLA), RWKV "
+            "and hybrid families; MLA with first_k_dense and MTP, the "
+            "multimodal and the encoder-decoder families are later slices "
             "(ROADMAP.md, Queue 1)")
 
 
 # ============================================================ param specs ==
 
-def _attn_block_specs(cfg, d_ff: Optional[int] = None):
+def _attn_block_specs(cfg, d_ff: Optional[int] = None, moe: bool = False):
+    sp = {"ln1": norm_specs(cfg, cfg.d_model),
+          "ln2": norm_specs(cfg, cfg.d_model),
+          "attn": attn.attention_specs(cfg)}
+    if moe:
+        sp["moe"] = moe_mod.moe_specs(cfg, cfg.d_model)
+    else:
+        sp["mlp"] = mlp_specs(cfg, cfg.d_model, d_ff or cfg.d_ff)
+    return sp
+
+
+def _rwkv_block_specs(cfg):
     return {"ln1": norm_specs(cfg, cfg.d_model),
+            "tmix": rwkv_mod.rwkv_specs(cfg, cfg.d_model),
             "ln2": norm_specs(cfg, cfg.d_model),
-            "attn": attn.attention_specs(cfg),
-            "mlp": mlp_specs(cfg, cfg.d_model, d_ff or cfg.d_ff)}
+            "cmix": rwkv_mod.rwkv_channel_mix_specs(cfg, cfg.d_model)}
 
 
 def _mamba_block_specs(cfg):
@@ -72,11 +91,16 @@ def backbone_specs(cfg, max_seq: int):
     if cfg.pos == "learned":
         sp["pos_embed"] = ParamSpec((max_seq, cfg.d_model), cfg.param_dtype,
                                     ("vocab", "embed"))
-    if cfg.family == "hybrid":
+    if cfg.family == "ssm":
+        sp["blocks"] = stack_layer_specs(_rwkv_block_specs(cfg), cfg.n_layers)
+    elif cfg.family == "hybrid":
         n_super = cfg.n_layers // cfg.attn_every
         inner = stack_layer_specs(_mamba_block_specs(cfg), cfg.attn_every)
         sp["blocks"] = stack_layer_specs(inner, n_super)
         sp["shared_block"] = _attn_block_specs(cfg)
+    elif cfg.n_experts:
+        sp["blocks"] = stack_layer_specs(_attn_block_specs(cfg, moe=True),
+                                         cfg.n_layers)
     else:
         sp["blocks"] = stack_layer_specs(_attn_block_specs(cfg),
                                          cfg.n_layers)
@@ -86,14 +110,53 @@ def backbone_specs(cfg, max_seq: int):
 # ============================================================== blocks =====
 
 def _attn_block_apply(cfg, p, x, *, positions, cache=None, cur_pos=None,
-                      window=0, paging=None):
+                      window=0, decode=False, gather_experts=False,
+                      paging=None):
+    """An attention block with a dense MLP or a mixture of experts.
+    Returns (x, cache, aux): aux is the block's MoE load-balance loss
+    (None for a dense MLP)."""
     h = apply_norm(cfg, p["ln1"], x)
     a, new_cache = attn.attention_apply(
         cfg, p["attn"], h, positions=positions, cache=cache,
         cur_pos=cur_pos, window=window, paging=paging)
     x = x + a
     h = apply_norm(cfg, p["ln2"], x)
-    return x + mlp_apply(cfg, p["mlp"], h), new_cache
+    aux = None
+    if "moe" in p:
+        m, aux = moe_mod.moe_apply(cfg, p["moe"], h, decode=decode,
+                                   gather_experts=gather_experts)
+    else:
+        m = mlp_apply(cfg, p["mlp"], h)
+    return x + m, new_cache, aux
+
+
+def _store_state(state, new_state, active):
+    """Write a block's new recurrent state into its views of the stacked
+    state, in place; with ``active`` (B,) the rows of inactive slots keep
+    their state exactly (``freeze_state``)."""
+    for name, leaf in state.items():
+        new = new_state[name]
+        if active is not None:
+            new = freeze_state(active, new, leaf)
+        leaf.copy_(new)
+
+
+def _rwkv_block_apply(cfg, p, x, *, state=None, active=None):
+    """An RWKV6 block: time-mix then channel-mix, each behind its norm.
+    ``state`` (views into the stacked wkv, shift and shift_c leaves) is
+    read whole before it is updated in place."""
+    h = apply_norm(cfg, p["ln1"], x)
+    tstate = None if state is None else {"wkv": state["wkv"],
+                                         "shift": state["shift"]}
+    t, new_t = rwkv_mod.rwkv_time_mix(cfg, p["tmix"], h, state=tstate)
+    x = x + t
+    h2 = apply_norm(cfg, p["ln2"], x)
+    prev_c = None if state is None else state["shift_c"].to(x.dtype)
+    c = rwkv_mod.rwkv_channel_mix(cfg, p["cmix"], h2, prev=prev_c)
+    if state is not None:
+        _store_state(state, {"wkv": new_t["wkv"], "shift": new_t["shift"],
+                             "shift_c": h2[:, -1]}, active)
+    return x + c
 
 
 def _mamba_block_apply(cfg, p, x, *, state=None, active=None):
@@ -103,11 +166,7 @@ def _mamba_block_apply(cfg, p, x, *, state=None, active=None):
     h = apply_norm(cfg, p["ln1"], x)
     s, new_state = ssm_mod.ssm_apply(cfg, p["ssm"], h, state=state)
     if state is not None:
-        for name, leaf in state.items():
-            new = new_state[name]
-            if active is not None:
-                new = freeze_state(active, new, leaf)
-            leaf.copy_(new)
+        _store_state(state, new_state, active)
     return x + s
 
 
@@ -146,31 +205,50 @@ def _layers(tree, n: int):
 # ======================================================== backbone passes ==
 
 def backbone_apply(cfg, params, x, *, positions, caches=None, cur_pos=None,
-                   window=0, paging=None):
+                   window=0, gather_experts=False, paging=None):
     """Run the stacked blocks. x: (B, S, d) embeddings.
 
-    caches: {"k", "v"} stacked over layers (leading dim), or for the
-    hybrid family the tuple (ssm_states, attn_caches), or None; each layer
-    writes its slice in place. ``paging`` (a ``PageContext``) switches the
-    KV leaves to the paged-pool layout with per-row positions (the
-    continuous scheduler's batched decode step); the recurrent state
-    leaves are then slot-stacked and frozen on inactive rows. Returns
-    (hidden (B, S, d), caches, aux loss 0.0)."""
+    caches: {"k", "v"} stacked over layers (leading dim), for the ssm
+    family {"wkv", "shift", "shift_c"}, for the hybrid family the tuple
+    (ssm_states, attn_caches), or None; each layer writes its slice in
+    place. ``paging`` (a ``PageContext``) switches the KV leaves to the
+    paged-pool layout with per-row positions (the continuous scheduler's
+    batched decode step); the recurrent state leaves are then
+    slot-stacked and frozen on inactive rows. A call with caches takes
+    the MoE dense form (or, with ``gather_experts``, the gather form for
+    a small enough batch). Returns (hidden (B, S, d), caches, aux): aux
+    is the sum of the blocks' MoE load-balance losses (0.0 without
+    experts)."""
     check_family(cfg)
+    decode = caches is not None
+    zero = torch.zeros((), device=x.device)
+    if cfg.family == "ssm":
+        active = None if paging is None else paging.active
+
+        def rwkv_body(h, p_l, st_l):
+            return _rwkv_block_apply(cfg, p_l, h, state=st_l, active=active)
+        rwkv_body = _maybe_remat(cfg, rwkv_body, caches)
+        for i, p_l in enumerate(_layers(params["blocks"], cfg.n_layers)):
+            x = rwkv_body(x, p_l, None if caches is None else _layer(caches, i))
+        return x, caches, zero
     if cfg.family == "hybrid":
         x = _hybrid_apply(cfg, params, x, positions=positions, caches=caches,
                           cur_pos=cur_pos, window=window, paging=paging)
-        return x, caches, torch.zeros((), device=x.device)
+        return x, caches, zero
 
     def body(h, p_l, c_l):
-        return _attn_block_apply(cfg, p_l, h, positions=positions,
-                                 cache=c_l, cur_pos=cur_pos,
-                                 window=window, paging=paging)[0]
+        h, _, aux = _attn_block_apply(
+            cfg, p_l, h, positions=positions, cache=c_l, cur_pos=cur_pos,
+            window=window, decode=decode, gather_experts=gather_experts,
+            paging=paging)
+        return h, aux
     body = _maybe_remat(cfg, body, caches)
+    aux_total = zero
     for i, p_l in enumerate(_layers(params["blocks"], cfg.n_layers)):
-        c_l = None if caches is None else _layer(caches, i)
-        x = body(x, p_l, c_l)
-    return x, caches, torch.zeros((), device=x.device)
+        x, aux = body(x, p_l, None if caches is None else _layer(caches, i))
+        if aux is not None:
+            aux_total = aux_total + aux
+    return x, caches, aux_total
 
 
 def _hybrid_apply(cfg, params, x, *, positions, caches, cur_pos, window,
@@ -186,7 +264,7 @@ def _hybrid_apply(cfg, params, x, *, positions, caches, cur_pos, window,
             st = (None if ssm_states is None
                   else {k: v[s, j] for k, v in ssm_states.items()})
             h = _mamba_block_apply(cfg, p_l, h, state=st, active=active)
-        h, _ = _attn_block_apply(
+        h, _, _ = _attn_block_apply(
             cfg, shared, h, positions=positions,
             cache=None if attn_caches is None else _layer(attn_caches, s),
             cur_pos=cur_pos, window=window, paging=paging)
@@ -212,7 +290,8 @@ def embed_inputs(cfg, params, inputs, *, positions):
     return x
 
 
-def forward(cfg, params, inputs, *, caches=None, cur_pos=None, window=0):
+def forward(cfg, params, inputs, *, caches=None, cur_pos=None, window=0,
+            gather_experts=False):
     """Full forward. Training/prefill: inputs over S. Decode: S == 1, or a
     cur_pos-offset chunk (chunked prefill).
 
@@ -225,7 +304,7 @@ def forward(cfg, params, inputs, *, caches=None, cur_pos=None, window=0):
     x = embed_inputs(cfg, params, inputs, positions=positions)
     h, new_caches, aux = backbone_apply(
         cfg, params, x, positions=positions, caches=caches, cur_pos=cur_pos,
-        window=window)
+        window=window, gather_experts=gather_experts)
     h = apply_norm(cfg, params["final_norm"], h)
     logits = unembed(params["lm_head"], h)
     return logits, new_caches, aux

@@ -49,7 +49,9 @@ SLICE_MODULES = ("repro_torch.kernels.zoo_dual_matmul.ops",
                  "repro_torch.launch.train",
                  "repro_torch.federation.paging",
                  "repro_torch.federation.scheduler",
-                 "repro_torch.graphs")
+                 "repro_torch.graphs",
+                 "repro_torch.models.rwkv", "repro_torch.models.moe",
+                 "repro_torch.core.attacks")
 
 
 def _port_files():

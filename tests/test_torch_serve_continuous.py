@@ -7,7 +7,9 @@ Both packages run on the CPU in f32 on the same weights (carried from
 ``repro``): ``repro``'s ``tiny_dense`` (reduced phi3 at d_model 64) and
 reduced zamba2 with 4 layers (the hybrid family: paged KV at the shared
 attention block's two sites, slot-stacked SSM states frozen on inactive
-slots). ``repro``'s "ssm" (rwkv) cases wait for the rwkv family's port.
+slots), reduced rwkv6 (``repro``'s "ssm" cases: attention-free, its wkv
+and token-shift states slot-stacked and frozen) and reduced qwen3-moe
+(paged KV, the MoE dense form in every batched step).
 
 * Continuous == solo on the port: tokens equal the port's solo
   ``fed.decode`` per request (at temperature 0.8 both draw from the
@@ -56,6 +58,9 @@ FAMILIES = {
     "dense": ("phi3-mini-3.8b", dict(d_model=64, n_heads=2, n_kv_heads=1,
                                      d_ff=128, vocab_size=256)),
     "hybrid": ("zamba2-2.7b", dict(n_layers=4)),
+    # repro's "ssm" cases: reduced rwkv6, its states slot-stacked
+    "ssm": ("rwkv6-7b", {}),
+    "moe": ("qwen3-moe-30b-a3b", {}),
 }
 LOGITS_ATOL = 1e-4
 _SESSIONS = {}
@@ -286,24 +291,30 @@ def test_continuous_matches_repro_scheduler(family, temperature):
     _assert_same_drain(*_both_drain(family, 12, specs, temperature))
 
 
-def test_preemption_matches_repro_scheduler():
+def test_preemption_matches_repro_scheduler(family="dense"):
     """A page-starved pool with preemption: the same victims, the same
     re-prefill and replay metering, the same tokens as repro's."""
     specs = [(4, 12), (4, 2), (4, 12)]
-    jsrv, jres, srv, res = _both_drain("dense", 32, specs, 0.8, salt=50,
+    jsrv, jres, srv, res = _both_drain(family, 32, specs, 0.8, salt=50,
                                        page_size=4, n_pages=8, preempt=True)
     assert srv.preemptions >= 1
     _assert_same_drain(jsrv, jres, srv, res)
 
 
+def test_preemption_matches_repro_scheduler_ssm():
+    """The same for the ssm family: a victim's slot-stacked state is
+    rebuilt by the re-prefill and the replay."""
+    test_preemption_matches_repro_scheduler("ssm")
+
+
 # ------------------------------------------------------ failure policy ----
 
-def test_preempted_requests_resume_with_unpreempted_tokens():
+def test_preempted_requests_resume_with_unpreempted_tokens(family="dense"):
     """preempt=True and a page-starved pool: a victim is evicted mid-flight
     and re-admitted through re-prefill + replay; its tokens equal an
     unpreempted solo decode on the same source, and its ledger pays the
     extra wire."""
-    _, _, fed, params, cfg = _build("dense", 32)
+    _, _, fed, params, cfg = _build(family, 32)
     srv = fed.serve(params, max_batch=2, temperature=0.8, page_size=4,
                     n_pages=8, preempt=True)
     specs = [(4, 12), (4, 2), (4, 12)]
@@ -325,6 +336,10 @@ def test_preempted_requests_resume_with_unpreempted_tokens():
         if res.preemptions:
             assert res.ledger.total_bytes > solo.ledger.total_bytes
     assert srv.allocator.in_use == 0
+
+
+def test_preempted_ssm_requests_resume_with_unpreempted_tokens():
+    test_preempted_requests_resume_with_unpreempted_tokens("ssm")
 
 
 def test_position_gumbel_is_a_pure_function_of_seed_and_position():
@@ -475,11 +490,11 @@ def test_scheduler_validation():
 
 # ----------------------------------------------------------- durability ---
 
-def test_serve_kill_mid_drain_resumes(tmp_path):
+def test_serve_kill_mid_drain_resumes(tmp_path, family="hybrid"):
     """Snapshot after a bounded run, persist through fed.save, restore in
     a fresh session and finish: tokens, statuses and ordered ledgers equal
     an uninterrupted drain's."""
-    _, _, fed, params, cfg = _build("hybrid", 12)
+    _, _, fed, params, cfg = _build(family, 12)
     specs = [(4, 8), (3, 5), (6, 6), (2, 3)]
     prompts = _prompts(cfg, specs, 70)
 
@@ -520,6 +535,12 @@ def test_serve_kill_mid_drain_resumes(tmp_path):
     inj.submit(prompts[0], 4, draws=PositionGumbel(3))
     with pytest.raises(ValueError, match="injected draw source"):
         inj.snapshot()
+
+
+def test_serve_kill_mid_drain_resumes_ssm(tmp_path):
+    """The same with the ssm family's slot-stacked states in the
+    snapshot."""
+    test_serve_kill_mid_drain_resumes(tmp_path, "ssm")
 
 
 def test_repro_serve_snapshot_is_refused(tmp_path):

@@ -2,9 +2,12 @@
 against the JAX package's, and its own invariants as
 ``tests/test_serving_engine.py`` holds them for ``repro``.
 
-Every case runs on two families: reduced phi3 (dense) and reduced zamba2
+Every case runs on four families: reduced phi3 (dense), reduced zamba2
 with 4 layers (hybrid: 2 super-blocks of 2 Mamba2 layers, the shared
-attention block at 2 sites, the tuple cache of SSM states and KV).
+attention block at 2 sites, the tuple cache of SSM states and KV),
+reduced rwkv6 (ssm: the wkv and token-shift states, ``repro``'s "ssm"
+cases) and reduced qwen3-moe (MoE: the dense form at every cached chunk
+and step).
 
 * Same weights (carried from ``repro``), same prompts, in f32: greedy
   tokens equal and the last logits within 1e-4, for both
@@ -44,7 +47,9 @@ from test_torch_support import ledger_tuples, to_numpy, to_torch, torch_threads
 # attention block runs at two sites
 ARCHS = {"phi3-mini-3.8b": dict(param_dtype="float32", dtype="float32"),
          "zamba2-2.7b": dict(param_dtype="float32", dtype="float32",
-                             n_layers=4)}
+                             n_layers=4),
+         "rwkv6-7b": dict(param_dtype="float32", dtype="float32"),
+         "qwen3-moe-30b-a3b": dict(param_dtype="float32", dtype="float32")}
 B, PL, GL = 2, 8, 6
 LOGITS_ATOL = 1e-4
 
@@ -200,9 +205,10 @@ def test_decode_rejects_what_it_cannot_serve(case):
         fed.decode(case["tp"], case["toks"], gen_len=GL + 1)
     srv = fed.serve(case["tp"])          # continuous batching serves now
     assert isinstance(srv, ServeScheduler) and srv.device == fed.device
-    ssm = Federation.build(reduced(get_config("rwkv6-7b")), device="cpu")
+    mla = Federation.build(reduced(get_config("deepseek-v3-671b")),
+                           device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ssm.decode({}, case["toks"], gen_len=1)
+        mla.decode({}, case["toks"], gen_len=1)
 
 
 # ------------------------------------------------------------ the driver --

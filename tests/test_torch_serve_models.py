@@ -318,8 +318,7 @@ def test_unported_branches_raise(phi3):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         attention.attention_apply(cfg, tpa, x, positions=torch.zeros(1),
                                   kv_override=x)
-    for arch in ("rwkv6-7b", "qwen3-moe-30b-a3b", "deepseek-v3-671b",
-                 "whisper-medium", "internvl2-26b"):
+    for arch in ("deepseek-v3-671b", "whisper-medium", "internvl2-26b"):
         with pytest.raises(NotImplementedError):
             build_model(reduced(get_config(arch)))
 

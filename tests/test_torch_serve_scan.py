@@ -6,8 +6,11 @@ the device-position step, on the CPU, against the JAX package's
 On the card ``use_scan=True`` captures one generated token as a CUDA graph
 and replays it; here the same step body runs in a Python loop (the graph
 itself runs only on the card, where ``chip_smoke.py`` holds it to the
-eager loop). Both families in f32: reduced phi3 and reduced zamba2 with 4
-layers (the hybrid family's SSM states and shared attention block).
+eager loop). Four families in f32: reduced phi3, reduced zamba2 with 4
+layers (the hybrid family's SSM states and shared attention block),
+reduced rwkv6 (the ssm family's wkv and token-shift states: ``repro``'s
+"ssm" scan cases) and reduced qwen3-moe (the MoE dense form every decode
+step takes).
 
 * The device-position step (a (1,) int64 position, the owner picked on
   the device, the cache row written at a device index) equals the
@@ -42,7 +45,9 @@ from test_torch_support import ledger_tuples, to_numpy, to_torch, torch_threads
 
 ARCHS = {"phi3-mini-3.8b": dict(param_dtype="float32", dtype="float32"),
          "zamba2-2.7b": dict(param_dtype="float32", dtype="float32",
-                             n_layers=4)}
+                             n_layers=4),
+         "rwkv6-7b": dict(param_dtype="float32", dtype="float32"),
+         "qwen3-moe-30b-a3b": dict(param_dtype="float32", dtype="float32")}
 # 2 client parties over 16 positions: the party boundary at 8 falls
 # inside the generation
 SEQ, PL, GL = 16, 6, 10

@@ -72,7 +72,7 @@ def test_later_slices_raise_with_their_roadmap_items():
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         main(["--production-mesh", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train("rwkv6-7b", steps=1, device="cpu")
+        train("deepseek-v3-671b", steps=1, device="cpu")
 
 
 POP = ["--engine", "population", "--device", "cpu", "--steps", "10",

@@ -52,6 +52,8 @@ B, S = 2, 16
 ZOO_METHODS = ("zoo-vfl", "syn-zoo")
 PHI3 = "phi3-mini-3.8b"
 ZAMBA2 = "zamba2-2.7b"
+RWKV = "rwkv6-7b"
+QWEN3 = "qwen3-moe-30b-a3b"
 
 
 def _cfgs(arch):
@@ -141,10 +143,11 @@ def test_softmax_xent_matches_reference():
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", [PHI3, ZAMBA2])
+@pytest.mark.parametrize("arch", [PHI3, ZAMBA2, RWKV, QWEN3])
 def test_lm_loss_gradient_matches_reference(arch):
     """The server's FOO gradient (Eq. 4): autograd of the port's lm_loss
-    (remat on) against jax.grad of the reference's, every leaf."""
+    (remat on) against jax.grad of the reference's, every leaf; for
+    qwen3-moe through the capacity dispatch with its aux loss."""
     jcfg, cfg, jmodel, model, jparams, jbatch, batch = _setup(arch)
     want = jax.grad(lambda p: j_transformer.lm_loss(jcfg, p, jbatch)[0])(
         jparams)
@@ -248,6 +251,15 @@ def test_cascaded_step_hybrid_matches_reference():
     """The hybrid family (reduced zamba2, 4 layers): the server gradient
     runs through the Mamba2 trunk's chunked SSD form."""
     _assert_step(_run_step("cascaded", arch=ZAMBA2), ("client",))
+
+
+@pytest.mark.parametrize("arch", [RWKV, QWEN3])
+def test_cascaded_step_rwkv_and_moe_match_reference(arch):
+    """One cascaded step of the ssm family (reduced rwkv6: the server
+    gradient through the chunked wkv6 form) and of the MoE family
+    (reduced qwen3-moe: through the capacity dispatch, the aux loss in
+    the server's loss)."""
+    _assert_step(_run_step("cascaded", arch=arch), ("client",))
 
 
 @pytest.mark.parametrize("q", [1, 2])
