@@ -3,6 +3,8 @@ registry of LM architectures (``get_config(arch_id)`` / ``--arch``), the
 same entries as the JAX package's."""
 from __future__ import annotations
 
+import dataclasses
+
 from repro_torch.configs import (
     deepseek_v3_671b,
     granite_20b,
@@ -51,6 +53,17 @@ def get_config(arch_id: str) -> ModelConfig:
         ) from None
 
 
+def cut_depth(cfg: ModelConfig, n_layers: int) -> ModelConfig:
+    """``cfg`` cut to ``n_layers`` layers at the same width (0 keeps its
+    depth). A ``first_k_dense`` config keeps its dense layers first, as
+    many as fit: DeepSeek-V3 cut to 5 layers is 3 dense and 2 MoE."""
+    if not n_layers:
+        return cfg
+    return dataclasses.replace(
+        cfg, n_layers=n_layers,
+        first_k_dense=min(cfg.first_k_dense, n_layers))
+
+
 __all__ = ["ARCH_REGISTRY", "INPUT_SHAPES", "ModelConfig", "PAPER_MLP",
-           "ShapeConfig", "TrainConfig", "VFLConfig", "get_config",
-           "list_archs", "reduced"]
+           "ShapeConfig", "TrainConfig", "VFLConfig", "cut_depth",
+           "get_config", "list_archs", "reduced"]

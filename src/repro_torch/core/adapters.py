@@ -248,7 +248,8 @@ def from_model_config(cfg: ModelConfig, *, n_clients: int = 2,
                       seq_len: int = 32,
                       active_rows: bool = True) -> ModelAdapter:
     """Derive a :class:`ModelAdapter` for a decoder-only ``ModelConfig``
-    (the dense, MoE, ssm and hybrid families).
+    (the dense, MoE — MLA and ``first_k_dense`` included — ssm and hybrid
+    families).
 
     The vertical split follows the paper's LM experiments: each of the M
     client parties owns a disjoint span of ``seq_len / M`` token positions
@@ -289,6 +290,10 @@ def from_model_config(cfg: ModelConfig, *, n_clients: int = 2,
     model = model_api.build_model(cfg, max_seq=seq_len)
     client_spec, server_spec = split_params(model.param_specs,
                                             LM_CLIENT_KEYS)
+    # the server partition leaves out the token-consuming MTP head, as
+    # ``partition.lm_engine_params`` does: the engine's global loss is the
+    # model's loss without it
+    server_spec = {k: v for k, v in server_spec.items() if k != "mtp"}
     span = seq_len // n_clients
     d = cfg.d_model
 

@@ -4,7 +4,8 @@
 // Replaces the Pallas TPU kernel flash_attention_pallas (body _flash_kernel)
 // of src/repro/kernels/flash_attention/kernel.py. Computes, per batch b and
 // query head h, softmax(q k^T * d^-1/2 + mask) v with the online softmax in
-// f32, where query row i sits at position q_offset + i and key j at j:
+// f32 (d is q's and k's head dim; v's, d_v, may differ: the scale never
+// takes it), where query row i sits at position q_offset + i and key j at j:
 //   causal:      key j visible to row i iff j <= q_offset + i
 //   window > 0:  and j > q_offset + i - window
 // q_offset = 0 is the TPU kernel's function; q_offset = cur_pos is the
@@ -12,11 +13,17 @@
 // queries attends over a KV cache whose slots past cur_pos + Sq are still
 // zero, and the causal mask hides them.
 //
-// Layout: q (B, Sq, Hq, d), k and v (B, Skv, Hkv, d), o (B, Sq, Hq, d), all
-// contiguous, o in q's type. GQA reads KV head h / (Hq / Hkv) in place: no
-// broadcast copy of the cache. The TPU kernel's (BH, S, d) form is the
-// Hq = Hkv = 1 case. d is a multiple of 16 up to 128 (Phi-3's 96 and
-// Zamba2's 80 included); Sq and Skv are any length (ragged tiles are
+// Layout: q (B, Sq, Hq, d), k (B, Skv, Hkv, d), v (B, Skv, Hkv, d_v), o (B,
+// Sq, Hq, d_v), all contiguous, o in q's type. GQA reads KV head
+// h / (Hq / Hkv) in place: no broadcast copy of the cache. The TPU kernel's
+// (BH, S, d) form is the Hq = Hkv = 1, d_v = d case. Both routes are
+// templates on the pair (d, d_v): d = d_v, a multiple of 16 up to 128
+// (Phi-3's 96, Zamba2's 80, Qwen3's 128), and (192, 128), the pair of
+// DeepSeek-V3's multi-head latent attention once its latent is expanded
+// (q and k are [128 nope | 64 rope] columns, v 128; the TPU kernel takes
+// one d and the JAX package's MLA never calls it). V is never padded to
+// 192: that would cost half again the P V products and the V bytes. Sq and
+// Skv are any length (ragged tiles are
 // masked, where the TPU kernel asserts S % bq == 0). Numerics as the TPU
 // kernel: masked scores are -1e30 (not -inf), the denominator is
 // max(l, 1e-30), the softmax statistics are f32.
@@ -27,13 +34,18 @@
 // 16 and 35 GFLOP per layer, against 113 and 145 MB of q, o and the KV
 // rows the masks reach. On the bf16 tensor cores (989 TFLOP/s) the bytes
 // bound it (77 us a layer at 3.35 TB/s; the operations alone 52 us); on
-// the f32 CUDA cores (67 TFLOP/s) the operations do (0.77 ms a layer).
+// the f32 CUDA cores (67 TFLOP/s) the operations do (0.77 ms a layer). At
+// DeepSeek-V3's chunk (B = 8, H = 128, (192, 128), 576 queries at offset
+// 448 over 1024 keys) the work is 2 (d + d_v) flops a visible pair, 0.28
+// TFLOP, against 1.05 GB of q, k, v and o: bytes (0.31 ms) and operations
+// (0.28 ms) bound it about alike.
 //
 // Route 1, f32 (flash_attention_f32_kernel): CUDA-core FMA, because f32
 // must hold the plain version to 1e-4, which TF32 cannot. One 128-thread
 // block per (b, h, tile of 64 queries) loops over 64-key tiles through
 // shared memory with the running max, denominator and accumulator in
-// registers; expf is the accurate one.
+// registers; expf is the accurate one. At (192, 128) its tiles take 151.8 KB
+// of shared memory.
 //
 // Route 2, bf16 (flash_attention_wgmma_kernel): the tensor cores. One
 // block per (b, h, tile of BQ = 128 queries): two consumer warpgroups of 64
@@ -61,7 +73,10 @@
 // - Head dims that are not a multiple of 64 are kept in column panels of
 //   64, 32 and 16 (96 = 64 + 32, 80 = 64 + 16), each with its own tensor
 //   map, swizzle (128, 64, 32 bytes) and wgmma descriptors: nothing is
-//   padded.
+//   padded. q and k take d's panels, v and o d_v's, each operand's maps
+//   with its own row stride. At (192, 128) Q K^T is 12 k16 steps over three
+//   64-column panels and P V writes 128 columns; the q tile is 48 KB and a
+//   stage 40 KB (K 24, V 16), so four stages take 208 KB of the 227.
 // - Masks. Tiles wholly above the diagonal or before the window are never
 //   loaded, a warpgroup skips the tiles that are masked for all of its
 //   rows, and only tiles that cross the diagonal, the window edge or Skv
@@ -88,27 +103,27 @@ constexpr int F_RI = F_BQ / 8;     // rows per thread (8)
 constexpr int F_CJ = F_BK / 16;    // score columns per thread (4)
 constexpr int P_STRIDE = F_BK + 16;  // row ty and ty + 1 on other banks
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t f32_smem_bytes() {
-  // sQ [BQ][D], sK [BK][D + 1], sV [BK][D], sP [BQ][P_STRIDE], all f32
-  return sizeof(float) *
-         (F_BQ * D + F_BK * (D + 1) + F_BK * D + F_BQ * P_STRIDE);
+  // sQ [BQ][DQK], sK [BK][DQK + 1], sV [BK][DV], sP [BQ][P_STRIDE], all f32
+  return sizeof(float) * (F_BQ * DQK + F_BK * (DQK + 1) + F_BK * DV +
+                          F_BQ * P_STRIDE);
 }
 
 // Thread (tx, ty) = (t % 16, t / 16) owns rows ty + 8i (i < 8); it computes
 // the scores of columns tx + 16j (j < 4), and the output columns tx + 16jj
-// (jj < d/16), so each row's max and sum reduce over one half-warp.
-template <int D>
+// (jj < DV/16), so each row's max and sum reduce over one half-warp.
+template <int DQK, int DV>
 __global__ void __launch_bounds__(F_THREADS) flash_attention_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ o, int Hq, int Hkv,
     int Sq, int Skv, int causal, int window, int q_offset, float scale) {
-  constexpr int NJ = D / 16;     // output columns per thread
+  constexpr int NJ = DV / 16;    // output columns per thread
   extern __shared__ float smem[];
-  float* sQ = smem;                       // [BQ][D]
-  float* sK = sQ + F_BQ * D;              // [BK][D + 1]
-  float* sV = sK + F_BK * (D + 1);        // [BK][D]
-  float* sP = sV + F_BK * D;              // [BQ][P_STRIDE]
+  float* sQ = smem;                         // [BQ][DQK]
+  float* sK = sQ + F_BQ * DQK;              // [BK][DQK + 1]
+  float* sV = sK + F_BK * (DQK + 1);        // [BK][DV]
+  float* sP = sV + F_BK * DV;               // [BQ][P_STRIDE]
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;
@@ -120,10 +135,10 @@ __global__ void __launch_bounds__(F_THREADS) flash_attention_f32_kernel(
   const int q0 = blockIdx.y * F_BQ;
 
   // q rows of this block, pre-scaled; rows past Sq read as zero
-  for (int e = tid; e < F_BQ * D; e += F_THREADS) {
-    const int r = e / D, c = e % D;
+  for (int e = tid; e < F_BQ * DQK; e += F_THREADS) {
+    const int r = e / DQK, c = e % DQK;
     const int gr = q0 + r;
-    sQ[e] = gr < Sq ? q[(((size_t)b * Sq + gr) * Hq + h) * D + c] * scale
+    sQ[e] = gr < Sq ? q[(((size_t)b * Sq + gr) * Hq + h) * DQK + c] * scale
                     : 0.f;
   }
 
@@ -144,12 +159,16 @@ __global__ void __launch_bounds__(F_THREADS) flash_attention_f32_kernel(
 
   for (int kt = k_begin; kt < k_end; kt += F_BK) {
     __syncthreads();   // the previous tile's sK, sV, sP are no longer read
-    for (int e = tid; e < F_BK * D; e += F_THREADS) {
-      const int r = e / D, c = e % D;
+    for (int e = tid; e < F_BK * DQK; e += F_THREADS) {
+      const int r = e / DQK, c = e % DQK;
       const int gk = kt + r;
-      const size_t off = (((size_t)b * Skv + gk) * Hkv + hk) * D + c;
-      sK[r * (D + 1) + c] = gk < Skv ? k[off] : 0.f;
-      sV[e] = gk < Skv ? v[off] : 0.f;
+      sK[r * (DQK + 1) + c] =
+          gk < Skv ? k[(((size_t)b * Skv + gk) * Hkv + hk) * DQK + c] : 0.f;
+    }
+    for (int e = tid; e < F_BK * DV; e += F_THREADS) {
+      const int r = e / DV, c = e % DV;
+      const int gk = kt + r;
+      sV[e] = gk < Skv ? v[(((size_t)b * Skv + gk) * Hkv + hk) * DV + c] : 0.f;
     }
     __syncthreads();
 
@@ -159,12 +178,12 @@ __global__ void __launch_bounds__(F_THREADS) flash_attention_f32_kernel(
 #pragma unroll
       for (int j = 0; j < F_CJ; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int c = 0; c < D; ++c) {
+    for (int c = 0; c < DQK; ++c) {
       float qv[F_RI], kv[F_CJ];
 #pragma unroll
-      for (int i = 0; i < F_RI; ++i) qv[i] = sQ[(ty + 8 * i) * D + c];
+      for (int i = 0; i < F_RI; ++i) qv[i] = sQ[(ty + 8 * i) * DQK + c];
 #pragma unroll
-      for (int j = 0; j < F_CJ; ++j) kv[j] = sK[(tx + 16 * j) * (D + 1) + c];
+      for (int j = 0; j < F_CJ; ++j) kv[j] = sK[(tx + 16 * j) * (DQK + 1) + c];
 #pragma unroll
       for (int i = 0; i < F_RI; ++i)
 #pragma unroll
@@ -210,7 +229,7 @@ __global__ void __launch_bounds__(F_THREADS) flash_attention_f32_kernel(
     for (int kk = 0; kk < F_BK; ++kk) {
       float vv[NJ];
 #pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) vv[jj] = sV[kk * D + tx + 16 * jj];
+      for (int jj = 0; jj < NJ; ++jj) vv[jj] = sV[kk * DV + tx + 16 * jj];
 #pragma unroll
       for (int i = 0; i < F_RI; ++i) {
         const float p = sP[(ty + 8 * i) * P_STRIDE + kk];
@@ -227,26 +246,26 @@ __global__ void __launch_bounds__(F_THREADS) flash_attention_f32_kernel(
     const int gr = q0 + ty + 8 * i;
     if (gr >= Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    float* orow = o + (((size_t)b * Sq + gr) * Hq + h) * D;
+    float* orow = o + (((size_t)b * Sq + gr) * Hq + h) * DV;
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj) orow[tx + 16 * jj] = acc[i][jj] * inv;
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                int Hq, int Hkv, int Sq, int Skv, int causal, int window,
                int q_offset, float scale, cudaStream_t stream) {
-  constexpr size_t smem = f32_smem_bytes<D>();
+  constexpr size_t smem = f32_smem_bytes<DQK, DV>();
   // above 48 KB of shared memory only after opting in (per device, so on
   // every launch: it is a host-side attribute write)
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_f32_kernel<D>,
+      flash_attention_f32_kernel<DQK, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if ((Sq + F_BQ - 1) / F_BQ > 65535) return cudaErrorInvalidValue;
   const dim3 grid(B * Hq, (Sq + F_BQ - 1) / F_BQ);
-  flash_attention_f32_kernel<D><<<grid, F_THREADS, smem, stream>>>(
+  flash_attention_f32_kernel<DQK, DV><<<grid, F_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Hq, Hkv, Sq, Skv,
       causal, window, q_offset, scale);
@@ -484,23 +503,27 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t (&a)[4],
 
 // ---------------------------------------------------------- route 2 body --
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t wgmma_smem_bytes() {
   // q tile, STAGES x (K tile, V tile), 2 STAGES + 1 mbarriers, and the slack
-  // that aligns the base to the 128-byte swizzle's 1024-byte span
-  return size_t(BQ) * D * 2 + size_t(STAGES) * 2 * BK * D * 2 +
+  // that aligns the base to the 128-byte swizzle's 1024-byte span. Every
+  // tile and panel offset is a multiple of 1024 bytes (a tile is 128 or 256
+  // bytes a head-dim column, a panel of 64 columns starts 64 columns in).
+  return size_t(BQ) * DQK * 2 + size_t(STAGES) * BK * (DQK + DV) * 2 +
          8 * (2 * STAGES + 1) + 1024;
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(THREADS, 1) flash_attention_wgmma_kernel(
     const __grid_constant__ TensorMaps maps, __nv_bfloat16* __restrict__ o,
     int Hq, int Hkv, int Sq, int Skv, int causal, int window, int q_offset,
     float scale_log2, int n_qt) {
-  using PN = Panels<D>;
-  constexpr uint32_t Q_BYTES = BQ * D * 2;
-  constexpr uint32_t KV_BYTES = BK * D * 2;       // one K (or V) tile
-  constexpr uint32_t STAGE_BYTES = 2 * KV_BYTES;  // K, then V
+  using PK = Panels<DQK>;   // the q and k head dim's panels
+  using PV = Panels<DV>;    // the v (and o) head dim's panels
+  constexpr uint32_t Q_BYTES = BQ * DQK * 2;
+  constexpr uint32_t K_BYTES = BK * DQK * 2;          // one K tile
+  constexpr uint32_t V_BYTES = BK * DV * 2;           // one V tile
+  constexpr uint32_t STAGE_BYTES = K_BYTES + V_BYTES;  // K, then V
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t sKV = sQ + Q_BYTES;
@@ -539,9 +562,9 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_wgmma_kernel(
     if (threadIdx.x == CONSUMERS) {
       mbar_expect_tx(qbar, Q_BYTES);
 #pragma unroll
-      for (int p = 0; p < PN::COUNT; ++p)
-        tma_load(sQ + BQ * PN::col(p) * 2, &maps.m[0][PN::kind(p)], qbar,
-                 PN::col(p), h, q0, b);
+      for (int p = 0; p < PK::COUNT; ++p)
+        tma_load(sQ + BQ * PK::col(p) * 2, &maps.m[0][PK::kind(p)], qbar,
+                 PK::col(p), h, q0, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % STAGES;
         // the stage's previous tile (i - STAGES) has been released
@@ -551,14 +574,15 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_wgmma_kernel(
         const uint32_t full = bars + 8u * s;
         mbar_expect_tx(full, STAGE_BYTES);
         const int kt = k_begin + i * BK;
-        const uint32_t sk = sKV + s * STAGE_BYTES, sv = sk + KV_BYTES;
+        const uint32_t sk = sKV + s * STAGE_BYTES, sv = sk + K_BYTES;
 #pragma unroll
-        for (int p = 0; p < PN::COUNT; ++p) {
-          tma_load(sk + BK * PN::col(p) * 2, &maps.m[1][PN::kind(p)], full,
-                   PN::col(p), hk, kt, b);
-          tma_load(sv + BK * PN::col(p) * 2, &maps.m[2][PN::kind(p)], full,
-                   PN::col(p), hk, kt, b);
-        }
+        for (int p = 0; p < PK::COUNT; ++p)
+          tma_load(sk + BK * PK::col(p) * 2, &maps.m[1][PK::kind(p)], full,
+                   PK::col(p), hk, kt, b);
+#pragma unroll
+        for (int p = 0; p < PV::COUNT; ++p)
+          tma_load(sv + BK * PV::col(p) * 2, &maps.m[2][PV::kind(p)], full,
+                   PV::col(p), hk, kt, b);
       }
     }
     return;
@@ -575,10 +599,10 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_wgmma_kernel(
   const int qhi = qlo + wg_rows - 1;         // of the warpgroup's rows
 
   // o accumulator, fragment layout: o_acc[4 j + 2 i + c] is row row0 + 8 i,
-  // column 8 j + 2 quad + c; panel p is o_acc[col(p) / 2, ...)
-  float o_acc[D / 2];
+  // column 8 j + 2 quad + c; v panel p is o_acc[PV::col(p) / 2, ...)
+  float o_acc[DV / 2];
 #pragma unroll
-  for (int r = 0; r < D / 2; ++r) o_acc[r] = 0.f;
+  for (int r = 0; r < DV / 2; ++r) o_acc[r] = 0.f;
   float m_run[2] = {NEG_INF, NEG_INF};
   float l_run[2] = {0.f, 0.f};   // this thread's share; the quad sums it
 
@@ -590,20 +614,20 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_wgmma_kernel(
     const bool active = wg_rows > 0 && (!causal || kt <= qhi) &&
                         (window <= 0 || kt + BK - 1 > qlo - window);
     if (active) {
-      const uint32_t sk = sKV + s * STAGE_BYTES, sv = sk + KV_BYTES;
-      // S = Q K^T over the d panels, 16 columns of d a wgmma
+      const uint32_t sk = sKV + s * STAGE_BYTES, sv = sk + K_BYTES;
+      // S = Q K^T over the q/k head dim's panels, 16 columns a wgmma
       float s_acc[BK / 2];
 #pragma unroll
       for (int r = 0; r < BK / 2; ++r) s_acc[r] = 0.f;
       wgmma_fence();
 #pragma unroll
-      for (int p = 0; p < PN::COUNT; ++p) {
-        const uint32_t rb = 2 * PN::width(p);   // panel row bytes
-        const int lt = layout_type(PN::kind(p));
-        const uint32_t qa = sQ + BQ * PN::col(p) * 2 + wg * 64 * rb;
-        const uint32_t ka = sk + BK * PN::col(p) * 2;
+      for (int p = 0; p < PK::COUNT; ++p) {
+        const uint32_t rb = 2 * PK::width(p);   // panel row bytes
+        const int lt = layout_type(PK::kind(p));
+        const uint32_t qa = sQ + BQ * PK::col(p) * 2 + wg * 64 * rb;
+        const uint32_t ka = sk + BK * PK::col(p) * 2;
 #pragma unroll
-        for (int ks = 0; ks < PN::width(p) / 16; ++ks)
+        for (int ks = 0; ks < PK::width(p) / 16; ++ks)
           wgmma_ss_n64(s_acc, make_desc(qa + 32 * ks, 16, 8 * rb, lt),
                        make_desc(ka + 32 * ks, 16, 8 * rb, lt), 1);
       }
@@ -652,7 +676,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_wgmma_kernel(
         }
         l_run[i2] = l_run[i2] * alpha + sum;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
+        for (int j = 0; j < DV / 8; ++j) {
           o_acc[4 * j + 2 * i2] *= alpha;
           o_acc[4 * j + 2 * i2 + 1] *= alpha;
         }
@@ -674,18 +698,18 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_wgmma_kernel(
 #pragma unroll
       for (int ks = 0; ks < BK / 16; ++ks) {
 #pragma unroll
-        for (int p = 0; p < PN::COUNT; ++p) {
-          const uint32_t rb = 2 * PN::width(p);
-          const int lt = layout_type(PN::kind(p));
+        for (int p = 0; p < PV::COUNT; ++p) {
+          const uint32_t rb = 2 * PV::width(p);
+          const int lt = layout_type(PV::kind(p));
           // V panel p, key rows [16 ks, 16 ks + 16): N-major (d contiguous),
           // 8-key groups rb * 8 bytes apart
-          const uint64_t vd = make_desc(sv + BK * PN::col(p) * 2 + 16 * ks * rb,
+          const uint64_t vd = make_desc(sv + BK * PV::col(p) * 2 + 16 * ks * rb,
                                         BK * rb, 8 * rb, lt);
-          float* op = o_acc + PN::col(p) / 2;
-          if (PN::kind(p) == P64) {
+          float* op = o_acc + PV::col(p) / 2;
+          if (PV::kind(p) == P64) {
             wgmma_rs<64>(op, p_hi[ks], vd);
             wgmma_rs<64>(op, p_lo[ks], vd);
-          } else if (PN::kind(p) == P32) {
+          } else if (PV::kind(p) == P32) {
             wgmma_rs<32>(op, p_hi[ks], vd);
             wgmma_rs<32>(op, p_lo[ks], vd);
           } else {
@@ -710,9 +734,9 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_wgmma_kernel(
     const float inv = 1.f / fmaxf(l, 1e-30f);
     const int gr = q0 + row0 + 8 * i2;
     if (gr < Sq) {
-      __nv_bfloat16* orow = o + (((size_t)b * Sq + gr) * Hq + h) * D;
+      __nv_bfloat16* orow = o + (((size_t)b * Sq + gr) * Hq + h) * DV;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < DV / 8; ++j)
         *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * quad) =
             pack_bf16(o_acc[4 * j + 2 * i2] * inv,
                       o_acc[4 * j + 2 * i2 + 1] * inv);
@@ -764,34 +788,43 @@ bool encode_map(CUtensorMap* map, const void* ptr, int width, int D, int H,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// the tensor maps of one operand: one for each panel kind of its head dim
 template <int D>
+bool encode_operand(CUtensorMap (&maps)[3], const void* ptr, int H, int S,
+                    int B, int rows) {
+  using PN = Panels<D>;
+  for (int p = 0; p < PN::COUNT; ++p) {
+    if (!encode_map(&maps[PN::kind(p)], ptr, PN::width(p), D, H, S, B, rows))
+      return false;
+  }
+  return true;
+}
+
+template <int DQK, int DV>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
                  int Hq, int Hkv, int Sq, int Skv, int causal, int window,
                  int q_offset, float scale, cudaStream_t stream) {
-  using PN = Panels<D>;
   if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorNotSupported);
   TensorMaps maps = {};
-  const void* ptrs[3] = {q, k, v};
-  const int heads[3] = {Hq, Hkv, Hkv}, lens[3] = {Sq, Skv, Skv};
-  const int rows[3] = {BQ, BK, BK};
-  for (int t = 0; t < 3; ++t) {
-    for (int p = 0; p < PN::COUNT; ++p) {
-      if (!encode_map(&maps.m[t][PN::kind(p)], ptrs[t], PN::width(p), D,
-                      heads[t], lens[t], B, rows[t])) {
-        return static_cast<int>(cudaErrorInvalidValue);
-      }
-    }
+  // v's maps take v's own head dim, so its row stride is 2 DV bytes
+  if (!encode_operand<DQK>(maps.m[0], q, Hq, Sq, B, BQ) ||
+      !encode_operand<DQK>(maps.m[1], k, Hkv, Skv, B, BK) ||
+      !encode_operand<DV>(maps.m[2], v, Hkv, Skv, B, BK)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  constexpr size_t smem = wgmma_smem_bytes<D>();
+  constexpr size_t smem = wgmma_smem_bytes<DQK, DV>();
+  static_assert(smem <= 232448, "over the 227 KB of shared memory a block "
+                "can use");
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_wgmma_kernel<D>,
+      flash_attention_wgmma_kernel<DQK, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qt = (Sq + BQ - 1) / BQ;
   if ((long long)n_qt * B * Hq > 2147483647LL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  flash_attention_wgmma_kernel<D><<<n_qt * B * Hq, THREADS, smem, stream>>>(
+  flash_attention_wgmma_kernel<DQK, DV>
+      <<<n_qt * B * Hq, THREADS, smem, stream>>>(
       maps, static_cast<__nv_bfloat16*>(o), Hq, Hkv, Sq, Skv, causal, window,
       q_offset, scale * LOG2E, n_qt);
   return static_cast<int>(cudaGetLastError());
@@ -800,26 +833,31 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
 using Launch = int (*)(const void*, const void*, const void*, void*, int, int,
                        int, int, int, int, int, int, float, cudaStream_t);
 
-template <int D>
+template <int DQK, int DV>
 struct F32Route {
-  static constexpr Launch fn = launch_f32<D>;
+  static constexpr Launch fn = launch_f32<DQK, DV>;
 };
-template <int D>
+template <int DQK, int DV>
 struct Bf16Route {
-  static constexpr Launch fn = launch_wgmma<D>;
+  static constexpr Launch fn = launch_wgmma<DQK, DV>;
 };
 
-template <template <int> class Route>
-Launch by_head_dim(int d) {
+// The (d_qk, d_v) pairs instantiated: one d for q, k and v in multiples of
+// 16 up to 128, and MLA's 192 / 128 (DeepSeek-V3: a 128 + 64 nope/rope
+// query and key, a 128 value). Any other pair is refused.
+template <template <int, int> class Route>
+Launch by_head_dims(int d, int dv) {
+  if (d == 192 && dv == 128) return Route<192, 128>::fn;
+  if (d != dv) return nullptr;
   switch (d) {
-    case 16: return Route<16>::fn;
-    case 32: return Route<32>::fn;
-    case 48: return Route<48>::fn;
-    case 64: return Route<64>::fn;
-    case 80: return Route<80>::fn;
-    case 96: return Route<96>::fn;
-    case 112: return Route<112>::fn;
-    case 128: return Route<128>::fn;
+    case 16: return Route<16, 16>::fn;
+    case 32: return Route<32, 32>::fn;
+    case 48: return Route<48, 48>::fn;
+    case 64: return Route<64, 64>::fn;
+    case 80: return Route<80, 80>::fn;
+    case 96: return Route<96, 96>::fn;
+    case 112: return Route<112, 112>::fn;
+    case 128: return Route<128, 128>::fn;
     default: return nullptr;
   }
 }
@@ -827,12 +865,13 @@ Launch by_head_dim(int d) {
 }  // namespace
 
 // dtype: 0 = float32 (route 1, CUDA cores), 1 = bfloat16 (route 2, tensor
-// cores; q, k, v and o 16-byte aligned). causal: 0 or 1; window: 0 = none.
+// cores; q, k, v and o 16-byte aligned). d is q's and k's head dim, d_v v's
+// and o's (a pair of by_head_dims). causal: 0 or 1; window: 0 = none.
 // Launches on `stream` and returns cudaGetLastError() (0 on success); it
 // neither allocates nor synchronises.
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
                                       const void* v, void* o, int B, int Hq,
-                                      int Hkv, int Sq, int Skv, int d,
+                                      int Hkv, int Sq, int Skv, int d, int d_v,
                                       int causal, int window, int q_offset,
                                       float scale, void* stream) {
   if (B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || Sq < 1 || Skv < 1 ||
@@ -847,8 +886,8 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
   if (dtype == 1 && any_bits % 16 != 0) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
-  const Launch fn =
-      dtype == 0 ? by_head_dim<F32Route>(d) : by_head_dim<Bf16Route>(d);
+  const Launch fn = dtype == 0 ? by_head_dims<F32Route>(d, d_v)
+                                : by_head_dims<Bf16Route>(d, d_v);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return fn(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, q_offset, scale,
             static_cast<cudaStream_t>(stream));

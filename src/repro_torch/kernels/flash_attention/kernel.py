@@ -23,24 +23,25 @@ def _launcher():
     fn = _build.load("flash_attention").flash_attention_launch
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
-                   i32, i32, i32, ctypes.c_float, ptr]
+                   i32, i32, i32, i32, ctypes.c_float, ptr]
     fn.restype = i32
     return fn
 
 
 def launch(q, k, v, o, *, causal: bool, window: int, q_offset: int) -> None:
-    """q (B, Sq, Hq, d), k/v (B, Skv, Hkv, d) -> writes o (B, Sq, Hq, d) on
-    the current stream. Raises if the launch is refused."""
+    """q (B, Sq, Hq, d), k (B, Skv, Hkv, d), v (B, Skv, Hkv, d_v) -> writes
+    o (B, Sq, Hq, d_v) on the current stream, scale d^-1/2. Raises if the
+    launch is refused."""
     B, Sq, Hq, d = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
+    Skv, Hkv, d_v = k.shape[1], k.shape[2], v.shape[3]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _launcher()(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), B, Hq, Hkv, Sq, Skv, d, int(causal), int(window),
-            int(q_offset), float(d ** -0.5), stream)
+            o.data_ptr(), B, Hq, Hkv, Sq, Skv, d, d_v, int(causal),
+            int(window), int(q_offset), float(d ** -0.5), stream)
     if err != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed with CUDA error {err} "
             f"(B={B}, Sq={Sq}, Skv={Skv}, Hq={Hq}, Hkv={Hkv}, d={d}, "
-            f"dtype={q.dtype})")
+            f"d_v={d_v}, dtype={q.dtype})")

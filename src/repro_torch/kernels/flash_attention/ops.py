@@ -30,7 +30,9 @@ from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import flash_attention_bshd_ref
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-MAX_HEAD_DIM = 128
+# the (d_qk, d_v) head-dim pairs the kernel instantiates: one head dim for
+# q, k and v in multiples of 16 up to 128, and MLA's (192, 128)
+HEAD_DIMS = frozenset({(d, d) for d in range(16, 129, 16)} | {(192, 128)})
 
 launches: Dict[str, int] = {"flash_attention": 0}
 
@@ -44,22 +46,26 @@ def _validate(q, k, v, window: int, q_offset: int) -> bool:
     """Check a model-layout call; True for CUDA tensors, False for CPU."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(
-            f"expected q (B, Sq, Hq, d), k/v (B, Skv, Hkv, d); got "
-            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+            f"expected q (B, Sq, Hq, d), k (B, Skv, Hkv, d), v (B, Skv, "
+            f"Hkv, d_v); got {tuple(q.shape)}, {tuple(k.shape)}, "
+            f"{tuple(v.shape)}")
     B, Sq, Hq, d = q.shape
     _, Skv, Hkv, _ = k.shape
-    if min(B, Sq, Hq, d, Skv, Hkv) < 1:
+    d_v = v.shape[3]
+    if min(B, Sq, Hq, d, d_v, Skv, Hkv) < 1:
         raise ValueError(f"empty operand: q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}")
-    if tuple(v.shape) != tuple(k.shape) or k.shape[0] != B or k.shape[3] != d:
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if (tuple(v.shape[:3]) != tuple(k.shape[:3]) or k.shape[0] != B
+            or k.shape[3] != d):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if Hq % Hkv:
         raise ValueError(f"query heads {Hq} are not a multiple of KV "
                          f"heads {Hkv}")
-    if d % 16 or d > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d}: the kernel takes multiples of 16 "
-                         f"up to {MAX_HEAD_DIM}")
+    if (d, d_v) not in HEAD_DIMS:
+        raise ValueError(
+            f"head dims (q/k {d}, v {d_v}): the kernel takes one head dim in "
+            f"multiples of 16 up to 128, or the pair (192, 128)")
     if window < 0 or q_offset < 0:
         raise ValueError(f"window {window} and q_offset {q_offset} must be "
                          ">= 0")
@@ -99,10 +105,12 @@ def check_tma_alignment(q, k, v) -> None:
 
 def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0,
                          q_offset: int = 0):
-    """Attention in the model's layout: q (B, Sq, Hq, d), k/v (B, Skv, Hkv,
-    d) -> (B, Sq, Hq, d), scale d^-1/2. GQA reads KV head h // (Hq / Hkv)
-    in place; query row i sits at position ``q_offset`` + i for the causal
-    and sliding-window masks (the chunked-prefill form)."""
+    """Attention in the model's layout: q (B, Sq, Hq, d), k (B, Skv, Hkv,
+    d), v (B, Skv, Hkv, d_v) -> (B, Sq, Hq, d_v), scale d^-1/2 (q's head
+    dim: MLA's v head dim 128 differs from its q/k head dim 192, and the
+    scale never takes v's). GQA reads KV head h // (Hq / Hkv) in place;
+    query row i sits at position ``q_offset`` + i for the causal and
+    sliding-window masks (the chunked-prefill form)."""
     if not _validate(q, k, v, window, q_offset):
         return flash_attention_bshd_ref(q, k, v, causal=causal,
                                         window=window, q_offset=q_offset)
@@ -112,7 +120,7 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def _launch(q, k, v, causal, window, q_offset):
-    o = torch.empty_like(q)
+    o = q.new_empty(q.shape[:3] + v.shape[3:])
     kernel.launch(q, k, v, o, causal=causal, window=window,
                   q_offset=q_offset)
     launches["flash_attention"] += 1

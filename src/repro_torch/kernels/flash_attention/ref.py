@@ -9,9 +9,10 @@ NEG_INF = -1e30
 
 def flash_attention_bshd_ref(q, k, v, *, causal: bool = True,
                              window: int = 0, q_offset: int = 0):
-    """q (B, Sq, Hq, d), k/v (B, Skv, Hkv, d) -> (B, Sq, Hq, d); GQA by
-    head grouping (query head h reads KV head h // (Hq / Hkv)); query row
-    i sits at position q_offset + i for the causal and window masks."""
+    """q (B, Sq, Hq, d), k (B, Skv, Hkv, d), v (B, Skv, Hkv, d_v) -> (B,
+    Sq, Hq, d_v), scale d^-1/2 (q's head dim, never v's); GQA by head
+    grouping (query head h reads KV head h // (Hq / Hkv)); query row i sits
+    at position q_offset + i for the causal and window masks."""
     B, Sq, Hq, d = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -27,7 +28,7 @@ def flash_attention_bshd_ref(q, k, v, *, causal: bool = True,
     s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return o.reshape(B, Sq, Hq, d).to(q.dtype)
+    return o.reshape(B, Sq, Hq, v.shape[-1]).to(q.dtype)
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,

@@ -17,10 +17,12 @@ preemption under memory pressure, and ``--deadline`` gives every request
 that many scheduler steps to retire.
 
 Ported from the JAX package's ``launch/serve.py`` for the dense
-attention, MoE (qwen3-moe), ssm (rwkv6) and hybrid (Mamba2 + shared
-attention) families. ``--reduced`` /
+attention, MoE (qwen3-moe; deepseek-v3 with its latent cache), ssm
+(rwkv6) and hybrid (Mamba2 + shared attention) families. ``--reduced`` /
 ``--no-reduced`` picks the smoke-size variant or the full published width
-(the JAX package's flag cannot turn reduction off).
+(the JAX package's flag cannot turn reduction off); ``--layers N`` cuts
+the depth to N layers at either width, as ``launch/train.py``'s does
+(DeepSeek-V3 at 5 layers: its 3 dense and 2 MoE layers).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b \\
         --batch 8 --prompt-len 1024 --gen-len 128 --no-reduced
@@ -31,6 +33,11 @@ attention) families. ``--reduced`` /
         --no-reduced
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
         --batch 8 --prompt-len 1024 --gen-len 128 --no-reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v3-671b --batch 8 --prompt-len 1024 --gen-len 128 \
+        --no-reduced --layers 5
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v3-671b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --continuous \
         --batch 16 --max-batch 8 --prompt-len 1024 --gen-len 128 --no-reduced
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
@@ -47,7 +54,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs import get_config, list_archs, reduced
+from repro_torch.configs import cut_depth, get_config, list_archs, reduced
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.federation import serving
 from repro_torch.models import common
@@ -85,18 +92,21 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 16,
           continuous: bool = False, max_batch: int = 4,
           max_queue: Optional[int] = None, preempt: bool = False,
           n_pages: Optional[int] = None, deadline: Optional[int] = None,
-          device: DeviceLike = None) -> dict:
+          n_layers: int = 0, device: DeviceLike = None) -> dict:
     """``n_clients >= 1`` routes through the session's split serve plane;
     ``n_clients=0`` is the global decode, equal to the split path on
     replicated client tables. ``continuous=True`` serves ``batch``
     independent requests through the continuous-batching scheduler
     (``fed.serve``) over ``max_batch`` slots, with ``max_queue``,
     ``preempt``, ``n_pages`` and ``deadline`` as the scheduler takes them.
+    ``n_layers`` > 0 cuts the depth (``configs.cut_depth``: a
+    ``first_k_dense`` config keeps at most that many dense layers first).
     Weights are random, drawn from ``seed`` on the run's device (the card
     unless ``device="cpu"``)."""
     cfg = get_config(arch)
     if use_reduced:
         cfg = reduced(cfg, remat=False)
+    cfg = cut_depth(cfg, n_layers)
     device = resolve_device(device)
     if continuous:
         if not n_clients:
@@ -282,6 +292,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0 = the "
+                         "config's)")
     # 0 = the global path; >= 1 serves split via fed.decode
     ap.add_argument("--clients", type=int, default=2)
     # continuous batching: drain --batch requests through --max-batch slots
@@ -304,7 +317,7 @@ def main(argv=None):
                            max_batch=args.max_batch,
                            max_queue=args.max_queue, preempt=args.preempt,
                            n_pages=args.n_pages, deadline=args.deadline,
-                           device=args.device),
+                           n_layers=args.layers, device=args.device),
                      indent=2))
 
 

@@ -1,10 +1,12 @@
 """End-to-end cascaded VFL training driver, on the card.
 
-Trains a decoder-only architecture (the dense, MoE, ssm and hybrid
-families) with the paper's cascaded hybrid optimization (ZOO client / FOO
+Trains a decoder-only architecture (the dense, MoE — DeepSeek-V3's MLA,
+dense leading layers and MTP head included — ssm and hybrid families)
+with the paper's cascaded hybrid optimization (ZOO client / FOO
 server) — or any baseline method — on synthetic LM data. ``--reduced``
 (the default) runs the smoke-size config; ``--full`` the published
-width; ``--layers N`` cuts the depth to N layers at either width.
+width; ``--layers N`` cuts the depth to N layers at either width (a
+``first_k_dense`` config keeps at most N dense layers first).
 
 Training is constructed through the ``repro_torch.federation`` session
 API: ``Federation.build(cfg, vfl, engine_cfg)`` resolves the model plane,
@@ -48,6 +50,8 @@ slice and raises.
         --arch qwen3-moe-30b-a3b --steps 8 --batch 4 --seq 32
     PYTHONPATH=src python -m repro_torch.launch.train --full \
         --arch rwkv6-7b --layers 8 --steps 10
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --arch deepseek-v3-671b --steps 8 --batch 4 --seq 32
     PYTHONPATH=src python -m repro_torch.launch.train --resume ck/ \\
         --steps 200 --checkpoint ck2/
     PYTHONPATH=src python -m repro_torch.launch.train --engine population \\
@@ -63,12 +67,13 @@ import itertools
 import json
 import math
 import time
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
-from repro_torch.configs import VFLConfig, get_config, list_archs, reduced
+from repro_torch.configs import (ModelConfig, VFLConfig, cut_depth,
+                                 get_config, list_archs, reduced)
 from repro_torch.core.async_engine import EngineConfig, PopulationConfig
 from repro_torch.core.draws import StepDraws
 from repro_torch.core.methods import METHOD_ALIASES, canonical_method
@@ -84,7 +89,8 @@ from repro_torch.tree import tree_leaves
 from repro_torch.wire.faults import FaultPlan
 
 
-def train(arch: str = "", *, steps: int = 100, batch: int = 8,
+def train(arch: Union[str, ModelConfig] = "", *, steps: int = 100,
+          batch: int = 8,
           seq: int = 128, method: str = "cascaded", lr: float = 0.01,
           mu: float = 1e-3, lr_client: float = 0.0,
           use_reduced: bool = True, seed: int = 0,
@@ -94,10 +100,14 @@ def train(arch: str = "", *, steps: int = 100, batch: int = 8,
           noise: Optional[GaussianLossChannel] = None,
           resume: str = "", device: DeviceLike = None,
           n_layers: int = 0) -> dict:
-    """``device=None`` runs on the card and raises without one; pass
-    ``device="cpu"`` for the CPU. A resumed run restores onto ``device``.
-    ``n_layers`` > 0 cuts the model's depth to that many layers (a new
-    run only: a resumed one keeps its saved config)."""
+    """``arch`` is an arch id of the registry, or a ``ModelConfig`` (a
+    registry entry with, say, its experts cut; ``use_reduced`` and
+    ``n_layers`` apply to it as to an id's). ``device=None`` runs on the
+    card and raises without one; pass ``device="cpu"`` for the CPU. A
+    resumed run restores onto ``device``. ``n_layers`` > 0 cuts the
+    model's depth to that many layers, ``first_k_dense`` to at most that
+    (``configs.cut_depth``; a new run only: a resumed one keeps its saved
+    config)."""
     if production_mesh:
         raise NotImplementedError(
             "the production mesh (sharded params, PARAM_RULES) is not ported "
@@ -128,11 +138,11 @@ def train(arch: str = "", *, steps: int = 100, batch: int = 8,
                 f"--steps {steps} is a total step count; the resumed "
                 f"session is already at step {start}")
     else:
-        cfg = get_config(arch)
+        cfg = arch if isinstance(arch, ModelConfig) else get_config(arch)
+        arch = cfg.arch_id
         if use_reduced:
             cfg = reduced(cfg)
-        if n_layers:
-            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        cfg = cut_depth(cfg, n_layers)
         method = canonical_method(method)
         vfl = VFLConfig(mu=mu, lr_server=lr, lr_client=lr_client or lr,
                         zoo_queries=zoo_queries, active_rows_only=active_rows)

@@ -1,6 +1,6 @@
-"""Attention: GQA/MQA/MHA, causal/sliding-window, KV-cache decode.
+"""Attention: GQA/MQA/MHA + MLA, causal/sliding-window, KV-cache decode.
 
-Ported from the JAX package's ``models/attention.py`` (the non-MLA part):
+Ported from the JAX package's ``models/attention.py``:
 
 * :func:`mha_chunked` — plain attention over query chunks (a full
   softmax per chunk), the JAX package's XLA path;
@@ -15,12 +15,22 @@ Ported from the JAX package's ``models/attention.py`` (the non-MLA part):
   (``paging=``) branches. On a CUDA tensor the no-cache and
   chunked-prefill branches run the hand-written flash-attention kernel
   (``repro_torch.kernels.flash_attention``); on the CPU they run
-  :func:`mha_chunked`.
+  :func:`mha_chunked`;
+* :func:`mla_apply` — DeepSeek-V3's multi-head latent attention, with the
+  same four branches. Its cache holds the normed latent and the shared
+  rope key, ``kv_lora_rank + qk_rope_dim`` values a token
+  (:func:`cache_specs`); :func:`_mla_expand` re-expands it to per-head k
+  (``qk_nope_dim + qk_rope_dim`` = 192 at full width) and v
+  (``v_head_dim`` = 128), which the flash kernel takes as its (192, 128)
+  pair on the card; a one-token decode attends over the expanded cache
+  (:func:`decode_attend`) or, with ``cfg.mla_absorb``, scores in latent
+  space (:func:`_mla_absorbed_decode`).
 
-The KV cache and the page pool are updated in place (the JAX package
-returns new ones through ``dynamic_update_slice`` and ``.at[].set`` with
-donation). MLA and cross-attention (``kv_override``) belong to later
-slices (``ROADMAP.md``) and raise ``NotImplementedError``.
+The KV cache, the latent cache and the page pool are updated in place (the
+JAX package returns new ones through ``dynamic_update_slice`` and
+``.at[].set`` with donation). Cross-attention (``kv_override``, the
+encoder-decoder family) belongs to a later slice (``ROADMAP.md``) and
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -44,11 +54,30 @@ def _later_slice(what: str):
 # ------------------------------------------------------------ param specs --
 
 def attention_specs(cfg, d: Optional[int] = None):
-    if cfg.use_mla:
-        raise _later_slice("MLA attention")
     d = d or cfg.d_model
     hd = cfg.resolved_head_dim
     pd = cfg.param_dtype
+    if cfg.use_mla:
+        return {
+            "wq_a": ParamSpec((d, cfg.q_lora_rank), pd, ("embed", "latent"),
+                              "scaled"),
+            "q_norm": ParamSpec((cfg.q_lora_rank,), "float32", (None,),
+                                "ones"),
+            "wq_b": ParamSpec((cfg.q_lora_rank,
+                               cfg.n_heads * (cfg.qk_nope_dim
+                                              + cfg.qk_rope_dim)),
+                              pd, ("latent", "heads_out"), "scaled"),
+            "wkv_a": ParamSpec((d, cfg.kv_lora_rank + cfg.qk_rope_dim), pd,
+                               ("embed", None), "scaled"),
+            "kv_norm": ParamSpec((cfg.kv_lora_rank,), "float32", (None,),
+                                 "ones"),
+            "wkv_b": ParamSpec((cfg.kv_lora_rank,
+                                cfg.n_heads * (cfg.qk_nope_dim
+                                               + cfg.v_head_dim)),
+                               pd, ("latent", "heads_out"), "scaled"),
+            "wo": ParamSpec((cfg.n_heads * cfg.v_head_dim, d), pd,
+                            ("heads_out", "embed"), "scaled"),
+        }
     sp = {
         "wq": ParamSpec((d, cfg.n_heads * hd), pd, ("embed", "heads_out"), "scaled"),
         "wk": ParamSpec((d, cfg.n_kv_heads * hd), pd, ("embed", "kv_out"), "scaled"),
@@ -64,7 +93,11 @@ def attention_specs(cfg, d: Optional[int] = None):
 def cache_specs(cfg, batch: int, seq: int, dtype="bfloat16"):
     """Abstract KV-cache layout for decode shapes."""
     if cfg.use_mla:
-        raise _later_slice("the MLA latent cache")
+        # MLA caches the compressed latent + shared rope key only
+        width = cfg.kv_lora_rank + cfg.qk_rope_dim
+        return {"latent": ParamSpec((cfg.n_layers, batch, seq, width), dtype,
+                                    ("layers", "cache_batch", "cache_seq",
+                                     None))}
     hd = cfg.resolved_head_dim
     return {
         "k": ParamSpec((cfg.n_layers, batch, seq, cfg.n_kv_heads, hd), dtype,
@@ -116,7 +149,8 @@ def mha_chunked(q, k, v, *, causal: bool = True, window: int = 0,
 
 def _attend(cfg, q, k, v, *, causal: bool, window: int, q_offset: int = 0):
     """Full (or chunk-against-cache) attention: the flash kernel on a CUDA
-    tensor, :func:`mha_chunked` on the CPU. Eager only: the bf16 kernel's
+    tensor, :func:`mha_chunked` on the CPU. The scale is q's head dim's
+    (MLA's (nope + rope) ** -0.5 included). Eager only: the bf16 kernel's
     launcher encodes TMA maps of the operands' addresses on the host, so a
     CUDA graph that captured this call would replay them as they were
     (``repro_torch/graphs.py``)."""
@@ -130,6 +164,9 @@ def _attend(cfg, q, k, v, *, causal: bool, window: int, q_offset: int = 0):
             "config uses one)")
     if k.dtype != q.dtype:           # an f32 model over the bf16 cache: the
         k, v = k.to(q.dtype), v.to(q.dtype)   # exact widening mha_chunked does
+    # MLA's v is a strided view of the expanded latent; the kernel reads
+    # contiguous operands
+    v = v.contiguous()
     return flash_ops.flash_attention_bshd(q, k, v, causal=causal,
                                           window=window, q_offset=q_offset)
 
@@ -172,20 +209,27 @@ def decode_attend(q, k_cache, v_cache, cur_pos, *, window: int = 0,
     s = torch.einsum("bhgd,bkhd->bhgk", qr, k_cache.float())
     if logit_softcap > 0.0:
         s = logit_softcap * torch.tanh(s / logit_softcap)
-    if on_device:
+    s = s.masked_fill(~_position_mask(kpos, cur_pos, window), NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    return o.reshape(B, 1, Hq, vd).to(q.dtype)
+
+
+def _position_mask(kpos, cur_pos, window: int):
+    """The decode mask over key positions ``kpos`` (S,), broadcastable
+    against (B, ·, ·, S) scores: keys at or before ``cur_pos`` (a Python
+    int, or a device tensor of one shared or (B,) per-row positions), and
+    within ``window`` of it when window > 0."""
+    if isinstance(cur_pos, torch.Tensor):
         cur = cur_pos.reshape(-1, 1)                # (B, 1) or (1, 1)
         mask = kpos[None, :] <= cur
         if window > 0:
             mask &= kpos[None, :] > (cur - window)
-        mask = mask[:, None, None, :]
-    else:
-        mask = kpos <= cur_pos
-        if window > 0:
-            mask &= kpos > (cur_pos - window)
-    s = s.masked_fill(~mask, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
-    return o.reshape(B, 1, Hq, vd).to(q.dtype)
+        return mask[:, None, None, :]
+    mask = kpos <= cur_pos
+    if window > 0:
+        mask &= kpos > (cur_pos - window)
+    return mask
 
 
 # ------------------------------------------------------- paged cache ops --
@@ -287,3 +331,136 @@ def attention_apply(cfg, p, x, *, positions, cache=None, cur_pos=None,
         o = _attend(cfg, q, k, v, causal=causal, window=window)
     out = (o.reshape(B, S, cfg.n_heads * hd) @ p["wo"]).to(dt)
     return out, cache
+
+
+# -------------------------------------------------------------- MLA block --
+
+def _mla_absorbed_decode(cfg, p, q_nope, q_rope, lat, kr, cur_pos, *,
+                         window: int, scale: float):
+    """Weight-absorbed MLA decode: fold W_uk into the query and W_uv into
+    the output so attention runs directly against the latent cache; a
+    step reads S·(r + rd) cache values instead of the expanded
+    S·H·(nd + vd). In f32, as the JAX package computes it."""
+    B, S1, H, nd = q_nope.shape
+    r = cfg.kv_lora_rank
+    vd = cfg.v_head_dim
+    wkv_b = p["wkv_b"].reshape(r, H, nd + vd)
+    w_uk, w_uv = wkv_b[..., :nd], wkv_b[..., nd:]
+
+    q_lat = torch.einsum("bshn,rhn->bshr", q_nope.float(),
+                         w_uk.float())                    # (B, 1, H, r)
+    s = (torch.einsum("bshr,bkr->bhsk", q_lat, lat.float())
+         + torch.einsum("bshd,bkd->bhsk", q_rope.float(),
+                        kr.float())) * scale
+    kpos = torch.arange(lat.shape[1], device=lat.device)
+    s = s.masked_fill(~_position_mask(kpos, cur_pos, window), NEG_INF)
+    pattn = torch.softmax(s, dim=-1)                      # (B, H, 1, S)
+    ctx = torch.einsum("bhsk,bkr->bshr", pattn, lat.float())
+    o = torch.einsum("bshr,rhv->bshv", ctx, w_uv.float())
+    return o.to(q_nope.dtype)                             # (B, 1, H, vd)
+
+
+def _mla_expand(cfg, p, latent, k_rope, dtype):
+    """Expand latent -> per-head (k, v); k = [k_nope | k_rope(bcast)]. v is
+    a strided view of the expanded latent (``_attend`` makes it contiguous
+    for the kernel)."""
+    B, S, _ = latent.shape
+    H, nd, vd, rd = (cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim,
+                     cfg.qk_rope_dim)
+    kv = (latent @ p["wkv_b"]).reshape(B, S, H, nd + vd)
+    k_nope, v = kv[..., :nd], kv[..., nd:]
+    k_rope_b = k_rope[:, :, None, :].expand(B, S, H, rd)
+    k = torch.cat([k_nope, k_rope_b], dim=-1)
+    return k.to(dtype), v.to(dtype)
+
+
+def mla_apply(cfg, p, x, *, positions, cache=None, cur_pos=None,
+              window: int = 0, paging=None):
+    """DeepSeek-V3 Multi-head Latent Attention. Returns (out, cache).
+
+    The cache {"latent": (B, S, kv_lora_rank + qk_rope_dim)} stores only
+    the normed latent and the shared rope key of each token, written in
+    place at ``cur_pos`` as :func:`attention_apply` writes k and v (a
+    Python int; a 0-d or (1,) device tensor for the captured one-token
+    step); k and v are re-expanded from it on use. With ``paging`` the
+    latent leaf is the shared page pool (n_pages, page_size, width) and
+    ``cur_pos`` a per-row (B,) tensor. Query and key are concatenated
+    [nope | rope], so the scale (nd + rd) ** -0.5 is the attention's own
+    head-dim scale (the flash kernel's at d = 192). A chunk (S > 1 with a
+    cache) expands the whole cache and attends causally from ``cur_pos``;
+    a one-token step expands it for :func:`decode_attend` or, with
+    ``cfg.mla_absorb``, scores in latent space.
+    """
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    dt = x.dtype
+    scale = (nd + rd) ** -0.5
+
+    qa = rms_norm_simple(x @ p["wq_a"], p["q_norm"])
+    q = (qa @ p["wq_b"]).reshape(B, S, H, nd + rd)
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+
+    kv_a = x @ p["wkv_a"]                                 # (B, S, r + rd)
+    latent = rms_norm_simple(kv_a[..., :r], p["kv_norm"])
+    k_rope = apply_rope(kv_a[..., r:], positions, cfg.rope_theta,
+                        has_heads=False)                  # (B, S, rd) shared
+
+    if paging is not None:
+        # paged decode over the latent pool: the same write through the
+        # block table and full-extent gather as the GQA path
+        if S != 1:
+            raise ValueError(f"paged MLA decodes one token per slot, got "
+                             f"S={S}")
+        packed = torch.cat([latent, k_rope], dim=-1)
+        _, lat_cache = paged_update_gather(cache["latent"], packed[:, 0],
+                                           paging.dest_page, paging.in_page,
+                                           paging.gather_rows)
+        o = _mla_decode(cfg, p, q, q_nope, q_rope, lat_cache, cur_pos,
+                        window=window, scale=scale, dt=dt)
+    elif cache is not None:
+        lat_cache = cache["latent"]
+        packed = torch.cat([latent, k_rope], dim=-1).to(lat_cache.dtype)
+        if isinstance(cur_pos, torch.Tensor):
+            # a device position (the captured decode step)
+            if S != 1:
+                raise ValueError(f"a device position writes one token, got "
+                                 f"S={S}")
+            lat_cache.index_copy_(1, cur_pos.reshape(1), packed)
+        else:
+            cur_pos = int(cur_pos)
+            lat_cache[:, cur_pos:cur_pos + S] = packed
+        if S > 1:
+            # chunked prefill: expand the latent cache once and run the
+            # whole chunk causally against it
+            k, v = _mla_expand(cfg, p, lat_cache[..., :r].to(dt),
+                               lat_cache[..., r:].to(dt), dt)
+            o = _attend(cfg, q, k, v, causal=True, window=window,
+                        q_offset=cur_pos)
+            del k, v
+        else:
+            o = _mla_decode(cfg, p, q, q_nope, q_rope, lat_cache, cur_pos,
+                            window=window, scale=scale, dt=dt)
+    else:
+        k, v = _mla_expand(cfg, p, latent, k_rope, dt)
+        o = _attend(cfg, q, k, v, causal=True, window=window)
+        del k, v
+    out = (o.reshape(B, S, H * vd) @ p["wo"]).to(dt)
+    return out, cache
+
+
+def _mla_decode(cfg, p, q, q_nope, q_rope, lat_cache, cur_pos, *,
+                window: int, scale: float, dt):
+    """One-token MLA attention over a latent cache extent (B, S, r + rd):
+    absorbed (``cfg.mla_absorb``) or over the expanded per-head k/v."""
+    r = cfg.kv_lora_rank
+    lat = lat_cache[..., :r].to(dt)
+    kr = lat_cache[..., r:].to(dt)
+    if cfg.mla_absorb:
+        return _mla_absorbed_decode(cfg, p, q_nope, q_rope, lat, kr, cur_pos,
+                                    window=window, scale=scale)
+    k, v = _mla_expand(cfg, p, lat, kr, dt)
+    return decode_attend(q, k, v, cur_pos, window=window, scale=scale)

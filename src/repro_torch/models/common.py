@@ -46,6 +46,7 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 # a leaf of more elements than this is drawn one slice of its leading
+# axis at a time, and a slice still above it one slice of its own leading
 # axis at a time (``materialize``)
 SLICED_DRAW_ELEMENTS = 1 << 31
 
@@ -61,7 +62,11 @@ def materialize(tree, generator: torch.Generator, *,
     ``SLICED_DRAW_ELEMENTS`` elements: such a leaf (Qwen3-30B-A3B's
     stacked experts, 9.7e9 values, would be a 38.7 GB f32 draw) is drawn
     one slice of its leading axis at a time, each slice cast straight into
-    the leaf, so no f32 copy of the whole leaf exists."""
+    the leaf, so no f32 copy of the whole leaf exists. A slice still above
+    the threshold (one layer of DeepSeek-V3's stacked experts, 256 x 7168
+    x 2048 = 3.76e9 values) is drawn one slice of its own leading axis at
+    a time, and so on down; a slice under it is drawn whole, so the leaves
+    that were drawn whole or slice by slice before draw the same values."""
     def draw(shape, fan_in, s: ParamSpec):
         out = torch.randn(shape, generator=generator,
                           device=generator.device, dtype=torch.float32)
@@ -78,9 +83,15 @@ def materialize(tree, generator: torch.Generator, *,
         fan_in = s.shape[0] if s.shape else 1
         if math.prod(s.shape) <= SLICED_DRAW_ELEMENTS:
             return draw(s.shape, fan_in, s).to(device=device, dtype=dt)
+
+        def fill(out):
+            for i in range(out.shape[0]):
+                if out[i].numel() <= SLICED_DRAW_ELEMENTS:
+                    out[i] = draw(out.shape[1:], fan_in, s)
+                else:
+                    fill(out[i])
         out = torch.empty(s.shape, dtype=dt, device=device)
-        for i in range(s.shape[0]):
-            out[i] = draw(s.shape[1:], fan_in, s)
+        fill(out)
         return out
 
     return tree_map(init_one, tree)

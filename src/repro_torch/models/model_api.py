@@ -17,8 +17,8 @@
                                partition (the embedding)
 
 Ported from the JAX package's ``models/model_api.py`` for the families
-``transformer.check_family`` admits; the encoder-decoder family belongs to
-a later slice.
+``transformer.check_family`` admits; the encoder-decoder and multimodal
+families belong to a later slice.
 """
 from __future__ import annotations
 
@@ -98,7 +98,9 @@ def build_cache_specs(cfg: ModelConfig, batch: int, seq: int):
     """Stacked per-layer decode state: the KV cache spec tree of the
     attention families; for the ssm family the sequence-independent f32
     RWKV states {"wkv", "shift", "shift_c"}; for the hybrid family the
-    tuple (ssm_states, attn_caches), the JAX package's layout."""
+    tuple (ssm_states, attn_caches); for a ``first_k_dense`` MoE config
+    {"dense": ..., "main": ...}, the attention cache cut at the first MoE
+    layer (MLA's {"latent"} in each): the JAX package's layouts."""
     transformer.check_family(cfg)
     if cfg.family == "ssm":
         return rwkv_mod.rwkv_state_specs(cfg, batch, cfg.d_model)
@@ -121,4 +123,14 @@ def build_cache_specs(cfg: ModelConfig, batch: int, seq: int):
                        ("layers", "cache_batch", "cache_seq", "cache_heads",
                         None))
         return (ssm_states, {"k": kv, "v": kv})
+    if cfg.first_k_dense and cfg.n_experts:
+        full = attn_mod.cache_specs(cfg, batch, seq)
+
+        def split(sp: ParamSpec, n: int) -> ParamSpec:
+            return ParamSpec((n,) + sp.shape[1:], sp.dtype, sp.logical,
+                             sp.init, sp.scale)
+        return {"dense": {k: split(v, cfg.first_k_dense)
+                          for k, v in full.items()},
+                "main": {k: split(v, cfg.n_layers - cfg.first_k_dense)
+                         for k, v in full.items()}}
     return attn_mod.cache_specs(cfg, batch, seq)

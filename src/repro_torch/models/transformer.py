@@ -1,8 +1,10 @@
 """Decoder-only transformer assembly: the dense attention family
-(internlm2 / granite / phi3 / nemotron), the MoE family without MLA
-(qwen3-moe: every block's MLP is a routed mixture of experts), the ssm
-family (rwkv6: time-mix and channel-mix blocks, attention-free) and the
-hybrid family (zamba2: a Mamba2 trunk with a shared attention block every
+(internlm2 / granite / phi3 / nemotron), the MoE family (qwen3-moe: every
+block's MLP is a routed mixture of experts; deepseek-v3: multi-head latent
+attention, ``first_k_dense`` leading dense blocks, then MoE blocks, and a
+depth-1 multi-token-prediction head in the loss), the ssm family (rwkv6:
+time-mix and channel-mix blocks, attention-free) and the hybrid family
+(zamba2: a Mamba2 trunk with a shared attention block every
 ``attn_every`` layers).
 
 Ported from the JAX package's ``models/transformer.py``. Layers are
@@ -19,9 +21,11 @@ super-block) in the backward, as the JAX package's ``jax.checkpoint``
 over the scan body does. The MoE load-balance loss of every block is
 summed through the layer loop and added to the loss in ``lm_loss``; a
 call with caches (decode, and a cached prefill chunk) takes the MoE dense
-form, as in the JAX package. Sharding constraints have no meaning on one
-device and are left out. ``lm_loss`` is the training loss. MLA,
-``first_k_dense``, MTP, the multimodal and the encoder-decoder families
+form, as in the JAX package. A ``first_k_dense`` config runs its stack of
+dense blocks, then its MoE blocks, over the caches {"dense", "main"}.
+Sharding constraints have no meaning on one device and are left out.
+``lm_loss`` is the training loss, plus 0.3 x the MTP head's loss where
+the tree holds one. The multimodal and the encoder-decoder families
 belong to later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -44,14 +48,14 @@ from repro_torch.models.mlp import mlp_apply, mlp_specs
 
 def check_family(cfg) -> None:
     """Raise for the families the port does not run yet."""
-    if (cfg.family in ("vlm", "audio") or cfg.use_mla or cfg.first_k_dense
-            or cfg.n_mtp or cfg.is_encoder_decoder or cfg.frontend_dim):
+    if (cfg.family in ("vlm", "audio") or cfg.is_encoder_decoder
+            or cfg.frontend_dim):
         raise NotImplementedError(
             f"{cfg.arch_id!r} (family {cfg.family!r}) is not ported yet: "
-            "the port runs the dense attention, MoE (without MLA), RWKV "
-            "and hybrid families; MLA with first_k_dense and MTP, the "
-            "multimodal and the encoder-decoder families are later slices "
-            "(ROADMAP.md, Queue 1)")
+            "the port runs the dense attention, MoE (MLA, first_k_dense and "
+            "MTP included), RWKV and hybrid families; the multimodal and "
+            "the encoder-decoder families are later slices (ROADMAP.md, "
+            "Queue 1)")
 
 
 # ============================================================ param specs ==
@@ -99,8 +103,18 @@ def backbone_specs(cfg, max_seq: int):
         sp["blocks"] = stack_layer_specs(inner, n_super)
         sp["shared_block"] = _attn_block_specs(cfg)
     elif cfg.n_experts:
+        n_moe = cfg.n_layers - cfg.first_k_dense
         sp["blocks"] = stack_layer_specs(_attn_block_specs(cfg, moe=True),
-                                         cfg.n_layers)
+                                         n_moe)
+        if cfg.first_k_dense:
+            sp["dense_blocks"] = stack_layer_specs(
+                _attn_block_specs(cfg, moe=False), cfg.first_k_dense)
+        if cfg.n_mtp:
+            sp["mtp"] = {"block": _attn_block_specs(cfg, moe=False),
+                         "proj": ParamSpec((2 * cfg.d_model, cfg.d_model),
+                                           cfg.param_dtype, ("embed", None),
+                                           "scaled"),
+                         "norm": norm_specs(cfg, cfg.d_model)}
     else:
         sp["blocks"] = stack_layer_specs(_attn_block_specs(cfg),
                                          cfg.n_layers)
@@ -116,9 +130,14 @@ def _attn_block_apply(cfg, p, x, *, positions, cache=None, cur_pos=None,
     Returns (x, cache, aux): aux is the block's MoE load-balance loss
     (None for a dense MLP)."""
     h = apply_norm(cfg, p["ln1"], x)
-    a, new_cache = attn.attention_apply(
-        cfg, p["attn"], h, positions=positions, cache=cache,
-        cur_pos=cur_pos, window=window, paging=paging)
+    if cfg.use_mla:
+        a, new_cache = attn.mla_apply(cfg, p["attn"], h, positions=positions,
+                                      cache=cache, cur_pos=cur_pos,
+                                      window=window, paging=paging)
+    else:
+        a, new_cache = attn.attention_apply(
+            cfg, p["attn"], h, positions=positions, cache=cache,
+            cur_pos=cur_pos, window=window, paging=paging)
     x = x + a
     h = apply_norm(cfg, p["ln2"], x)
     aux = None
@@ -208,8 +227,10 @@ def backbone_apply(cfg, params, x, *, positions, caches=None, cur_pos=None,
                    window=0, gather_experts=False, paging=None):
     """Run the stacked blocks. x: (B, S, d) embeddings.
 
-    caches: {"k", "v"} stacked over layers (leading dim), for the ssm
-    family {"wkv", "shift", "shift_c"}, for the hybrid family the tuple
+    caches: {"k", "v"} stacked over layers (leading dim; MLA's
+    {"latent"}), for a ``first_k_dense`` config {"dense": ..., "main":
+    ...} (its dense stack's and its MoE stack's), for the ssm family
+    {"wkv", "shift", "shift_c"}, for the hybrid family the tuple
     (ssm_states, attn_caches), or None; each layer writes its slice in
     place. ``paging`` (a ``PageContext``) switches the KV leaves to the
     paged-pool layout with per-row positions (the continuous scheduler's
@@ -243,11 +264,20 @@ def backbone_apply(cfg, params, x, *, positions, caches=None, cur_pos=None,
             paging=paging)
         return h, aux
     body = _maybe_remat(cfg, body, caches)
+    if cfg.first_k_dense and cfg.n_experts:
+        stacks = [("dense_blocks", cfg.first_k_dense,
+                   None if caches is None else caches["dense"]),
+                  ("blocks", cfg.n_layers - cfg.first_k_dense,
+                   None if caches is None else caches["main"])]
+    else:
+        stacks = [("blocks", cfg.n_layers, caches)]
     aux_total = zero
-    for i, p_l in enumerate(_layers(params["blocks"], cfg.n_layers)):
-        x, aux = body(x, p_l, None if caches is None else _layer(caches, i))
-        if aux is not None:
-            aux_total = aux_total + aux
+    for key, n, stack_caches in stacks:
+        for i, p_l in enumerate(_layers(params[key], n)):
+            x, aux = body(x, p_l, None if stack_caches is None
+                          else _layer(stack_caches, i))
+            if aux is not None:
+                aux_total = aux_total + aux
     return x, caches, aux_total
 
 
@@ -321,7 +351,29 @@ def lm_loss(cfg, params, inputs, *, window=0, label_mask=None):
                        device=labels.device) if label_mask is None
             else label_mask[:, 1:].float())
     loss = torch.sum(ce * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    if cfg.n_mtp and "mtp" in params:
+        loss = loss + 0.3 * _mtp_loss(cfg, params, inputs, window=window)
     return loss + aux, {"aux": aux}
+
+
+def _mtp_loss(cfg, params, inputs, *, window=0):
+    """DeepSeek-style multi-token-prediction head (depth 1), as the JAX
+    package simplifies it: one extra block predicts token t + 2 from
+    [emb(tok_t) ; emb(tok_{t+1})] (the combiner takes embeddings, not final
+    hidden states), then the MTP norm and the shared LM head."""
+    tokens, labels = inputs["tokens"], inputs["labels"]
+    x = embed_lookup(params["embed"], tokens, iota=cfg.iota_embed)
+    e_next = torch.cat([x[:, 1:], x[:, -1:]], dim=1)
+    comb = torch.cat([x, e_next], dim=-1)
+    h = comb @ params["mtp"]["proj"]
+    h, _, _ = _attn_block_apply(cfg, params["mtp"]["block"], h,
+                                positions=torch.arange(h.shape[1],
+                                                       device=h.device),
+                                window=window)
+    h = apply_norm(cfg, params["mtp"]["norm"], h)
+    lg = unembed(params["lm_head"], h)
+    ce = softmax_xent(lg[:, :-2], labels[:, 2:], cfg.padded_vocab)
+    return torch.mean(ce)
 
 
 def softmax_xent(logits, labels, vocab):

@@ -327,6 +327,37 @@ def test_session_saved_by_the_port_restores_in_reference(tmp_path, layout):
     assert ours == theirs
 
 
+@pytest.mark.parametrize("layout", ["engine", "global"])
+def test_deepseek_session_crosses_both_ways(tmp_path, layout):
+    """DeepSeek-V3's sessions (reduced, MLA at q/k head dim 48 and v 32):
+    the engine layout's server holds dense_blocks and blocks and no MTP
+    head, the global tree holds the MTP head too; a session saved by
+    ``repro`` restores in the port and the port's save restores in
+    ``repro``, bit for bit."""
+    kw = dict(qk_nope_dim=32, qk_rope_dim=16, v_head_dim=32)
+    jcfg = j_reduced(j_get_config("deepseek-v3-671b"), **kw)
+    cfg = reduced(get_config("deepseek-v3-671b"), **kw)
+    jfed = JFederation.build(jcfg, JVFLConfig(),
+                             JEngineConfig(method="cascaded"), n_clients=2,
+                             seq_len=SEQ)
+    if layout == "engine":
+        jparams = jfed.init_params(jax.random.key(0))
+        assert "mtp" not in jparams["server"]
+        assert {"dense_blocks", "blocks"} <= set(jparams["server"])
+    else:
+        jparams = j_common.materialize(
+            j_build_model(jcfg, max_seq=SEQ).param_specs, jax.random.key(1))
+        assert {"mtp", "dense_blocks", "blocks"} <= set(jparams)
+    path = jfed.save(str(tmp_path / "jck"), jparams, step=2)
+    fed, params, state = Federation.restore(path, device="cpu")
+    assert fed.model_cfg == cfg and state.step == 2
+    _equal_trees(params, jparams)
+    back = fed.save(str(tmp_path / "ck"), params, step=2)
+    jfed2, jparams2, jstate = JFederation.restore(back)
+    assert jfed2.model_cfg == jcfg and jstate.step == 2
+    _equal_trees(jparams2, params)
+
+
 # ---------------------------------------------- mid-training resume -------
 
 def test_train_resume_equivalence(tmp_path):

@@ -337,12 +337,20 @@ def test_gather_experts_decode_matches_dense(model):
 
 
 def test_check_family_admits_moe_without_mla():
+    """The MoE family without MLA, and (since DeepSeek-V3's slice) with
+    MLA, ``first_k_dense`` and MTP; the multimodal and encoder-decoder
+    families still raise, naming ROADMAP."""
     transformer.check_family(reduced(get_config(ARCH)))
-    for arch in ("deepseek-v3-671b", "whisper-medium", "internvl2-26b"):
+    transformer.check_family(reduced(get_config("deepseek-v3-671b")))
+    for arch in ("whisper-medium", "internvl2-26b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             transformer.check_family(reduced(get_config(arch)))
     cfg = reduced(get_config(ARCH))
-    for bad in (dict(first_k_dense=1), dict(n_mtp=1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            transformer.check_family(dataclasses.replace(cfg, **bad))
     assert len(tree_leaves(build_model(cfg).param_specs)) > 0
+    # a leading dense layer and the MTP head on the Qwen3 blocks build
+    specs = build_model(dataclasses.replace(cfg, first_k_dense=1)).param_specs
+    assert "mlp" in specs["dense_blocks"] and "moe" in specs["blocks"]
+    assert specs["blocks"]["moe"]["w_up"].shape[0] == cfg.n_layers - 1
+    specs = build_model(dataclasses.replace(cfg, n_mtp=1)).param_specs
+    assert sorted(specs["mtp"]) == ["block", "norm", "proj"]
+    assert "dense_blocks" not in specs

@@ -42,7 +42,10 @@ from test_torch_support import to_numpy, to_torch
 F32 = dict(param_dtype="float32", dtype="float32")
 ARCHS = {"phi3-mini-3.8b": dict(d_model=64, n_heads=2, n_kv_heads=1,
                                 d_ff=128, vocab_size=256),
-         "zamba2-2.7b": dict(n_layers=4)}
+         "zamba2-2.7b": dict(n_layers=4),
+         # MLA's latent pool in both stacks (q/k head dim 48, v 32)
+         "deepseek-v3-671b": dict(qk_nope_dim=32, qk_rope_dim=16,
+                                  v_head_dim=32)}
 SEQ = 16
 
 

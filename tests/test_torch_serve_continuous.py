@@ -61,6 +61,10 @@ FAMILIES = {
     # repro's "ssm" cases: reduced rwkv6, its states slot-stacked
     "ssm": ("rwkv6-7b", {}),
     "moe": ("qwen3-moe-30b-a3b", {}),
+    # DeepSeek-V3's MLA (q/k head dim 48, v 32): the latent page pool of
+    # the {"dense", "main"} stacks
+    "mla": ("deepseek-v3-671b", dict(qk_nope_dim=32, qk_rope_dim=16,
+                                     v_head_dim=32)),
 }
 LOGITS_ATOL = 1e-4
 _SESSIONS = {}
@@ -307,6 +311,12 @@ def test_preemption_matches_repro_scheduler_ssm():
     test_preemption_matches_repro_scheduler("ssm")
 
 
+def test_preemption_matches_repro_scheduler_mla():
+    """The same for MLA: a victim's latent pages are freed, re-prefilled
+    and replayed into new pages of both stacks' pools."""
+    test_preemption_matches_repro_scheduler("mla")
+
+
 # ------------------------------------------------------ failure policy ----
 
 def test_preempted_requests_resume_with_unpreempted_tokens(family="dense"):
@@ -543,6 +553,12 @@ def test_serve_kill_mid_drain_resumes_ssm(tmp_path):
     test_serve_kill_mid_drain_resumes(tmp_path, "ssm")
 
 
+def test_serve_kill_mid_drain_resumes_mla(tmp_path):
+    """The same with MLA's {"dense", "main"} latent pools in the
+    snapshot."""
+    test_serve_kill_mid_drain_resumes(tmp_path, "mla")
+
+
 def test_repro_serve_snapshot_is_refused(tmp_path):
     """A SAMPLING serve snapshot written by repro draws from threefry key
     data, which the port cannot draw from: its restore says so (a greedy
@@ -558,12 +574,13 @@ def test_repro_serve_snapshot_is_refused(tmp_path):
 
 
 @pytest.mark.parametrize("writer", ["repro", "port"])
-def test_greedy_serve_snapshot_crosses_both_ways(tmp_path, writer):
+def test_greedy_serve_snapshot_crosses_both_ways(tmp_path, writer,
+                                                 family="dense"):
     """A greedy snapshot draws nothing, so it crosses: one package drains
     part of the traffic, saves the session with its serve plane, and the
     OTHER package restores it and finishes the drain. Tokens, statuses
     and ordered ledgers equal the writer's own uninterrupted drain."""
-    jfed, jparams, fed, params, cfg = _build("dense", 12)
+    jfed, jparams, fed, params, cfg = _build(family, 12)
     specs = [(4, 8), (3, 5), (6, 6), (2, 3)]
     prompts = _prompts(cfg, specs, 71)
 
@@ -596,6 +613,13 @@ def test_greedy_serve_snapshot_crosses_both_ways(tmp_path, writer):
         assert got.status == want.status
         assert ledger_tuples(got.ledger) == ledger_tuples(want.ledger)
     assert srv2.allocator.in_use == 0
+
+
+@pytest.mark.parametrize("writer", ["repro", "port"])
+def test_greedy_serve_snapshot_crosses_both_ways_mla(tmp_path, writer):
+    """The same with MLA's latent pools: the {"dense", "main"} tree crosses
+    by the JAX package's leaf keys."""
+    test_greedy_serve_snapshot_crosses_both_ways(tmp_path, writer, "mla")
 
 
 # ------------------------------------------------------------ the driver --

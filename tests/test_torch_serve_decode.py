@@ -49,7 +49,12 @@ ARCHS = {"phi3-mini-3.8b": dict(param_dtype="float32", dtype="float32"),
          "zamba2-2.7b": dict(param_dtype="float32", dtype="float32",
                              n_layers=4),
          "rwkv6-7b": dict(param_dtype="float32", dtype="float32"),
-         "qwen3-moe-30b-a3b": dict(param_dtype="float32", dtype="float32")}
+         "qwen3-moe-30b-a3b": dict(param_dtype="float32", dtype="float32"),
+         # MLA at a q/k head dim (32 + 16) unlike its v head dim (32); one
+         # dense layer, one MoE layer, the {"dense", "main"} latent cache
+         "deepseek-v3-671b": dict(param_dtype="float32", dtype="float32",
+                                  qk_nope_dim=32, qk_rope_dim=16,
+                                  v_head_dim=32)}
 B, PL, GL = 2, 8, 6
 LOGITS_ATOL = 1e-4
 
@@ -160,8 +165,9 @@ def test_split_equals_global_and_loop_equals_chunked(case):
     engine = fed.params_from_global(tp)
     assert engine["clients"]["embed"]["table"].shape[0] == 2
     # the server holds everything but the embedding (the hybrid family's
-    # shared attention block included)
-    assert set(engine["server"]) == set(tp) - {"embed"}
+    # shared attention block included) and DeepSeek-V3's MTP head, which
+    # only the global training loss reads
+    assert set(engine["server"]) == set(tp) - {"embed", "mtp"}
     np.testing.assert_array_equal(
         fed.decode(engine, toks, gen_len=GL).tokens, chunked.tokens)
 
@@ -205,10 +211,10 @@ def test_decode_rejects_what_it_cannot_serve(case):
         fed.decode(case["tp"], case["toks"], gen_len=GL + 1)
     srv = fed.serve(case["tp"])          # continuous batching serves now
     assert isinstance(srv, ServeScheduler) and srv.device == fed.device
-    mla = Federation.build(reduced(get_config("deepseek-v3-671b")),
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mla.decode({}, case["toks"], gen_len=1)
+    for arch in ("whisper-medium", "internvl2-26b"):
+        later = Federation.build(reduced(get_config(arch)), device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            later.decode({}, case["toks"], gen_len=1)
 
 
 # ------------------------------------------------------------ the driver --

@@ -301,6 +301,8 @@ def test_cuda_kernels_match_plain_versions():
     window 64, non-causal with Sq != Skv, q_offset 0 and 576 over a
     1152-slot cache, ragged Sq, GQA, and the bf16 kernel's tile edges (Sq
     and Skv off its 128-row and 128-key tiles, three d panels at 112);
+    MLA's (d_qk, d_v) = (192, 128), causal at q_offset 0 and 448 and a
+    ragged Sq;
     RMSNorm at M = 8, 4608, 50 and 1, the serve widths and d_model up to
     7168 on the vector kernel, ragged d, d above 8192 and a misaligned x on
     the general one (each case held to its route); a misaligned bf16
@@ -311,21 +313,25 @@ def test_cuda_kernels_match_plain_versions():
     flash_ops.reset_launches()
     rms_ops.reset_launches()
     tols = {"float32": (1e-4, 0.0), "bfloat16": (2e-2, 2e-2)}
-    cases = [(1, 128, 128, 2, 2, 64, True, 0, 0),
-             (1, 576, 1152, 2, 2, 96, True, 0, 576),
-             (1, 448, 1152, 4, 2, 96, True, 0, 576),
-             (1, 50, 50, 2, 2, 128, True, 64, 0),
-             (2, 128, 256, 2, 2, 64, False, 0, 0),
-             (1, 576, 1152, 2, 2, 80, True, 0, 0),
-             (1, 448, 1152, 2, 2, 80, True, 0, 576),
-             (1, 37, 1152, 2, 1, 80, True, 0, 576),
-             (1, 300, 300, 2, 2, 96, True, 0, 0),
-             (1, 200, 333, 4, 1, 112, False, 0, 0)]
+    # (B, Sq, Skv, Hq, Hkv, d, d_v, causal, window, q_offset)
+    cases = [(1, 128, 128, 2, 2, 64, 64, True, 0, 0),
+             (1, 576, 1152, 2, 2, 96, 96, True, 0, 576),
+             (1, 448, 1152, 4, 2, 96, 96, True, 0, 576),
+             (1, 50, 50, 2, 2, 128, 128, True, 64, 0),
+             (2, 128, 256, 2, 2, 64, 64, False, 0, 0),
+             (1, 576, 1152, 2, 2, 80, 80, True, 0, 0),
+             (1, 448, 1152, 2, 2, 80, 80, True, 0, 576),
+             (1, 37, 1152, 2, 1, 80, 80, True, 0, 576),
+             (1, 300, 300, 2, 2, 96, 96, True, 0, 0),
+             (1, 200, 333, 4, 1, 112, 112, False, 0, 0),
+             (1, 576, 1152, 2, 2, 192, 128, True, 0, 0),
+             (1, 576, 1024, 2, 2, 192, 128, True, 0, 448),
+             (1, 37, 1152, 2, 2, 192, 128, True, 0, 576)]
     n = 0
     for dtype, (atol, rtol) in tols.items():
-        for B, Sq, Skv, Hq, Hkv, d, causal, window, off in cases:
+        for B, Sq, Skv, Hq, Hkv, d, dv, causal, window, off in cases:
             (q, k, v), _ = _arrays(Sq + d, [(B, Sq, Hq, d), (B, Skv, Hkv, d),
-                                            (B, Skv, Hkv, d)], dtype)
+                                            (B, Skv, Hkv, dv)], dtype)
             q, k, v = q.cuda(), k.cuda(), v.cuda()
             got = flash_ops.flash_attention_bshd(
                 q, k, v, causal=causal, window=window, q_offset=off)

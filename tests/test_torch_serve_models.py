@@ -318,9 +318,12 @@ def test_unported_branches_raise(phi3):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         attention.attention_apply(cfg, tpa, x, positions=torch.zeros(1),
                                   kv_override=x)
-    for arch in ("deepseek-v3-671b", "whisper-medium", "internvl2-26b"):
+    for arch in ("whisper-medium", "internvl2-26b"):
         with pytest.raises(NotImplementedError):
             build_model(reduced(get_config(arch)))
+    # DeepSeek-V3 (MLA, first_k_dense, MTP) is ported
+    assert "mtp" in build_model(
+        reduced(get_config("deepseek-v3-671b"))).param_specs
 
 
 # ---------------------------------------------------------------- forward --

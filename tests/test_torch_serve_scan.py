@@ -47,7 +47,11 @@ ARCHS = {"phi3-mini-3.8b": dict(param_dtype="float32", dtype="float32"),
          "zamba2-2.7b": dict(param_dtype="float32", dtype="float32",
                              n_layers=4),
          "rwkv6-7b": dict(param_dtype="float32", dtype="float32"),
-         "qwen3-moe-30b-a3b": dict(param_dtype="float32", dtype="float32")}
+         "qwen3-moe-30b-a3b": dict(param_dtype="float32", dtype="float32"),
+         # MLA (q/k head dim 48, v 32), one dense and one MoE layer
+         "deepseek-v3-671b": dict(param_dtype="float32", dtype="float32",
+                                  qk_nope_dim=32, qk_rope_dim=16,
+                                  v_head_dim=32)}
 # 2 client parties over 16 positions: the party boundary at 8 falls
 # inside the generation
 SEQ, PL, GL = 16, 6, 10

@@ -54,12 +54,16 @@ PHI3 = "phi3-mini-3.8b"
 ZAMBA2 = "zamba2-2.7b"
 RWKV = "rwkv6-7b"
 QWEN3 = "qwen3-moe-30b-a3b"
+DEEPSEEK = "deepseek-v3-671b"
 
 
 def _cfgs(arch):
     kw = dict(param_dtype="float32")
     if arch == ZAMBA2:
         kw["n_layers"] = 4
+    if arch == DEEPSEEK:
+        # MLA at a q/k head dim (32 + 16) unlike its v head dim (32)
+        kw.update(qk_nope_dim=32, qk_rope_dim=16, v_head_dim=32)
     return (j_reduced(j_get_config(arch), **kw),
             reduced(get_config(arch), **kw))
 
@@ -143,11 +147,12 @@ def test_softmax_xent_matches_reference():
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", [PHI3, ZAMBA2, RWKV, QWEN3])
+@pytest.mark.parametrize("arch", [PHI3, ZAMBA2, RWKV, QWEN3, DEEPSEEK])
 def test_lm_loss_gradient_matches_reference(arch):
     """The server's FOO gradient (Eq. 4): autograd of the port's lm_loss
     (remat on) against jax.grad of the reference's, every leaf; for
-    qwen3-moe through the capacity dispatch with its aux loss."""
+    qwen3-moe through the capacity dispatch with its aux loss; for
+    deepseek-v3 through MLA, the dense and MoE stacks and the MTP head."""
     jcfg, cfg, jmodel, model, jparams, jbatch, batch = _setup(arch)
     want = jax.grad(lambda p: j_transformer.lm_loss(jcfg, p, jbatch)[0])(
         jparams)
@@ -253,12 +258,13 @@ def test_cascaded_step_hybrid_matches_reference():
     _assert_step(_run_step("cascaded", arch=ZAMBA2), ("client",))
 
 
-@pytest.mark.parametrize("arch", [RWKV, QWEN3])
+@pytest.mark.parametrize("arch", [RWKV, QWEN3, DEEPSEEK])
 def test_cascaded_step_rwkv_and_moe_match_reference(arch):
     """One cascaded step of the ssm family (reduced rwkv6: the server
     gradient through the chunked wkv6 form) and of the MoE family
     (reduced qwen3-moe: through the capacity dispatch, the aux loss in
-    the server's loss)."""
+    the server's loss; reduced deepseek-v3: MLA, a dense then an MoE
+    layer, the MTP head in the global loss)."""
     _assert_step(_run_step("cascaded", arch=arch), ("client",))
 
 
