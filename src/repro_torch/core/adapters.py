@@ -281,8 +281,16 @@ def from_model_config(cfg: ModelConfig, *, n_clients: int = 2,
     The serve hooks are the exact post-embedding half of
     ``transformer.forward``'s decode path, so split decode equals global
     decode.
+
+    Encoder-decoder and VLM configs need a modality frontend on the wire
+    and are refused with the JAX package's ``ValueError``.
     """
-    transformer.check_family(cfg)
+    if cfg.is_encoder_decoder or cfg.family == "vlm":
+        raise ValueError(
+            f"from_model_config supports decoder-only families; "
+            f"{cfg.arch_id!r} (family={cfg.family!r}, "
+            f"encoder_decoder={cfg.is_encoder_decoder}) needs a modality "
+            "frontend that never crosses the VFL wire")
     if n_clients < 1 or seq_len % n_clients:
         raise ValueError(
             f"seq_len={seq_len} must split evenly over "

@@ -6,7 +6,11 @@ client parties embed their token spans, the server owns backbone + head +
 caches, and every step's wire traffic (one embedding up, token ids down)
 lands in the Transport's ledger. ``n_clients=0`` is the global path (one
 party, prefill token by token through the decode step), the oracle the
-split path equals on replicated client tables.
+split path equals on replicated client tables, and the fallback for the
+families that cannot cross the VFL wire (encoder-decoder and VLM need a
+modality frontend on it): with ``n_clients >= 1`` they serve global and
+the result carries a ``fallback`` note. Whisper's encoder runs once,
+on zero frames, before the prefill; the VLM serves text only.
 
 ``--continuous`` serves ``--batch`` independent requests through the
 continuous-batching scheduler (``fed.serve``) over ``--max-batch`` slots
@@ -16,9 +20,8 @@ instead of one fused batch, with the failure policy exposed:
 preemption under memory pressure, and ``--deadline`` gives every request
 that many scheduler steps to retire.
 
-Ported from the JAX package's ``launch/serve.py`` for the dense
-attention, MoE (qwen3-moe; deepseek-v3 with its latent cache), ssm
-(rwkv6) and hybrid (Mamba2 + shared attention) families. ``--reduced`` /
+Ported from the JAX package's ``launch/serve.py`` for every family of
+the registry. ``--reduced`` /
 ``--no-reduced`` picks the smoke-size variant or the full published width
 (the JAX package's flag cannot turn reduction off); ``--layers N`` cuts
 the depth to N layers at either width, as ``launch/train.py``'s does
@@ -36,6 +39,12 @@ the depth to N layers at either width, as ``launch/train.py``'s does
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch deepseek-v3-671b --batch 8 --prompt-len 1024 --gen-len 128 \
         --no-reduced --layers 5
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \
+        --batch 8 --prompt-len 224 --gen-len 224 --no-reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-26b \
+        --batch 8 --prompt-len 256 --gen-len 128 --no-reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \
+        --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch deepseek-v3-671b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --continuous \
@@ -57,7 +66,7 @@ import torch
 from repro_torch.configs import cut_depth, get_config, list_archs, reduced
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.federation import serving
-from repro_torch.models import common
+from repro_torch.models import common, encdec
 from repro_torch.models.model_api import build_cache_specs, build_model
 from repro_torch.tree import tree_map
 
@@ -86,6 +95,10 @@ def _check_logits(logits) -> float:
     return float(logits.float().abs().max())
 
 
+def _splittable(cfg) -> bool:
+    return not (cfg.is_encoder_decoder or cfg.family == "vlm")
+
+
 def serve(arch: str, *, batch: int = 4, prompt_len: int = 16,
           gen_len: int = 16, use_reduced: bool = True, seed: int = 0,
           temperature: float = 0.0, n_clients: int = 0,
@@ -93,9 +106,11 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 16,
           max_queue: Optional[int] = None, preempt: bool = False,
           n_pages: Optional[int] = None, deadline: Optional[int] = None,
           n_layers: int = 0, device: DeviceLike = None) -> dict:
-    """``n_clients >= 1`` routes through the session's split serve plane;
-    ``n_clients=0`` is the global decode, equal to the split path on
-    replicated client tables. ``continuous=True`` serves ``batch``
+    """``n_clients >= 1`` routes through the session's split serve plane
+    (falling back to the global path, with a ``fallback`` note, for the
+    families that cannot split); ``n_clients=0`` is the global decode,
+    equal to the split path on replicated client tables.
+    ``continuous=True`` serves ``batch``
     independent requests through the continuous-batching scheduler
     (``fed.serve``) over ``max_batch`` slots, with ``max_queue``,
     ``preempt``, ``n_pages`` and ``deadline`` as the scheduler takes them.
@@ -108,25 +123,30 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 16,
         cfg = reduced(cfg, remat=False)
     cfg = cut_depth(cfg, n_layers)
     device = resolve_device(device)
-    if continuous:
-        if not n_clients:
-            raise ValueError("continuous batching serves the split plane: "
-                             "pass n_clients >= 1")
-        return _serve_continuous(arch, cfg, batch=batch,
-                                 prompt_len=prompt_len, gen_len=gen_len,
-                                 seed=seed, temperature=temperature,
-                                 n_clients=n_clients, max_batch=max_batch,
-                                 max_queue=max_queue, preempt=preempt,
-                                 n_pages=n_pages, deadline=deadline,
-                                 device=device)
-    if n_clients:
+    if continuous and not n_clients:
+        raise ValueError("continuous batching serves the split plane: "
+                         "pass n_clients >= 1")
+    if n_clients and _splittable(cfg):
+        if continuous:
+            return _serve_continuous(arch, cfg, batch=batch,
+                                     prompt_len=prompt_len, gen_len=gen_len,
+                                     seed=seed, temperature=temperature,
+                                     n_clients=n_clients,
+                                     max_batch=max_batch,
+                                     max_queue=max_queue, preempt=preempt,
+                                     n_pages=n_pages, deadline=deadline,
+                                     device=device)
         return _serve_federated(arch, cfg, batch=batch,
                                 prompt_len=prompt_len, gen_len=gen_len,
                                 seed=seed, temperature=temperature,
                                 n_clients=n_clients, device=device)
-    return _serve_global(arch, cfg, batch=batch, prompt_len=prompt_len,
-                         gen_len=gen_len, seed=seed,
-                         temperature=temperature, device=device)
+    res = _serve_global(arch, cfg, batch=batch, prompt_len=prompt_len,
+                        gen_len=gen_len, seed=seed, temperature=temperature,
+                        device=device)
+    if n_clients:
+        res["fallback"] = (f"{cfg.family}/encdec family needs a modality "
+                           "frontend on the wire; served global")
+    return res
 
 
 # ------------------------------------------------- split (session) path ---
@@ -238,6 +258,7 @@ def _serve_continuous(arch: str, cfg, *, batch: int, prompt_len: int,
 
 # ------------------------------------------------------------ global path ---
 
+@torch.no_grad()
 def _serve_global(arch: str, cfg, *, batch: int, prompt_len: int,
                   gen_len: int, seed: int, temperature: float,
                   device: torch.device) -> dict:
@@ -250,12 +271,23 @@ def _serve_global(arch: str, cfg, *, batch: int, prompt_len: int,
     caches = _zero_caches(cfg, batch, max_seq, device)
     draws = serving.TorchGumbel(seed, device) if temperature > 0 else None
 
+    # the encoder runs once, on the stub frontend's zero frames, and every
+    # decode step attends over its output
+    extra, timed = {}, {}
+    if cfg.is_encoder_decoder:
+        t0 = time.perf_counter()
+        frames = torch.zeros((batch, cfg.encoder_seq, cfg.frontend_dim),
+                             dtype=torch.bfloat16, device=device)
+        extra["enc_out"] = encdec.encode(cfg, params, frames)
+        _sync(device)
+        timed["encode_s"] = time.perf_counter() - t0
+
     # prefill: feed prompt tokens through the decode path one at a time
     t0 = time.perf_counter()
     logits = None
     for t in range(prompt_len):
-        logits, caches = model.decode_fn(params, {"tokens": toks[:, t:t + 1]},
-                                         caches, t)
+        logits, caches = model.decode_fn(
+            params, {"tokens": toks[:, t:t + 1], **extra}, caches, t)
     _sync(device)
     t_prefill = time.perf_counter() - t0
 
@@ -265,8 +297,8 @@ def _serve_global(arch: str, cfg, *, batch: int, prompt_len: int,
         nxt = serving.sample_token(logits, t, temperature, cfg.vocab_size,
                                    draws)
         out[:, i] = nxt
-        logits, caches = model.decode_fn(params, {"tokens": nxt[:, None]},
-                                         caches, t)
+        logits, caches = model.decode_fn(
+            params, {"tokens": nxt[:, None], **extra}, caches, t)
     gen = out.cpu().numpy()
     _sync(device)
     t_decode = time.perf_counter() - t0
@@ -275,7 +307,7 @@ def _serve_global(arch: str, cfg, *, batch: int, prompt_len: int,
         "arch": arch, "batch": batch, "mode": "global",
         "prompt_len": prompt_len, "gen_len": gen_len,
         "device": str(device),
-        "prefill_s": t_prefill, "decode_s": t_decode,
+        "prefill_s": t_prefill, "decode_s": t_decode, **timed,
         "decode_tok_per_s": batch * gen_len / max(t_decode, 1e-9),
         "final_logits_absmax": absmax,
         "sample_output": gen[0, :8].tolist(),

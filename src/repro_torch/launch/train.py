@@ -1,12 +1,17 @@
 """End-to-end cascaded VFL training driver, on the card.
 
-Trains a decoder-only architecture (the dense, MoE — DeepSeek-V3's MLA,
-dense leading layers and MTP head included — ssm and hybrid families)
-with the paper's cascaded hybrid optimization (ZOO client / FOO
+Trains any architecture of the registry (the dense, multimodal, MoE —
+DeepSeek-V3's MLA, dense leading layers and MTP head included — ssm,
+hybrid and encoder-decoder families) with the paper's cascaded hybrid
+optimization (ZOO client / FOO
 server) — or any baseline method — on synthetic LM data. ``--reduced``
 (the default) runs the smoke-size config; ``--full`` the published
 width; ``--layers N`` cuts the depth to N layers at either width (a
-``first_k_dense`` config keeps at most N dense layers first).
+``first_k_dense`` config keeps at most N dense layers first). As in the
+JAX driver, every batch of a VLM carries zero ``patch_embeds`` and every
+batch of an encoder-decoder zero ``frames`` (the stub frontends' inputs;
+bf16, on the run's device), and the client partition holds the modality
+projector ``proj`` beside the embedding.
 
 Training is constructed through the ``repro_torch.federation`` session
 API: ``Federation.build(cfg, vfl, engine_cfg)`` resolves the model plane,
@@ -52,6 +57,10 @@ slice and raises.
         --arch rwkv6-7b --layers 8 --steps 10
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --arch deepseek-v3-671b --steps 8 --batch 4 --seq 32
+    PYTHONPATH=src python -m repro_torch.launch.train --full \
+        --arch whisper-medium --steps 10
+    PYTHONPATH=src python -m repro_torch.launch.train --full \
+        --arch internvl2-26b --layers 8 --steps 10
     PYTHONPATH=src python -m repro_torch.launch.train --resume ck/ \\
         --steps 200 --checkpoint ck2/
     PYTHONPATH=src python -m repro_torch.launch.train --engine population \\
@@ -172,8 +181,10 @@ def train(arch: Union[str, ModelConfig] = "", *, steps: int = 100,
         lm_token_batches(seed + 1, cfg.vocab_size, batch, seq),
         start, steps), dev)
 
+    modality = modality_inputs(cfg, batch, dev)
     losses, t0 = [], time.time()
     for i, b in enumerate(data, start=start):
+        b.update(modality)
         params, opt_state, out = step_fn(params, opt_state, b, i, draws)
         losses.append(float(out.loss))
         if i % log_every == 0:
@@ -215,6 +226,22 @@ def train(arch: Union[str, ModelConfig] = "", *, steps: int = 100,
                            "schedule_total_steps": sched_total})
         result["checkpoint"] = checkpoint_path
     return result
+
+
+def modality_inputs(cfg, batch: int, device) -> dict:
+    """The stub frontends' inputs of a training batch, as the JAX driver
+    feeds them: zero ``patch_embeds`` (B, n_vision_tokens, frontend_dim)
+    for a VLM, zero ``frames`` (B, encoder_seq, frontend_dim) for an
+    encoder-decoder, in bf16; nothing for the other families."""
+    if cfg.family == "vlm":
+        shape = (batch, cfg.n_vision_tokens, cfg.frontend_dim)
+        return {"patch_embeds": torch.zeros(shape, dtype=torch.bfloat16,
+                                            device=device)}
+    if cfg.is_encoder_decoder:
+        shape = (batch, cfg.encoder_seq, cfg.frontend_dim)
+        return {"frames": torch.zeros(shape, dtype=torch.bfloat16,
+                                      device=device)}
+    return {}
 
 
 def _normalized_lr_client(fed: Federation, lr: float) -> float:

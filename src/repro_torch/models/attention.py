@@ -11,9 +11,11 @@ Ported from the JAX package's ``models/attention.py``:
 * :func:`paged_update_gather` — the paged pool's in-place row write and
   the gather of each slot's whole masked extent;
 * :func:`attention_apply` — the sub-layer, with its no-cache, decode
-  (S = 1), chunked-prefill (S > 1 with a cache) and paged-decode
-  (``paging=``) branches. On a CUDA tensor the no-cache and
-  chunked-prefill branches run the hand-written flash-attention kernel
+  (S = 1), chunked-prefill (S > 1 with a cache), paged-decode
+  (``paging=``) and cross-attention (``kv_override=``: K and V projected
+  from an encoder's output, no RoPE, no cache, never causal) branches. On
+  a CUDA tensor the no-cache, chunked-prefill and cross branches run the
+  hand-written flash-attention kernel
   (``repro_torch.kernels.flash_attention``); on the CPU they run
   :func:`mha_chunked`;
 * :func:`mla_apply` — DeepSeek-V3's multi-head latent attention, with the
@@ -28,9 +30,8 @@ Ported from the JAX package's ``models/attention.py``:
 
 The KV cache, the latent cache and the page pool are updated in place (the
 JAX package returns new ones through ``dynamic_update_slice`` and
-``.at[].set`` with donation). Cross-attention (``kv_override``, the
-encoder-decoder family) belongs to a later slice (``ROADMAP.md``) and
-raises ``NotImplementedError``.
+``.at[].set`` with donation). A cross call recomputes K and V from its
+source at every decode step, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -43,12 +44,6 @@ from repro_torch.models.common import ParamSpec
 from repro_torch.models.layers import apply_rope, rms_norm_simple
 
 NEG_INF = -1e30
-
-
-def _later_slice(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, Queue 1: the model-family "
-        "slices)")
 
 
 # ------------------------------------------------------------ param specs --
@@ -267,24 +262,32 @@ def attention_apply(cfg, p, x, *, positions, cache=None, cur_pos=None,
     scheduler's batched decode step) the cache leaves are shared page
     pools (n_pages, page_size, Hkv, hd) instead, ``cur_pos`` is a per-row
     (B,) tensor, and the new k/v row goes through the slot's block table.
+
+    kv_override: (B, Se, d) source of K and V for cross-attention (the
+    whisper decoder attending over the encoder's output): no RoPE, no
+    cache and no paging, never causal (``window`` keeps its meaning:
+    keys at or before query position - window are masked).
     """
-    if kv_override is not None:
-        raise _later_slice("cross-attention (kv_override)")
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     dt = x.dtype
+    cross = kv_override is not None
+    src = kv_override if cross else x
+    Se = src.shape[1]
 
     q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, hd)
-    k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    k = (src @ p["wk"]).reshape(B, Se, cfg.n_kv_heads, hd)
+    v = (src @ p["wv"]).reshape(B, Se, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = rms_norm_simple(q, p["q_norm"])
         k = rms_norm_simple(k, p["k_norm"])
-    if cfg.pos == "rope":
+    if cfg.pos == "rope" and not cross:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
-    if paging is not None:
+    if cross:
+        o = _attend(cfg, q, k, v, causal=False, window=window)
+    elif paging is not None:
         # paged decode: one token per slot. Write the new k/v row into the
         # shared pool through the slot's block table, gather the slot's
         # full seq_len extent back, and attend with the per-row position

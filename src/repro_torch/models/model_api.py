@@ -1,5 +1,5 @@
-"""Unified model API of the port: a decoder-only ``ModelConfig`` becomes a
-``Model`` with
+"""Unified model API of the port: every registered ``ModelConfig`` becomes
+a ``Model`` with
 
 * ``param_specs``            — ParamSpec tree (``common.materialize`` makes
                                tensors of it)
@@ -14,11 +14,13 @@
 * ``input_specs(shape)``     — ParamSpec stand-ins for the data inputs of
                                a ``ShapeConfig``
 * ``client_keys``            — top-level param keys forming the ZOO client
-                               partition (the embedding)
+                               partition (the embedding, and the modality
+                               projector where the config has a frontend)
 
-Ported from the JAX package's ``models/model_api.py`` for the families
-``transformer.check_family`` admits; the encoder-decoder and multimodal
-families belong to a later slice.
+Ported from the JAX package's ``models/model_api.py``: the decoder
+families go through ``models/transformer.py`` (the multimodal one with
+its vision prefix), the encoder-decoder family through
+``models/encdec.py``.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from typing import Any, Callable, Dict, Tuple
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import encdec
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer
@@ -58,19 +61,34 @@ def build_model(cfg: ModelConfig, *, max_seq: int = 8192,
     """window > 0 selects the sliding-window attention variant;
     ``gather_experts`` lets a small decode batch read only its routed
     experts' weights (``moe.moe_apply_gather``)."""
-    specs = transformer.backbone_specs(cfg, max_seq)
+    if cfg.is_encoder_decoder:
+        specs = encdec.encdec_specs(cfg, max_seq)
 
-    def loss_fn(params, batch):
-        return transformer.lm_loss(cfg, params, batch, window=window)
+        def loss_fn(params, batch):
+            return encdec.seq2seq_loss(cfg, params, batch, window=window)
 
-    def forward_fn(params, inputs):
-        return transformer.forward(cfg, params, inputs, window=window)[0]
+        def forward_fn(params, inputs):
+            return encdec.forward(cfg, params, inputs, window=window)[0]
 
-    def decode_fn(params, inputs, caches, cur_pos):
-        logits, new_caches, _ = transformer.forward(
-            cfg, params, inputs, caches=caches, cur_pos=cur_pos,
-            window=window, gather_experts=gather_experts)
-        return logits, new_caches
+        def decode_fn(params, inputs, caches, cur_pos):
+            logits, new_caches, _ = encdec.forward(
+                cfg, params, inputs, caches=caches, cur_pos=cur_pos,
+                window=window)
+            return logits, new_caches
+    else:
+        specs = transformer.backbone_specs(cfg, max_seq)
+
+        def loss_fn(params, batch):
+            return transformer.lm_loss(cfg, params, batch, window=window)
+
+        def forward_fn(params, inputs):
+            return transformer.forward(cfg, params, inputs, window=window)[0]
+
+        def decode_fn(params, inputs, caches, cur_pos):
+            logits, new_caches, _ = transformer.forward(
+                cfg, params, inputs, caches=caches, cur_pos=cur_pos,
+                window=window, gather_experts=gather_experts)
+            return logits, new_caches
 
     return Model(cfg=cfg, param_specs=specs, loss_fn=loss_fn,
                  forward_fn=forward_fn, decode_fn=decode_fn,
@@ -79,16 +97,29 @@ def build_model(cfg: ModelConfig, *, max_seq: int = 8192,
 
 def build_input_specs(cfg: ModelConfig,
                       shape: ShapeConfig) -> Dict[str, ParamSpec]:
-    """ParamSpec dict for the *data* inputs of (cfg, shape) of the
-    decoder families: tokens and labels (B, S) for training, tokens for
-    prefill, tokens (B, 1) for decode (caches come from
-    :func:`build_cache_specs`)."""
-    transformer.check_family(cfg)
+    """ParamSpec dict for the *data* inputs of (cfg, shape): tokens and
+    labels (B, S) for training, tokens for prefill, tokens (B, 1) for
+    decode (caches come from :func:`build_cache_specs`). A VLM's text
+    takes S - n_vision_tokens positions beside its ``patch_embeds``; an
+    encoder-decoder's inputs add ``frames``, and at decode ``enc_out``."""
     B, S = shape.global_batch, shape.seq_len
+    sp: Dict[str, ParamSpec] = {}
     if shape.is_decode:
-        return {"tokens": ParamSpec((B, 1), "int32", ("batch", None))}
-    sp = {"tokens": ParamSpec((B, S), "int32", ("batch", None)),
-          "labels": ParamSpec((B, S), "int32", ("batch", None))}
+        sp["tokens"] = ParamSpec((B, 1), "int32", ("batch", None))
+        if cfg.is_encoder_decoder:
+            sp["enc_out"] = ParamSpec((B, cfg.encoder_seq, cfg.d_model),
+                                      "bfloat16", ("batch", None, "embed_act"))
+        return sp
+    s_text = S - cfg.n_vision_tokens if cfg.family == "vlm" else S
+    sp["tokens"] = ParamSpec((B, s_text), "int32", ("batch", None))
+    sp["labels"] = ParamSpec((B, s_text), "int32", ("batch", None))
+    if cfg.family == "vlm":
+        sp["patch_embeds"] = ParamSpec(
+            (B, cfg.n_vision_tokens, cfg.frontend_dim), "bfloat16",
+            ("batch", None, None))
+    elif cfg.is_encoder_decoder:
+        sp["frames"] = ParamSpec((B, cfg.encoder_seq, cfg.frontend_dim),
+                                 "bfloat16", ("batch", None, None))
     if shape.kind == "prefill":
         sp.pop("labels")
     return sp
@@ -96,12 +127,12 @@ def build_input_specs(cfg: ModelConfig,
 
 def build_cache_specs(cfg: ModelConfig, batch: int, seq: int):
     """Stacked per-layer decode state: the KV cache spec tree of the
-    attention families; for the ssm family the sequence-independent f32
+    attention families (for the encoder-decoder family, its decoder's
+    self-attention: cross-attention keeps none); for the ssm family the sequence-independent f32
     RWKV states {"wkv", "shift", "shift_c"}; for the hybrid family the
     tuple (ssm_states, attn_caches); for a ``first_k_dense`` MoE config
     {"dense": ..., "main": ...}, the attention cache cut at the first MoE
     layer (MLA's {"latent"} in each): the JAX package's layouts."""
-    transformer.check_family(cfg)
     if cfg.family == "ssm":
         return rwkv_mod.rwkv_state_specs(cfg, batch, cfg.d_model)
     if cfg.family == "hybrid":

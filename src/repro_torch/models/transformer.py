@@ -1,5 +1,8 @@
 """Decoder-only transformer assembly: the dense attention family
-(internlm2 / granite / phi3 / nemotron), the MoE family (qwen3-moe: every
+(internlm2 / granite / phi3 / nemotron), the multimodal family (internvl2:
+an InternLM2 backbone behind a stub vision prefix: precomputed patch
+embeddings mapped to d_model by the client's projector ``proj`` and put
+before the text), the MoE family (qwen3-moe: every
 block's MLP is a routed mixture of experts; deepseek-v3: multi-head latent
 attention, ``first_k_dense`` leading dense blocks, then MoE blocks, and a
 depth-1 multi-token-prediction head in the loss), the ssm family (rwkv6:
@@ -24,9 +27,9 @@ call with caches (decode, and a cached prefill chunk) takes the MoE dense
 form, as in the JAX package. A ``first_k_dense`` config runs its stack of
 dense blocks, then its MoE blocks, over the caches {"dense", "main"}.
 Sharding constraints have no meaning on one device and are left out.
-``lm_loss`` is the training loss, plus 0.3 x the MTP head's loss where
-the tree holds one. The multimodal and the encoder-decoder families
-belong to later slices and raise ``NotImplementedError``.
+``lm_loss`` is the training loss over the text positions, plus 0.3 x
+the MTP head's loss where the tree holds one. The encoder-decoder family
+(whisper) is ``models/encdec.py``.
 """
 from __future__ import annotations
 
@@ -44,18 +47,6 @@ from repro_torch.models.common import (ParamSpec, freeze_state,
 from repro_torch.models.layers import (apply_norm, embed_lookup, norm_specs,
                                        unembed)
 from repro_torch.models.mlp import mlp_apply, mlp_specs
-
-
-def check_family(cfg) -> None:
-    """Raise for the families the port does not run yet."""
-    if (cfg.family in ("vlm", "audio") or cfg.is_encoder_decoder
-            or cfg.frontend_dim):
-        raise NotImplementedError(
-            f"{cfg.arch_id!r} (family {cfg.family!r}) is not ported yet: "
-            "the port runs the dense attention, MoE (MLA, first_k_dense and "
-            "MTP included), RWKV and hybrid families; the multimodal and "
-            "the encoder-decoder families are later slices (ROADMAP.md, "
-            "Queue 1)")
 
 
 # ============================================================ param specs ==
@@ -84,8 +75,8 @@ def _mamba_block_specs(cfg):
 
 
 def backbone_specs(cfg, max_seq: int):
-    """Full parameter spec tree for a decoder-only config."""
-    check_family(cfg)
+    """Full parameter spec tree for a decoder-only config (with the
+    modality projector ``proj`` where the config has a frontend)."""
     sp = {"embed": {"table": ParamSpec((cfg.padded_vocab, cfg.d_model),
                                        cfg.param_dtype, ("vocab", "embed"))},
           "final_norm": norm_specs(cfg, cfg.d_model),
@@ -95,6 +86,12 @@ def backbone_specs(cfg, max_seq: int):
     if cfg.pos == "learned":
         sp["pos_embed"] = ParamSpec((max_seq, cfg.d_model), cfg.param_dtype,
                                     ("vocab", "embed"))
+    if cfg.frontend_dim:
+        sp["proj"] = {"w": ParamSpec((cfg.frontend_dim, cfg.d_model),
+                                     cfg.param_dtype, ("frontend", "embed"),
+                                     "scaled"),
+                      "b": ParamSpec((cfg.d_model,), "float32", (None,),
+                                     "zeros")}
     if cfg.family == "ssm":
         sp["blocks"] = stack_layer_specs(_rwkv_block_specs(cfg), cfg.n_layers)
     elif cfg.family == "hybrid":
@@ -240,7 +237,6 @@ def backbone_apply(cfg, params, x, *, positions, caches=None, cur_pos=None,
     a small enough batch). Returns (hidden (B, S, d), caches, aux): aux
     is the sum of the blocks' MoE load-balance losses (0.0 without
     experts)."""
-    check_family(cfg)
     decode = caches is not None
     zero = torch.zeros((), device=x.device)
     if cfg.family == "ssm":
@@ -309,10 +305,16 @@ def _hybrid_apply(cfg, params, x, *, positions, caches, cur_pos, window,
 # ============================================================== forward ====
 
 def embed_inputs(cfg, params, inputs, *, positions):
-    """Map raw tokens -> (B, S, d) embeddings (plus the learned position
-    table where the config has one). This is the CLIENT part of the
-    cascade partition."""
+    """Map raw inputs -> (B, S, d) embeddings (plus the learned position
+    table where the config has one). A VLM input with ``patch_embeds``
+    (B, Nv, frontend_dim) becomes [proj(patch_embeds); embed(tokens)].
+    This is the CLIENT part of the cascade partition."""
     x = embed_lookup(params["embed"], inputs["tokens"], iota=cfg.iota_embed)
+    if cfg.family == "vlm" and "patch_embeds" in inputs:
+        proj = params["proj"]
+        pe = (inputs["patch_embeds"].to(x.dtype) @ proj["w"]
+              + proj["b"].to(x.dtype))
+        x = torch.cat([pe, x], dim=1)
     if cfg.pos == "learned":
         pos_table = params["pos_embed"]
         pe = pos_table[positions.clamp(0, pos_table.shape[0] - 1)]
@@ -322,12 +324,15 @@ def embed_inputs(cfg, params, inputs, *, positions):
 
 def forward(cfg, params, inputs, *, caches=None, cur_pos=None, window=0,
             gather_experts=False):
-    """Full forward. Training/prefill: inputs over S. Decode: S == 1, or a
-    cur_pos-offset chunk (chunked prefill).
+    """Full forward. Training/prefill: inputs over S (a VLM input's S
+    counts its vision positions first). Decode: S == 1, or a
+    cur_pos-offset chunk (chunked prefill); text only.
 
     Returns (logits (B, S, vocab), caches, aux)."""
     tokens = inputs["tokens"]
     S = tokens.shape[1]
+    if caches is None and cfg.family == "vlm" and "patch_embeds" in inputs:
+        S += cfg.n_vision_tokens
     positions = torch.arange(S, device=tokens.device)
     if caches is not None:
         positions = positions + int(cur_pos)
@@ -346,6 +351,9 @@ def lm_loss(cfg, params, inputs, *, window=0, label_mask=None):
     """Next-token CE over the text positions. Returns (loss, aux_dict)."""
     logits, _, aux = forward(cfg, params, inputs, window=window)
     labels = inputs["labels"]
+    if cfg.family == "vlm":
+        # logits cover [vision; text]; predict the text tokens only
+        logits = logits[:, cfg.n_vision_tokens:]
     ce = softmax_xent(logits[:, :-1], labels[:, 1:], cfg.padded_vocab)
     mask = (torch.ones(labels[:, 1:].shape, dtype=torch.float32,
                        device=labels.device) if label_mask is None

@@ -358,6 +358,44 @@ def test_deepseek_session_crosses_both_ways(tmp_path, layout):
     _equal_trees(jparams2, params)
 
 
+@pytest.mark.parametrize("arch", ["whisper-medium", "internvl2-26b"])
+def test_modality_sessions_cross_both_ways(tmp_path, arch):
+    """Whisper's and InternVL2's party-scoped sessions (reduced, the global
+    layout the sync cascade trains: their split plane refuses the engine
+    layout): the clients' directory holds the embedding and the modality
+    projector and the server's neither, the optimizer state split on the
+    same boundary; a session saved by ``repro`` restores in the port and
+    the port's save restores in ``repro``, bit for bit."""
+    jcfg, cfg = j_reduced(j_get_config(arch)), reduced(get_config(arch))
+    jfed = JFederation.build(jcfg, JVFLConfig(),
+                             JEngineConfig(method="cascaded"), seq_len=SEQ)
+    jparams = j_common.materialize(
+        j_build_model(jcfg, max_seq=SEQ).param_specs, jax.random.key(1))
+    jopt = j_sgd(0.1, momentum=0.9).init(jparams)
+    path = jfed.save(str(tmp_path / "jck"), jparams, step=2, opt_state=jopt)
+    fed, params, state = Federation.restore(path, device="cpu")
+    assert fed.model_cfg == cfg and state.step == 2
+    assert fed.client_keys == ("embed", "proj")
+    _equal_trees(params, jparams)
+    _equal_trees(state.opt_state, jopt)
+    back = fed.save(str(tmp_path / "ck"), params, step=2,
+                    opt_state=state.opt_state)
+    for where in (path, back):
+        # the optimizer's leaves sit under its own key ("mom::embed::...")
+        tops = {d: {k.split("::")[0] for k in _npz_keys(where, d)}
+                for d in ("clients", "server")}
+        tops.update({d: {k.split("::")[1] for k in _npz_keys(where, d)
+                         if "::" in k}
+                     for d in ("opt_clients", "opt_server")})
+        assert tops["clients"] == tops["opt_clients"] == {"embed", "proj"}
+        assert not tops["server"] & {"embed", "proj"}
+        assert tops["opt_server"] == tops["server"]
+    jfed2, jparams2, jstate = JFederation.restore(back)
+    assert jfed2.model_cfg == jcfg and jstate.step == 2
+    _equal_trees(jparams2, params)
+    _equal_trees(jstate.opt_state, state.opt_state)
+
+
 # ---------------------------------------------- mid-training resume -------
 
 def test_train_resume_equivalence(tmp_path):

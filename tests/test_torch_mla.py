@@ -44,7 +44,8 @@ from repro_torch.launch import serve
 from repro_torch.models import attention, common, transformer
 from repro_torch.models.model_api import build_cache_specs, build_model
 from repro_torch.tree import tree_leaves, tree_map
-from test_torch_support import to_numpy, to_torch, torch_threads
+from test_torch_support import (MODALITY_ARCHS, split_plane_refusal,
+                                to_numpy, to_torch, torch_threads)
 
 ARCH = "deepseek-v3-671b"
 MLA = dict(param_dtype="float32", dtype="float32", qk_nope_dim=32,
@@ -128,11 +129,16 @@ def test_specs_match_reference():
 
 
 def test_check_family_admits_deepseek_only_of_the_later_families():
-    transformer.check_family(reduced(get_config(ARCH)))
-    transformer.check_family(get_config(ARCH))
-    for arch in ("whisper-medium", "internvl2-26b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            transformer.check_family(reduced(get_config(arch)))
+    """No family is refused by the model API any more (``check_family``
+    is gone): DeepSeek-V3 builds at full and reduced size and crosses the
+    split plane; the multimodal and encoder-decoder families build and the
+    split plane refuses them with ``repro``'s ``ValueError``."""
+    assert not hasattr(transformer, "check_family")
+    for cfg in (reduced(get_config(ARCH)), get_config(ARCH)):
+        assert "mtp" in build_model(cfg).param_specs
+    from_model_config(reduced(get_config(ARCH)), n_clients=2, seq_len=16)
+    for arch in MODALITY_ARCHS:
+        split_plane_refusal(arch)
 
 
 def test_cut_depth_keeps_dense_layers_first():

@@ -29,7 +29,8 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.models import moe, transformer
 from repro_torch.models.model_api import build_cache_specs, build_model
 from repro_torch.tree import tree_leaves, tree_map
-from test_torch_support import to_numpy, to_torch
+from test_torch_support import (MODALITY_ARCHS, split_plane_refusal,
+                                to_numpy, to_torch)
 
 ARCH = "qwen3-moe-30b-a3b"
 F32 = dict(param_dtype="float32", dtype="float32")
@@ -337,14 +338,15 @@ def test_gather_experts_decode_matches_dense(model):
 
 
 def test_check_family_admits_moe_without_mla():
-    """The MoE family without MLA, and (since DeepSeek-V3's slice) with
-    MLA, ``first_k_dense`` and MTP; the multimodal and encoder-decoder
-    families still raise, naming ROADMAP."""
-    transformer.check_family(reduced(get_config(ARCH)))
-    transformer.check_family(reduced(get_config("deepseek-v3-671b")))
-    for arch in ("whisper-medium", "internvl2-26b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            transformer.check_family(reduced(get_config(arch)))
+    """The MoE family without MLA, and with MLA, ``first_k_dense`` and
+    MTP, builds; so do the multimodal and encoder-decoder families, which
+    the split plane refuses with ``repro``'s ``ValueError``
+    (``check_family`` is gone)."""
+    assert not hasattr(transformer, "check_family")
+    assert "mtp" in build_model(
+        reduced(get_config("deepseek-v3-671b"))).param_specs
+    for arch in MODALITY_ARCHS:
+        split_plane_refusal(arch)
     cfg = reduced(get_config(ARCH))
     assert len(tree_leaves(build_model(cfg).param_specs)) > 0
     # a leading dense layer and the MTP head on the Qwen3 blocks build

@@ -41,7 +41,9 @@ from repro_torch.launch import serve
 from repro_torch.models import common
 from repro_torch.models.model_api import build_cache_specs, build_model
 from repro_torch.tree import tree_map
-from test_torch_support import ledger_tuples, to_numpy, to_torch, torch_threads
+from test_torch_support import (MODALITY_ARCHS, ledger_tuples,
+                                split_plane_refusal, to_numpy, to_torch,
+                                torch_threads)
 
 # the reduced configs, in f32; zamba2 with 4 layers so that the shared
 # attention block runs at two sites
@@ -211,10 +213,17 @@ def test_decode_rejects_what_it_cannot_serve(case):
         fed.decode(case["tp"], case["toks"], gen_len=GL + 1)
     srv = fed.serve(case["tp"])          # continuous batching serves now
     assert isinstance(srv, ServeScheduler) and srv.device == fed.device
-    for arch in ("whisper-medium", "internvl2-26b"):
-        later = Federation.build(reduced(get_config(arch)), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            later.decode({}, case["toks"], gen_len=1)
+    # the multimodal and encoder-decoder families cannot cross the wire:
+    # the split serve plane refuses them with repro's ValueError
+    for arch in MODALITY_ARCHS:
+        msg = split_plane_refusal(arch)
+        modal = Federation.build(reduced(get_config(arch)), device="cpu")
+        with pytest.raises(ValueError) as ours:
+            modal.decode({}, case["toks"], gen_len=1)
+        with pytest.raises(ValueError) as theirs:
+            JFederation.build(j_reduced(j_get_config(arch))).decode(
+                {}, jnp.asarray(case["toks"]), gen_len=1)
+        assert str(ours.value) == str(theirs.value) == msg
 
 
 # ------------------------------------------------------------ the driver --

@@ -33,7 +33,8 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.models import common, ssm, transformer
 from repro_torch.models.model_api import build_cache_specs, build_model
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
-from test_torch_support import to_numpy, to_torch
+from test_torch_support import (MODALITY_ARCHS, split_plane_refusal,
+                                to_numpy, to_torch)
 
 ZAMBA = "zamba2-2.7b"
 F32 = dict(param_dtype="float32", dtype="float32")
@@ -312,8 +313,14 @@ def test_hybrid_forward_logits_and_caches(zamba):
 
 
 def test_check_family_admits_hybrid_only():
-    transformer.check_family(reduced(get_config(ZAMBA)))
-    transformer.check_family(reduced(get_config("deepseek-v3-671b")))
-    for arch in ("whisper-medium", "internvl2-26b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            transformer.check_family(reduced(get_config(arch)))
+    """The hybrid family builds and crosses the split plane; the
+    multimodal and encoder-decoder families build and the split plane
+    refuses them with ``repro``'s ``ValueError`` (``check_family`` is
+    gone)."""
+    from repro_torch.core.adapters import from_model_config
+    assert not hasattr(transformer, "check_family")
+    cfg = reduced(get_config(ZAMBA))
+    assert "shared_block" in build_model(cfg).param_specs
+    from_model_config(cfg, n_clients=2, seq_len=16)
+    for arch in MODALITY_ARCHS:
+        split_plane_refusal(arch)

@@ -35,6 +35,34 @@ def torch_threads(n: int):
         torch.set_num_threads(before)
 
 
+# the families the split plane refuses, as the JAX package's does: they
+# need a modality frontend on the VFL wire
+MODALITY_ARCHS = ("whisper-medium", "internvl2-26b")
+
+
+def split_plane_refusal(arch: str) -> str:
+    """Build ``arch`` (reduced) in both packages' global model APIs and
+    return the ``ValueError`` message of ``from_model_config``, after
+    checking that the port raises the JAX package's message word for
+    word."""
+    from repro.configs import get_config as j_get_config
+    from repro.configs import reduced as j_reduced
+    from repro.core.adapters import from_model_config as j_from_model_config
+    from repro.models.model_api import build_model as j_build_model
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.adapters import from_model_config
+    from repro_torch.models.model_api import build_model
+    jcfg, cfg = j_reduced(j_get_config(arch)), reduced(get_config(arch))
+    assert build_model(cfg).client_keys == j_build_model(jcfg).client_keys
+    with pytest.raises(ValueError) as theirs:
+        j_from_model_config(jcfg, n_clients=2, seq_len=16)
+    with pytest.raises(ValueError) as ours:
+        from_model_config(cfg, n_clients=2, seq_len=16)
+    assert str(ours.value) == str(theirs.value)
+    assert "modality frontend" in str(ours.value)
+    return str(ours.value)
+
+
 def to_numpy(x) -> np.ndarray:
     """A torch tensor or jax array -> numpy (bfloat16 widened to f32)."""
     if isinstance(x, torch.Tensor):

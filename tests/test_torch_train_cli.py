@@ -7,6 +7,7 @@ card by default, the later slices refused by name, and
 that stops with ``--until`` and a ``--resume`` that finishes it equal to
 an unbroken run."""
 import json
+import math
 
 import pytest
 import torch
@@ -17,7 +18,8 @@ from repro_torch.core.methods import METHOD_ALIASES
 from repro_torch.federation import Transport
 from repro_torch.launch.train import (build_parser, main, train,
                                       train_population)
-from test_torch_support import torch_threads
+from test_torch_support import (MODALITY_ARCHS, split_plane_refusal,
+                                torch_threads)
 
 
 @pytest.fixture(autouse=True)
@@ -91,11 +93,21 @@ def test_train_runs_on_the_card_unless_asked_for_the_cpu():
 
 
 def test_later_slices_raise_with_their_roadmap_items():
+    """The production mesh is still a later slice; the multimodal and
+    encoder-decoder families train through the sync cascade (as
+    ``repro``'s driver trains them) and the population engine refuses
+    them with ``repro``'s ``ValueError`` (``test_torch_encdec.py`` and
+    ``test_torch_vlm.py`` hold both drivers to ``repro``'s)."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         main(["--production-mesh", "--device", "cpu"])
-    for arch in ("whisper-medium", "internvl2-26b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train(arch, steps=1, device="cpu")
+    for arch in MODALITY_ARCHS:
+        res = train(arch, steps=1, batch=2, seq=8, device="cpu",
+                    log_every=1000)
+        assert res["arch"] == arch and res["steps"] == 1
+        assert math.isfinite(res["loss_first"])
+        with pytest.raises(ValueError) as ours:
+            train_population(arch, steps=2, seq=8, rows=8, device="cpu")
+        assert str(ours.value) == split_plane_refusal(arch)
 
 
 POP = ["--engine", "population", "--device", "cpu", "--steps", "10",
