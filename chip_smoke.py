@@ -127,7 +127,8 @@ and prints no result):
    a sampled drain of mixed generation lengths (32 to 128 tokens, the
    noise table growing while the block graph exists, so the graph is
    captured again) held token for token to one eager drain of the same
-   traffic and seeds, and the phase's time;
+   traffic and seeds, and the phase's time; Phi-3's run A drains under
+   the analysis plane's sentinels (phase 11 (b) checks them);
 7. asynchronous LM training over the wire plane: (a)
    ``launch.train.train_population`` of Phi-3-mini at full width and
    depth, 40 rounds at the population CLI's defaults (4 client parties
@@ -215,7 +216,23 @@ and prints no result):
    projector ``proj.w`` moves; (d) one reduced f32 cascaded step of each
    and its global loss on the card against the CPU, and reduced Whisper's
    encoder and 8 decode steps against the CPU;
-11. a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
+11. the sharded engine and the analysis plane: (a) the tabular main
+   path at the paper's width through ``Federation.build(...,
+   EngineConfig(mesh_shards=1))`` on a one-rank NCCL group (the client
+   block's ``("data",)`` ``DeviceMesh``), 500 rounds after 20 of warm-up,
+   in turns with the unsharded run: losses, params, table and delays
+   bitwise equal to it and to phase 3's, the fused kernel launched once a
+   round, the collectives of 20 profiled rounds equal to their derivation
+   (2 all-gathers and 2 client leaves all-reduces a round), ms a
+   round of both, and vafl and zoo-vfl bitwise over 25 rounds each (D > 1
+   needs a card a rank: NCCL refuses two ranks on one GPU); (b) phase 6's
+   run A of Phi-3-mini drains under ``analysis.runtime.strict``: its host
+   reads equal the scheduler's ``host_transfers``, all at the retirement
+   waves, its fresh compiles are the one graph capture of the warm-up
+   block, and every later block step runs with no read, no compile and
+   CUDA's sync debug mode at "error"; (c) ``python -m
+   repro_torch.analysis --strict`` on this machine exits 0;
+12. a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
    ...}``.
 
 It needs one card, and builds into ``build/`` at first use. It logs each
@@ -229,9 +246,12 @@ phase 8's ``tests/test_torch_rwkv.py``, ``tests/test_torch_moe.py`` and
 training tests; phase 9's ``tests/test_torch_mla.py`` and the DeepSeek
 cases of the serve, continuous, paging, training and checkpoint tests;
 phase 10's ``tests/test_torch_encdec.py``, ``tests/test_torch_vlm.py`` and
-the families' cases of the checkpoint tests. Phase
-7 starts worker processes of this script (``--pop-worker``) and stops
-them before it returns.
+the families' cases of the checkpoint tests; phase 11's
+``tests/test_torch_engine_sharded.py`` (gloo ranks in child processes),
+``tests/test_torch_sharding.py`` and ``tests/test_torch_analysis.py``.
+Phase 7 starts worker processes of this script (``--pop-worker``) and
+stops them before it returns; phase 11 starts and destroys a one-rank
+process group and runs the analysis CLI in a child process.
 """
 import contextlib
 import gc
@@ -2713,12 +2733,14 @@ def bf16_ulp(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(x)) - 7)
 
 
-def cont_drain(fed, params, traffic, counters, **kw):
+def cont_drain(fed, params, traffic, counters, sentinel=False, **kw):
     """Queue every request, then drain them in one ``run()``; the launch
     counts are set to 0 just before the run and read just after. Returns
     (scheduler, results, launches, readings): the run's wall time, the
     memory allocated before it and its peak, in GiB, and the launches the
-    graphs' replays made."""
+    graphs' replays made; with ``sentinel`` the drain runs under the
+    analysis plane's sentinels (``sentinel_drain``) and the readings carry
+    theirs."""
     from repro_torch import graphs
     srv = fed.serve(params, **CONT, **kw)
     for prompt, gen in traffic:
@@ -2731,11 +2753,14 @@ def cont_drain(fed, params, traffic, counters, **kw):
     before = torch.cuda.memory_allocated() / 2**30
     graphs.reset_replayed()
     t0 = time.perf_counter()
-    results = srv.run()
+    if sentinel:
+        results, sentinel = sentinel_drain(srv)
+    else:
+        results, sentinel = srv.run(), None
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return srv, results, _launches(counters), dict(
-        wall=wall, before=before,
+        wall=wall, before=before, sentinel=sentinel,
         peak=torch.cuda.max_memory_allocated() / 2**30,
         replayed={k: graphs.replayed[k][k] for k in graphs.replayed
                   if k in _launches(counters)})
@@ -3134,18 +3159,21 @@ CONT_ARCHS = (("phi3-mini-3.8b", None), ("zamba2-2.7b", CONT_ZAMBA_LAYERS))
 
 
 def continuous_phase(rows, card, counters, kernels, archs=CONT_ARCHS,
-                     label="continuous phase") -> None:
+                     label="continuous phase", sentinel=False):
     """Phase 6: continuous split serving through ``Federation.serve`` at
     full width: Phi-3-mini at full depth with the worst-case pool (run A)
     and with half of it plus preemption (run B), and Zamba2-2.7B cut to
     12 layers (run A). Each drain holds the kernels against their plain
     versions on its own captured inputs. ``kernels`` maps each serve
     kernel's name to its (ops, ref) modules. ``archs`` lists (arch, layers
-    or None for full depth); a cut model runs run A only."""
+    or None for full depth); a cut model runs run A only. With
+    ``sentinel`` the first model's run A drains under the analysis plane's
+    sentinels (phase 11 (b)); their readings are returned."""
     from repro_torch.configs import cut_depth, get_config
     from repro_torch.launch import serve as serve_mod
     t_phase = time.perf_counter()
     spent = {}
+    found = None
 
     def lap(name, t0):
         spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
@@ -3173,13 +3201,19 @@ def continuous_phase(rows, card, counters, kernels, archs=CONT_ARCHS,
                                    * (fed.seq_len // CONT["page_size"])
                                    // 2 + 2, preempt=True)))
         for run, kw in runs:
+            # its speed is not the plain continuous rate: the sentinels
+            # patch torch.Tensor's host reads for the whole drain
+            guarded = sentinel and found is None and run == "A"
             what = (f"continuous {arch} ({cfg.n_layers} layers) run {run}"
                     + (f", {kw['n_pages']} pages, preempt" if kw else
-                       ", worst-case pool"))
+                       ", worst-case pool")
+                    + (", under the analysis sentinels" if guarded else ""))
             with contextlib.ExitStack() as stack:
                 caps = cont_captures(stack, kernels, plan)
                 srv, results, launches, readings = cont_drain(
-                    fed, params, traffic, counters, **kw)
+                    fed, params, traffic, counters, sentinel=guarded, **kw)
+            if readings["sentinel"] is not None:
+                found = readings["sentinel"]
             readings["captured"] = sum(
                 t.numel() * t.element_size() for cap in caps.values()
                 for args, kwargs in cap.inputs.values()
@@ -3237,6 +3271,7 @@ def continuous_phase(rows, card, counters, kernels, archs=CONT_ARCHS,
     log(f"{label} time: " + "; ".join(
         f"{name} {sec:.1f} s" for name, sec in spent.items()))
     log(f"{label}: {time.perf_counter() - t_phase:.1f} s on {card}")
+    return found
 
 
 # ---------------------------------- phase 7: population training ------
@@ -5278,12 +5313,276 @@ def count_mma(build, name: str, pattern: str) -> int:
     return len(re.findall(pattern, out))
 
 
+# ------------------ phase 11: the sharded engine and the analysis plane --
+
+SHARD = dict(rounds=500, warm=20, profile=20, methods=25)
+# the methods held bitwise sharded vs unsharded besides cascaded: (method,
+# fused lanes, lr); zoo-vfl's server takes LRS' 1e-4 at 784 features
+SHARD_METHODS = (("vafl", False, 0.05), ("zoo-vfl", True, LRS["zoo-vfl"]))
+
+
+def engine_rounds(fed, params, x_parts, y) -> dict:
+    """``Federation.run``'s rounds through the engine's round loop, on
+    the run's default draws: the params, table, delays, losses and
+    per-round max delays the result does not all carry (a sharded run's
+    table is this rank's rows: all of them at one shard)."""
+    from repro_torch.core import async_engine
+    from repro_torch.core.draws import TorchDraws
+    (p, table, delays), (losses, maxd) = async_engine._rounds(
+        fed.adapter, fed.transport, fed.vfl, fed.engine, params, x_parts, y,
+        draws=TorchDraws(fed.engine.seed, fed.device), mesh=fed.mesh)
+    return dict(params=p, table=table, delays=delays, losses=losses,
+                maxd=maxd)
+
+
+def unequal(a: dict, b: dict) -> list:
+    """The keys (and param leaves) where two ``engine_rounds`` differ."""
+    out = [k for k in ("table", "delays", "losses", "maxd")
+           if not torch.equal(a[k], b[k])]
+    for part, leaves in a["params"].items():
+        out += [f"params/{part}/{n}" for n, t in leaves.items()
+                if not torch.equal(t, b["params"][part][n])]
+    return out
+
+
+def collective_counts(prof) -> dict:
+    """{family: {"all_gather": n, "all_reduce": n}} of a profile's events:
+    the dispatcher's ``c10d::`` ops, the process group's ``nccl:``
+    ranges, and the device's NCCL kernels."""
+    from torch.autograd import DeviceType
+    fams: dict = {}
+    for e in prof.events():
+        low = e.name.lower().replace("_", "")
+        kind = ("all_gather" if "allgather" in low else
+                "all_reduce" if "allreduce" in low else None)
+        if kind is None:
+            continue
+        fam = ("device" if e.device_type == DeviceType.CUDA else
+               e.name.split(":")[0] if ":" in e.name else "other")
+        fams.setdefault(fam, {"all_gather": 0, "all_reduce": 0})[kind] += 1
+    return fams
+
+
+def sharded_tabular(rows, ops, card, base=None) -> dict:
+    """Phase 11 (a): the tabular main path through ``Federation.build(...,
+    EngineConfig(mesh_shards=1))`` on a one-rank NCCL process group, held
+    bitwise to the unsharded run on the same draws, with its kernel
+    launches, its collectives a round counted from a profile against
+    their derivation, and its ms a round beside the unsharded run's.
+    ``base`` is phase 3's result when phase 3 ran."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs.base import VFLConfig
+    from repro_torch.configs.paper_mlp import PaperMLPConfig
+    from repro_torch.core.adapters import tabular_adapter
+    from repro_torch.core.async_engine import EngineConfig
+    from repro_torch.data import make_classification, vertical_partition
+    from repro_torch.federation import Federation
+    from torch.profiler import ProfilerActivity, profile
+    cfg, rounds = PaperMLPConfig(), SHARD["rounds"]
+    X, y = make_classification(seed=0, n=60000, n_features=cfg.n_features,
+                               n_classes=cfg.n_classes)
+    x_parts = torch.from_numpy(vertical_partition(X, cfg.n_clients)).cuda()
+    y_dev = torch.from_numpy(y).long().cuda()
+    kernel_ad = tabular_adapter(cfg, use_kernel_lanes=True)
+
+    def build(steps, shards, method="cascaded", lanes=True, lr=0.05):
+        return Federation.build(
+            kernel_ad if lanes else cfg,
+            VFLConfig(mu=MU, lr_server=lr, lr_client=lr),
+            EngineConfig(method=method, steps=steps, batch_size=64,
+                         use_lanes=lanes, mesh_shards=shards),
+            n_clients=cfg.n_clients, device="cuda")
+
+    def timed(fed, params):
+        """(result, ms a round) of one synchronised run."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fed.run(params, x_parts, y_dev)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3 / rounds
+
+    t_phase = time.perf_counter()
+    # the unsharded engine before any process group exists, for the
+    # group's own cost to the host (its threads) beside the collectives'
+    plain = build(rounds, 0)
+    params = plain.init_params(torch.Generator().manual_seed(0))
+    build(SHARD["warm"], 0).run(params, x_parts, y_dev)
+    no_group = timed(plain, params)[1]
+    # the group meets through a file, so no port is raced for
+    tmp = tempfile.TemporaryDirectory()
+    dist.init_process_group("nccl", store=dist.FileStore(
+        f"{tmp.name}/store", 1), rank=0, world_size=1)
+    try:
+        sharded = build(rounds, 1)
+        mesh = sharded.mesh
+        if (mesh.device_type, mesh.size(0)) != ("cuda", 1):
+            raise AssertionError(f"client mesh {mesh} is not one cuda "
+                                 "shard")
+        log(f"phase 11 (a): one-rank {dist.get_backend()} group, client "
+            f"mesh {mesh}; D > 1 needs one card a rank (NCCL refuses two "
+            "ranks on one GPU): it waits for a four-chip cell")
+        build(SHARD["warm"], 1).run(params, x_parts, y_dev)
+        ms = {"unsharded": [], "sharded": []}
+        res = {}
+        for what, fed in (("unsharded", plain), ("sharded", sharded),
+                          ("sharded", sharded), ("unsharded", plain)):
+            ops.reset_launches()
+            res[what], t = timed(fed, params)
+            ms[what].append(t)
+            if what == "sharded":
+                launches = dict(ops.launches)
+        if launches["zoo_dual_matmul_stacked_bias_relu"] != rounds:
+            raise AssertionError(f"sharded run launched {launches}, not the "
+                                 f"fused kernel {rounds} times")
+        log(f"phase 11 (a): {rounds} cascaded rounds at {cfg}: sharded "
+            f"(D = 1) {', '.join(f'{t:.4f}' for t in ms['sharded'])} ms a "
+            f"round, unsharded {', '.join(f'{t:.4f}' for t in ms['unsharded'])}"
+            f" (in turns), unsharded before the group existed {no_group:.4f}"
+            f" on {card}; kernel launches {launches}")
+        name = "zoo_dual_matmul_stacked_bias_relu"
+        if name in rows:
+            rows[name]["launches"] += launches[name]
+            rows[name].setdefault("launches_by_path", {})[
+                "sharded engine, one NCCL rank"] = launches[name]
+        a, b = res["unsharded"], res["sharded"]
+        if not (np.array_equal(a.losses, b.losses)
+                and a.max_delay_seen == b.max_delay_seen
+                and a.mean_delay == b.mean_delay
+                and all(torch.equal(p, q) for p, q in zip(
+                    [t for v in a.params.values() for t in v.values()],
+                    [t for v in b.params.values() for t in v.values()]))):
+            raise AssertionError("sharded run != unsharded run")
+        if base is not None and not np.array_equal(base.losses, b.losses):
+            raise AssertionError("sharded run's losses != phase 3's")
+        diffs = unequal(engine_rounds(plain, params, x_parts, y_dev),
+                        engine_rounds(sharded, params, x_parts, y_dev))
+        if diffs:
+            raise AssertionError(f"sharded round loop differs: {diffs}")
+        log(f"phase 11 (a): losses, params, table and delays bitwise equal "
+            f"to the unsharded run{' and phase 3' if base else ''} "
+            f"({rounds} rounds; final loss {float(b.losses[-1]):.6f})")
+
+        # the collectives a round, from a profile of sharded rounds
+        leaves = len(params["clients"])
+        prof_fed = build(SHARD["profile"], 1)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            prof_fed.run(params, x_parts, y_dev)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        fams = collective_counts(prof)
+        R = SHARD["profile"]
+        derived = {"all_gather": 2 * R, "all_reduce": leaves * R}
+        log(f"phase 11 (a): collectives in {R} profiled rounds by family "
+            f"{fams}; derived {derived} (2 all-gathers and {leaves} client "
+            "leaves all-reduces a round)")
+        fam = next((f for f in ("c10d", "nccl") if f in fams), None)
+        if fam is None or fams[fam] != derived:
+            raise AssertionError(f"collectives {fams} != {derived}")
+        coll = [e for e in prof.key_averages()
+                if "allgather" in e.key.lower().replace("_", "")
+                or "allreduce" in e.key.lower().replace("_", "")]
+        host_us = sum(e.cpu_time_total for e in coll
+                      if e.key.startswith(fam + ":"))
+        dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in coll)
+        log(f"phase 11 (a): collectives' share of a profiled round: host "
+            f"{host_us / R:.1f} us of {wall_us / R:.1f} us "
+            f"({host_us / wall_us:.2%}); device {dev_us / R:.2f} us a round")
+        for e in sorted(coll, key=lambda e: e.cpu_time_total, reverse=True):
+            log(f"  {e.key}: x{e.count / R:.2f} a round, "
+                f"{e.cpu_time_total / e.count:.1f} us host a call")
+
+        for method, lanes, lr in SHARD_METHODS:
+            p, s = (build(SHARD["methods"], shards, method, lanes, lr)
+                    for shards in (0, 1))
+            diffs = unequal(engine_rounds(p, params, x_parts, y_dev),
+                            engine_rounds(s, params, x_parts, y_dev))
+            if diffs:
+                raise AssertionError(f"sharded {method} differs: {diffs}")
+        log(f"phase 11 (a): vafl and zoo-vfl, {SHARD['methods']} rounds "
+            "each: sharded bitwise equal to unsharded")
+    finally:
+        dist.destroy_process_group()
+        tmp.cleanup()
+    spent = time.perf_counter() - t_phase
+    log(f"phase 11 (a): {spent:.1f} s")
+    return dict(ms=ms, no_group=no_group, launches=launches,
+                collectives=fams, seconds=spent)
+
+
+def sentinel_drain(srv):
+    """Phase 11 (b), run inside phase 6's run A: the drain under
+    ``analysis.runtime.strict(check=False)`` (its host reads and fresh
+    compiles counted), and every block step after the step graph's
+    capture under ``strict(sync_debug="error")``: zero reads, zero
+    compiles, and no synchronizing CUDA call the sentinel does not count.
+    Returns (results, readings)."""
+    from repro_torch.analysis import runtime
+    block_step = srv._block_step
+    guarded = [0]
+
+    def step(budget=None):
+        if srv._step_graph is None:     # the warm-up block: the capture
+            return block_step(budget)
+        with runtime.strict(sync_debug="error"):
+            block_step(budget)
+        guarded[0] += 1
+
+    srv._block_step = step
+    try:
+        with runtime.strict(check=False) as rep:
+            results = srv.run()
+    finally:
+        del srv._block_step
+    return results, dict(reads=rep.d2h, sites=dict(rep.d2h_sites),
+                         compiles=rep.compiles, names=rep.compiled_names,
+                         guarded_blocks=guarded[0],
+                         host_transfers=srv.host_transfers,
+                         captures=srv.graph_captures)
+
+
+def check_sentinel(what, got) -> None:
+    """Phase 11 (b)'s checks on run A's readings."""
+    log(f"phase 11 (b), {what} under the sentinels: {got['reads']} host "
+        f"reads (sites {got['sites']}), scheduler host_transfers "
+        f"{got['host_transfers']}; {got['compiles']} fresh compiles "
+        f"({got['names']}), scheduler captures {got['captures']}; "
+        f"{got['guarded_blocks']} block steps under sync debug mode "
+        "'error' after the warm-up, each with no read and no compile")
+    if got["reads"] != got["host_transfers"] or not got["reads"]:
+        raise AssertionError("the sentinel's host reads != the scheduler's "
+                             "host_transfers")
+    if any("federation/scheduler.py" not in s for s in got["sites"]):
+        raise AssertionError(f"a host read outside the scheduler: "
+                             f"{got['sites']}")
+    if got["compiles"] != got["captures"] or not got["guarded_blocks"]:
+        raise AssertionError("the block loop compiled after its warm-up, "
+                             "or no block ran after it")
+
+
+def analysis_cli() -> None:
+    """Phase 11 (c): ``python -m repro_torch.analysis --strict`` over the
+    port's source on this machine (no JAX here) exits 0."""
+    env = dict(__import__("os").environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.analysis",
+                          "--strict"], env=env, capture_output=True,
+                         text=True, timeout=300)
+    log(f"phase 11 (c): python -m repro_torch.analysis --strict: exit "
+        f"{out.returncode} in {time.perf_counter() - t0:.1f} s: "
+        f"{(out.stdout + out.stderr).strip()[-300:]}")
+    if out.returncode != 0:
+        raise AssertionError("the analysis gate failed on the port's tree")
+
+
 def parse_phases(argv) -> set:
     """``--phases 4,6`` runs the build (phase 1) and the phases named, for
     work on one path; with no arguments every phase runs, and only then
     is the result printed."""
     if not argv:
-        return set(range(1, 12))
+        return set(range(1, 13))
     if len(argv) != 2 or argv[0] != "--phases":
         raise SystemExit("usage: python3 chip_smoke.py [--phases N,N,...]")
     return {1} | {int(n) for n in argv[1].split(",")}
@@ -5357,8 +5656,10 @@ def main() -> int:
     else:
         rows = {name: {"name": name, "launches": 0}
                 for name in list(KERNELS) + list(KERNEL_ENTRIES)}
+    base = sentinel = None
     if 3 in phases:
-        tabular_phase(rows, ops, flash_ops, rms_ops, ssd_ops, kind, card)
+        base = tabular_phase(rows, ops, flash_ops, rms_ops, ssd_ops, kind,
+                             card)
         t0 = lap(3, t0)
 
     # ---- phase 4: the split serve path at full width -------------------
@@ -5377,8 +5678,9 @@ def main() -> int:
 
     # ---- phase 6: continuous split serving at full width ---------------
     if 6 in phases:
-        continuous_phase(rows, card, (ops, flash_ops, rms_ops, ssd_ops),
-                         serve_kernels)
+        sentinel = continuous_phase(rows, card,
+                                    (ops, flash_ops, rms_ops, ssd_ops),
+                                    serve_kernels, sentinel=True)
         t0 = lap(6, t0)
 
     # ---- phase 7: asynchronous LM training over the wire plane ---------
@@ -5405,14 +5707,24 @@ def main() -> int:
                     serve_kernels)
         t0 = lap(10, t0)
 
+    # ---- phase 11: the sharded engine and the analysis plane -----------
+    if 11 in phases:
+        sharded_tabular(rows, ops, card, base=base)
+        if sentinel is None:
+            log("phase 11 (b): not run (it runs inside phase 6's run A)")
+        else:
+            check_sentinel("phase 6 run A (phi3-mini-3.8b)", sentinel)
+        analysis_cli()
+        t0 = lap(11, t0)
+
     wall = time.perf_counter() - t_start
     log(f"chip_smoke wall time: {wall:.1f} s (" + "; ".join(
         f"phase {k} {v:.1f} s" for k, v in spent.items()) + f") on {card}")
-    if phases != set(range(1, 12)):
+    if phases != set(range(1, 13)):
         log(f"partial run (phases {sorted(phases)}): no result line")
         return 0
 
-    # ---- phase 11: the record ------------------------------------------
+    # ---- phase 12: the record ------------------------------------------
     report_rates(rows)
     log(card)
     log(json.dumps({"kernels": list(rows.values())}))
@@ -5423,7 +5735,8 @@ def main() -> int:
 
 
 def tabular_phase(rows, ops, flash_ops, rms_ops, ssd_ops, kind, card):
-    """Phase 3: the tabular main path at the paper's width."""
+    """Phase 3: the tabular main path at the paper's width; returns the
+    500-round run's result (phase 11 holds the sharded run to it)."""
     from repro_torch.configs.base import VFLConfig
     from repro_torch.configs.paper_mlp import PaperMLPConfig
     from repro_torch.core.adapters import tabular_adapter
@@ -5545,6 +5858,7 @@ def tabular_phase(rows, ops, flash_ops, rms_ops, ssd_ops, kind, card):
         f"{qres.losses[-25:].mean():.4f}")
     if not acc > 0.9:
         raise AssertionError(f"quickstart accuracy {acc} <= 0.9")
+    return res
 
 
 if __name__ == "__main__":

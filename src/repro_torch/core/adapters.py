@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -54,6 +54,10 @@ class ModelAdapter:
     * ``row_mask(client_blk, x_blk)`` (optional) -> 0/1 row-mask tree
       matching the client params, each leaf (R, rows): restricts the ZOO
       perturbation to the rows a batch actually touches.
+    * ``table_logical`` — per-dim logical axis names of the server's
+      (M, n, e) embedding table; the engine's sharded path resolves its
+      partitioning from these via ``repro_torch.sharding.rules`` (the
+      leading "clients" axis splits rows over the mesh "data" axis).
 
     Serve plane (optional — set by :func:`from_model_config`; tabular
     adapters have no decode concept and leave them ``None``):
@@ -81,6 +85,7 @@ class ModelAdapter:
     server_loss: Callable
     param_specs: Callable
     client_lanes: Optional[Callable] = None
+    table_logical: Tuple[Optional[str], ...] = ("clients", None, None)
     row_mask: Optional[Callable] = None
     client_embed: Optional[Callable] = None
     server_decode: Optional[Callable] = None
@@ -174,6 +179,7 @@ def tabular_adapter(cfg: Optional[PaperMLPConfig] = None,
         server_loss=server_loss,
         param_specs=lambda: tabular.param_specs(cfg),
         client_lanes=client_lanes,
+        table_logical=("clients", None, None),
     )
 
 
@@ -239,7 +245,8 @@ def mlp_adapter(*, n_clients: int = 4, features: int = 32,
                           (None, 3, None))
 
     return ModelAdapter(name=f"mlp-{act}", client_forward=client_forward,
-                        server_loss=server_loss, param_specs=param_specs)
+                        server_loss=server_loss, param_specs=param_specs,
+                        table_logical=("clients", None, None))
 
 
 # ================================================= ModelConfig bridge =====
@@ -438,6 +445,7 @@ def from_model_config(cfg: ModelConfig, *, n_clients: int = 2,
         server_loss=server_loss,
         param_specs=param_specs,
         client_lanes=client_lanes,
+        table_logical=("clients", None, None),
         row_mask=row_mask if active_rows else None,
         client_embed=client_embed,
         server_decode=server_decode,

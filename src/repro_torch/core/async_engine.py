@@ -31,6 +31,39 @@ every round with fresh embeddings (no table staleness).
 
 :func:`run` is the back-compat entry; it wraps a
 ``repro_torch.federation.Federation`` session.
+
+Sharded client block (``mesh=`` path)
+-------------------------------------
+With ``EngineConfig.mesh_shards = D`` the session builds a 1-D
+``("data",)`` ``DeviceMesh`` over D ranks of a ``torch.distributed``
+group (:func:`repro_torch.launch.mesh.make_client_mesh`), one process per
+shard: NCCL on the card (each rank on ``cuda:{local_rank}``), gloo on the
+CPU. Every rank runs the same program on its shard, as ``shard_map``'s
+body runs once per device in the JAX engine: it holds the replicated
+client and server parameters, its ``M / D`` rows of the (M, n, e)
+embedding table (partitioned through the "clients" logical axis of
+:mod:`repro_torch.sharding.rules`) and its ``R / D`` rows of the round's
+activated block. Per round the only collectives are
+
+  * two ``all_gather``s at the server-loss boundary (the wire of Fig.
+    2): the shards' stale table slices and the block's fresh embeddings,
+    each in global row order, and
+  * one ``all_reduce(SUM)`` a client leaf, replicating the block's sparse
+    client-parameter updates: activated clients are distinct, so each row
+    is one shard's value plus zeros and the sum is float-exact.
+
+The block's client ids are replicated (every rank holds the round's
+schedule row), so the ids and the rows' mask are built on every rank
+with no collective, where the JAX engine gathers the ids and psums the
+mask.
+
+The server update runs identically on every rank. Every rank draws the
+WHOLE block's directions and noise from its draw source and keeps its own
+rows, so each rank consumes the source as the single-device engine does
+and the sharded run draws what the unsharded one draws: D = 1 is bitwise
+the unsharded engine, and a larger D could differ only where a batched
+product's rounding depends on how many block rows it covers (on the CPU
+none does: D = 2 and 4 are bitwise too).
 """
 from __future__ import annotations
 
@@ -40,6 +73,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.analysis import tags
 from repro_torch.configs.base import VFLConfig
@@ -50,10 +84,13 @@ from repro_torch.core.methods import SYNC_METHODS
 from repro_torch.core.partition import (tree_leaves, tree_map,
                                         tree_unflatten)
 from repro_torch.core.privacy import Ledger
+from repro_torch.sharding.rules import PARAM_RULES, mesh_axes, resolve_spec
 
-__all__ = ["AsyncPlaneState", "EngineConfig", "EngineResult",
+__all__ = ["CLIENT_AXIS", "AsyncPlaneState", "EngineConfig", "EngineResult",
            "PopulationConfig", "PopulationResult", "make_schedule", "run",
            "run_population"]
+
+CLIENT_AXIS = "data"        # mesh axis the client block shards over
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +105,11 @@ class EngineConfig:
     # route the client's clean+perturbed fan-out through the adapter's
     # fused lanes hook (e.g. the zoo_dual_matmul CUDA kernel)
     use_lanes: bool = False
+    # >0 shards the client block + table rows over that many ranks of a
+    # torch.distributed group (Federation builds the ("data",) mesh via
+    # launch.mesh.make_client_mesh; must divide both block_size and the
+    # client count)
+    mesh_shards: int = 0
 
 
 @dataclasses.dataclass
@@ -86,55 +128,70 @@ class EngineResult:
     delta: float = 0.0
 
 
+def _validate_mesh(mesh, sync: bool, method: str, block: int, M: int):
+    """``mesh``: a ``DeviceMesh`` or a ``{axis: size}`` mapping."""
+    if sync:
+        raise ValueError(
+            f"mesh sharding only applies to asynchronous methods, not "
+            f"{method!r} (sync rounds have no client block to shard)")
+    shape = mesh_axes(mesh)
+    if CLIENT_AXIS not in shape:
+        raise ValueError(
+            f"engine mesh needs a {CLIENT_AXIS!r} axis, got "
+            f"{shape} (use repro_torch.launch.mesh.make_client_mesh)")
+    D = shape[CLIENT_AXIS]
+    if block % D:
+        raise ValueError(
+            f"block_size={block} not divisible by the mesh "
+            f"{CLIENT_AXIS!r} axis ({D} shards)")
+    if M % D:
+        raise ValueError(
+            f"n_clients={M} not divisible by the mesh {CLIENT_AXIS!r} "
+            f"axis ({D} shards): the embedding table rows cannot split")
+
+
 def run(cfg_engine: EngineConfig, vfl: VFLConfig, params, x_parts, y,
         *, probs=None, adapter: Optional[ModelAdapter] = None,
-        device=None, draws=None) -> EngineResult:
+        device=None, draws=None, mesh=None) -> EngineResult:
     """Back-compat wrapper over the ``repro_torch.federation`` session.
 
     x_parts: (M, n, f) vertically partitioned features; y: (n,) labels.
     Runs on the card unless ``device="cpu"``; ``draws`` overrides the
-    session's default :class:`~repro_torch.core.draws.TorchDraws`."""
+    session's default :class:`~repro_torch.core.draws.TorchDraws`.
+    ``mesh``: optional ``("data",)`` mesh — new callers set
+    ``EngineConfig.mesh_shards`` instead and let the session build it."""
     from repro_torch.federation import Federation
     fed = Federation.build(
         adapter if adapter is not None else tabular_adapter(),
-        vfl, cfg_engine, device=device)
+        vfl, cfg_engine, device=device, mesh=mesh)
     return fed.run(params, x_parts, y, probs=probs, draws=draws)
+
+
+def _shard_rows(mesh, M: int, table_spec) -> tuple:
+    """(this rank's shard index, the rows of the (M, n, e) table it
+    holds, the global index of its first row) under ``table_spec``."""
+    shard = mesh.get_local_rank(CLIENT_AXIS)
+    if table_spec[:1] == (CLIENT_AXIS,):
+        rows = M // mesh.size(0)
+        return shard, rows, shard * rows
+    return shard, M, 0
 
 
 def _session_run(adapter: ModelAdapter, transport, vfl: VFLConfig,
                  cfg_engine: EngineConfig, params, x_parts, y, *,
-                 draws, probs=None) -> EngineResult:
+                 draws, probs=None, mesh=None) -> EngineResult:
     """The engine proper, driven by a ``Federation`` session, with the
     params and data already on the session's device."""
-    method = transport.method
-    M, n, _ = x_parts.shape
+    M = x_parts.shape[0]
     T, bs = cfg_engine.steps, cfg_engine.batch_size
-    sync = method in SYNC_METHODS
-    if sync and cfg_engine.use_lanes:
-        raise ValueError(
-            f"use_lanes only applies to asynchronous ZOO-client methods, "
-            f"not {method!r} (the sync step has no per-client "
-            "fan-out to route through the fused kernel)")
-    if sync and cfg_engine.block_size != 1:
-        raise ValueError(
-            f"block_size={cfg_engine.block_size} has no meaning for the "
-            f"synchronous method {method!r} (every client is "
-            "activated every round)")
+    sync = transport.method in SYNC_METHODS
     block = 1 if sync else cfg_engine.block_size
-
-    schedule = draws.schedule(T, M, probs, block)            # (T, block)
-    sample_idx = draws.sample_indices(T, bs, n)              # (T, bs)
-    # server-side table of latest client embeddings per sample (Fig. 2)
-    table0 = adapter.client_forward(params["clients"], x_parts)  # (M, n, e)
-    delays0 = torch.zeros((M, n), dtype=torch.int32, device=x_parts.device)
-
-    runner = _make_runner(adapter, transport, vfl, sync, block,
-                          cfg_engine.use_lanes)
-    (params, _, delays), (losses, maxd) = runner(
-        params, table0, delays0, schedule, sample_idx, draws, x_parts, y)
+    (params, table, delays), (losses, maxd) = _rounds(
+        adapter, transport, vfl, cfg_engine, params, x_parts, y,
+        draws=draws, probs=probs, mesh=mesh)
 
     # the Transport owns the q-gating (queries only fan out on ZOO wires)
-    ledger = transport.account(batch=bs, embed=int(table0.shape[-1]),
+    ledger = transport.account(batch=bs, embed=int(table.shape[-1]),
                                zoo_queries=vfl.zoo_queries,
                                n_clients=M if sync else block, n_rounds=T)
     eps, delta = transport.privacy_spent(transport.releases(
@@ -150,15 +207,68 @@ def _session_run(adapter: ModelAdapter, transport, vfl: VFLConfig,
                         ledger=ledger, epsilon=eps, delta=delta)
 
 
+def _rounds(adapter: ModelAdapter, transport, vfl: VFLConfig,
+            cfg_engine: EngineConfig, params, x_parts, y, *, draws,
+            probs=None, mesh=None):
+    """The run's draws, initial table and round loop: ``((params, table,
+    delays), (losses, max_delays))`` on the device. With a ``mesh`` the
+    table is this rank's rows of it; everything else is replicated."""
+    method = transport.method
+    M, n, _ = x_parts.shape
+    T, bs = cfg_engine.steps, cfg_engine.batch_size
+    sync = method in SYNC_METHODS
+    if sync and cfg_engine.use_lanes:
+        raise ValueError(
+            f"use_lanes only applies to asynchronous ZOO-client methods, "
+            f"not {method!r} (the sync step has no per-client "
+            "fan-out to route through the fused kernel)")
+    if sync and cfg_engine.block_size != 1:
+        raise ValueError(
+            f"block_size={cfg_engine.block_size} has no meaning for the "
+            f"synchronous method {method!r} (every client is "
+            "activated every round)")
+    block = 1 if sync else cfg_engine.block_size
+    if mesh is not None:
+        _validate_mesh(mesh, sync, method, block, M)
+        if mesh.device_type != x_parts.device.type:
+            raise ValueError(
+                f"a {mesh.device_type} mesh cannot shard tensors on "
+                f"{x_parts.device} (NCCL on the card, gloo on the CPU)")
+
+    schedule = draws.schedule(T, M, probs, block)            # (T, block)
+    sample_idx = draws.sample_indices(T, bs, n)              # (T, bs)
+    # server-side table of latest client embeddings per sample (Fig. 2)
+    table0 = adapter.client_forward(params["clients"], x_parts)  # (M, n, e)
+    delays0 = torch.zeros((M, n), dtype=torch.int32, device=x_parts.device)
+    table_spec = None
+    if mesh is not None:
+        # partition the table rows via the "clients" logical axis rule
+        table_spec = resolve_spec(mesh, table0.shape, adapter.table_logical,
+                                  PARAM_RULES)
+        _, rows, lo = _shard_rows(mesh, M, table_spec)
+        table0 = table0[lo:lo + rows]
+
+    runner = _make_runner(adapter, transport, vfl, sync, block,
+                          cfg_engine.use_lanes, mesh, table_spec)
+    return runner(params, table0, delays0, schedule, sample_idx, draws,
+                  x_parts, y)
+
+
 # ------------------------------------------------------------------------
 
 def _make_runner(adapter: ModelAdapter, transport, vfl: VFLConfig,
-                 sync: bool, block: int, use_lanes: bool):
-    """The round loop for one (adapter, transport, vfl, block) protocol:
-    ``run_rounds(params, table0, delays0, schedule, sample_idx, draws,
-    x_parts, y) -> ((params, table, delays), (losses, max_delays))``."""
+                 sync: bool, block: int, use_lanes: bool, mesh=None,
+                 table_spec=None):
+    """The round loop for one (adapter, transport, vfl, block, mesh)
+    protocol: ``run_rounds(params, table0, delays0, schedule, sample_idx,
+    draws, x_parts, y) -> ((params, table, delays), (losses,
+    max_delays))``. With a ``mesh``, ``table0`` and the returned table are
+    this rank's rows (see :func:`_make_sharded_step`)."""
     if sync:
         step_fn = _make_sync_step(adapter, transport, vfl)
+    elif mesh is not None:
+        step_fn = _make_sharded_step(adapter, transport, vfl, use_lanes,
+                                     mesh, block, table_spec)
     else:
         step_fn = _make_async_step(adapter, transport, vfl, use_lanes)
 
@@ -166,6 +276,10 @@ def _make_runner(adapter: ModelAdapter, transport, vfl: VFLConfig,
                    x_parts, y):
         params = tree_map(torch.clone, params)
         table, delays = table0.clone(), delays0.clone()
+        if mesh is not None:
+            # one spare row past the owned ones takes the refresh writes
+            # of block rows another shard owns (no host sync to drop them)
+            table = torch.cat([table, table.new_zeros((1,) + table.shape[1:])])
         losses, maxd = [], []
         for t in range(schedule.shape[0]):
             m_blk, idx = schedule[t], sample_idx[t]
@@ -179,6 +293,8 @@ def _make_runner(adapter: ModelAdapter, transport, vfl: VFLConfig,
                 delays[m_blk[:, None], idx[None, :]] = 0
             losses.append(loss)
             maxd.append(delays.max())
+        if mesh is not None:
+            table = table[:-1]
         return (params, table, delays), (torch.stack(losses),
                                          torch.stack(maxd))
 
@@ -213,6 +329,10 @@ def _make_client_grad_fns(adapter: ModelAdapter, transport,
             "is a noise-free numerical test oracle")
     q = vfl.zoo_queries
 
+    @tags.wire("up", accounted_by="Transport.account", kind="embedding",
+               reason="the unrolled ZOO oracle: the same clean + q "
+                      "perturbed embeddings as the stacked lanes, one "
+                      "query at a time (noise-free test oracle)")
     def _unrolled(server, c_stale, m_blk, client_blk, x_blk, yb, raw, mask):
         rows = []
         for r in range(m_blk.shape[0]):
@@ -364,6 +484,114 @@ def _make_async_step(adapter: ModelAdapter, transport, vfl: VFLConfig,
         return {"clients": clients, "server": server}, table, h
 
     return step
+
+
+class _ShardRows:
+    """One shard's view of a round's draw source: every rank draws the
+    WHOLE block's client directions and noise (so every rank consumes the
+    source as the single-device engine does) and keeps rows [lo, hi)."""
+
+    def __init__(self, draws, block: int, lo: int, hi: int) -> None:
+        self.draws, self.block, self.lo, self.hi = draws, block, lo, hi
+
+    def client_directions(self, t, template, n_rows, q):
+        full = self.draws.client_directions(t, template, self.block, q)
+        return tree_map(lambda a: a[self.lo:self.hi], full)
+
+    def noise(self, t, n_rows, n):
+        return self.draws.noise(t, self.block, n)[self.lo:self.hi]
+
+
+def _gather_rows(x: torch.Tensor, D: int, group) -> torch.Tensor:
+    """All-gather ``x`` (rows, ...) from the D shards along dim 0, in
+    shard order."""
+    out = x.new_empty((x.shape[0] * D,) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    return out
+
+
+def _make_sharded_step(adapter: ModelAdapter, transport, vfl: VFLConfig,
+                       use_lanes: bool, mesh, block: int, table_spec):
+    """Sharded asynchronous round, run by every rank of ``mesh``: the
+    block's R activated clients split R/D per rank, the (M, n, e) table
+    splits M/D rows per rank, and cross-rank traffic happens only at the
+    server-loss boundary (two all-gathers) plus the all-reduces that
+    replicate the sparse client updates. The step's ``table`` carries one
+    spare row past this rank's own (see :func:`_make_runner`). See the
+    module docstring for the equivalence guarantees."""
+    method = transport.method
+    client_zoo_grad, client_foo_grad = _make_client_grad_fns(
+        adapter, transport, vfl, use_lanes)
+    D = mesh.size(0)
+    group = mesh.get_group(CLIENT_AXIS)
+    rows_local = block // D
+
+    def step(params, table_l, m_blk, idx, t, draws, x_parts, y):
+        clients, server = params["clients"], params["server"]
+        M = _stack_rows(clients)
+        shard, rows_table, offset = _shard_rows(mesh, M, table_spec)
+        lo = shard * rows_local
+        m_blk_l = m_blk[lo:lo + rows_local]
+        yb = y[idx]
+        # local block rows gather from the REPLICATED client param stack
+        client_blk = tree_map(lambda a: a[m_blk_l], clients)
+        x_blk = x_parts[m_blk_l[:, None], idx[None, :]]  # (R/D, bs, f)
+
+        # ---- server-loss boundary: the only gathers of the round --------
+        # each shard contributes its table rows' stale embeddings and its
+        # block rows' fresh embeddings; shard order == global row order,
+        # so the gathered fresh rows line up with the replicated m_blk
+        c_stale = _gather_rows(table_l[:rows_table, idx], D, group)
+        c_fresh = adapter.client_forward(client_blk, x_blk)  # (R/D, bs, e)
+        c_fresh_all = _gather_rows(c_fresh, D, group)        # (R, bs, e)
+        c_batch = c_stale.index_put((m_blk,), c_fresh_all)
+
+        # ---- server update: replicated compute, identical per shard -----
+        server, h = _server_update(adapter, method, vfl, server, c_batch,
+                                   yb, t, draws)
+
+        # ---- client updates: each shard fans out ONLY its block rows ----
+        if method == "vafl":
+            g_blk = client_foo_grad(server, c_stale, m_blk_l, client_blk,
+                                    x_blk, yb)
+        else:
+            g_blk = client_zoo_grad(
+                server, c_stale, m_blk_l, client_blk, x_blk, yb, t,
+                _ShardRows(draws, block, lo, lo + rows_local))
+        new_blk = tree_map(
+            lambda cm, g: (cm - vfl.lr_client * g).to(cm.dtype), client_blk,
+            g_blk)
+
+        # replicate the sparse update: activated clients are DISTINCT, so
+        # each global row is written by exactly one shard and the sum of
+        # one value plus zeros is float-exact (== index_put_); every rank
+        # holds the whole block, so the rows' mask needs no collective
+        mask = torch.zeros(M, dtype=torch.bool, device=x_parts.device)
+        mask[m_blk] = True
+
+        def replicate_rows(all_, new):
+            buf = torch.zeros_like(all_)
+            buf[m_blk_l] = new
+            dist.all_reduce(buf, group=group)
+            m = mask.view((-1,) + (1,) * (all_.ndim - 1))
+            return torch.where(m, buf, all_)
+
+        clients = tree_map(replicate_rows, clients, new_blk)
+
+        # ---- local table refresh: keep only the rows this shard owns ----
+        # (another shard's rows land in the spare row past this shard's)
+        local_m = m_blk - offset
+        safe_m = torch.where((local_m >= 0) & (local_m < rows_table),
+                             local_m, rows_table)
+        table_l[safe_m[:, None], idx[None, :]] = c_fresh_all
+        return {"clients": clients, "server": server}, table_l, h
+
+    return step
+
+
+def _stack_rows(clients) -> int:
+    """Leading (M) axis of the stacked client parameter tree."""
+    return tree_leaves(clients)[0].shape[0]
 
 
 def _make_sync_step(adapter: ModelAdapter, transport, vfl: VFLConfig):
@@ -581,6 +809,9 @@ def run_population(adapter: ModelAdapter, transport, vfl: VFLConfig,
         raise ValueError(
             "use_lanes routes the fan-out through a fused server-side "
             "kernel; the wire worker computes its own lanes")
+    if cfg_engine.mesh_shards:
+        raise ValueError("the population engine shards by PROCESS, not by "
+                         "device mesh; set mesh_shards=0")
     if vfl.zoo_unrolled_oracle:
         raise ValueError("the wire protocol speaks the stacked lane path; "
                          "zoo_unrolled_oracle is the in-process test oracle")

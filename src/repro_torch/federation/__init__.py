@@ -4,6 +4,11 @@ transports over wires.
     from repro_torch.federation import Federation
     fed = Federation.build(model_cfg, vfl_cfg, engine_cfg)   # on the card
     result = fed.run(params, x_parts, y)      # async protocol (staleness)
+    # the client block sharded over D ranks of a torch.distributed group
+    # (one process a shard: NCCL on the card, gloo on the CPU; each rank
+    # builds the same session and calls run with the same arguments)
+    fed = Federation.build(model_cfg, vfl_cfg,
+                           EngineConfig(mesh_shards=D), device=dev)
     result = fed.run_population(params, x_parts, y,   # over the wire plane
                                 fault_plan=FaultPlan(drop=0.2))
     step = fed.sync_step(opt)                 # the sync LM training step

@@ -800,9 +800,14 @@ class ServeScheduler:
     def _device_tables(self):
         """Device mirror of the block tables, copied from the host table
         once per change (admission / retirement) instead of once per
-        block."""
+        block. On the card the copy goes from pinned memory without
+        blocking the host (the caching host allocator keeps the staging
+        buffer until the copy has run), so the block loop never syncs."""
         if self._tables_dirty:
-            self._tables_dev.copy_(torch.from_numpy(self._tables))
+            host = torch.from_numpy(self._tables)
+            if self._tables_dev.is_cuda:
+                host = host.pin_memory()
+            self._tables_dev.copy_(host, non_blocking=True)
             self._tables_dirty = False
         return self._tables_dev
 

@@ -65,6 +65,7 @@ from repro_torch.federation import serving
 from repro_torch.federation.parties import (ClientParty, Parties, ServerParty,
                                             is_engine_layout)
 from repro_torch.federation.transport import Transport
+from repro_torch.launch.mesh import make_client_mesh
 from repro_torch.models import model_api
 
 ModelLike = Union[ModelAdapter, ModelConfig, PaperMLPConfig]
@@ -110,6 +111,8 @@ class Federation:
     engine: async_engine.EngineConfig
     transport: Transport
     device: torch.device
+    # the ("data",) client mesh of a sharded session (one rank a shard)
+    mesh: Optional[Any] = None
     # set for ModelConfig-built sessions (the serve plane)
     model_cfg: Optional[ModelConfig] = None
     n_clients: int = 2
@@ -125,6 +128,7 @@ class Federation:
               engine_cfg: Optional[async_engine.EngineConfig] = None, *,
               noise: Optional[GaussianLossChannel] = None,
               transport: Optional[Transport] = None,
+              mesh: Optional[Any] = None,
               n_clients: int = 2, seq_len: int = 32,
               device: DeviceLike = None) -> "Federation":
         """One constructor for the entry points.
@@ -135,7 +139,12 @@ class Federation:
         backbone; ``n_clients``/``seq_len`` size the vertical token
         split). ``noise`` plugs a DP channel into the transport's loss
         downlink. ``device=None`` means the CUDA card and raises without
-        one; pass ``device="cpu"`` for the CPU."""
+        one; pass ``device="cpu"`` for the CPU. ``mesh`` is normally
+        derived from ``engine_cfg.mesh_shards`` (a ``("data",)``
+        ``DeviceMesh`` over that many ranks of the initialized
+        ``torch.distributed`` group, one process a shard, each with its
+        own ``device``); passing an explicit mesh is the escape hatch
+        ``async_engine.run`` uses."""
         vfl = vfl_cfg if vfl_cfg is not None else VFLConfig()
         engine = (engine_cfg if engine_cfg is not None
                   else async_engine.EngineConfig())
@@ -147,6 +156,14 @@ class Federation:
             raise ValueError(
                 f"engine_cfg.method {engine.method!r} and transport method "
                 f"{transport.method!r} disagree")
+        if mesh is not None and engine.mesh_shards:
+            raise ValueError(
+                f"both an explicit mesh= and engine_cfg.mesh_shards="
+                f"{engine.mesh_shards} were given; set one (mesh_shards is "
+                "the session-native spelling)")
+        device = resolve_device(device)
+        if mesh is None and engine.mesh_shards:
+            mesh = make_client_mesh(engine.mesh_shards, device=device)
         adapter = cfg = None
         if isinstance(model_cfg, ModelAdapter):
             adapter = model_cfg
@@ -160,7 +177,7 @@ class Federation:
                 f"model_cfg must be a ModelAdapter, PaperMLPConfig or "
                 f"ModelConfig, got {type(model_cfg).__name__}")
         return cls(vfl=vfl, engine=engine, transport=transport,
-                   device=resolve_device(device), model_cfg=cfg,
+                   device=device, mesh=mesh, model_cfg=cfg,
                    n_clients=n_clients, seq_len=seq_len, _adapter=adapter)
 
     # ------------------------------------------------------- model plane --
@@ -197,19 +214,20 @@ class Federation:
     def run(self, params, x_parts, y, *, probs=None,
             draws: Optional[DrawSource] = None
             ) -> async_engine.EngineResult:
-        """Asynchronous protocol simulation (staleness, blocks).
+        """Asynchronous protocol simulation (staleness, blocks, sharding).
 
         ``x_parts``: (M, n, f) vertically partitioned features; ``y``: (n,)
         labels — numpy arrays or tensors, moved to the session's device.
         ``params`` leaves may be numpy arrays or tensors too. ``draws``
         defaults to :class:`TorchDraws` seeded with ``engine.seed`` on the
-        session's device."""
+        session's device. A sharded session's ranks each call ``run`` with
+        the same arguments; every rank returns the replicated result."""
         params, x_parts, y = self._engine_inputs(params, x_parts, y)
         if draws is None:
             draws = TorchDraws(self.engine.seed, self.device)
         return async_engine._session_run(
             self.adapter, self.transport, self.vfl, self.engine, params,
-            x_parts, y, draws=draws, probs=probs)
+            x_parts, y, draws=draws, probs=probs, mesh=self.mesh)
 
     def _engine_inputs(self, params, x_parts, y):
         """The engine's params and data on the session's device: float
@@ -480,9 +498,7 @@ class Federation:
             "has_opt_state": opt_state is not None,
             "model": self._model_manifest(),
             "vfl": dataclasses.asdict(self.vfl),
-            # the JAX package's engine config also has mesh_shards (0: one
-            # device, the only layout the port runs)
-            "engine": dict(dataclasses.asdict(self.engine), mesh_shards=0),
+            "engine": dataclasses.asdict(self.engine),
             "noise": (None if self.transport.noise is None
                       else dataclasses.asdict(self.transport.noise)),
             "n_clients": self.n_clients,
@@ -527,10 +543,6 @@ class Federation:
         if vfl_d.get("activation_probs") is not None:
             vfl_d["activation_probs"] = tuple(vfl_d["activation_probs"])
         engine_d = dict(manifest["engine"])
-        if engine_d.pop("mesh_shards", 0):
-            raise NotImplementedError(
-                "a client-sharded session (mesh_shards > 0) is not ported "
-                "yet (ROADMAP.md, Queue 1 item 7)")
         noise_d = manifest["noise"]
         fed = cls.build(
             model, VFLConfig(**vfl_d), async_engine.EngineConfig(**engine_d),

@@ -216,12 +216,12 @@ def _serve_continuous(arch: str, cfg, *, batch: int, prompt_len: int,
                     max_queue=max_queue, preempt=preempt, n_pages=n_pages)
     # every request's prompt in one draw on the device, fetched in one
     # transfer; request i samples from seed + i
-    prompts = _prompts(cfg, batch, prompt_len, seed, fed.device).cpu()
+    prompts = _prompts(cfg, batch, prompt_len, seed, fed.device).cpu().numpy()
     queue_retries = 0
     for i in range(batch):
         while True:
             try:
-                srv.submit(prompts[i].numpy(), gen_len, seed=seed + i,
+                srv.submit(prompts[i], gen_len, seed=seed + i,
                            deadline=deadline)
                 break
             except QueueFull:

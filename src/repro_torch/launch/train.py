@@ -119,9 +119,9 @@ def train(arch: Union[str, ModelConfig] = "", *, steps: int = 100,
     config)."""
     if production_mesh:
         raise NotImplementedError(
-            "the production mesh (sharded params, PARAM_RULES) is not ported "
-            "yet (ROADMAP.md, Queue 1 item 7, the sharding slice); the port "
-            "trains on one device")
+            "the production mesh (DTensor params under PARAM_RULES) is not "
+            "ported yet (ROADMAP.md, Queue 1 item 12); the port trains on "
+            "one device")
     start = 0
     state = SessionState()
     sched_total = steps

@@ -461,9 +461,13 @@ def test_train_resume_rejects_exhausted_steps(tmp_path):
 
 
 def test_restore_refuses_planes_not_ported(lm_session, tmp_path):
-    """A sharded session is refused; the serve scheduler's plane restores
-    (``test_torch_serve_continuous.py`` resumes one), and so does the
-    population engine's (``test_torch_population.py``)."""
+    """Every plane is ported: the serve scheduler's restores
+    (``test_torch_serve_continuous.py`` resumes one), and so do the
+    population engine's (``test_torch_population.py``) and a sharded
+    session's (``test_torch_engine_sharded.py``, in gloo ranks). A
+    sharded session restored in a process with no process group is
+    refused: its mesh needs one rank a shard, and the engine never falls
+    back to one device."""
     cfg, fed = lm_session
     params = fed.init_params(_gen())
     srv = fed.serve(params, max_batch=1)
@@ -478,5 +482,5 @@ def test_restore_refuses_planes_not_ported(lm_session, tmp_path):
     assert manifest["serve_plane"] is True
     engine = dict(manifest["engine"], mesh_shards=2)
     json.dump(dict(manifest, engine=engine), open(manifest_path, "w"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="process group"):
         Federation.restore(path, device="cpu")

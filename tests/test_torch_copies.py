@@ -256,3 +256,29 @@ def test_gaussian_channel_apply_equal_on_the_same_normals():
         tr.downlink(torch.from_numpy(losses))
     same = Transport("cascaded").downlink(torch.from_numpy(losses))
     np.testing.assert_array_equal(same.numpy(), losses)
+
+
+def test_analysis_findings_module_equal():
+    """``analysis/findings.py`` (the finding record and the suppression
+    scanner the port's passes share) is a byte copy of ``repro``'s, and
+    behaves the same on a suppression corpus."""
+    import inspect
+
+    from repro.analysis import findings as j_findings
+    from repro_torch.analysis import findings
+    assert inspect.getsource(findings) == inspect.getsource(j_findings)
+    src = ("x = 1  # analysis: ignore[PB101] documented\n"
+           "# analysis: ignore[TH201, PB999]\n"
+           "y = 2\n")
+    known = frozenset({"PB101", "TH201"})
+    raw = [findings.Finding("PB101", "f.py", 1, "m"),
+           findings.Finding("TH201", "f.py", 3, "m")]
+    j_raw = [j_findings.Finding(f.rule, f.path, f.line, f.message)
+             for f in raw]
+    ours = findings.apply_suppressions(
+        raw, findings.scan_suppressions(src), "f.py", known)
+    theirs = j_findings.apply_suppressions(
+        j_raw, j_findings.scan_suppressions(src), "f.py", known)
+    assert [dataclasses.astuple(f) for f in ours] == [
+        dataclasses.astuple(f) for f in theirs]
+    assert {f.rule for f in ours} == {"BA001", "BA003", "TH201"}

@@ -51,7 +51,13 @@ SLICE_MODULES = ("repro_torch.kernels.zoo_dual_matmul.ops",
                  "repro_torch.federation.scheduler",
                  "repro_torch.graphs",
                  "repro_torch.models.rwkv", "repro_torch.models.moe",
-                 "repro_torch.core.attacks")
+                 "repro_torch.core.attacks",
+                 "repro_torch.sharding.rules", "repro_torch.launch.mesh",
+                 "repro_torch.analysis.findings",
+                 "repro_torch.analysis.astutil",
+                 "repro_torch.analysis.boundary",
+                 "repro_torch.analysis.jitlint",
+                 "repro_torch.analysis.runtime", "repro_torch.analysis.cli")
 
 
 def _port_files():

@@ -98,7 +98,7 @@ def test_later_slices_raise_with_their_roadmap_items():
     ``repro``'s driver trains them) and the population engine refuses
     them with ``repro``'s ``ValueError`` (``test_torch_encdec.py`` and
     ``test_torch_vlm.py`` hold both drivers to ``repro``'s)."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         main(["--production-mesh", "--device", "cpu"])
     for arch in MODALITY_ARCHS:
         res = train(arch, steps=1, batch=2, seq=8, device="cpu",
