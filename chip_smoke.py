@@ -232,7 +232,19 @@ and prints no result):
    block, and every later block step runs with no read, no compile and
    CUDA's sync debug mode at "error"; (c) ``python -m
    repro_torch.analysis --strict`` on this machine exits 0;
-12. a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
+12. the boundary certifier: (a) ``python -m repro_torch.analysis certify
+   --strict`` on the card in a child process exits 0 and its certificate
+   (under ``build/``) equals the committed ``CERT_boundary.json`` in every
+   configuration's status, findings, crossings, ``n_dp_eqns`` and
+   ``out_taints``; (b) cascaded-lanes on the tabular main path at the
+   paper's width (batch 64, phase 3's q) and the split serve of
+   Phi-3-mini at full width and depth (bf16, 2 client parties, B = 2, 4
+   decode steps) traced and certified, with one graph node of the fused
+   ZOO kernel, and of RMSNorm, for each launch counted around the trace,
+   the tabular crossings' elements equal to the ledger's formula and each
+   decode step's crossings a (B,) int32 token down and a (B, 1, 3072)
+   bf16 embedding up; (c) the phase's seconds;
+13. a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
    ...}``.
 
 It needs one card, and builds into ``build/`` at first use. It logs each
@@ -1413,6 +1425,46 @@ DECODE_FAMILIES = (
 )
 
 
+# a zero-length profiler range marking where a timed window starts
+BUSY_START = "busy window start"
+
+
+def busy_union(what, prof, wall_us, sum_us, after=BUSY_START) -> float:
+    """The device's busy time in a profile's timed window, in us: the union
+    of its device events' intervals (each kernel's, copy's or fill's device
+    start and end; not the GPU timeline's projections of the profiler
+    ranges, which span idle time too), clipped to the window, so kernels
+    that overlap count once. The window
+    starts at the end of the profile's last CPU range named ``after``
+    (``BUSY_START`` just before the timed region, or the profiler's
+    warm-up range), or, in a profile with no such range (a CUDA-only one,
+    which holds the timed window alone), at its first device event; it
+    lasts the host's ``wall_us``. Logs the union beside ``sum_us``, the
+    old reading: the sum of the kernels' durations."""
+    from torch.autograd import DeviceType
+    events = prof.events()
+    spans = [(e.time_range.start, e.time_range.end) for e in events
+             if e.device_type == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)]
+    if not spans:
+        return 0.0
+    marks = [e.time_range.end for e in events
+             if e.device_type == DeviceType.CPU and e.name == after]
+    lo = max(marks) if marks else min(a for a, _ in spans)
+    hi = lo + wall_us
+    union, reach = 0.0, lo
+    for a, b in sorted(spans):
+        a, b = max(a, reach), min(b, hi)
+        if b > a:
+            union += b - a
+            reach = b
+    log(f"{what}: device busy {union:.1f} us as the union of {len(spans)} "
+        f"device intervals in the {wall_us:.1f} us window "
+        f"({union / wall_us:.2%}); the kernels' summed durations "
+        f"{sum_us:.1f} us ({sum_us / wall_us:.2%})")
+    return union
+
+
 def profile_graph(what, graph, rewind, steps: int = 8,
                   traces: int = 5) -> dict:
     """``steps`` replays of a captured step under torch.profiler (the
@@ -1450,8 +1502,8 @@ def profile_graph(what, graph, rewind, steps: int = 8,
             prof.step()
         kernels = [e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA]
-        busy = sum(dev_us(e) for e in kernels)
-        if not busy:
+        busy_sum = sum(dev_us(e) for e in kernels)
+        if not busy_sum:
             raise AssertionError(f"{what}: the profiler saw no CUDA kernel "
                                  "time in the graph's replays")
         events = sum(e.count for e in kernels)
@@ -1466,6 +1518,7 @@ def profile_graph(what, graph, rewind, steps: int = 8,
     else:
         raise AssertionError(f"{what}: each of {traces} traces lost device "
                              "records")
+    busy = busy_union(f"{what} (trace {attempt})", prof, wall_us, busy_sum)
     rewind()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1489,9 +1542,10 @@ def profile_graph(what, graph, rewind, steps: int = 8,
                     if re.search(pat, e.key, re.IGNORECASE)),
                    "the rest (elementwise f32 work, reductions)")
         split[fam] += dev_us(e)
-    log(f"{what}: device time a step by kernel family: " + "; ".join(
-        f"{name} {us / steps:.1f} us ({us / busy:.2%})"
-        for name, us in split.items()))
+    log(f"{what}: device time a step by kernel family (shares of the "
+        "summed durations): " + "; ".join(
+            f"{name} {us / steps:.1f} us ({us / busy_sum:.2%})"
+            for name, us in split.items()))
     for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
         log(f"  {dev_us(e) / steps:9.2f} us/step  x{e.count / steps:6.2f}"
             f"  {e.key[:90]}")
@@ -1543,7 +1597,7 @@ def profile_prefill(fed, params, serving, ssd_ops) -> dict:
     profiler saw: the pre-pass and scan of the bf16 route, the f32
     route's kernel. Raises if the profiler saw no device time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     B, P = SERVE["batch"], SERVE["prompt_len"]
     span = fed.seq_len // SERVE["n_clients"]
     g = torch.Generator("cuda").manual_seed(1)
@@ -1561,6 +1615,8 @@ def profile_prefill(fed, params, serving, ssd_ops) -> dict:
     calls0 = ssd_ops.launches["ssd_chunk"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        with record_function(BUSY_START):
+            pass
         t0 = time.perf_counter()
         run()
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -1571,10 +1627,11 @@ def profile_prefill(fed, params, serving, ssd_ops) -> dict:
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
-    busy = sum(dev_us(e) for e in kernels)
-    if not busy:
+    busy_sum = sum(dev_us(e) for e in kernels)
+    if not busy_sum:
         raise AssertionError("prefill profile: the profiler saw no CUDA "
                              "kernel time, so the SSD route is not shown")
+    busy = busy_union("prefill profile", prof, wall_us, busy_sum)
     split = {name: 0.0 for name, _ in PREFILL_FAMILIES}
     split["the rest (f32 elementwise, casts, copies)"] = 0.0
     for e in kernels:
@@ -1587,7 +1644,7 @@ def profile_prefill(fed, params, serving, ssd_ops) -> dict:
         f"{wall_us:.1f} us, device busy {busy:.1f} us ({busy / wall_us:.2%} "
         f"of wall), {sum(e.count for e in kernels)} kernel launches")
     for name, us in split.items():
-        log(f"  {us:11.1f} us  {us / busy:7.2%}  {name}")
+        log(f"  {us:11.1f} us  {us / busy_sum:7.2%}  {name}")
     for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
         log(f"  {dev_us(e):11.1f} us  x{e.count:5d}  {e.key[:90]}")
     seen = {name: sum(e.count for e in kernels
@@ -1847,9 +1904,11 @@ def profile_rounds(fed, params, x_parts, y) -> None:
     """Where a main-path round's time goes: torch.profiler over a 50-round
     run (its set-up included), the device's busy share and its kernels."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        with record_function(BUSY_START):
+            pass
         t0 = time.perf_counter()
         fed.run(params, x_parts, y)
         torch.cuda.synchronize()
@@ -1860,11 +1919,13 @@ def profile_rounds(fed, params, x_parts, y) -> None:
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
-    busy = sum(dev_us(e) for e in kernels)
-    if not busy:
+    busy_sum = sum(dev_us(e) for e in kernels)
+    if not busy_sum:
         log("profile: the profiler saw no CUDA kernel time; device busy "
             "share not measured")
         return
+    busy = busy_union("profile of main-path rounds", prof, wall_us,
+                      busy_sum)
     steps = fed.engine.steps
     log(f"profile, {steps} main-path rounds under torch.profiler: wall "
         f"{wall_us / steps:.1f} us per round, device busy "
@@ -2086,24 +2147,28 @@ def split_profile(prof, wall_us) -> dict:
             split[f] = split.get(f, 0.0) + k.duration
             by_name[k.name] = by_name.get(k.name, 0.0) + k.duration
             n_kernels += 1
-    busy = sum(split.values())
+    busy = busy_union("profile", prof, wall_us, sum(split.values()),
+                      after=PROFILE_WARMUP)
     # where the host's time goes: CPU events by their own (self) time
     host = sorted(((e.key, e.self_cpu_time_total, e.count)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CPU),
                   key=lambda kv: -kv[1])[:12]
-    return dict(wall_us=wall_us, busy_us=busy, split=split,
+    return dict(wall_us=wall_us, busy_us=busy,
+                busy_sum_us=sum(split.values()), split=split,
                 by_name=by_name, kernels=n_kernels, host=host)
 
 
 def log_profile(what, prof) -> None:
-    busy = prof["busy_us"]
+    busy, busy_sum = prof["busy_us"], prof["busy_sum_us"]
     if busy:
         log(f"{what} under torch.profiler: wall {prof['wall_us']:.1f} us, "
             f"device busy {busy:.1f} us ({busy / prof['wall_us']:.2%} of "
-            f"wall), {prof['kernels']} device kernels")
+            f"wall; the union of the device intervals), "
+            f"{prof['kernels']} device kernels; by family (shares of their "
+            f"summed durations, {busy_sum:.1f} us):")
         for name, us in sorted(prof["split"].items(), key=lambda kv: -kv[1]):
-            log(f"  {us:11.1f} us  {us / busy:7.2%}  {name}")
+            log(f"  {us:11.1f} us  {us / busy_sum:7.2%}  {name}")
         for name, us in sorted(prof["by_name"].items(),
                                key=lambda kv: -kv[1])[:10]:
             log(f"  {us:11.1f} us  {name[:90]}")
@@ -3114,7 +3179,8 @@ def profile_block(fed, params, cfg, traffic) -> dict:
                        getattr(e, "self_cuda_time_total", 0.0))
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
-    busy = sum(dev_us(e) for e in kernels)
+    busy_sum = sum(dev_us(e) for e in kernels)
+    busy = busy_union("continuous profile", prof, wall_us, busy_sum)
     gather = [e for e in kernels if re.search(PAGED_GATHER_KERNEL, e.key)]
     out = dict(wall_us=wall_us / steps, busy_us=busy / steps,
                launches=sum(e.count for e in kernels) / steps,
@@ -3132,7 +3198,7 @@ def profile_block(fed, params, cfg, traffic) -> dict:
         f"{out['launches']:.1f} kernel launches a step; the paged gather "
         + (f"{out['gather_us']:.1f} us a step ({out['gathers']:.1f} "
            f"gathers a step for {2 * serve_plan(cfg)['sites']} K and V "
-           f"reads, {out['gather_us'] / out['busy_us']:.2%} of device "
+           f"reads, {out['gather_us'] / (busy_sum / steps):.2%} of device "
            f"time)" if gather else "not found: not measured"))
     for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
         log(f"  {dev_us(e) / steps:9.2f} us/step  x{e.count / steps:6.2f}"
@@ -5577,12 +5643,200 @@ def analysis_cli() -> None:
         raise AssertionError("the analysis gate failed on the port's tree")
 
 
+# ------------------------------------ phase 12: the boundary certifier ----
+
+CERT_REFERENCE = Path(__file__).resolve().parent / "CERT_boundary.json"
+CERT_OUT = Path(__file__).resolve().parent / "build" / "CERT_boundary.json"
+# the full-width split-serve trace: Phi-3-mini, 2 client parties, B = 2,
+# 4 decode steps after phase 4's 1024-token prompt
+CERT_SERVE = dict(batch=2, prompt_len=1024, gen_len=4, n_clients=2)
+
+
+def cert_mismatches(got: dict, want: dict) -> list:
+    """Where a certificate's inventory differs from the JAX package's
+    committed one: status, findings, crossings, ``n_dp_eqns`` and
+    ``out_taints`` of every configuration (the serve plane's decode steps
+    each against the JSON's one step)."""
+    bad = []
+    if sorted(got["methods"]) != sorted(want["methods"]):
+        return [f"configurations {sorted(got['methods'])}"]
+    for name, w in want["methods"].items():
+        g = got["methods"][name]
+        for key in ("status", "findings", "tripped"):
+            if g.get(key) != w.get(key):
+                bad.append(f"{name}: {key} {g.get(key)} != {w.get(key)}")
+        gr, wr = g["report"], w["report"]
+        for key in ("n_dp_eqns", "out_taints"):
+            if gr[key] != wr[key]:
+                bad.append(f"{name}: {key} {gr[key]} != {wr[key]}")
+        steps = g.get("per_step", [gr["crossings"]])
+        if not steps or any(s != wr["crossings"] for s in steps):
+            bad.append(f"{name}: crossings {steps} != {wr['crossings']}")
+    return bad
+
+
+def certify_cli() -> float:
+    """Phase 12 (a): ``python -m repro_torch.analysis certify --strict`` on
+    the card in a child process exits 0, and its certificate's inventory
+    equals the committed ``CERT_boundary.json``'s."""
+    env = dict(__import__("os").environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.analysis",
+                          "certify", "--strict", "--out", str(CERT_OUT)],
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    sec = time.perf_counter() - t0
+    log(f"phase 12 (a): python -m repro_torch.analysis certify --strict: "
+        f"exit {out.returncode} in {sec:.1f} s: "
+        f"{out.stdout.strip()[-600:]}")
+    if out.returncode != 0:
+        log(f"phase 12 (a): its errors: {out.stderr.strip()[-6000:]}")
+        raise AssertionError("the certifier found a violation on the card")
+    got = json.loads(CERT_OUT.read_text())
+    bad = cert_mismatches(got, json.loads(CERT_REFERENCE.read_text()))
+    if got["device"] != "cuda" or bad:
+        raise AssertionError(f"the card's certificate ({got['device']}) "
+                             f"differs from CERT_boundary.json: {bad}")
+    log(f"phase 12 (a): the card's certificate equals CERT_boundary.json in "
+        f"all {len(got['methods'])} configurations")
+    return sec
+
+
+def certify_tabular(zoo_ops) -> float:
+    """Phase 12 (b): cascaded-lanes on the tabular main path at the paper's
+    width (phase 3's batch 64 and q) through the fused kernel, certified:
+    one graph node of the kernel for each launch its counter reads around
+    the trace, and the crossings' elements equal to the ledger's
+    ``round_messages`` at that width."""
+    from repro_torch.analysis import certify, ifc
+    from repro_torch.configs.base import VFLConfig
+    from repro_torch.configs.paper_mlp import PaperMLPConfig
+    from repro_torch.core import adapters, privacy
+    from repro_torch.core.async_engine import EngineConfig
+    from repro_torch.federation import Federation
+    t0 = time.perf_counter()
+    cfg = PaperMLPConfig()
+    vfl = VFLConfig(mu=MU, lr_server=0.05, lr_client=0.05)
+    fed = Federation.build(
+        adapters.tabular_adapter(cfg, use_kernel_lanes=True), vfl,
+        EngineConfig(method="cascaded", batch_size=64, use_lanes=True))
+    meta = fed.boundary_meta()
+    g = torch.Generator("cuda").manual_seed(0)
+    args = list(adapters.example_engine_args(
+        fed.adapter, cfg, n_rows=60000, batch=64, block=1,
+        q=vfl.zoo_queries, device="cuda"))
+    args[0] = fed.init_params(torch.Generator().manual_seed(0))
+    args[3] = torch.randint(0, 60000, (64,), generator=g, device="cuda")
+    args[6] = torch.randn(args[6].shape, generator=g, device="cuda")
+    name = "zoo_dual_matmul_stacked_bias_relu"
+    zoo_ops.reset_launches()
+    report, meta = certify.trace_train(fed, cfg, args=tuple(args))
+    torch.cuda.synchronize()
+    launches = zoo_ops.launches[name]
+    nodes = ifc.count_nodes(report, name)
+    f = certify.certify_train("cascaded-lanes (paper width)", report, meta,
+                              cfg.client_embed)
+    msgs = privacy.round_messages("cascaded", 64, cfg.client_embed,
+                                  zoo_queries=vfl.zoo_queries)
+    want = {"emb": sum(math.prod(m.shape) for m in msgs
+                       if m.kind == "embedding"),
+            "loss": sum(1 for m in msgs if m.kind == "loss")}
+    got = {"emb": sum(c.size for c in report.up()),
+           "loss": sum(c.size for c in report.down("loss"))}
+    sec = time.perf_counter() - t0
+    log(f"phase 12 (b): cascaded-lanes at paper width ({cfg}, batch 64, "
+        f"q {vfl.zoo_queries}): {len(report.graph.graph.nodes)} graph nodes, "
+        f"{nodes} {name} nodes for {launches} launches; crossings "
+        f"{[c.to_json() for c in report.crossings]}; elements {got} "
+        f"(ledger {want}); findings {[x.rule for x in f]}; {sec:.1f} s")
+    if nodes != launches or nodes < 1:
+        raise AssertionError(f"{nodes} kernel nodes for {launches} launches")
+    if f or got != want or report.out_taints != [frozenset()] * 2:
+        raise AssertionError("the paper-width tabular step is not certified")
+    return sec
+
+
+def certify_serve(rms_ops, flash_ops) -> float:
+    """Phase 12 (b): split-serve of Phi-3-mini at full width and depth
+    (bf16, random weights from a seed) traced over 4 decode steps and
+    certified: as many RMSNorm nodes as launches around the trace (the
+    decode steps take the plain decode attention: no flash node), and per
+    step a (B,) int32 token downlink and a (B, 1, 3072) bf16 embedding
+    uplink."""
+    from repro_torch.analysis import certify, ifc
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_mod
+    t0 = time.perf_counter()
+    cfg = get_config("phi3-mini-3.8b")
+    B = CERT_SERVE["batch"]
+    fed, params = serve_mod.build_session(
+        cfg, n_clients=CERT_SERVE["n_clients"],
+        prompt_len=CERT_SERVE["prompt_len"],
+        gen_len=CERT_SERVE["gen_len"], seed=0)
+    params = fed.params_from_global(params)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rms_ops.reset_launches()
+    flash_ops.reset_launches()
+    report, steps = certify.trace_serve(
+        fed, params, batch=B, prompt_len=CERT_SERVE["prompt_len"],
+        gen_len=CERT_SERVE["gen_len"])
+    torch.cuda.synchronize()
+    launches = (rms_ops.launches["rmsnorm"],
+                flash_ops.launches["flash_attention"])
+    nodes = (ifc.count_nodes(report, "rmsnorm"),
+             ifc.count_nodes(report, "flash_attention"))
+    name = "split-serve (phi3-mini-3.8b, full width)"
+    f = ifc.check_flows(report, name=name, dp_configured=False,
+                        down_limits={"token": B})
+    f += certify.serve_if304(name, steps, batch=B, d_model=cfg.d_model)
+    want_step = [("token", "down", (B,), "int32"),
+                 ("emb", "up", (B, 1, cfg.d_model), "bfloat16")]
+    got_steps = [[(c.kind, c.direction, c.shape, c.dtype) for c in st]
+                 for st in steps]
+    per_fwd = serve_plan(cfg)["per_fwd"]
+    sec = time.perf_counter() - t0
+    log(f"phase 12 (b): {name}: weights {t1 - t0:.1f} s, trace and walk "
+        f"{sec - (t1 - t0):.1f} s, {len(report.graph.graph.nodes)} graph "
+        f"nodes, RMSNorm nodes {nodes[0]} for {launches[0]} launches "
+        f"({per_fwd} a decode step), flash nodes {nodes[1]} for "
+        f"{launches[1]} launches; {len(steps)} steps of crossings "
+        f"{got_steps[0] if got_steps else None}; out taints "
+        f"{[sorted(t) for t in report.out_taints]}; findings "
+        f"{[x.rule for x in f]}")
+    if nodes != launches or nodes != (per_fwd * CERT_SERVE["gen_len"], 0):
+        raise AssertionError(f"serve trace nodes {nodes}, launches "
+                             f"{launches}")
+    if f or got_steps != [want_step] * CERT_SERVE["gen_len"] \
+            or report.out_taints != [frozenset()]:
+        raise AssertionError("the full-width serve step is not certified")
+    del fed, params, report
+    gc.collect()
+    torch.cuda.empty_cache()
+    return sec
+
+
+def certifier_phase(card, zoo_ops, rms_ops, flash_ops) -> None:
+    """Phase 12: the boundary certifier on the card: (a) the CLI over the
+    11 toy configurations against ``CERT_boundary.json``; (b) the tabular
+    main path at the paper's width and Phi-3-mini's split serve at full
+    width and depth, certified with one graph node a kernel launch; (c)
+    the phase's seconds."""
+    t0 = time.perf_counter()
+    parts = {"(a) certify CLI": certify_cli(),
+             "(b) tabular": certify_tabular(zoo_ops),
+             "(b) phi3 serve": certify_serve(rms_ops, flash_ops)}
+    log("phase 12 (c): " + "; ".join(f"{k} {v:.1f} s"
+                                     for k, v in parts.items())
+        + f"; the phase {time.perf_counter() - t0:.1f} s on {card}")
+
+
 def parse_phases(argv) -> set:
     """``--phases 4,6`` runs the build (phase 1) and the phases named, for
     work on one path; with no arguments every phase runs, and only then
     is the result printed."""
     if not argv:
-        return set(range(1, 13))
+        return set(range(1, 14))
     if len(argv) != 2 or argv[0] != "--phases":
         raise SystemExit("usage: python3 chip_smoke.py [--phases N,N,...]")
     return {1} | {int(n) for n in argv[1].split(",")}
@@ -5717,14 +5971,19 @@ def main() -> int:
         analysis_cli()
         t0 = lap(11, t0)
 
+    # ---- phase 12: the boundary certifier ------------------------------
+    if 12 in phases:
+        certifier_phase(card, ops, rms_ops, flash_ops)
+        t0 = lap(12, t0)
+
     wall = time.perf_counter() - t_start
     log(f"chip_smoke wall time: {wall:.1f} s (" + "; ".join(
         f"phase {k} {v:.1f} s" for k, v in spent.items()) + f") on {card}")
-    if phases != set(range(1, 13)):
+    if phases != set(range(1, 14)):
         log(f"partial run (phases {sorted(phases)}): no result line")
         return 0
 
-    # ---- phase 12: the record ------------------------------------------
+    # ---- phase 13: the record ------------------------------------------
     report_rates(rows)
     log(card)
     log(json.dumps({"kernels": list(rows.values())}))

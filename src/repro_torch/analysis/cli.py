@@ -9,8 +9,9 @@ the run. ``--select FAMILIES`` (e.g. ``--select IF,PB``) restricts the
 report to the named rule families.
 
 ``python -m repro_torch.analysis certify`` is the graph-level
-information-flow certifier (IF301–IF304); it is not ported yet (ROADMAP.md,
-Queue 1 item 8) and raises.
+information-flow certifier (IF301–IF304, ``analysis/certify.py``): it
+traces every shipped method's step and proves the party boundary on the
+graph (``--device cpu`` on the CPU; the card by default).
 """
 
 from __future__ import annotations
@@ -41,8 +42,8 @@ RULES = {
     "BA001": "suppression comment without justification",
     "BA002": "unparseable file (syntax error)",
     "BA003": "suppression comment names an unknown rule id",
-    # graph-level information-flow rules (the `certify` subcommand, not
-    # ported yet; listed so --select and suppressions know the id space)
+    # graph-level information-flow rules (the `certify` subcommand;
+    # listed so --select and suppressions know the id space)
     "IF301": "traced: server-parameter cotangent reaches a client-bound output",
     "IF302": "traced: server->client flow bypasses the scalar wire bottleneck",
     "IF303": "traced: DP channel configured but downlink not noise-dominated",
@@ -141,10 +142,12 @@ def load_baseline(path: str) -> set[str]:
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:]) if argv is None else list(argv)
     if argv and argv[0] == "certify":
-        raise NotImplementedError(
-            "the graph-level information-flow certifier (IF301-IF304: "
-            "marks.py, ifc.py, certify.py over torch.fx/torch.export) is "
-            "not ported yet (ROADMAP.md, Queue 1 item 8)")
+        # the graph-level certifier is a subcommand so the CI gate and
+        # humans share one entry point; imported lazily (it traces the
+        # engine, which the AST passes never import)
+        from repro_torch.analysis import certify
+
+        return certify.main(argv[1:])
 
     parser = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis",

@@ -25,7 +25,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from repro_torch.analysis import tags
+from repro_torch.analysis import marks, tags
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.paper_mlp import PaperMLPConfig
 from repro_torch.core import zoo
@@ -103,7 +103,9 @@ class ModelAdapter:
                       "per round")
     def global_loss(self, params, x_parts, y_batch):
         """Synchronous view: every client fresh, one loss (Split-Learning)."""
-        c = self.client_forward(params["clients"], x_parts)
+        c = marks.wire_boundary(self.client_forward(params["clients"],
+                                                    x_parts),
+                                kind="emb", direction="up")
         return self.server_loss(params["server"], c, y_batch)
 
 
@@ -181,6 +183,41 @@ def tabular_adapter(cfg: Optional[PaperMLPConfig] = None,
         client_lanes=client_lanes,
         table_logical=("clients", None, None),
     )
+
+
+def example_engine_args(adapter: ModelAdapter, cfg: PaperMLPConfig, *,
+                        n_rows: int = 16, batch: int = 4, block: int = 1,
+                        q: int = 1, seed: int = 0, device=None):
+    """Small concrete engine-step arguments for tracing.
+
+    Builds the ``(params, table, m_blk, idx, t, draws, x_parts, y)``
+    tuple a train-step closure takes (``Federation.traceable_train_step``),
+    sized off the tabular protocol config — the certifier
+    (``repro_torch.analysis.certify``) traces the step over these. The
+    params, table and data are zero-filled, as the JAX package's are; the
+    round's draws are filled before the trace from a ``TorchDraws(seed)``
+    (:class:`~repro_torch.core.draws.FilledDraws`) and enter the graph as
+    inputs, as the port injects draws everywhere else. ``params`` keeps
+    its ``{"clients": ..., "server": ...}`` key paths: that is how the
+    certifier labels which inputs are server-held."""
+    from repro_torch.core.draws import FilledDraws, TorchDraws
+    device = torch.device("cpu" if device is None else device)
+    params = tree_map(
+        lambda s: torch.zeros(s.shape, dtype=common.torch_dtype(s.dtype),
+                              device=device),
+        adapter.param_specs())
+    M = cfg.n_clients
+    table = torch.zeros((M, n_rows, cfg.client_embed), device=device)
+    m_blk = torch.arange(block, device=device)
+    idx = torch.zeros((batch,), dtype=torch.int64, device=device)
+    draws = FilledDraws.fill(
+        TorchDraws(seed, device), 0,
+        client=tree_map(lambda a: a[0], params["clients"]),
+        server=params["server"], params=params, n_rows=block, q=q)
+    x_parts = torch.zeros((M, n_rows, cfg.features_per_client),
+                          device=device)
+    y = torch.zeros((n_rows,), dtype=torch.int64, device=device)
+    return params, table, m_blk, idx, 0, draws, x_parts, y
 
 
 # ======================================================== SwiGLU-MLP pair ==

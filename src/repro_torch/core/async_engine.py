@@ -75,7 +75,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.analysis import tags
+from repro_torch.analysis import marks, tags
 from repro_torch.configs.base import VFLConfig
 from repro_torch.core import zoo
 from repro_torch.core.adapters import ModelAdapter, tabular_adapter
@@ -378,6 +378,7 @@ def _make_client_grad_fns(adapter: ModelAdapter, transport,
             lanes = zoo.stack_lanes(client_blk, u_stack, vfl.mu,
                                     batch_dims=1)
             c_lanes = adapter.client_forward(lanes, x_blk.unsqueeze(1))
+        c_lanes = marks.wire_boundary(c_lanes, kind="emb", direction="up")
         losses = adapter.server_loss(
             server, _replace_rows(c_stale, m_blk, c_lanes), yb)  # (R, 1+q)
         losses = transport.downlink(
@@ -402,7 +403,9 @@ def _make_client_grad_fns(adapter: ModelAdapter, transport,
             return adapter.server_loss(
                 server, _replace_rows(c_stale, m_blk, cf[:, None]),
                 yb).sum()
-        return _value_and_grad(loss_sum, client_blk)[1]
+        # grad_mark: these ARE first-order cotangents crossing client-ward;
+        # certifying vafl must fail IF301 (the negative control)
+        return marks.grad_mark(_value_and_grad(loss_sum, client_blk)[1])
 
     return client_zoo_grad, client_foo_grad
 
@@ -432,6 +435,11 @@ def _server_update(adapter: ModelAdapter, method: str, vfl: VFLConfig,
     if method in ("cascaded", "vafl"):
         h, g_server = _value_and_grad(adapter.server_loss, server,
                                       c_batch.detach(), yb)
+        # the engine's one sanctioned server-FOO point: mark the
+        # cotangents so the certifier (IF301) can prove nothing derived
+        # from them reaches a client-bound output except through the
+        # scalar-loss bottleneck
+        g_server = marks.grad_mark(g_server)
     else:  # zoo-vfl: server trains itself with ZOO too
         def s_loss(s):
             return adapter.server_loss(s, c_batch, yb)
@@ -605,6 +613,10 @@ def _make_sync_step(adapter: ModelAdapter, transport, vfl: VFLConfig):
         if method == "split":
             grads, h = torch.func.grad_and_value(adapter.global_loss)(
                 params, xb, yb)
+            # Split-Learning backprops THROUGH the boundary: its client
+            # grads are cotangents (declared leaky; certifying it must
+            # fail IF301, the first-order negative control)
+            grads = marks.grad_mark(grads)
         else:  # syn-zoo: every party (server + each client) does ZOO
             grads, h, _ = zoo.zoo_gradient(
                 draws.global_directions(t, params, vfl.zoo_queries),
@@ -718,6 +730,9 @@ def _population_fns(adapter: ModelAdapter, transport, vfl: VFLConfig,
         """The (1+q) lanes' server losses for block row r (client m): the
         server loss over a (1+q, M, bs, e) stack, one forward a lane for
         the LM adapter (its kernels cannot be vmapped)."""
+        # the lanes arrived as "emb" wire frames: anchor the uplink
+        emb_lanes = marks.wire_boundary(emb_lanes, kind="emb",
+                                        direction="up")
         lanes = c_stale.unsqueeze(0).repeat(1 + q, 1, 1, 1)
         lanes[:, m] = emb_lanes
         losses = adapter.server_loss(server, lanes, yb)

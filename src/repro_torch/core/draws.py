@@ -249,3 +249,44 @@ class RowDraws:
             return torch.stack([
                 torch.randn((n,), generator=self._g(_NOISE, t, r),
                             device=self.device) for r in range(n_rows)])
+
+
+class FilledDraws(dict):
+    """One round's draws taken ahead of time, answered from tensors: the
+    draw source a traced step takes, so its random numbers are graph
+    inputs (the certifier, ``repro_torch.analysis.certify``, traces a step
+    over one). A ``dict`` subclass, so a tree walk sees its tensors:
+    ``"client"`` (n_rows, q, *leaf) leaves, ``"server"`` and ``"global"``
+    (q, *leaf) leaves, ``"noise"`` (n_rows, 1+q). Each call checks it asks
+    for what was filled."""
+
+    @classmethod
+    def fill(cls, source, t: int, *, client, server, params, n_rows: int,
+             q: int) -> "FilledDraws":
+        """Round ``t``'s draws from ``source`` for a block of ``n_rows``
+        rows: ``client`` is one row's client parameters, ``server`` the
+        server's, ``params`` the whole tree."""
+        return cls(client=source.client_directions(t, client, n_rows, q),
+                   server=source.server_directions(t, server, q),
+                   noise=source.noise(t, n_rows, 1 + q),
+                   **{"global": source.global_directions(t, params, q)})
+
+    def _take(self, name: str, lead):
+        tree = self[name]
+        got = tuple(tree_leaves(tree)[0].shape[:len(lead)])
+        if got != tuple(lead):
+            raise ValueError(f"filled {name} draws lead with {got}, the step "
+                             f"asks for {tuple(lead)}")
+        return tree
+
+    def client_directions(self, t, template, n_rows, q):
+        return self._take("client", (n_rows, q))
+
+    def server_directions(self, t, template, q):
+        return self._take("server", (q,))
+
+    def global_directions(self, t, template, q):
+        return self._take("global", (q,))
+
+    def noise(self, t, n_rows, n):
+        return self._take("noise", (n_rows, n))

@@ -58,7 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch import graphs
-from repro_torch.analysis import tags
+from repro_torch.analysis import marks, tags
 from repro_torch.core.adapters import ModelAdapter
 from repro_torch.core.privacy import Ledger
 from repro_torch.kernels import _build
@@ -219,6 +219,7 @@ def make_serve_step(adapter: ModelAdapter, n_clients: int, seq_len: int):
             e = slot_embed(params, owner, tok[:, 0])
         else:
             e = adapter.client_embed(_client(params, t // span), tok)
+        e = marks.wire_boundary(e, kind="emb", direction="up")
         return adapter.server_decode(params["server"], e, caches, t)
 
     return step
@@ -256,6 +257,7 @@ def make_decode_scan(adapter: ModelAdapter, n_clients: int, seq_len: int,
             lg = lg / temperature + st["noise"].index_select(0, i)[0]
         nxt = torch.clamp(torch.argmax(lg, dim=-1),
                           max=vocab_size - 1).to(torch.int32)
+        nxt = marks.wire_boundary(nxt, kind="token", direction="down")
         st["out"].index_copy_(1, i, nxt[:, None])
         logits, _ = step(params, nxt[:, None], st["caches"], st["pos"])
         st["logits"].copy_(logits)
@@ -265,7 +267,9 @@ def make_decode_scan(adapter: ModelAdapter, n_clients: int, seq_len: int,
         if gen_len < 1:
             return None
         with torch.no_grad():
-            if st["pos"].device.type != "cuda":
+            # the certifier traces the body's loop (a capture records
+            # no graph nodes)
+            if st["pos"].device.type != "cuda" or marks.tracing():
                 for _ in range(gen_len):
                     body(params, st)
                 return None
@@ -318,7 +322,8 @@ def prefill_chunk(adapter: ModelAdapter, params, toks, caches, t0: int,
         raise ValueError(
             f"adapter {adapter.name!r} has no server_prefill hook; use the "
             "per-token step loop")
-    e = adapter.client_embed(_client(params, m), toks)
+    e = marks.wire_boundary(adapter.client_embed(_client(params, m), toks),
+                            kind="emb", direction="up")
     logits, caches = adapter.server_prefill(params["server"], e, caches, t0)
     return logits[:, -1:], caches
 

@@ -67,6 +67,7 @@ from repro_torch.federation.parties import (ClientParty, Parties, ServerParty,
 from repro_torch.federation.transport import Transport
 from repro_torch.launch.mesh import make_client_mesh
 from repro_torch.models import model_api
+from repro_torch.sharding.rules import PARAM_RULES, resolve_spec
 
 ModelLike = Union[ModelAdapter, ModelConfig, PaperMLPConfig]
 
@@ -300,6 +301,65 @@ class Federation:
             self.transport.method, self.model.loss_fn,
             self.model.client_keys, self.vfl, optimizer, vocab=vocab,
             transport=self.transport)
+
+    # -------------------------------------------------- certifier plane ---
+    def boundary_meta(self) -> dict:
+        """Boundary metadata for the graph certifier
+        (``repro_torch.analysis.certify``): everything the information-flow
+        rules need to size the legal bottleneck — method, q, block,
+        whether a DP channel is configured — read off the session instead
+        of asserted by the caller."""
+        return {
+            "method": self.transport.method,
+            "sync": self.transport.sync,
+            "zoo_wire": self.transport.zoo_wire,
+            "dp": self.transport.noise is not None,
+            "zoo_queries": self.vfl.zoo_queries,
+            "block": 1 if self.transport.sync else self.engine.block_size,
+            "batch": self.engine.batch_size,
+            "n_clients": self.n_clients,
+            "use_lanes": self.engine.use_lanes,
+            "mesh_shards": self.engine.mesh_shards,
+        }
+
+    def traceable_train_step(self, *, table_shape=None):
+        """The EXACT step closure the engine's round loop runs — sync,
+        async, or device-sharded per the engine config — for the
+        certifier to trace. Signature: ``step(params, table, m_blk, idx,
+        t, draws, x_parts, y) -> (params, table, h)``; it updates
+        ``params["clients"]`` and ``table`` in place. The sharded variant
+        needs ``table_shape`` (the (M, n, e) embedding-table shape) to
+        resolve the table's partition spec the same way ``run`` does,
+        and its ``table`` carries one spare row past this rank's own
+        (``async_engine._make_runner``)."""
+        if self.transport.sync:
+            return async_engine._make_sync_step(
+                self.adapter, self.transport, self.vfl)
+        if self.mesh is not None:
+            if table_shape is None:
+                raise ValueError("the sharded step needs table_shape= to "
+                                 "resolve the table partition spec")
+            table_spec = resolve_spec(self.mesh, tuple(table_shape),
+                                      self.adapter.table_logical,
+                                      PARAM_RULES)
+            return async_engine._make_sharded_step(
+                self.adapter, self.transport, self.vfl,
+                self.engine.use_lanes, self.mesh, self.engine.block_size,
+                table_spec)
+        return async_engine._make_async_step(
+            self.adapter, self.transport, self.vfl, self.engine.use_lanes)
+
+    def traceable_population_fns(self, draws=None):
+        """The population engine's server-side pair ``(server_update,
+        losses_fn)`` (see ``async_engine._population_fns``) over
+        ``draws`` (default: ``RowDraws(engine.seed)`` on the session's
+        device, as :meth:`run_population` draws) — ``losses_fn`` is the
+        server->client downlink closure the certifier traces: its whole
+        output is client-bound."""
+        if draws is None:
+            draws = RowDraws(self.engine.seed, self.device)
+        return async_engine._population_fns(self.adapter, self.transport,
+                                            self.vfl, draws)
 
     # ------------------------------------------------------ party plane ---
     @property

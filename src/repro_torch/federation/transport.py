@@ -21,7 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.analysis import tags
+from repro_torch.analysis import marks, tags
 from repro_torch.core.methods import (SYNC_METHODS, ZOO_WIRE_METHODS,
                                       canonical_method)
 from repro_torch.core.privacy import (GaussianLossChannel, Ledger,
@@ -50,6 +50,10 @@ class Transport:
 
     # ------------------------------------------------------- wire shape --
     @property
+    def sync(self) -> bool:
+        return self.method in SYNC_METHODS
+
+    @property
     def zoo_wire(self) -> bool:
         return self.method in ZOO_WIRE_METHODS
 
@@ -63,12 +67,20 @@ class Transport:
 
         Identity when no noise channel is configured; otherwise clips +
         noises every scalar crossing down, with ``normals`` (N(0, 1),
-        shaped like ``losses``) from the run's draw source."""
+        shaped like ``losses``) from the run's draw source.
+
+        Every return path factors through ``marks.wire_boundary`` (and,
+        under a channel, ``marks.dp_noise``): identities outside the
+        certifier's trace, they anchor this, the ONE legal loss downlink,
+        in the traced graph so ``repro_torch.analysis.ifc`` can certify
+        the scalar bottleneck (IF302) and noise-before-wire (IF303)."""
         if self.noise is None:
-            return losses
+            return marks.wire_boundary(losses, kind="loss",
+                                       direction="down")
         if normals is None:
             raise ValueError("a noised downlink needs its N(0, 1) draws")
-        return self.noise.apply(losses, normals)
+        noised = marks.dp_noise(self.noise.apply(losses, normals))
+        return marks.wire_boundary(noised, kind="loss", direction="down")
 
     # --------------------------------------------------------- accounting --
     @tags.accounting

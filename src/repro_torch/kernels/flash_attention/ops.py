@@ -18,13 +18,18 @@ and whose backward is autograd through the plain version (``ref.py``),
 recomputed from the saved q, k and v (``kernels/_plain_grad.py``): the
 JAX package differentiates its plain attention too. Backward kernels are
 later work (ROADMAP.md, Queue 1 item 3(b)). With grad off the call
-launches the kernel and nothing else."""
+launches the kernel and nothing else.
+
+Inside the certifier's trace (``repro_torch.analysis.marks.tracing()``)
+a CUDA call launches through the ``repro_torch::flash_attention`` custom
+op, whose implementation is the same launch: one graph node a launch."""
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
 
+from repro_torch.analysis import marks
 from repro_torch.kernels._plain_grad import needs_grad, plain_backward
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import flash_attention_bshd_ref
@@ -116,7 +121,7 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0,
                                         window=window, q_offset=q_offset)
     if needs_grad(q, k, v):
         return FlashAttentionFn.apply(q, k, v, causal, window, q_offset)
-    return _launch(q, k, v, causal, window, q_offset)
+    return _call(q, k, v, causal, window, q_offset)
 
 
 def _launch(q, k, v, causal, window, q_offset):
@@ -125,6 +130,24 @@ def _launch(q, k, v, causal, window, q_offset):
                   q_offset=q_offset)
     launches["flash_attention"] += 1
     return o
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_node(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool, window: int, q_offset: int) -> torch.Tensor:
+    return _launch(q, k, v, causal, window, q_offset)
+
+
+@_flash_node.register_fake
+def _(q, k, v, causal, window, q_offset):
+    return q.new_empty(q.shape[:3] + v.shape[3:])
+
+
+def _call(q, k, v, causal, window, q_offset):
+    """Launch on the card: one graph node under the certifier's trace."""
+    if marks.tracing():
+        return _flash_node(q, k, v, bool(causal), int(window), int(q_offset))
+    return _launch(q, k, v, causal, window, q_offset)
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -136,7 +159,7 @@ class FlashAttentionFn(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, q_offset):
         ctx.save_for_backward(q, k, v)
         ctx.mask = (causal, window, q_offset)
-        return _launch(q, k, v, causal, window, q_offset)
+        return _call(q, k, v, causal, window, q_offset)
 
     @staticmethod
     def backward(ctx, grad_o):

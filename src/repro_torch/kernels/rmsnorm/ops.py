@@ -15,7 +15,11 @@ and whose backward is autograd through the plain version (``ref.py``),
 recomputed from the saved x and scale (``kernels/_plain_grad.py``), the
 function the JAX package differentiates. Backward kernels are later work
 (ROADMAP.md, Queue 1 item 3(b)). With grad off the call launches the
-kernel and nothing else."""
+kernel and nothing else.
+
+Inside the certifier's trace (``repro_torch.analysis.marks.tracing()``)
+a CUDA call launches through the ``repro_torch::rmsnorm`` custom op,
+whose implementation is the same launch: one graph node a launch."""
 from __future__ import annotations
 
 import functools
@@ -23,6 +27,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.analysis import marks
 from repro_torch.kernels._plain_grad import needs_grad, plain_backward
 from repro_torch.kernels.rmsnorm import kernel
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
@@ -126,7 +131,7 @@ def rmsnorm(x, scale, *, eps: float = 1e-6):
         return rmsnorm_ref(x, scale, eps)
     if needs_grad(x, scale):
         return RMSNormFn.apply(x, scale, eps)
-    return _launch(x, scale, eps)
+    return _call(x, scale, eps)
 
 
 def _launch(x, scale, eps: float):
@@ -141,6 +146,24 @@ def _launch(x, scale, eps: float):
     return y
 
 
+@torch.library.custom_op("repro_torch::rmsnorm", mutates_args=())
+def _rmsnorm_node(x: torch.Tensor, scale: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    return _launch(x, scale, eps)
+
+
+@_rmsnorm_node.register_fake
+def _(x, scale, eps):
+    return torch.empty_like(x)
+
+
+def _call(x, scale, eps: float):
+    """Launch on the card: one graph node under the certifier's trace."""
+    if marks.tracing():
+        return _rmsnorm_node(x, scale, float(eps))
+    return _launch(x, scale, eps)
+
+
 class RMSNormFn(torch.autograd.Function):
     """The kernel's forward; the backward differentiates the plain version
     recomputed from the saved x and scale."""
@@ -149,7 +172,7 @@ class RMSNormFn(torch.autograd.Function):
     def forward(ctx, x, scale, eps):
         ctx.save_for_backward(x, scale)
         ctx.eps = eps
-        return _launch(x, scale, eps)
+        return _call(x, scale, eps)
 
     @staticmethod
     def backward(ctx, grad_y):

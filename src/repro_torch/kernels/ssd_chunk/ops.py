@@ -13,13 +13,19 @@ and whose backward is autograd through the plain chunked form
 it differentiates) at the same chunk, recomputed from the saved inputs
 (``kernels/_plain_grad.py``). Backward kernels are later work (ROADMAP.md,
 Queue 1 item 3(b)). With grad off the call launches the kernel and
-nothing else."""
+nothing else.
+
+Inside the certifier's trace (``repro_torch.analysis.marks.tracing()``)
+a CUDA call launches through a custom op (``repro_torch::ssd_chunk``,
+``repro_torch::ssd_chunk_flat`` for the TPU contract's entry point) whose
+implementation is the same launch: one graph node a launch."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.analysis import marks
 from repro_torch.kernels._plain_grad import needs_grad, plain_backward
 from repro_torch.kernels.ssd_chunk import kernel
 from repro_torch.kernels.ssd_chunk.ref import (ssd_chunk_ref,
@@ -103,7 +109,7 @@ def ssd_chunk_bshp(xh, a, dt, bm, cm, *, chunk: int, state0=None):
         return ssd_states_ref(xh, a, dt, bm, cm, state0)
     if needs_grad(xh, a, dt, bm, cm, state0):
         return SSDChunkFn.apply(xh, a, dt, bm, cm, state0, chunk)
-    return _launch(xh, a, dt, bm, cm, state0, chunk)
+    return _call(xh, a, dt, bm, cm, state0, chunk)
 
 
 def _launch(xh, a, dt, bm, cm, state0, chunk: int):
@@ -115,6 +121,51 @@ def _launch(xh, a, dt, bm, cm, state0, chunk: int):
                   _scratch(xh, B, S, H, chunk), chunk)
     launches["ssd_chunk"] += 1
     return y, state
+
+
+def _launch_flat(xh, a, dt, bm, cm, chunk: int):
+    """The TPU contract's launch: y (BH, S, P) in xh's dtype, no state."""
+    y = torch.empty_like(xh)
+    kernel.launch(xh.unsqueeze(2), a.unsqueeze(2), dt.unsqueeze(2), bm, cm,
+                  None, y, None,
+                  _scratch(xh, xh.shape[0], xh.shape[1], 1, chunk), chunk)
+    launches["ssd_chunk"] += 1
+    return y
+
+
+@torch.library.custom_op("repro_torch::ssd_chunk", mutates_args=())
+def _ssd_node(xh: torch.Tensor, a: torch.Tensor, dt: torch.Tensor,
+              bm: torch.Tensor, cm: torch.Tensor,
+              state0: Optional[torch.Tensor],
+              chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _launch(xh, a, dt, bm, cm, state0, chunk)
+
+
+@_ssd_node.register_fake
+def _(xh, a, dt, bm, cm, state0, chunk):
+    B, S, H, P = xh.shape
+    f32 = torch.float32
+    return (xh.new_empty((B, S, H, P), dtype=f32),
+            xh.new_empty((B, H, P, bm.shape[-1]), dtype=f32))
+
+
+@torch.library.custom_op("repro_torch::ssd_chunk_flat", mutates_args=())
+def _ssd_flat_node(xh: torch.Tensor, a: torch.Tensor, dt: torch.Tensor,
+                   bm: torch.Tensor, cm: torch.Tensor,
+                   chunk: int) -> torch.Tensor:
+    return _launch_flat(xh, a, dt, bm, cm, chunk)
+
+
+@_ssd_flat_node.register_fake
+def _(xh, a, dt, bm, cm, chunk):
+    return torch.empty_like(xh)
+
+
+def _call(xh, a, dt, bm, cm, state0, chunk: int):
+    """Launch on the card: one graph node under the certifier's trace."""
+    if marks.tracing():
+        return _ssd_node(xh, a, dt, bm, cm, state0, int(chunk))
+    return _launch(xh, a, dt, bm, cm, state0, chunk)
 
 
 def ssd_chunk(xh, a, dt, bm, cm, *, chunk: int = 128):
@@ -133,11 +184,9 @@ def ssd_chunk(xh, a, dt, bm, cm, *, chunk: int = 128):
     if needs_grad(xh, a, dt, bm, cm):
         y, _ = SSDChunkFn.apply(x4, a3, dt3, bm, cm, None, chunk)
         return y.squeeze(2).to(xh.dtype)
-    y = torch.empty_like(xh)
-    kernel.launch(x4, a3, dt3, bm, cm, None, y, None,
-                  _scratch(xh, xh.shape[0], xh.shape[1], 1, chunk), chunk)
-    launches["ssd_chunk"] += 1
-    return y
+    if marks.tracing():
+        return _ssd_flat_node(xh, a, dt, bm, cm, chunk)
+    return _launch_flat(xh, a, dt, bm, cm, chunk)
 
 
 class SSDChunkFn(torch.autograd.Function):
@@ -150,7 +199,7 @@ class SSDChunkFn(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(xh, a, dt, bm, cm, state0)
         ctx.chunk = chunk
-        return _launch(xh, a, dt, bm, cm, state0, chunk)
+        return _call(xh, a, dt, bm, cm, state0, chunk)
 
     @staticmethod
     def backward(ctx, grad_y, grad_state):

@@ -9,13 +9,20 @@ nothing), so a run can show that its main path went through the kernel.
 The kernel computes the clients' zeroth-order lanes, which need no
 gradient, and has no backward: a CUDA call with grad mode on and an
 operand that requires grad raises rather than return an output that
-would drop the gradient."""
+would drop the gradient.
+
+Inside the certifier's trace (``repro_torch.analysis.marks.tracing()``)
+a CUDA call launches through a ``torch.library.custom_op`` of the entry
+point's name (``repro_torch::zoo_dual_matmul_stacked_bias_relu``, ...)
+whose implementation is the same launch, so each launch is one graph
+node whose outputs depend on its inputs."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.analysis import marks
 from repro_torch.kernels._plain_grad import needs_grad
 from repro_torch.kernels.zoo_dual_matmul import kernel
 from repro_torch.kernels.zoo_dual_matmul.ref import (
@@ -96,6 +103,32 @@ def _launch(name: str, x, w, us, b, ub, mu):
     return y, y_hat
 
 
+def _graph_node(name: str):
+    """The entry point's launch as one custom op (the certifier's node)."""
+    @torch.library.custom_op(f"repro_torch::{name}", mutates_args=())
+    def node(x: torch.Tensor, w: torch.Tensor, us: torch.Tensor,
+             b: Optional[torch.Tensor], ub: Optional[torch.Tensor],
+             mu: float) -> Tuple[torch.Tensor, torch.Tensor]:
+        return _launch(name, x, w, us, b, ub, mu)
+
+    @node.register_fake
+    def _(x, w, us, b, ub, mu):
+        R, M, _ = x.shape
+        N, q = w.shape[-1], us.shape[1]
+        return x.new_empty((R, M, N)), x.new_empty((R, q, M, N))
+    return node
+
+
+_NODES = {name: _graph_node(name) for name in launches}
+
+
+def _call(name: str, x, w, us, b, ub, mu):
+    """Launch on the card: one graph node under the certifier's trace."""
+    if marks.tracing():
+        return _NODES[name](x, w, us, b, ub, float(mu))
+    return _launch(name, x, w, us, b, ub, mu)
+
+
 def zoo_dual_matmul(x, w, u, mu):
     """x (M, K), w/u (K, N) -> (y = xW, ŷ = x(W + μU)), both (M, N)."""
     if x.ndim != 2 or w.ndim != 2 or u.ndim != 2:
@@ -107,7 +140,7 @@ def zoo_dual_matmul(x, w, u, mu):
     xb, wb, ubat = x[None], w[None], u[None, None]
     if not _validate(xb, wb, ubat, None, None):
         return zoo_dual_matmul_ref(x, w, u, mu)
-    y, y_hat = _launch("zoo_dual_matmul", xb, wb, ubat, None, None, mu)
+    y, y_hat = _call("zoo_dual_matmul", xb, wb, ubat, None, None, mu)
     return y[0], y_hat[0, 0]
 
 
@@ -135,5 +168,5 @@ def zoo_dual_matmul_stacked(x, w, us, mu, *, b=None, ub=None):
     else:
         name = ("zoo_dual_matmul_stacked" if b is None
                 else "zoo_dual_matmul_stacked_bias_relu")
-        out = _launch(name, x, w, us, b, ub, mu)
+        out = _call(name, x, w, us, b, ub, mu)
     return out if batched else (out[0][0], out[1][0])

@@ -140,10 +140,10 @@ def test_shipped_tree_is_clean():
     assert cli.analyze_paths([SRC]) == []
 
 
-def test_cli_module_strict_and_certify(capsys):
+def test_cli_module_strict_and_certify(capsys, tmp_path):
     """``python -m repro_torch.analysis --strict`` scans the package
-    itself (from any directory) and exits 0; ``certify`` is refused with
-    its ROADMAP item."""
+    itself (from any directory) and exits 0; ``certify`` on the CPU
+    certifies every configuration and writes its certificate."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.join(HERE, os.pardir, "src")]
@@ -153,8 +153,9 @@ def test_cli_module_strict_and_certify(capsys):
         cwd=HERE, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "analysis clean" in proc.stderr
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        cli.main(["certify"])
+    out = tmp_path / "cert.json"
+    assert cli.main(["certify", "--device", "cpu", "--out", str(out)]) == 0
+    assert json.loads(out.read_text())["clean"] is True
     capsys.readouterr()
 
 
