@@ -131,7 +131,7 @@ and prints no result):
    the analysis plane's sentinels (phase 11 (b) checks them);
 7. asynchronous LM training over the wire plane: (a)
    ``launch.train.train_population`` of Phi-3-mini at full width and
-   depth, 40 rounds at the population CLI's defaults (4 client parties
+   depth, 12 rounds at the population CLI's defaults (4 client parties
    behind loopback wires, batch 8 x 32 tokens, q = 1, cascaded): a
    finite, falling loss, no gradient on the wire, the ledger's serialized
    bytes equal to the emb/loss frames measured as sent (the f32 payload
@@ -244,7 +244,29 @@ and prints no result):
    the tabular crossings' elements equal to the ledger's formula and each
    decode step's crossings a (B,) int32 token down and a (B, 1, 3072)
    bf16 embedding up; (c) the phase's seconds;
-13. a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
+13. the examples on the card: each of ``examples_torch/`` (``repro``'s
+   six) loaded in this process and its ``main()`` called with
+   ``sys.argv`` set and no ``--device``, its asserts holding and its
+   lines and seconds logged (``paper_experiments.py`` at ``--steps 200``
+   into ``build/``); around ``train_lm_cascaded.py`` and
+   ``serve_decode.py`` the flash, RMSNorm and SSD launches held to their
+   derivation from the configs they run;
+14. the production mesh: (a) ``launch.train.train(mesh=)`` of Phi-3-mini
+   at full width cut to 4 layers, 3 cascaded steps of 8 x 128 tokens, on
+   a one-rank NCCL group at a (1, 1) ``("data", "model")`` mesh with
+   DTensor parameters, against the same run with no mesh in turns
+   (without, with, with, without): losses and parameters bitwise, flash
+   and RMSNorm launches equal to the unplaced run's and the derivation,
+   ``shard_constraint`` calls equal to theirs, the ms a step of both;
+   (b) ``python -m repro_torch.launch.dryrun --arch phi3-mini-3.8b
+   --shape train_4k`` and phi3 cut to 4 layers with its full depth
+   traced, in child processes on a fake 256-rank group with CUDA hidden,
+   started before phase 13: the per-device parameter bytes equal the
+   shards ``resolve_spec`` gives, the counted FLOPs at least 6·N·tokens
+   (the ratio logged), the fit from 1 and 2 layers equal to the traced
+   4-layer count in FLOPs, bytes and collective bytes, and the spec-peak
+   terms, bound and peak GiB a device logged;
+15. a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
    ...}``.
 
 It needs one card, and builds into ``build/`` at first use. It logs each
@@ -261,9 +283,15 @@ phase 10's ``tests/test_torch_encdec.py``, ``tests/test_torch_vlm.py`` and
 the families' cases of the checkpoint tests; phase 11's
 ``tests/test_torch_engine_sharded.py`` (gloo ranks in child processes),
 ``tests/test_torch_sharding.py`` and ``tests/test_torch_analysis.py``.
+Phase 13's are ``tests/test_torch_examples.py`` and
+``tests/test_torch_examples_lm.py``; phase 14's
+``tests/test_torch_production_mesh.py`` (4 gloo ranks),
+``tests/test_torch_mesh_rules.py`` and ``tests/test_torch_dryrun.py``.
 Phase 7 starts worker processes of this script (``--pop-worker``) and
-stops them before it returns; phase 11 starts and destroys a one-rank
-process group and runs the analysis CLI in a child process.
+stops them before it returns; phases 11 and 14 start and destroy a
+one-rank process group, phase 11 runs the analysis CLI in a child
+process, and phase 14's dry runs are child processes that are joined,
+or killed if a phase fails.
 """
 import contextlib
 import gc
@@ -1429,6 +1457,24 @@ DECODE_FAMILIES = (
 BUSY_START = "busy window start"
 
 
+def device_events(prof) -> list:
+    """A profile's device events: each kernel's, copy's or fill's (not
+    the GPU timeline's projections of the profiler ranges)."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def busy_window(prof, spans, wall_us, after=BUSY_START):
+    """(start, end) of a profile's timed window in us (see
+    ``busy_union``)."""
+    from torch.autograd import DeviceType
+    marks = [e.time_range.end for e in prof.events()
+             if e.device_type == DeviceType.CPU and e.name == after]
+    lo = max(marks) if marks else min(a for a, _ in spans)
+    return lo, lo + wall_us
+
+
 def busy_union(what, prof, wall_us, sum_us, after=BUSY_START) -> float:
     """The device's busy time in a profile's timed window, in us: the union
     of its device events' intervals (each kernel's, copy's or fill's device
@@ -1441,17 +1487,11 @@ def busy_union(what, prof, wall_us, sum_us, after=BUSY_START) -> float:
     which holds the timed window alone), at its first device event; it
     lasts the host's ``wall_us``. Logs the union beside ``sum_us``, the
     old reading: the sum of the kernels' durations."""
-    from torch.autograd import DeviceType
-    events = prof.events()
-    spans = [(e.time_range.start, e.time_range.end) for e in events
-             if e.device_type == DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False)]
+    spans = [(e.time_range.start, e.time_range.end)
+             for e in device_events(prof)]
     if not spans:
         return 0.0
-    marks = [e.time_range.end for e in events
-             if e.device_type == DeviceType.CPU and e.name == after]
-    lo = max(marks) if marks else min(a for a, _ in spans)
-    hi = lo + wall_us
+    lo, hi = busy_window(prof, spans, wall_us, after)
     union, reach = 0.0, lo
     for a, b in sorted(spans):
         a, b = max(a, reach), min(b, hi)
@@ -2079,7 +2119,9 @@ class StepRecorder:
 
     @property
     def losses(self):
-        return [float(o.loss) for o in self.outputs]
+        # a placed run's loss is a DTensor: its full value
+        return [float(getattr(o.loss, "full_tensor", lambda: o.loss)())
+                for o in self.outputs]
 
 
 PROFILE_WARMUP = "profiler warm-up"
@@ -2115,13 +2157,26 @@ def profiler_warmup() -> None:
         torch.cuda.synchronize()
 
 
+def _train_family(name: str) -> str:
+    return next((fam for fam, pat in TRAIN_FAMILIES
+                 if re.search(pat, name, re.IGNORECASE)),
+                "the rest (elementwise, softmax, casts, copies)")
+
+
 def split_profile(prof, wall_us) -> dict:
     """A profile's device time by family (see ``profile_train_step``),
-    the busy time, the kernels and the host's top events."""
+    the busy time, the kernels and the host's top events. The op walk
+    finds the kernels that hang under a PyTorch op; the hand-written
+    kernels launch through ``ctypes`` and hang under none, so after it
+    every device event in the timed window that the walk did not count
+    (matched by name and duration) goes to its name's family. The summed
+    split is then never less than the busy union: it raises if it is."""
+    from collections import Counter
     from torch.autograd import DeviceType
     ranges = ("plain backward", "SGD update", "direction draws",
               PROFILE_WARMUP)
     split, by_name, n_kernels = {}, {}, 0
+    counted = Counter()
     launching = [e for e in prof.events() if getattr(e, "kernels", None)]
     # count each kernel once: at the innermost event that lists it
     outer = set()
@@ -2141,18 +2196,51 @@ def split_profile(prof, wall_us) -> dict:
         if fam == PROFILE_WARMUP:
             continue
         for k in e.kernels:
-            f = fam or next((name for name, pat in TRAIN_FAMILIES
-                             if re.search(pat, k.name, re.IGNORECASE)),
-                            "the rest (elementwise, softmax, casts, copies)")
+            f = fam or _train_family(k.name)
             split[f] = split.get(f, 0.0) + k.duration
             by_name[k.name] = by_name.get(k.name, 0.0) + k.duration
+            counted[(k.name, round(k.duration, 3))] += 1
             n_kernels += 1
+    # the device events no op lists (the ctypes launches), in the window
+    walked, unlisted = n_kernels, 0
+    events = device_events(prof)
+    if events:
+        lo, hi = busy_window(prof, [(e.time_range.start, e.time_range.end)
+                                    for e in events], wall_us,
+                             PROFILE_WARMUP)
+        for e in events:
+            if e.time_range.end <= lo or e.time_range.start >= hi:
+                continue
+            dur = e.time_range.end - e.time_range.start
+            key = (e.name, round(dur, 3))
+            if counted[key]:
+                counted[key] -= 1
+                continue
+            f = _train_family(e.name)
+            split[f] = split.get(f, 0.0) + dur
+            by_name[e.name] = by_name.get(e.name, 0.0) + dur
+            n_kernels += 1
+            unlisted += 1
     busy = busy_union("profile", prof, wall_us, sum(split.values()),
                       after=PROFILE_WARMUP)
-    # where the host's time goes: CPU events by their own (self) time
-    host = sorted(((e.key, e.self_cpu_time_total, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CPU),
+    log(f"profile split: {walked} kernels under PyTorch ops, {unlisted} "
+        f"device events under none (ctypes launches, copies) added by "
+        f"name; summed {sum(split.values()):.1f} us against the union "
+        f"{busy:.1f} us")
+    if sum(split.values()) + 1e-3 < busy:
+        raise AssertionError(f"the split ({sum(split.values()):.1f} us) "
+                             f"misses device time of the union "
+                             f"({busy:.1f} us)")
+    # where the host's time goes: CPU events by their own (self) time,
+    # summed by name from the parsed events (``key_averages`` would parse
+    # the trace a second time)
+    host_time, host_count = {}, Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU:
+            host_time[e.key] = host_time.get(e.key, 0.0) + \
+                e.self_cpu_time_total
+            host_count[e.key] += 1
+    host = sorted(((k, v, host_count[k]) for k, v in host_time.items()),
                   key=lambda kv: -kv[1])[:12]
     return dict(wall_us=wall_us, busy_us=busy,
                 busy_sum_us=sum(split.values()), split=split,
@@ -3344,11 +3432,12 @@ def continuous_phase(rows, card, counters, kernels, archs=CONT_ARCHS,
 
 # the population CLI's defaults (launch/train.py --engine population): 4
 # client parties over 128 rows, batch 8 x 32 tokens (span 8), q = 1,
-# cascaded, block 1, lr 0.01, mu 1e-3; 40 rounds
-POP = dict(steps=40, batch=8, seq=32, n_clients=4, rows=128,
+# cascaded, block 1, lr 0.01, mu 1e-3; 12 rounds (the CLI's 40 cut to
+# keep the phase under its 60 s: the falling-loss gate still holds)
+POP = dict(steps=12, batch=8, seq=32, n_clients=4, rows=128,
            zoo_queries=1, lr=0.01, mu=1e-3)
 POP_WARMUP = 3          # rounds before the timed ones
-POP_PROFILE_ROUND = 30  # the round cycle under torch.profiler
+POP_PROFILE_ROUND = 9   # the round cycle under torch.profiler
 # the bitwise and fault checks: Phi-3 full width cut to 2 layers, 10 rounds
 POP_SMALL = dict(layers=2, rounds=10, until=5)
 POP_FAULTS = dict(seed=7, drop=0.2, latency_ms=5.0, jitter_ms=3.0,
@@ -3419,9 +3508,11 @@ class RoundRecorder:
 
     def stop(self, now=None):
         torch.cuda.synchronize()
-        wall_us = ((now or time.perf_counter()) - self._t0) * 1e6
+        t0 = time.perf_counter()
+        wall_us = ((now or t0) - self._t0) * 1e6
         self._prof.__exit__(None, None, None)
         self.profile = split_profile(self._prof, wall_us)
+        self.profile_s = time.perf_counter() - t0
 
     def __exit__(self, *exc):
         self.engine._population_fns = self.inner
@@ -3490,22 +3581,31 @@ def population_phase(rows, card, counters, kernels) -> None:
     ``launch.train.train_population`` of Phi-3-mini at full width and
     depth, the bitwise and fault checks at full width cut to 2 layers
     (with worker processes on the card behind sockets), and one round on
-    reduced phi3 in f32 against the CPU."""
+    reduced phi3 in f32 against the CPU. (a) runs 12 rounds where the
+    CLI's default is 40 (PR 26's phase took 63.6–76.4 s against its
+    60 s, (a) 29–35 s of it), and the socket worker's exit is read after
+    (c), so its teardown overlaps (c); every check is kept, and (a), (b),
+    (c) and (d) log their seconds apart."""
     t_phase = time.perf_counter()
     pop_full(rows, card, counters, kernels)
     t0 = time.perf_counter()
     log(f"population phase (a): {t0 - t_phase:.1f} s")
-    pop_small(counters)
+    spent = pop_small(counters)
     t1 = time.perf_counter()
-    log(f"population phase (b, c): {t1 - t0:.1f} s")
+    b = sum(v for k, v in spent.items() if not k.startswith(("faults",
+                                                             "kill")))
+    log(f"population phase (b): {b:.1f} s; (c): "
+        f"{t1 - t0 - b:.1f} s; (b, c): {t1 - t0:.1f} s")
     pop_card_vs_cpu()
     log(f"population phase (d): {time.perf_counter() - t1:.1f} s")
     log(f"population phase: {time.perf_counter() - t_phase:.1f} s on {card}")
 
 
 def pop_full(rows, card, counters, kernels) -> None:
-    """(a) 40 rounds of Phi-3-mini at full width and depth through
-    ``train_population`` at the CLI's defaults."""
+    """(a) 12 rounds of Phi-3-mini at full width and depth through
+    ``train_population`` at the CLI's defaults but its horizon (40 rounds
+    cut to 12 to keep phase 7 under its 60 s; a finite, falling loss
+    still gates it)."""
     from repro_torch.launch import train as train_mod
     arch = "phi3-mini-3.8b"
     cfg = train_mod.get_config(arch)
@@ -3553,7 +3653,8 @@ def pop_full(rows, card, counters, kernels) -> None:
         f"table, round 0's uplink), {starts[-1] - starts[0]:.2f} s from it "
         f"to round {T - 1}'s, {tail:.2f} s after (round {T - 1}'s "
         f"downlink, the collect of {POP['n_clients']} client tables over "
-        f"the wire, stop)")
+        f"the wire, stop); the profiled cycle's trace processing "
+        f"{rec.profile_s:.2f} s of it")
     log(f"population result: {json.dumps(res)}")
     admitted = round(res["participation"] * T)
     plan = pop_plan(cfg, q, T, admitted)
@@ -3581,6 +3682,7 @@ def pop_full(rows, card, counters, kernels) -> None:
                              "frames sent")
     log_profile(f"population profile, round cycle {POP_PROFILE_ROUND} of "
                 f"{arch} on {card}", rec.profile)
+    t_checks = time.perf_counter()
     path = f"population:{arch}"
     for name, cap in caps.items():
         if sorted(cap.inputs) != sorted(keeps[name]):
@@ -3591,6 +3693,8 @@ def pop_full(rows, card, counters, kernels) -> None:
             lambda i, args, kw, name=name: keeps[name][i], "population")
         rows[name]["launches"] += launches[name]
         rows[name].setdefault("launches_by_path", {})[path] = launches[name]
+    log(f"population (a): the kernels held on the run's inputs "
+        f"{time.perf_counter() - t_checks:.2f} s")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3738,8 +3842,9 @@ def _tabular_faults(plan, admission):
         rng.integers(0, 2, n), fault_plan=plan, population=admission)
 
 
-def pop_small(counters) -> None:
-    """(b) and (c) at Phi-3 full width cut to 2 layers on the card."""
+def pop_small(counters) -> dict:
+    """(b) and (c) at Phi-3 full width cut to 2 layers on the card;
+    returns the seconds of each piece."""
     import shutil
     import tempfile
     from repro_torch.core import async_engine
@@ -3824,20 +3929,19 @@ def pop_small(counters) -> None:
 
         # ---- (b) party 2 behind a socket, its worker on the card --------
         chan = accept(sock_l, timeout=300.0)
+        t0 = lap("socket party: waiting for its worker", t0)
         sock = fed.run_population(params, xp, toks, channels={2: chan})
-        rc, out, err = _stop_worker(sock_l, sock_p)
-        over = (rc == 0 and "POP_WORKER_OK" in out
-                and np.array_equal(sock.losses, pop.losses)
+        over = (np.array_equal(sock.losses, pop.losses)
                 and _same_trees(sock.params, pop.params)
                 and sock.ledger.messages == pop.ledger.messages)
         log(f"population over a socket: party 2's ClientWorker in another "
-            f"process on the card (exit {rc}); losses, params and ledger "
-            f"messages (measured bytes included) equal to the loopback "
-            f"run: {over}; control bytes {sock.control_bytes} vs "
-            f"{pop.control_bytes}")
+            f"process on the card; losses, params and ledger messages "
+            f"(measured bytes included) equal to the loopback run: {over}; "
+            f"control bytes {sock.control_bytes} vs {pop.control_bytes}")
         if not over:
-            raise AssertionError(f"the socket run differs: {err[-2000:]}")
-        t0 = lap("socket party (worker start included)", t0)
+            raise AssertionError("the socket run differs")
+        # the worker's exit is read after (c): its teardown overlaps it
+        t0 = lap("socket party: the run", t0)
 
         # ---- (c) faults: card against the CPU ----------------------------
         plan = FaultPlan(**POP_FAULTS)
@@ -3870,6 +3974,7 @@ def pop_small(counters) -> None:
 
         # ---- (c) kill -9 a socket worker mid-run ---------------------------
         chan = accept(kill_l, timeout=300.0)
+        t0 = lap("kill -9: waiting for its worker", t0)
         killed = fed.run_population(params, xp, toks, channels={1: chan},
                                     wire_timeout_s=120.0)
         rc, out, err = _stop_worker(kill_l, kill_p)
@@ -3887,7 +3992,13 @@ def pop_small(counters) -> None:
                                  params["clients"]["embed"].items()})):
             raise AssertionError(f"the killed worker's run failed (exit "
                                  f"{rc}): {err[-2000:]}")
-        lap("kill -9", t0)
+        t0 = lap("kill -9: the run and the worker's exit", t0)
+        rc, out, err = _stop_worker(sock_l, sock_p)
+        log(f"population over a socket: the worker exited {rc}")
+        if rc != 0 or "POP_WORKER_OK" not in out:
+            raise AssertionError(f"the socket worker failed (exit {rc}): "
+                                 f"{err[-2000:]}")
+        lap("socket party: the worker's exit", t0)
         log("population phase (b, c) time: " + "; ".join(
             f"{k} {v:.1f} s" for k, v in spent.items()))
     finally:
@@ -3897,6 +4008,7 @@ def pop_small(counters) -> None:
     del fed, params
     gc.collect()
     torch.cuda.empty_cache()
+    return spent
 
 
 def pop_card_vs_cpu() -> None:
@@ -5831,12 +5943,375 @@ def certifier_phase(card, zoo_ops, rms_ops, flash_ops) -> None:
         + f"; the phase {time.perf_counter() - t0:.1f} s on {card}")
 
 
+# ----------------------------- phase 13: the examples on the card ------
+
+EXAMPLES_DIR = Path(__file__).resolve().parent / "examples_torch"
+EXAMPLES = ("quickstart", "async_adapters", "paper_experiments",
+            "attack_demo", "train_lm_cascaded", "serve_decode")
+EXAMPLE_ARGS = {"paper_experiments": ("--steps", "200")}
+# serve_decode.py's calls of launch.serve.serve
+SERVE_DECODE = dict(batch=4, prompt_len=12, gen_len=12, n_clients=2)
+
+
+def load_example(name):
+    """An example file of ``examples_torch/`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", EXAMPLES_DIR / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(name, mod):
+    """``mod.main()`` with ``sys.argv`` set as the command line would
+    (no ``--device``: the card); its printed lines are logged. Returns
+    (its return value, seconds)."""
+    import io
+    argv, buf = sys.argv, io.StringIO()
+    sys.argv = [str(EXAMPLES_DIR / f"{name}.py"), *EXAMPLE_ARGS.get(name,
+                                                                    ())]
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = mod.main()
+        torch.cuda.synchronize()
+    finally:
+        sys.argv = argv
+    secs = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        if line.strip():
+            log(f"  {name}: {line[:300]}")
+    log(f"example {name}: {secs:.1f} s on the card")
+    return out, secs
+
+
+def split_serve_plan(cfg, prompt_len, gen_len, n_clients) -> dict:
+    """Launches of one split ``serve`` call (``serve_plan`` at any
+    prompt): the prompt's span-aligned prefill chunks (the spans of
+    ``seq_len / n_clients``, seq_len rounded up to a multiple of the
+    parties) run flash once an attention site and the SSD scan once a
+    Mamba2 layer; every forward (a chunk, a decode step) runs each norm."""
+    from repro_torch.federation.serving import prefill_plan
+    sites, mamba, block_norms, final_norm = kernel_sites(cfg)
+    seq = -(-(prompt_len + gen_len) // n_clients) * n_clients
+    chunks = len(prefill_plan(prompt_len, seq // n_clients))
+    return {"flash_attention": sites * chunks,
+            "rmsnorm": (block_norms + final_norm) * (chunks + gen_len),
+            "ssd_chunk": mamba * chunks}
+
+
+def serve_decode_plan(servers) -> dict:
+    """serve_decode.py's launches: split serves of granite (LayerNorm),
+    rwkv6 (no kernel) and zamba2, the continuous granite drain (from its
+    scheduler's prefill chunks, steps and replays) and whisper's global
+    decode, each reduced as ``serve`` runs them."""
+    from repro_torch.configs import get_config, reduced
+    total = {"flash_attention": 0, "rmsnorm": 0, "ssd_chunk": 0}
+
+    def add(plan):
+        for k in total:
+            total[k] += plan[k]
+    for arch in ("granite-20b", "rwkv6-7b", "zamba2-2.7b"):
+        add(split_serve_plan(reduced(get_config(arch)),
+                             SERVE_DECODE["prompt_len"],
+                             SERVE_DECODE["gen_len"],
+                             SERVE_DECODE["n_clients"]))
+    if len(servers) != 1:
+        raise AssertionError(f"serve_decode built {len(servers)} "
+                             "schedulers, want 1")
+    add(cont_launch_plan(reduced(get_config("granite-20b")), servers[0]))
+    add(modal_serve_plan(reduced(get_config("whisper-medium")),
+                         SERVE_DECODE["prompt_len"]
+                         + SERVE_DECODE["gen_len"]))
+    return total
+
+
+class ServeRecorder:
+    """Keeps every scheduler ``Federation.serve`` builds inside one
+    ``with``."""
+
+    def __enter__(self):
+        from repro_torch.federation import session
+        self.Fed, self.servers = session.Federation, []
+        self.inner = self.Fed.serve
+        rec = self
+
+        def serve(fed, *args, **kw):
+            srv = rec.inner(fed, *args, **kw)
+            rec.servers.append(srv)
+            return srv
+        self.Fed.serve = serve
+        return self
+
+    def __exit__(self, *exc):
+        self.Fed.serve = self.inner
+
+
+def examples_phase(rows, card, counters) -> None:
+    """Phase 13: each example of ``examples_torch/`` run in this process
+    on the card, its own asserts holding; the kernel launches of
+    train_lm_cascaded.py and serve_decode.py held to their derivation."""
+    t_phase = time.perf_counter()
+    for name in EXAMPLES:
+        mod = load_example(name)
+        if name == "paper_experiments":
+            mod.OUT = str(Path(__file__).resolve().parent / "build"
+                          / "experiments_torch")
+        for c in counters:
+            c.reset_launches()
+        with ServeRecorder() as rec:
+            out, _ = run_example(name, mod)
+        launches = _launches(counters)
+        if name == "train_lm_cascaded":
+            from repro_torch.configs import ARCH_REGISTRY
+            cfg = ARCH_REGISTRY["lm-ci"]
+            plan = train_plan(cfg, q=1, steps=out["steps"])
+            want, why = plan["launches"], plan["why"]
+        elif name == "serve_decode":
+            want = serve_decode_plan(rec.servers)
+            why = ("split serves of reduced granite, rwkv6 and zamba2, the "
+                   "continuous granite drain and whisper's global decode")
+        else:
+            continue
+        got = {k: launches[k] for k in want}
+        log(f"example {name}: launches {got}, derived {want}: {why}")
+        if got != want:
+            raise AssertionError(f"example {name} launched {got}, want "
+                                 f"{want}")
+        path = f"example:{name}"
+        for k, n in got.items():
+            rows[k]["launches"] += n
+            rows[k].setdefault("launches_by_path", {})[path] = n
+    log(f"examples phase: {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
+# ------------------------------ phase 14: the production mesh ------------
+
+MESH_TRAIN = dict(arch="phi3-mini-3.8b", layers=4, steps=3, batch=8,
+                  seq=128)
+DRYRUN_OUT = Path(__file__).resolve().parent / "build" / "dryrun"
+DRYRUN_FIT_LAYERS = 4
+DRYRUN_FIT = """
+import json, sys
+from repro_torch.configs import cut_depth, get_config
+from repro_torch.launch import dryrun
+res = dryrun.run_one(cut_depth(get_config("phi3-mini-3.8b"), {layers}),
+                     "train_4k", trace_full=True, verbose=False)
+json.dump(res, open(sys.argv[1], "w"))
+"""
+
+
+def start_dryruns():
+    """The dry run's child processes, started early (they need no card,
+    and are kept off it): the CLI at Phi-3-mini's full depth, and Phi-3
+    cut to 4 layers with the full depth traced beside the fit."""
+    DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
+    env = dict(__import__("os").environ, PYTHONPATH=str(SRC),
+               CUDA_VISIBLE_DEVICES="")
+    cli = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           "phi3-mini-3.8b", "--shape", "train_4k", "--out",
+           str(DRYRUN_OUT)]
+    fit = [sys.executable, "-c", DRYRUN_FIT.format(
+        layers=DRYRUN_FIT_LAYERS), str(DRYRUN_OUT / "fit.json")]
+    t0 = time.perf_counter()
+    return t0, [subprocess.Popen(c, env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+                for c in (cli, fit)]
+
+
+def join_dryruns(procs) -> list:
+    outs = []
+    for p in procs:
+        try:
+            out, _ = p.communicate(timeout=900)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        if p.returncode != 0:
+            raise AssertionError(f"dry run exited {p.returncode}: "
+                                 f"{out[-3000:]}")
+        outs.append(out)
+    return outs
+
+
+def mesh_constraint_plan(cfg, steps: int, q: int = 1) -> int:
+    """``shard_constraint`` calls of ``steps`` cascaded steps of a dense
+    config: a forward constrains the embeddings and the logits, and each
+    block's input, q, the attention output and the MLP's hidden; a step
+    runs the clean forward, q perturbed ones and the remat recompute of
+    every block."""
+    block = 4
+    return steps * ((1 + q) * (2 + cfg.n_layers * block)
+                    + cfg.n_layers * block * int(cfg.remat))
+
+
+def mesh_train(rows, card, counters) -> None:
+    """(a) ``train(mesh=)`` on a one-rank NCCL group at a (1, 1) mesh,
+    placement forced, against the same run with no mesh, in turns."""
+    import tempfile
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.configs import cut_depth, get_config
+    from repro_torch.launch import train as train_mod
+    from repro_torch.sharding import rules
+    from repro_torch.tree import tree_leaves
+    cfg = cut_depth(get_config(MESH_TRAIN["arch"]), MESH_TRAIN["layers"])
+    kw = dict(steps=MESH_TRAIN["steps"], batch=MESH_TRAIN["batch"],
+              seq=MESH_TRAIN["seq"], use_reduced=False, log_every=1000,
+              keep_params=True)
+    tmp = tempfile.TemporaryDirectory()
+    dist.init_process_group("nccl", store=dist.FileStore(
+        f"{tmp.name}/store", 1), rank=0, world_size=1)
+    runs = {}
+    try:
+        mesh = DeviceMesh("cuda", torch.zeros((1, 1), dtype=int),
+                          mesh_dim_names=("data", "model"))
+        for turn, placed in enumerate((False, True, True, False)):
+            for c in counters:
+                c.reset_launches()
+            rules.reset_calls()
+            with StepRecorder() as rec:
+                res = train_mod.train(cfg, mesh=mesh if placed else None,
+                                      **kw)
+            ends = rec.ends
+            runs.setdefault(placed, []).append(dict(
+                res=res, losses=rec.losses, launches=_launches(counters),
+                calls=rules.calls["shard_constraint"],
+                ms=(ends[-1] - ends[0]) * 1e3 / (len(ends) - 1)))
+    finally:
+        dist.destroy_process_group()
+        tmp.cleanup()
+    plain, placed = runs[False][0], runs[True][0]
+    same = (plain["losses"] == placed["losses"] and all(
+        torch.equal(a, b.full_tensor()) for a, b in zip(
+            tree_leaves(plain["res"]["params"]),
+            tree_leaves(placed["res"]["params"]))))
+    want = train_plan(cfg, q=1, steps=MESH_TRAIN["steps"])["launches"]
+    calls = mesh_constraint_plan(cfg, MESH_TRAIN["steps"])
+    log(f"phase 14 (a): {MESH_TRAIN['arch']} full width cut to "
+        f"{cfg.n_layers} layers, {MESH_TRAIN['steps']} cascaded steps of "
+        f"{MESH_TRAIN['batch']} x {MESH_TRAIN['seq']} tokens on a one-rank "
+        f"NCCL (1, 1) mesh, DTensor parameters: losses {placed['losses']}; "
+        f"losses and params bitwise equal to the run with no mesh: {same}")
+    log(f"phase 14 (a): launches with the mesh {placed['launches']}, "
+        f"without {plain['launches']}, derived {want}; shard_constraint "
+        f"calls {placed['calls']} (derived {calls}: {MESH_TRAIN['steps']} "
+        f"x [2 forwards x (2 + 4 a layer) + 4 a layer recomputed]), "
+        f"without a mesh {plain['calls']}")
+    log(f"phase 14 (a): ms a step (host clock after a synchronise, steps "
+        f"1..{MESH_TRAIN['steps'] - 1}) with the mesh "
+        f"{[round(r['ms'], 3) for r in runs[True]]}, without "
+        f"{[round(r['ms'], 3) for r in runs[False]]} (in turns: without, "
+        f"with, with, without) on {card}")
+    if not same:
+        raise AssertionError("the placed run differs from the unplaced one")
+    for r in runs[True] + runs[False]:
+        if {k: r["launches"][k] for k in want} != want:
+            raise AssertionError(f"phase 14 (a) launches {r['launches']}, "
+                                 f"want {want}")
+    if placed["calls"] != calls or plain["calls"] != 0:
+        raise AssertionError(f"shard_constraint calls {placed['calls']} "
+                             f"and {plain['calls']}, want {calls} and 0")
+    for k, n in want.items():
+        rows[k]["launches"] += 2 * n
+        rows[k].setdefault("launches_by_path", {})[
+            "production mesh (1, 1), 2 runs"] = 2 * n
+
+
+def local_param_bytes(cfg, seq_len) -> int:
+    """One rank's parameter bytes on the (16, 16) mesh: each leaf's shard
+    as ``resolve_spec`` gives it under ``PARAM_RULES``."""
+    from repro_torch.models.common import torch_dtype
+    from repro_torch.models.model_api import build_model
+    from repro_torch.sharding.rules import PARAM_RULES, resolve_spec
+    from repro_torch.tree import tree_leaves
+    axes = {"data": 16, "model": 16}
+    total = 0
+    for s in tree_leaves(build_model(cfg, max_seq=seq_len).param_specs):
+        logical = s.logical or (None,) * len(s.shape)
+        spec = resolve_spec(axes, s.shape, logical, PARAM_RULES)
+        n = math.prod(s.shape)
+        for entry in spec:
+            for a in (() if entry is None else
+                      (entry,) if isinstance(entry, str) else entry):
+                n //= axes[a]
+        total += n * torch_dtype(s.dtype).itemsize
+    return total
+
+
+def dryrun_checks(t0, procs, card) -> None:
+    """(b) the dry runs' results: parameter bytes, FLOPs against 6·N·D,
+    the fit against the traced 4-layer count, and the roofline terms."""
+    from repro_torch.configs import get_config
+    outs = join_dryruns(procs)
+    t_dry = time.perf_counter() - t0
+    for line in outs[0].splitlines():
+        if line.startswith("[dryrun]"):
+            log(f"  {line}")
+    res = json.loads((DRYRUN_OUT / "phi3-mini-3.8b_train_4k_16x16_"
+                      "baseline.json").read_text())
+    fit = json.loads((DRYRUN_OUT / "fit.json").read_text())
+    cfg = get_config("phi3-mini-3.8b")
+    mem, r = res["memory"], res["roofline"]
+    want_bytes = local_param_bytes(cfg, 4096)
+    ratio = r["flops_per_dev"] * r["n_devices"] / r["model_flops"]
+    log(f"phase 14 (b): dry run of phi3-mini-3.8b train_4k at (16, 16) on "
+        f"a fake 256-rank group (no card), {res['trace_s']} s of probe "
+        f"traces, both children {t_dry:.1f} s: per-device parameter bytes "
+        f"{mem['param_bytes_per_dev']} (the shards resolve_spec gives: "
+        f"{want_bytes}); counted FLOPs x 256 / 6·N·tokens = {ratio:.4f} "
+        f"(the cascaded step runs the clean forward, its backward (2x), "
+        f"remat's second forward and the ZOO lane's forward: 10·N·tokens "
+        f"against 6, 1.67, plus attention, which 6·N leaves out, and "
+        f"minus the embedding's N, which runs no product)")
+    log(f"phase 14 (b): spec-peak arithmetic (H100 SXM datasheet: 989 "
+        f"TFLOP/s bf16, 3.35 TB/s HBM, 450 GB/s NVLink within 8 GPUs, "
+        f"50 GB/s a NIC across; not measured): compute "
+        f"{r['compute_s'] * 1e3:.3f} ms, memory {r['memory_s'] * 1e3:.3f} "
+        f"ms (eager bytes, no fusion), collective "
+        f"{r['collective_s'] * 1e3:.3f} ms ({r['coll_by_axis']}), bound "
+        f"{r['bottleneck']}, peak "
+        f"{mem['peak_hbm_estimate_per_dev'] / 2**30:.2f} GiB a device")
+    traced, fr = fit["traced"], fit["roofline"]
+    exact = (fr["flops_per_dev"] == traced["flops"]
+             and fr["bytes_per_dev"] == traced["bytes"]
+             and fr["coll_bytes_per_dev"] == traced["coll_bytes"])
+    log(f"phase 14 (b): phi3 cut to {DRYRUN_FIT_LAYERS} layers: the fit "
+        f"from 1 and 2 layers (FLOPs {fr['flops_per_dev']:.6e}, bytes "
+        f"{fr['bytes_per_dev']:.6e}, collective bytes "
+        f"{fr['coll_bytes_per_dev']:.6e}) equals the traced count "
+        f"(FLOPs {traced['flops']:.6e}, bytes {traced['bytes']:.6e}, "
+        f"collective bytes {traced['coll_bytes']:.6e}): {exact}")
+    if mem["param_bytes_per_dev"] != want_bytes:
+        raise AssertionError("the dry run's parameter bytes differ from "
+                             "the resolved shards")
+    if ratio < 1.0:
+        raise AssertionError(f"the dry run counted fewer FLOPs than "
+                             f"6·N·tokens ({ratio:.4f})")
+    if not exact:
+        raise AssertionError("the cost fit differs from the traced count")
+
+
+def mesh_phase(rows, card, counters, dry) -> None:
+    """Phase 14: the production mesh."""
+    t_phase = time.perf_counter()
+    mesh_train(rows, card, counters)
+    t1 = time.perf_counter()
+    log(f"phase 14 (a): {t1 - t_phase:.1f} s")
+    dryrun_checks(*dry, card)
+    log(f"phase 14 (b): {time.perf_counter() - t1:.1f} s (waiting for the "
+        f"children included)")
+    log(f"mesh phase: {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
 def parse_phases(argv) -> set:
     """``--phases 4,6`` runs the build (phase 1) and the phases named, for
     work on one path; with no arguments every phase runs, and only then
     is the result printed."""
     if not argv:
-        return set(range(1, 14))
+        return set(range(1, 16))
     if len(argv) != 2 or argv[0] != "--phases":
         raise SystemExit("usage: python3 chip_smoke.py [--phases N,N,...]")
     return {1} | {int(n) for n in argv[1].split(",")}
@@ -5976,14 +6451,32 @@ def main() -> int:
         certifier_phase(card, ops, rms_ops, flash_ops)
         t0 = lap(12, t0)
 
+    # ---- phase 13: the examples on the card ----------------------------
+    # phase 14's dry runs need no card: they run beside phase 13
+    dry = start_dryruns() if 14 in phases else None
+    try:
+        if 13 in phases:
+            examples_phase(rows, card, (ops, flash_ops, rms_ops, ssd_ops))
+            t0 = lap(13, t0)
+
+        # ---- phase 14: the production mesh -----------------------------
+        if 14 in phases:
+            mesh_phase(rows, card, (ops, flash_ops, rms_ops, ssd_ops), dry)
+            t0 = lap(14, t0)
+    finally:
+        for p in (dry[1] if dry else ()):
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
     wall = time.perf_counter() - t_start
     log(f"chip_smoke wall time: {wall:.1f} s (" + "; ".join(
         f"phase {k} {v:.1f} s" for k, v in spent.items()) + f") on {card}")
-    if phases != set(range(1, 14)):
+    if phases != set(range(1, 16)):
         log(f"partial run (phases {sorted(phases)}): no result line")
         return 0
 
-    # ---- phase 13: the record ------------------------------------------
+    # ---- phase 15: the record ------------------------------------------
     report_rates(rows)
     log(card)
     log(json.dumps({"kernels": list(rows.values())}))

@@ -71,6 +71,32 @@ def trace_context() -> Iterator[None]:
         _TRACING.reset(token)
 
 
+_CARD_ROUTE = contextvars.ContextVar("repro_torch_card_route",
+                                     default=False)
+
+
+def on_card(x) -> bool:
+    """True for a CUDA tensor, and for any tensor inside
+    :func:`card_route`: the models and the kernels' wrappers take the
+    kernel route (under :func:`trace_context`, the custom-op nodes) where
+    this holds."""
+    return x.is_cuda or _CARD_ROUTE.get()
+
+
+@contextlib.contextmanager
+def card_route() -> Iterator[None]:
+    """Route CPU tensors as CUDA ones: the dry run's fake tensors live on
+    the CPU (a CPU build of torch refuses to index a ``cuda`` tensor, a
+    fake one too) and stand for the card's. Only with
+    :func:`trace_context` and fake tensors: a real CPU tensor on this
+    route would reach a CUDA launch."""
+    token = _CARD_ROUTE.set(True)
+    try:
+        yield
+    finally:
+        _CARD_ROUTE.reset(token)
+
+
 # ------------------------------------------------------------- the ops ----
 
 @torch.library.custom_op("repro_torch::wire_boundary", mutates_args=())

@@ -34,6 +34,7 @@ from repro_torch.kernels.zoo_dual_matmul.ops import zoo_dual_matmul_stacked
 from repro_torch.models import common, mlp, model_api, tabular, transformer
 from repro_torch.models.common import ParamSpec
 from repro_torch.models.layers import apply_norm, embed_lookup, unembed
+from repro_torch.sharding.rules import shard_constraint
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -288,6 +289,10 @@ def mlp_adapter(*, n_clients: int = 4, features: int = 32,
 
 # ================================================= ModelConfig bridge =====
 
+EMBED_ACT = ("batch", None, "embed_act")
+VOCAB_ACT = ("batch", None, "vocab_act")
+
+
 def from_model_config(cfg: ModelConfig, *, n_clients: int = 2,
                       seq_len: int = 32,
                       active_rows: bool = True) -> ModelAdapter:
@@ -386,10 +391,11 @@ def from_model_config(cfg: ModelConfig, *, n_clients: int = 2,
             pos_table = server["pos_embed"]
             pe = pos_table[positions.clamp(0, pos_table.shape[0] - 1)]
             x = x + pe.to(x.dtype)
+        x = shard_constraint(x, EMBED_ACT)
         h, _, aux = transformer.backbone_apply(cfg, server, x,
                                                positions=positions)
         h = apply_norm(cfg, server["final_norm"], h)
-        logits = unembed(server["lm_head"], h)
+        logits = shard_constraint(unembed(server["lm_head"], h), VOCAB_ACT)
         ce = transformer.softmax_xent(logits[:, :-1], y_batch[:, 1:],
                                       cfg.padded_vocab)
         return torch.mean(ce) + aux
@@ -425,11 +431,13 @@ def from_model_config(cfg: ModelConfig, *, n_clients: int = 2,
             pos_table = server["pos_embed"]
             pe = pos_table[positions.clamp(0, pos_table.shape[0] - 1)]
             x = x + pe.to(x.dtype)
+        x = shard_constraint(x, EMBED_ACT)
         h, new_caches, _ = transformer.backbone_apply(
             cfg, server, x, positions=positions, caches=caches,
             cur_pos=cur_pos)
         h = apply_norm(cfg, server["final_norm"], h)
-        return unembed(server["lm_head"], h), new_caches
+        return (shard_constraint(unembed(server["lm_head"], h), VOCAB_ACT),
+                new_caches)
 
     @tags.party("server")
     def server_decode(server, x, caches, cur_pos):
@@ -467,11 +475,13 @@ def from_model_config(cfg: ModelConfig, *, n_clients: int = 2,
             pos_table = server["pos_embed"]
             pe = pos_table[positions.clamp(0, pos_table.shape[0] - 1).long()]
             x = x + pe.to(x.dtype)
+        x = shard_constraint(x, EMBED_ACT)
         h, new_caches, _ = transformer.backbone_apply(
             cfg, server, x, positions=positions, caches=caches,
             cur_pos=cur_pos, paging=paging)
         h = apply_norm(cfg, server["final_norm"], h)
-        return unembed(server["lm_head"], h), new_caches
+        return (shard_constraint(unembed(server["lm_head"], h), VOCAB_ACT),
+                new_caches)
 
     def cache_specs(batch, max_seq):
         return model_api.build_cache_specs(cfg, batch, max_seq)

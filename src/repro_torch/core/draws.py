@@ -181,6 +181,49 @@ class StepDraws:
                 t, self.NOISE), device=self.device)
 
 
+def place_like(raw, template, lead: int = 0):
+    """``raw`` (a tree of plain tensors, each ``lead`` dims longer than
+    its ``template`` leaf) with each leaf placed as its template leaf is,
+    when that is a DTensor: the lead dims replicated, each sharded dim
+    shifted by ``lead``. Every rank drew the same full leaf, so each keeps
+    its own shard and nothing is sent. Leaves of a plain template stay as
+    they are."""
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+
+    def one(r, tm):
+        if not isinstance(tm, DTensor) or isinstance(r, DTensor):
+            return r
+        pl = [Shard(p.dim + lead) if p.is_shard() else Replicate()
+              for p in tm.placements]
+        return distribute_tensor(r, tm.device_mesh, pl, src_data_rank=None)
+    return tree_map(one, raw, template)
+
+
+class PlacedDraws:
+    """A draw source for a placed run (``launch.train(mesh=)``): each
+    draw of ``inner`` (taken whole, so bitwise the unplaced run's), then
+    placed like the parameters it perturbs (:func:`place_like`); the DP
+    noise replicated on ``mesh``."""
+
+    def __init__(self, inner, mesh) -> None:
+        self.inner, self.mesh = inner, mesh
+
+    def client_directions(self, t, template, n_rows, q):
+        return place_like(self.inner.client_directions(t, template, n_rows,
+                                                       q), template, 2)
+
+    def server_directions(self, t, template, q):
+        return place_like(self.inner.server_directions(t, template, q),
+                          template, 1)
+
+    def noise(self, t, n_rows, n):
+        from torch.distributed.tensor import Replicate, distribute_tensor
+        return distribute_tensor(
+            self.inner.noise(t, n_rows, n), self.mesh,
+            [Replicate()] * self.mesh.ndim, src_data_rank=None)
+
+
 # RowDraws' streams: every address is (seed, stream, t, row), four words
 _SCHEDULE, _INDICES, _CLIENT, _SERVER, _GLOBAL, _NOISE = range(6)
 

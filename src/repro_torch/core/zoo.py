@@ -40,9 +40,13 @@ def phi_factor(dist: str, d):
 
 
 def _trail(t: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
-    """Sum of squares of ``t`` over the leaf's own (trailing) dims."""
+    """Sum of squares of ``t`` over the leaf's own (trailing) dims (a sum
+    over those dims, not over a flattened view: DTensor cannot flatten a
+    leaf sharded past its first dim)."""
     lead = t.ndim - leaf.ndim
-    return torch.square(t).reshape(*t.shape[:lead], -1).sum(-1)
+    if not leaf.ndim:
+        return torch.square(t)
+    return torch.square(t).sum(dim=tuple(range(lead, t.ndim)))
 
 
 def sample_direction(raw, tree, dist: str = "sphere",

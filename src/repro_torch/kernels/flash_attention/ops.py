@@ -28,6 +28,7 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.analysis import marks
 from repro_torch.kernels._plain_grad import needs_grad, plain_backward
@@ -87,7 +88,7 @@ def _validate(q, k, v, window: int, q_offset: int) -> bool:
             f"operands on several devices: {sorted(map(str, devices))}")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
-    if q.device.type != "cuda":
+    if not marks.on_card(q):
         return False
     if q.dtype == torch.float32 and (Sq + 63) // 64 > 65535:
         raise ValueError(f"grid too large for the f32 kernel: Sq={Sq}")
@@ -99,9 +100,11 @@ def _validate(q, k, v, window: int, q_offset: int) -> bool:
 def check_tma_alignment(q, k, v) -> None:
     """The tensor-core route reads q, k and v through TMA, which needs
     16-byte-aligned base addresses (the strides are multiples of 32 bytes
-    for every head dim the kernel takes). Raises for any that is not."""
+    for every head dim the kernel takes). Raises for any that is not; a
+    fake tensor (the dry run's: shapes, no storage) has no address to
+    check and is passed."""
     misaligned = [name for name, t in (("q", q), ("k", k), ("v", v))
-                  if t.data_ptr() % 16]
+                  if not is_fake(t) and t.data_ptr() % 16]
     if misaligned:
         raise ValueError(
             f"the bf16 tensor-core kernel reads through TMA and needs "

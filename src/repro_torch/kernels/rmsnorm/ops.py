@@ -68,7 +68,7 @@ def _validate(x, scale) -> bool:
                          f"{scale.device}")
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
-    return device.type == "cuda"
+    return marks.on_card(x)
 
 
 def route(x, scale=None) -> str:

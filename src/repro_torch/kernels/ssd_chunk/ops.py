@@ -95,7 +95,7 @@ def _validate(xh, a, dt, bm, cm, chunk: int, state0) -> bool:
             f"operands on several devices: {sorted(map(str, devices))}")
     if xh.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {xh.device}")
-    return xh.device.type == "cuda"
+    return marks.on_card(xh)
 
 
 def ssd_chunk_bshp(xh, a, dt, bm, cm, *, chunk: int, state0=None):

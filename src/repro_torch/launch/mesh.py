@@ -6,7 +6,9 @@ initialized default group with one process per device (NCCL on the card,
 gloo on the CPU); nothing here falls back to a single device when there
 is none. The mesh's device type follows the group's backend unless the
 caller names it, and a CUDA mesh over a group without NCCL (or a CPU mesh
-without gloo) is refused: CUDA tensors never go through gloo.
+without gloo) is refused: CUDA tensors never go through gloo. The dry
+run's ``"fake"`` group (``launch/dryrun.py``) takes a mesh of either
+type: its collectives move nothing.
 """
 from __future__ import annotations
 
@@ -37,6 +39,10 @@ def _device_type(device) -> str:
     backend = str(dist.get_backend()).lower()
     kind = (torch.device(device).type if device is not None
             else "cuda" if "nccl" in backend else "cpu")
+    if "fake" in backend:
+        # the dry run's group (launch/dryrun.py): no collective runs, so
+        # a mesh of either device type may sit on it
+        return kind
     need = {"cuda": "nccl", "cpu": "gloo"}.get(kind)
     if need is None or need not in backend:
         raise ValueError(

@@ -45,8 +45,15 @@ directions and DP noise come from ``StepDraws(seed)``, seeded by
 (seed, t), where the JAX driver folds t into its key; the population
 engine's come from ``RowDraws(seed)``, seeded by (seed, t, row).
 ``--device`` chooses where it runs: the card by default, ``cpu`` when
-asked. The run is single-device: ``--production-mesh`` is a later
-slice and raises.
+asked.
+
+``--production-mesh`` trains on the production mesh, as the JAX driver
+does: (16, 16) ``("data", "model")`` over every rank of the process group
+(``launch.mesh.make_production_mesh``; 256 ranks, one a device), the
+parameters DTensors placed by ``PARAM_RULES`` and every step run inside
+``use_mesh``, so the models' ``shard_constraint`` sites redistribute the
+activations. Without it the run builds no mesh and keeps plain tensors:
+that is all the JAX driver's (1, 1) host mesh amounts to.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --steps 8 --batch 4 --seq 32
@@ -71,6 +78,7 @@ slice and raises.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -84,7 +92,7 @@ import torch
 from repro_torch.configs import (ModelConfig, VFLConfig, cut_depth,
                                  get_config, list_archs, reduced)
 from repro_torch.core.async_engine import EngineConfig, PopulationConfig
-from repro_torch.core.draws import StepDraws
+from repro_torch.core.draws import PlacedDraws, StepDraws
 from repro_torch.core.methods import METHOD_ALIASES, canonical_method
 from repro_torch.core.partition import split_params
 from repro_torch.core.privacy import GaussianLossChannel
@@ -92,8 +100,11 @@ from repro_torch.data import (BatchIterator, lm_token_batches,
                               vertical_partition)
 from repro_torch.device import DeviceLike
 from repro_torch.federation import Federation, SessionState
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import common
 from repro_torch.optim import make_schedule, sgd
+from repro_torch.sharding.rules import (ACT_RULES, PARAM_RULES,
+                                        named_sharding, use_mesh)
 from repro_torch.tree import tree_leaves
 from repro_torch.wire.faults import FaultPlan
 
@@ -108,7 +119,7 @@ def train(arch: Union[str, ModelConfig] = "", *, steps: int = 100,
           checkpoint_path: str = "", schedule: str = "constant",
           noise: Optional[GaussianLossChannel] = None,
           resume: str = "", device: DeviceLike = None,
-          n_layers: int = 0) -> dict:
+          n_layers: int = 0, mesh=None, keep_params: bool = False) -> dict:
     """``arch`` is an arch id of the registry, or a ``ModelConfig`` (a
     registry entry with, say, its experts cut; ``use_reduced`` and
     ``n_layers`` apply to it as to an id's). ``device=None`` runs on the
@@ -116,12 +127,24 @@ def train(arch: Union[str, ModelConfig] = "", *, steps: int = 100,
     resumed run restores onto ``device``. ``n_layers`` > 0 cuts the
     model's depth to that many layers, ``first_k_dense`` to at most that
     (``configs.cut_depth``; a new run only: a resumed one keeps its saved
-    config)."""
-    if production_mesh:
-        raise NotImplementedError(
-            "the production mesh (DTensor params under PARAM_RULES) is not "
-            "ported yet (ROADMAP.md, Queue 1 item 12); the port trains on "
-            "one device")
+    config).
+
+    ``production_mesh`` places the run on ``make_production_mesh()``,
+    which needs a process group of 256 ranks. ``mesh`` (a ``DeviceMesh``
+    with ``("data", "model")`` axes, keyword only) runs the same placed
+    loop on a mesh the caller's group holds: torch cannot give real values
+    for 256 ranks in one process, so this is how the placed path is run
+    and checked at a size a machine has (a (2, 2) gloo mesh on the CPU, a
+    (1, 1) NCCL mesh on one card). A placed run draws every batch,
+    direction and noise whole on each rank, then places it, so its draws
+    are bitwise the unplaced run's; it neither resumes nor checkpoints.
+    ``keep_params`` puts the final parameters (DTensors on a mesh) in the
+    result under ``"params"``, for a caller that compares two runs."""
+    if production_mesh and mesh is None:
+        mesh = make_production_mesh(device=device)
+    if mesh is not None and (resume or checkpoint_path):
+        raise ValueError("a placed run neither resumes nor checkpoints; "
+                         "checkpoint the unplaced run")
     start = 0
     state = SessionState()
     sched_total = steps
@@ -171,9 +194,14 @@ def train(arch: Union[str, ModelConfig] = "", *, steps: int = 100,
         params = common.materialize(
             model.param_specs, torch.Generator(dev).manual_seed(seed),
             device=dev)
+    if mesh is not None:
+        params = common.place(params, model.param_specs, mesh, PARAM_RULES)
     opt_state = (state.opt_state if state.opt_state is not None
                  else opt.init(params))
     draws = StepDraws(seed, dev)
+    if mesh is not None:
+        opt_state = _place_state(opt_state, params, mesh)
+        draws = PlacedDraws(draws, mesh)
 
     # deterministic batch stream: a resumed run skips the first ``start``
     # draws, so step i consumes the exact batch the uninterrupted run did
@@ -183,14 +211,18 @@ def train(arch: Union[str, ModelConfig] = "", *, steps: int = 100,
 
     modality = modality_inputs(cfg, batch, dev)
     losses, t0 = [], time.time()
-    for i, b in enumerate(data, start=start):
-        b.update(modality)
-        params, opt_state, out = step_fn(params, opt_state, b, i, draws)
-        losses.append(float(out.loss))
-        if i % log_every == 0:
-            print(f"step {i:5d} loss {losses[-1]:.4f} "
-                  f"|g_c|={float(out.grad_client_norm):.3e} "
-                  f"|g_s|={float(out.grad_server_norm):.3e}", flush=True)
+    with _placed(mesh):
+        for i, b in enumerate(data, start=start):
+            b.update(modality)
+            if mesh is not None:
+                b = _place_batch(b, mesh)
+            params, opt_state, out = step_fn(params, opt_state, b, i, draws)
+            losses.append(_scalar(out.loss))
+            if i % log_every == 0:
+                print(f"step {i:5d} loss {losses[-1]:.4f} "
+                      f"|g_c|={_scalar(out.grad_client_norm):.3e} "
+                      f"|g_s|={_scalar(out.grad_server_norm):.3e}",
+                      flush=True)
 
     wall = time.time() - t0
     n_new = steps - start
@@ -218,6 +250,8 @@ def train(arch: Union[str, ModelConfig] = "", *, steps: int = 100,
     if noise is not None:
         eps, delta = fed.transport.privacy_spent(dp_releases)
         result["dp_epsilon"], result["dp_delta"] = eps, delta
+    if keep_params:
+        result["params"] = params
     if checkpoint_path:
         fed.save(checkpoint_path, params, step=steps, opt_state=opt_state,
                  ledger=ledger, dp_releases=dp_releases,
@@ -226,6 +260,54 @@ def train(arch: Union[str, ModelConfig] = "", *, steps: int = 100,
                            "schedule_total_steps": sched_total})
         result["checkpoint"] = checkpoint_path
     return result
+
+
+def _placed(mesh):
+    """The step's context on a mesh: ``use_mesh`` (the models' constraint
+    sites redistribute) and DTensor's implicit replication, under which a
+    plain tensor the step makes itself (positions, masks, a zero) is
+    taken as replicated on the mesh; with no mesh, nothing."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    stack = contextlib.ExitStack()
+    stack.enter_context(use_mesh(mesh))
+    stack.enter_context(implicit_replication())
+    return stack
+
+
+def _place_batch(b: dict, mesh) -> dict:
+    """A batch's tensors placed on ``mesh``: the batch dim by
+    ``ACT_RULES`` ("batch"), the rest replicated."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def one(t):
+        mesh_, pl = named_sharding(mesh, t.shape,
+                                   ("batch",) + (None,) * (t.ndim - 1),
+                                   ACT_RULES)
+        return distribute_tensor(t, mesh_, pl, src_data_rank=None)
+    return {k: one(v) for k, v in b.items()}
+
+
+def _place_state(opt_state: dict, params, mesh) -> dict:
+    """The optimizer state on ``mesh``: a tree shaped as ``params``
+    (momentum, moments) placed as the parameters are, a scalar (the step
+    count) replicated."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from repro_torch.core.draws import place_like
+
+    def one(v):
+        if isinstance(v, torch.Tensor):
+            return distribute_tensor(v, mesh, [Replicate()] * mesh.ndim,
+                                     src_data_rank=None)
+        return place_like(v, params)
+    return {k: one(v) for k, v in opt_state.items()}
+
+
+def _scalar(x) -> float:
+    """A step output as a Python float (a DTensor's full value)."""
+    full = getattr(x, "full_tensor", None)
+    return float(full() if full is not None else x)
 
 
 def modality_inputs(cfg, batch: int, device) -> dict:

@@ -32,16 +32,27 @@ The KV cache, the latent cache and the page pool are updated in place (the
 JAX package returns new ones through ``dynamic_update_slice`` and
 ``.at[].set`` with donation). A cross call recomputes K and V from its
 source at every decode step, as the JAX package does.
+
+Under a mesh (``sharding.rules.use_mesh``) q, k, v and the attention
+output are constrained at the JAX package's sites, and a DTensor call of
+:func:`_attend` runs through ``local_map`` on each rank's heads shard
+(:func:`_attend_sharded`), so the kernel only ever sees local tensors.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.analysis import marks
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.common import ParamSpec
-from repro_torch.models.layers import apply_rope, rms_norm_simple
+from repro_torch.models.layers import (apply_rope, contiguous_grads,
+                                       merge_last, rms_norm_simple,
+                                       split_last)
+from repro_torch.sharding.rules import (ACT_RULES, placements, resolve_spec,
+                                        shard_constraint)
 
 NEG_INF = -1e30
 
@@ -149,7 +160,10 @@ def _attend(cfg, q, k, v, *, causal: bool, window: int, q_offset: int = 0):
     launcher encodes TMA maps of the operands' addresses on the host, so a
     CUDA graph that captured this call would replay them as they were
     (``repro_torch/graphs.py``)."""
-    if not q.is_cuda:
+    if isinstance(q, DTensor):
+        return _attend_sharded(cfg, q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
+    if not marks.on_card(q):
         return mha_chunked(q, k, v, causal=causal, window=window,
                            logit_softcap=cfg.attn_logit_softcap,
                            q_offset=q_offset)
@@ -164,6 +178,37 @@ def _attend(cfg, q, k, v, *, causal: bool, window: int, q_offset: int = 0):
     v = v.contiguous()
     return flash_ops.flash_attention_bshd(q, k, v, causal=causal,
                                           window=window, q_offset=q_offset)
+
+
+HEADS = ("batch", None, "heads_act", None)
+
+
+def _attend_sharded(cfg, q, k, v, *, causal: bool, window: int,
+                    q_offset: int):
+    """:func:`_attend` of DTensor operands, on each rank's local shards
+    (``local_map``): batch over the data axes and heads over ``"model"``
+    (``heads_act``), as q's placements resolve. The GQA ratio must be the
+    same on every shard, so where the divisibility rule leaves the KV
+    heads unsharded but shards q's (fewer KV heads than the model axis),
+    k and v are repeated to q's head count first (each query head then
+    reads its own copy of its KV head: the same attention)."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+
+    def spec(t):
+        return resolve_spec(mesh, t.shape, HEADS, ACT_RULES)
+    q_spec = spec(q)
+    if spec(k) != q_spec:
+        r = q.shape[2] // k.shape[2]
+        k, v = k.repeat_interleave(r, dim=2), v.repeat_interleave(r, dim=2)
+    pl = placements(mesh, q_spec)
+
+    def local(q, k, v):
+        q, k, v = contiguous_grads(q, k, v)
+        return _attend(cfg, q, k, v, causal=causal, window=window,
+                       q_offset=q_offset)
+    return local_map(local, out_placements=pl, in_placements=(pl, pl, pl),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
 
 
 # ------------------------------------------------------------ decode path --
@@ -275,15 +320,16 @@ def attention_apply(cfg, p, x, *, positions, cache=None, cur_pos=None,
     src = kv_override if cross else x
     Se = src.shape[1]
 
-    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, hd)
-    k = (src @ p["wk"]).reshape(B, Se, cfg.n_kv_heads, hd)
-    v = (src @ p["wv"]).reshape(B, Se, cfg.n_kv_heads, hd)
+    q = split_last(x @ p["wq"], cfg.n_heads, hd)
+    k = split_last(src @ p["wk"], cfg.n_kv_heads, hd)
+    v = split_last(src @ p["wv"], cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = rms_norm_simple(q, p["q_norm"])
         k = rms_norm_simple(k, p["k_norm"])
     if cfg.pos == "rope" and not cross:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = shard_constraint(q, HEADS)
 
     if cross:
         o = _attend(cfg, q, k, v, causal=False, window=window)
@@ -332,7 +378,8 @@ def attention_apply(cfg, p, x, *, positions, cache=None, cur_pos=None,
                         q_offset=cur_pos)
     else:
         o = _attend(cfg, q, k, v, causal=causal, window=window)
-    out = (o.reshape(B, S, cfg.n_heads * hd) @ p["wo"]).to(dt)
+    o = shard_constraint(o, HEADS)
+    out = (merge_last(o) @ p["wo"]).to(dt)
     return out, cache
 
 
@@ -370,10 +417,12 @@ def _mla_expand(cfg, p, latent, k_rope, dtype):
     B, S, _ = latent.shape
     H, nd, vd, rd = (cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim,
                      cfg.qk_rope_dim)
-    kv = (latent @ p["wkv_b"]).reshape(B, S, H, nd + vd)
+    kv = split_last(latent @ p["wkv_b"], H, nd + vd)
+    kv = shard_constraint(kv, HEADS)
     k_nope, v = kv[..., :nd], kv[..., nd:]
     k_rope_b = k_rope[:, :, None, :].expand(B, S, H, rd)
     k = torch.cat([k_nope, k_rope_b], dim=-1)
+    k = shard_constraint(k, HEADS)
     return k.to(dtype), v.to(dtype)
 
 
@@ -402,10 +451,11 @@ def mla_apply(cfg, p, x, *, positions, cache=None, cur_pos=None,
     scale = (nd + rd) ** -0.5
 
     qa = rms_norm_simple(x @ p["wq_a"], p["q_norm"])
-    q = (qa @ p["wq_b"]).reshape(B, S, H, nd + rd)
+    q = split_last(qa @ p["wq_b"], H, nd + rd)
     q_nope, q_rope = q[..., :nd], q[..., nd:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     q = torch.cat([q_nope, q_rope], dim=-1)
+    q = shard_constraint(q, HEADS)
 
     kv_a = x @ p["wkv_a"]                                 # (B, S, r + rd)
     latent = rms_norm_simple(kv_a[..., :r], p["kv_norm"])
@@ -451,7 +501,8 @@ def mla_apply(cfg, p, x, *, positions, cache=None, cur_pos=None,
         k, v = _mla_expand(cfg, p, latent, k_rope, dt)
         o = _attend(cfg, q, k, v, causal=True, window=window)
         del k, v
-    out = (o.reshape(B, S, H * vd) @ p["wo"]).to(dt)
+    o = shard_constraint(o, HEADS)
+    out = (merge_last(o) @ p["wo"]).to(dt)
     return out, cache
 
 

@@ -97,6 +97,34 @@ def materialize(tree, generator: torch.Generator, *,
     return tree_map(init_one, tree)
 
 
+def _logical(s: ParamSpec):
+    return s.logical if s.logical else (None,) * len(s.shape)
+
+
+def shardings(tree, mesh, rules=None):
+    """``(mesh, placements)`` of every spec leaf under ``rules``
+    (``PARAM_RULES`` by default): the counterpart of the JAX package's
+    ``NamedSharding`` tree."""
+    from repro_torch.sharding.rules import PARAM_RULES, named_sharding
+    rules = rules or PARAM_RULES
+    return tree_map(lambda s: named_sharding(mesh, s.shape, _logical(s),
+                                             rules), tree)
+
+
+def place(params, specs, mesh, rules=None):
+    """Each leaf of ``params`` as a DTensor on ``mesh``, placed by its
+    spec's logical axes under ``rules`` (``PARAM_RULES`` by default).
+    Every rank holds the same full leaf (drawn from the same generator),
+    so each keeps its own shard of it and nothing is sent: the placed
+    tree is bitwise the unplaced one."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def one(t, sh):
+        return distribute_tensor(t.detach(), sh[0], sh[1],
+                                 src_data_rank=None)
+    return tree_map(one, params, shardings(specs, mesh, rules))
+
+
 def param_count(tree) -> int:
     return int(sum(math.prod(s.shape) for s in tree_leaves(tree)))
 

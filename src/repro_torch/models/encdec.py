@@ -29,8 +29,9 @@ from repro_torch.models.common import ParamSpec, stack_layer_specs
 from repro_torch.models.layers import (apply_norm, embed_lookup, norm_specs,
                                        unembed)
 from repro_torch.models.mlp import mlp_apply, mlp_specs
-from repro_torch.models.transformer import (_layer, _layers, _maybe_remat,
-                                            softmax_xent)
+from repro_torch.models.transformer import (_boundary, _layer, _layers,
+                                            _maybe_remat, softmax_xent)
+from repro_torch.sharding.rules import shard_constraint
 
 
 def _enc_block_specs(cfg):
@@ -82,9 +83,11 @@ def encode(cfg, params, frames):
     x = (frames.to(torch.bfloat16).to(dt) @ w.to(dt)
          + b.to(torch.bfloat16).to(dt))
     x = x + params["enc_pos"][None].to(x.dtype)
+    x = shard_constraint(x, ("batch", None, "embed_act"))
     positions = torch.arange(x.shape[1], device=x.device)
 
     def body(h, p_l):
+        h = _boundary(cfg, h)
         a, _ = attn.attention_apply(cfg, p_l["attn"],
                                     apply_norm(cfg, p_l["ln1"], h),
                                     positions=positions, causal=False)
@@ -102,6 +105,7 @@ def decode_blocks(cfg, params, x, enc_out, *, positions, caches=None,
     given, written in place), cross-attention over ``enc_out``, the MLP.
     Returns (x, caches)."""
     def body(h, p_l, c_l):
+        h = _boundary(cfg, h)
         a, _ = attn.attention_apply(
             cfg, p_l["attn"], apply_norm(cfg, p_l["ln1"], h),
             positions=positions, cache=c_l, cur_pos=cur_pos, window=window)

@@ -3,6 +3,7 @@ from __future__ import annotations
 
 from repro_torch.models.common import ParamSpec
 from repro_torch.models.layers import activation
+from repro_torch.sharding.rules import shard_constraint
 
 
 def mlp_specs(cfg, d: int, d_ff: int):
@@ -20,5 +21,6 @@ def mlp_apply(cfg, p, x):
     """x (B, S, d) -> (B, S, d) in x's dtype."""
     h = x @ p["w_up"]
     gate = x @ p["w_gate"] if cfg.act == "swiglu" else None
-    h = activation(cfg.act, h, gate)
+    h = shard_constraint(activation(cfg.act, h, gate), ("batch", None,
+                                                         "ffn_act"))
     return (h @ p["w_down"]).to(x.dtype)

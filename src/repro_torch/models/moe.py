@@ -34,6 +34,9 @@ import torch
 
 from repro_torch.models.common import ParamSpec
 from repro_torch.models.layers import activation
+from repro_torch.sharding.rules import current_mesh, shard_constraint
+
+EXPERTS = ("batch", None, "experts", None, None)
 
 # the largest transient (bytes) one block of the dense form may hold
 DENSE_BLOCK_BYTES = 1 << 29
@@ -92,11 +95,23 @@ def _expert_ffn(cfg, w_up, w_gate, w_down, xe):
 
 
 def _expert_ffn_grouped(cfg, p, xb):
-    """xb (B,G,E,C,d) -> same, through the per-expert MLP."""
+    """xb (B,G,E,C,d) -> same, through the per-expert MLP. Under a mesh
+    the activated hidden and the output are held expert-parallel in the
+    (B,G,E,C,·) layout, the JAX package's two constraints."""
     B, G, E, C, d = xb.shape
-    xe = xb.permute(2, 0, 1, 3, 4).reshape(E, B * G * C, d)
-    y = _expert_ffn(cfg, p["w_up"], p.get("w_gate"), p["w_down"], xe)
-    return y.reshape(E, B, G, C, d).permute(1, 2, 0, 3, 4)
+
+    def flat(t):                          # (B,G,E,C,n) -> (E, B·G·C, n)
+        return t.permute(2, 0, 1, 3, 4).reshape(E, B * G * C, t.shape[-1])
+
+    def grouped(t):                       # the inverse
+        return t.reshape(E, B, G, C, t.shape[-1]).permute(1, 2, 0, 3, 4)
+    xe = flat(xb)
+    h = torch.bmm(xe, p["w_up"])
+    g = torch.bmm(xe, p["w_gate"]) if cfg.act == "swiglu" else None
+    h = activation(cfg.act, h, g)
+    if current_mesh() is not None:
+        h = flat(shard_constraint(grouped(h), EXPERTS))
+    return shard_constraint(grouped(torch.bmm(h, p["w_down"])), EXPERTS)
 
 
 def moe_apply_dispatch(cfg, p, x):
@@ -113,7 +128,8 @@ def moe_apply_dispatch(cfg, p, x):
     dev = x.device
 
     gates, idx, aux = _router(cfg, p, x)                 # (B,S,k)
-    xg = x.reshape(B, G, Sg, d)
+    xg = shard_constraint(x.reshape(B, G, Sg, d),
+                          ("batch", "seq_act", None, None))
     flat_e = idx.reshape(B, G, N)                        # expert id per pair
     flat_g = gates.reshape(B, G, N)
     tok_of_pair = torch.arange(Sg, device=dev).repeat_interleave(k)
@@ -138,9 +154,12 @@ def moe_apply_dispatch(cfg, p, x):
     idx_flat = torch.clamp(idx_ec.reshape(B, G, E * C), 0, N - 1)
     xb = torch.gather(xs, 2, idx_flat[..., None].expand(B, G, E * C, d))
     xb = xb * valid.reshape(B, G, E * C, 1).to(xb.dtype)
-    xb = xb.reshape(B, G, E, C, d)
+    # the reshard below IS the all-to-all: groups -> experts
+    xb = shard_constraint(xb.reshape(B, G, E, C, d), EXPERTS)
 
-    yb = _expert_ffn_grouped(cfg, p, xb).reshape(B, G, E * C, d)
+    yb = shard_constraint(_expert_ffn_grouped(cfg, p, xb),
+                          ("batch", "seq_act", None, None, None)
+                          ).reshape(B, G, E * C, d)
 
     # return path: pair n reads slot (se[n], rank[n]) — another gather
     slot = torch.clamp(se * C + torch.clamp(rank, 0, C - 1), 0, E * C - 1)

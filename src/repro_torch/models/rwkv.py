@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ParamSpec, chunk_divisor
+from repro_torch.models.layers import merge_last, split_last
+from repro_torch.sharding.rules import shard_constraint
 
 W_LORA = 64
 
@@ -152,9 +154,9 @@ def rwkv_time_mix(cfg, p, x, *, state=None):
     xk = _token_shift(x, p["mix_k"], prev)
     xv = _token_shift(x, p["mix_v"], prev)
 
-    r = (xr @ p["w_r"]).reshape(B, S, H, K)
-    k = (xk @ p["w_k"]).reshape(B, S, H, K)
-    v = (xv @ p["w_v"]).reshape(B, S, H, K)
+    r = split_last(xr @ p["w_r"], H, K)
+    k = split_last(xk @ p["w_k"], H, K)
+    v = split_last(xv @ p["w_v"], H, K)
     g = F.silu(x @ p["w_g"])
 
     # data-dependent decay (the Finch contribution)
@@ -163,9 +165,10 @@ def rwkv_time_mix(cfg, p, x, *, state=None):
     # exp() factors in fp32 range (chunk 32 -> max half-range exponent 64)
     log_w = -torch.exp(p["decay_base"] + lora.float())
     w = torch.exp(torch.clamp(log_w, -4.0, -1e-3))
-    w = w.reshape(B, S, H, K)
+    w = split_last(w, H, K)
     u = p["bonus_u"].reshape(H, K)
 
+    r = shard_constraint(r, ("batch", None, "heads_act", None))
     if state is None:
         y, _ = wkv6_chunked(r, k, v, w, u, cfg.rwkv_chunk)
         new_state = None
@@ -191,7 +194,7 @@ def rwkv_time_mix(cfg, p, x, *, state=None):
     y = y.reshape(B, S, H, K).float()
     mu = torch.mean(y, -1, keepdim=True)
     var = torch.var(y, -1, keepdim=True, correction=0)
-    y = ((y - mu) * torch.rsqrt(var + 1e-5)).reshape(B, S, d)
+    y = merge_last((y - mu) * torch.rsqrt(var + 1e-5))
     y = y * p["ln_x"]
     out = (y.to(dt_) * g.to(dt_)) @ p["w_o"]
     return out, new_state
@@ -212,6 +215,7 @@ def rwkv_channel_mix(cfg, p, x, *, prev=None):
     xk = _token_shift(x, p["mix_k"], prev)
     xr = _token_shift(x, p["mix_r"], prev)
     k = torch.square(torch.relu(xk @ p["w_k"]))
+    k = shard_constraint(k, ("batch", None, "ffn_act"))
     kv = k @ p["w_v"]
     r = torch.sigmoid(xr @ p["w_r"])
     return (r * kv).to(x.dtype)

@@ -24,11 +24,17 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch.analysis import marks
 from repro_torch.kernels.ssd_chunk import ops as ssd_ops
 from repro_torch.kernels.ssd_chunk.ref import (ssd_chunked_ref,
                                                ssd_states_ref)
 from repro_torch.models.common import ParamSpec, chunk_divisor
+from repro_torch.models.layers import (contiguous_grads, grad_placements,
+                                       merge_last, split_last)
+from repro_torch.sharding.rules import (ACT_RULES, placements, resolve_spec,
+                                        shard_constraint)
 
 CONV_W = 4
 
@@ -85,12 +91,49 @@ def _ssd_chunked(xh, a, dt, Bm, Cm, chunk, state0=None):
     xh (B,S,H,P), a (B,S,H) decay in (0,1], dt (B,S,H), Bm/Cm (B,S,N),
     state0 (B,H,P,N) f32 or None. Returns (y (B,S,H,P) f32, final_state
     (B,H,P,N) f32). A CUDA tensor goes to the SSD kernel (one launch); a
-    CPU tensor to the plain chunked form (``ssd_chunk/ref.py``)."""
-    if xh.is_cuda:
+    CPU tensor to the plain chunked form (``ssd_chunk/ref.py``). DTensor
+    operands (under a mesh) run on each rank's local shards
+    (:func:`_ssd_sharded`)."""
+    if isinstance(xh, DTensor):
+        return _ssd_sharded(xh, a, dt, Bm, Cm, chunk, state0)
+    if marks.on_card(xh):
         return ssd_ops.ssd_chunk_bshp(xh, a, dt, Bm.contiguous(),
                                       Cm.contiguous(), chunk=chunk,
                                       state0=state0)
     return ssd_chunked_ref(xh, a, dt, Bm, Cm, chunk, state0)
+
+
+def _ssd_sharded(xh, a, dt, Bm, Cm, chunk, state0):
+    """:func:`_ssd_chunked` of DTensor operands through ``local_map``: the
+    batch over the data axes and the heads over ``"model"`` (the
+    ``ssm_inner`` split of ``w_in``), B and C whole on every head shard;
+    the final state takes the heads' placement too."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = xh.device_mesh
+
+    def pl(shape, logical):
+        return placements(mesh, resolve_spec(mesh, shape, logical,
+                                             ACT_RULES))
+    heads = pl(xh.shape, ("batch", None, "heads_act", None))
+    ins = [heads, pl(a.shape, ("batch", None, "heads_act")),
+           pl(dt.shape, ("batch", None, "heads_act")),
+           pl(Bm.shape, ("batch", None, None)),
+           pl(Cm.shape, ("batch", None, None))]
+    B, _, H, P = xh.shape
+    state = pl((B, H, P, Bm.shape[-1]), ("batch", "heads_act", None, None))
+    args = (xh, a, dt, Bm, Cm)
+    if state0 is not None:
+        ins.append(state)
+        args += (state0,)
+
+    def local(xh, a, dt, Bm, Cm, state0=None):
+        xh, a, dt, Bm, Cm = contiguous_grads(xh, a, dt, Bm, Cm)
+        return _ssd_chunked(xh, a, dt, Bm, Cm, chunk, state0)
+    return local_map(local, out_placements=(heads, state),
+                     in_placements=tuple(ins),
+                     in_grad_placements=grad_placements(ins, heads),
+                     device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
 
 
 def ssd_recurrent_ref(xh, a, dt, Bm, Cm):
@@ -110,6 +153,7 @@ def ssm_apply(cfg, p, x, *, state=None):
 
     zx = x @ p["w_in"]
     z, xin = torch.chunk(zx, 2, dim=-1)                   # gate, stream
+    xin = shard_constraint(xin, ("batch", None, "ffn_act"))
 
     conv_tail = None if state is None else state["conv"]
     xin, new_tail = _causal_conv(xin, p["conv_w"], conv_tail)
@@ -121,7 +165,7 @@ def ssm_apply(cfg, p, x, *, state=None):
     dt = F.softplus(dt_raw + p["dt_bias"])                # (B,S,H)
     a = torch.exp(-dt * torch.exp(p["A_log"]))            # (B,S,H)
 
-    xh = xin.reshape(B, S, H, P)
+    xh = split_last(xin, H, P)
 
     if state is None:
         y, _ = _ssd_chunked(xh, a, dt, Bm, Cm, cfg.ssm_chunk)
@@ -142,6 +186,6 @@ def ssm_apply(cfg, p, x, *, state=None):
         new_state = {"ssm": s1.to(state["ssm"].dtype), "conv": new_tail}
 
     y = y + p["D"][None, None, :, None] * xh.float()
-    y = y.reshape(B, S, d_in) * F.silu(z.float())
+    y = merge_last(y) * F.silu(z.float())
     out = y.to(dt_) @ p["w_out"]
     return out, new_state

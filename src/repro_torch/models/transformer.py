@@ -26,7 +26,11 @@ summed through the layer loop and added to the loss in ``lm_loss``; a
 call with caches (decode, and a cached prefill chunk) takes the MoE dense
 form, as in the JAX package. A ``first_k_dense`` config runs its stack of
 dense blocks, then its MoE blocks, over the caches {"dense", "main"}.
-Sharding constraints have no meaning on one device and are left out.
+Under a mesh (``sharding.rules.use_mesh``, DTensor parameters) the
+activations are constrained at the JAX package's sites: the embeddings,
+each block's input (the sequence-parallel boundary, ``seq_shard_acts``),
+the attention and MLP outputs with ``rs_outputs``, and the logits; with no
+mesh each constraint returns its operand.
 ``lm_loss`` is the training loss over the text positions, plus 0.3 x
 the MTP head's loss where the tree holds one. The encoder-decoder family
 (whisper) is ``models/encdec.py``.
@@ -44,9 +48,13 @@ from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ParamSpec, freeze_state,
                                        stack_layer_specs)
-from repro_torch.models.layers import (apply_norm, embed_lookup, norm_specs,
+from repro_torch.models.layers import (apply_norm, embed_lookup,
+                                       gather_inner, norm_specs,
                                        unembed)
 from repro_torch.models.mlp import mlp_apply, mlp_specs
+from repro_torch.sharding.rules import shard_constraint
+
+RESIDUAL = ("batch", "seq_act", "embed_act")
 
 
 # ============================================================ param specs ==
@@ -135,6 +143,10 @@ def _attn_block_apply(cfg, p, x, *, positions, cache=None, cur_pos=None,
         a, new_cache = attn.attention_apply(
             cfg, p["attn"], h, positions=positions, cache=cache,
             cur_pos=cur_pos, window=window, paging=paging)
+    if cfg.rs_outputs:
+        # the TP output projection's partial sums land directly in the
+        # seq-sharded residual layout: a reduce-scatter, not an all-reduce
+        a = shard_constraint(a, RESIDUAL)
     x = x + a
     h = apply_norm(cfg, p["ln2"], x)
     aux = None
@@ -143,6 +155,8 @@ def _attn_block_apply(cfg, p, x, *, positions, cache=None, cur_pos=None,
                                    gather_experts=gather_experts)
     else:
         m = mlp_apply(cfg, p["mlp"], h)
+    if cfg.rs_outputs:
+        m = shard_constraint(m, RESIDUAL)
     return x + m, new_cache, aux
 
 
@@ -184,6 +198,18 @@ def _mamba_block_apply(cfg, p, x, *, state=None, active=None):
     if state is not None:
         _store_state(state, new_state, active)
     return x + s
+
+
+def _boundary(cfg, x):
+    """A block's input: the sequence-parallel residual layout (the saved
+    tensor of a recomputed block) with ``cfg.seq_shard_acts``. Under a
+    mesh the block then reads it gathered along the sequence
+    (``gather_inner``): DTensor will not flatten a sequence-sharded
+    activation, or its gradient, into a product, where the JAX package's
+    partitioner inserts that all-gather itself."""
+    if cfg.seq_shard_acts:
+        return gather_inner(shard_constraint(x, RESIDUAL))
+    return x
 
 
 def _maybe_remat(cfg, fn, caches=None):
@@ -243,7 +269,8 @@ def backbone_apply(cfg, params, x, *, positions, caches=None, cur_pos=None,
         active = None if paging is None else paging.active
 
         def rwkv_body(h, p_l, st_l):
-            return _rwkv_block_apply(cfg, p_l, h, state=st_l, active=active)
+            return _rwkv_block_apply(cfg, p_l, _boundary(cfg, h),
+                                     state=st_l, active=active)
         rwkv_body = _maybe_remat(cfg, rwkv_body, caches)
         for i, p_l in enumerate(_layers(params["blocks"], cfg.n_layers)):
             x = rwkv_body(x, p_l, None if caches is None else _layer(caches, i))
@@ -255,7 +282,7 @@ def backbone_apply(cfg, params, x, *, positions, caches=None, cur_pos=None,
 
     def body(h, p_l, c_l):
         h, _, aux = _attn_block_apply(
-            cfg, p_l, h, positions=positions, cache=c_l, cur_pos=cur_pos,
+            cfg, p_l, _boundary(cfg, h), positions=positions, cache=c_l, cur_pos=cur_pos,
             window=window, decode=decode, gather_experts=gather_experts,
             paging=paging)
         return h, aux
@@ -286,10 +313,12 @@ def _hybrid_apply(cfg, params, x, *, positions, caches, cur_pos, window,
     active = None if paging is None else paging.active
 
     def super_body(h, p_sup, shared, s):
+        h = _boundary(cfg, h)
         for j, p_l in enumerate(_layers(p_sup, cfg.attn_every)):
             st = (None if ssm_states is None
                   else {k: v[s, j] for k, v in ssm_states.items()})
-            h = _mamba_block_apply(cfg, p_l, h, state=st, active=active)
+            h = _mamba_block_apply(cfg, p_l, _boundary(cfg, h), state=st,
+                                   active=active)
         h, _, _ = _attn_block_apply(
             cfg, shared, h, positions=positions,
             cache=None if attn_caches is None else _layer(attn_caches, s),
@@ -319,7 +348,7 @@ def embed_inputs(cfg, params, inputs, *, positions):
         pos_table = params["pos_embed"]
         pe = pos_table[positions.clamp(0, pos_table.shape[0] - 1)]
         x = x + pe.to(x.dtype)
-    return x
+    return shard_constraint(x, ("batch", None, "embed_act"))
 
 
 def forward(cfg, params, inputs, *, caches=None, cur_pos=None, window=0,
@@ -341,7 +370,8 @@ def forward(cfg, params, inputs, *, caches=None, cur_pos=None, window=0,
         cfg, params, x, positions=positions, caches=caches, cur_pos=cur_pos,
         window=window, gather_experts=gather_experts)
     h = apply_norm(cfg, params["final_norm"], h)
-    logits = unembed(params["lm_head"], h)
+    logits = shard_constraint(unembed(params["lm_head"], h),
+                              ("batch", None, "vocab_act"))
     return logits, new_caches, aux
 
 

@@ -15,13 +15,22 @@ shape) or a plain ``{name: size}`` mapping, so a layout can be resolved
 for a mesh larger than the processes at hand. It returns the tuple
 counterpart of a ``PartitionSpec``: one entry per dim up to the last
 sharded one, each ``None``, an axis name, or a tuple of axis names.
-Placing tensors by these specs (DTensor parameters, constraints at the
-models' sharding sites) is later work (ROADMAP.md, Queue 1 item 12).
+
+On a ``DeviceMesh`` a spec becomes DTensor placements (:func:`placements`,
+:func:`named_sharding`): parameters are placed by ``PARAM_RULES``
+(``models.common.place``), and the models call :func:`shard_constraint`
+at the JAX package's sites with ``ACT_RULES``, which redistributes a
+DTensor activation while a mesh is current (``with use_mesh(mesh):``, the
+counterpart of ``with mesh:``). With no mesh current it returns its
+operand: one global read, so the single-device paths pay nothing for it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Mapping, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
+
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 AxisGroup = Union[str, Tuple[str, ...]]
 Spec = Tuple[Union[None, str, Tuple[str, ...]], ...]
@@ -155,3 +164,74 @@ def resolve_spec(
     while entries and entries[-1] is None:
         entries.pop()
     return tuple(entries)
+
+
+# ------------------------------------------------------- DTensor placement --
+
+def placements(mesh, spec: Spec) -> List:
+    """The ``Shard``/``Replicate`` list (one per mesh dim) that ``spec``
+    means on ``mesh``. A dim sharded over a tuple of axes is ``Shard(dim)``
+    on each of them; DTensor splits such a dim over its mesh dims in mesh
+    order (row-major), as ``P(("data", "model"))`` does, so a tuple out
+    of mesh order is refused."""
+    names = tuple(mesh.mesh_dim_names)
+    out: List = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        idx = [names.index(a) for a in _group_axes(entry)]
+        if idx != sorted(idx):
+            raise ValueError(f"axes {entry} of dim {dim} are out of the "
+                             f"mesh's order {names}")
+        for i in idx:
+            out[i] = Shard(dim)
+    return out
+
+
+def named_sharding(mesh, shape: Sequence[int],
+                   logical: Sequence[Optional[str]],
+                   rules: Rules = None) -> Tuple[object, List]:
+    """``(mesh, placements)`` of ``shape`` under ``rules`` (``ACT_RULES``
+    by default, as in the JAX package)."""
+    spec = resolve_spec(mesh, shape, logical, rules or ACT_RULES)
+    return mesh, placements(mesh, spec)
+
+
+_MESH = None                     # the current mesh (``use_mesh``)
+calls: Dict[str, int] = {"shard_constraint": 0}
+
+
+def reset_calls() -> None:
+    calls["shard_constraint"] = 0
+
+
+def current_mesh():
+    return _MESH
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Make ``mesh`` current for :func:`shard_constraint` (nests; the
+    previous mesh comes back on exit)."""
+    global _MESH
+    prev, _MESH = _MESH, mesh
+    try:
+        yield mesh
+    finally:
+        _MESH = prev
+
+
+def shard_constraint(x, logical: Sequence[Optional[str]],
+                     rules: Rules = None):
+    """``x`` redistributed to its ``rules`` placements (``ACT_RULES`` by
+    default) when a mesh is current and ``x`` is a DTensor on it, else
+    ``x`` itself. Each redistributing call counts one in ``calls``."""
+    mesh = _MESH
+    if mesh is None or not isinstance(x, DTensor):
+        return x
+    calls["shard_constraint"] += 1
+    want = placements(mesh, resolve_spec(mesh, x.shape, logical,
+                                         rules or ACT_RULES))
+    if tuple(x.placements) == tuple(want):
+        return x
+    return x.redistribute(mesh, want)

@@ -61,7 +61,8 @@ SLICE_MODULES = ("repro_torch.kernels.zoo_dual_matmul.ops",
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples_torch").glob("*.py")))
 
 
 def test_every_module_imports_with_jax_and_repro_blocked():

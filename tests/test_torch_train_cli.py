@@ -93,12 +93,14 @@ def test_train_runs_on_the_card_unless_asked_for_the_cpu():
 
 
 def test_later_slices_raise_with_their_roadmap_items():
-    """The production mesh is still a later slice; the multimodal and
-    encoder-decoder families train through the sync cascade (as
-    ``repro``'s driver trains them) and the population engine refuses
-    them with ``repro``'s ``ValueError`` (``test_torch_encdec.py`` and
-    ``test_torch_vlm.py`` hold both drivers to ``repro``'s)."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    """The production mesh needs its 256 ranks: with no process group
+    ``--production-mesh`` raises the mesh's ``RuntimeError`` (the placed
+    run itself is ``test_torch_production_mesh.py``'s, on 4 gloo ranks);
+    the multimodal and encoder-decoder families train through the sync
+    cascade (as ``repro``'s driver trains them) and the population engine
+    refuses them with ``repro``'s ``ValueError`` (``test_torch_encdec.py``
+    and ``test_torch_vlm.py`` hold both drivers to ``repro``'s)."""
+    with pytest.raises(RuntimeError, match="process group"):
         main(["--production-mesh", "--device", "cpu"])
     for arch in MODALITY_ARCHS:
         res = train(arch, steps=1, batch=2, seq=8, device="cpu",
