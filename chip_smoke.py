@@ -6137,14 +6137,19 @@ def join_dryruns(procs) -> list:
 
 
 def mesh_constraint_plan(cfg, steps: int, q: int = 1) -> int:
-    """``shard_constraint`` calls of ``steps`` cascaded steps of a dense
-    config: a forward constrains the embeddings and the logits, and each
-    block's input, q, the attention output and the MLP's hidden; a step
-    runs the clean forward, q perturbed ones and the remat recompute of
-    every block."""
-    block = 4
-    return steps * ((1 + q) * (2 + cfg.n_layers * block)
-                    + cfg.n_layers * block * int(cfg.remat))
+    """``shard_constraint`` calls of ``steps`` cascaded steps: a forward
+    constrains the embeddings and the logits, and in every block its input
+    (``seq_shard_acts``), q and the attention output, then the MLP's
+    hidden or the MoE dispatch's five (groups, dispatch, expert hidden,
+    expert output, return), and the two output projections with
+    ``rs_outputs``; a step runs the clean forward, q perturbed ones, and
+    recomputes each block in the backward (remat). The CPU test of the
+    (2, 2) mesh holds the count to this derivation too."""
+    block = ((1 if cfg.seq_shard_acts else 0) + 2
+             + (5 if cfg.n_experts else 1) + (2 if cfg.rs_outputs else 0))
+    fwd = 2 + cfg.n_layers * block
+    recompute = cfg.n_layers * block if cfg.remat else 0
+    return steps * ((1 + q) * fwd + recompute)
 
 
 def mesh_train(rows, card, counters) -> None:
@@ -6274,16 +6279,24 @@ def dryrun_checks(t0, procs, card) -> None:
         f"{r['collective_s'] * 1e3:.3f} ms ({r['coll_by_axis']}), bound "
         f"{r['bottleneck']}, peak "
         f"{mem['peak_hbm_estimate_per_dev'] / 2**30:.2f} GiB a device")
-    traced, fr = fit["traced"], fit["roofline"]
+    log_collective_sites(res)
+    traced, fr, fm = fit["traced"], fit["roofline"], fit["memory"]
     exact = (fr["flops_per_dev"] == traced["flops"]
              and fr["bytes_per_dev"] == traced["bytes"]
-             and fr["coll_bytes_per_dev"] == traced["coll_bytes"])
+             and fr["coll_bytes_per_dev"] == traced["coll_bytes"]
+             and fit["coll_by_site"] == traced["coll_by_site"]
+             and fm["output_bytes_per_dev"] == traced["output_bytes"]
+             and fm["temp_bytes_per_dev"] == traced["peak_bytes"])
     log(f"phase 14 (b): phi3 cut to {DRYRUN_FIT_LAYERS} layers: the fit "
         f"from 1 and 2 layers (FLOPs {fr['flops_per_dev']:.6e}, bytes "
         f"{fr['bytes_per_dev']:.6e}, collective bytes "
-        f"{fr['coll_bytes_per_dev']:.6e}) equals the traced count "
-        f"(FLOPs {traced['flops']:.6e}, bytes {traced['bytes']:.6e}, "
-        f"collective bytes {traced['coll_bytes']:.6e}): {exact}")
+        f"{fr['coll_bytes_per_dev']:.6e} and by site, output bytes "
+        f"{fm['output_bytes_per_dev']}) and from 2 and 3 (peak "
+        f"{fm['temp_bytes_per_dev']} B) equals the traced count (FLOPs "
+        f"{traced['flops']:.6e}, bytes {traced['bytes']:.6e}, collective "
+        f"bytes {traced['coll_bytes']:.6e}, output bytes "
+        f"{traced['output_bytes']:.0f}, peak {traced['peak_bytes']:.0f} "
+        f"B): {exact}")
     if mem["param_bytes_per_dev"] != want_bytes:
         raise AssertionError("the dry run's parameter bytes differ from "
                              "the resolved shards")
@@ -6292,6 +6305,22 @@ def dryrun_checks(t0, procs, card) -> None:
                              f"6·N·tokens ({ratio:.4f})")
     if not exact:
         raise AssertionError("the cost fit differs from the traced count")
+
+
+def log_collective_sites(res, top: int = 12) -> None:
+    """The dry run's collective bytes by mesh axis and kind, and its
+    largest sites (``utils/comms.py``: axis, kind, the port's line)."""
+    sites = res["coll_by_site"]
+    total = sum(sites.values())
+    by = {}
+    for key, n in sites.items():
+        axis, kind = key.split(" ")[:2]
+        by[f"{axis} {kind}"] = by.get(f"{axis} {kind}", 0) + n
+    log("phase 14 (b): collective bytes by axis and kind: " + ", ".join(
+        f"{k} {int(v)} B ({100 * v / total:.2f}%)"
+        for k, v in sorted(by.items(), key=lambda kv: -kv[1])))
+    for key, n in sorted(sites.items(), key=lambda kv: -kv[1])[:top]:
+        log(f"  {int(n):>15d} B {100 * n / total:6.2f}%  {key}")
 
 
 def mesh_phase(rows, card, counters, dry) -> None:

@@ -1,5 +1,5 @@
 """Dry-run costs at full depth from probes of 1 and 2 instances of each
-repeated segment.
+repeated segment (2 and 3 for the peak).
 
 The JAX package's ``launch/costmodel.py`` fits ``cost(counts) = base +
 Σ_seg slope_seg · counts[seg]`` to unrolled probe programs because XLA's
@@ -7,9 +7,18 @@ The JAX package's ``launch/costmodel.py`` fits ``cost(counts) = base +
 dry run counts an eager step op by op (:class:`roofline.StepCounter`), so
 a traced count is exact at any depth; the same fit serves here to keep the
 dry run cheap at full depth: DeepSeek-V3's 61 layers are never traced,
-only probes of 1 and 2 of each segment are. The probes differ by whole
+only probes of 1, 2 and 3 of each segment are. The probes differ by whole
 segments of identical ops, so the fit is exact (integer arithmetic): at a
 depth that is traced, it equals the traced count.
+
+The peak of the live tensors is the exception: it is a maximum over the
+step's moments, so it grows by whole segments only once one moment holds
+it at every depth. At reduced width the 1-layer probe peaks at another
+moment (reduced phi3 at ``train_4k``: +64 MiB from 1 to 2 layers, then
++32 MiB a layer). So the peak is fitted from probes of 2 and 3 of each
+segment, and at a depth not traced it is an extrapolation: exact where
+the deepest probes' moment stays the peak, which the tests and the chip
+check hold against a traced 4-layer count.
 
 Segments per family (the JAX package's):
   dense/vlm/ssm : layers
@@ -47,7 +56,8 @@ from repro_torch.models.model_api import (build_cache_specs,
 from repro_torch.optim import sgd
 from repro_torch.sharding.rules import ACT_RULES, PARAM_RULES, use_mesh
 from repro_torch.tree import tree_leaves, tree_map
-from repro_torch.utils.comms import bytes_by_axis, collective_bytes
+from repro_torch.utils.comms import bytes_by_axis, bytes_by_site, \
+    collective_bytes
 
 # the counts a probe measures, each fitted on its own
 METRICS = ("flops", "bytes", "coll_bytes", "peak_bytes", "output_bytes")
@@ -78,12 +88,13 @@ def _probe_cfg(cfg: ModelConfig, counts: Dict[str, int]) -> ModelConfig:
     return dataclasses.replace(cfg, **kw)
 
 
-def _probe_points(cfg: ModelConfig) -> List[Dict[str, int]]:
+def _probe_points(cfg: ModelConfig, base: int = 1) -> List[Dict[str, int]]:
+    """``base`` of every segment, then each segment at ``base`` + 1."""
     segs = sorted(_segment_counts(cfg))
-    pts = [{s: 1 for s in segs}]
+    pts = [{s: base for s in segs}]
     for s in segs:
-        p = {t: 1 for t in segs}
-        p[s] = 2
+        p = {t: base for t in segs}
+        p[s] = base + 1
         pts.append(p)
     return pts
 
@@ -149,7 +160,7 @@ def measure(cfg: ModelConfig, shape: ShapeConfig, mesh, *, window: int = 0,
     """Trace one step of ``cfg`` at ``shape`` on ``mesh`` (a CPU mesh on
     the dry run's fake group); returns one
     rank's {flops, bytes, coll_bytes, peak_bytes, output_bytes,
-    coll_by_kind, coll_by_axis, trace_s}. ``peak_bytes`` is
+    coll_by_kind, coll_by_axis, coll_by_site, trace_s}. ``peak_bytes`` is
     ``MemTracker``'s peak of the tensors the step makes beside its
     arguments, on one rank."""
     from torch.distributed._tools.mem_tracker import MemTracker
@@ -208,6 +219,7 @@ def measure(cfg: ModelConfig, shape: ShapeConfig, mesh, *, window: int = 0,
             "coll_bytes": float(coll["total"]), "peak_bytes": float(peak),
             "output_bytes": float(out_bytes), "coll_by_kind": coll,
             "coll_by_axis": bytes_by_axis(counter.records),
+            "coll_by_site": bytes_by_site(counter.records),
             "trace_s": trace_s}
 
 
@@ -216,22 +228,22 @@ def _local(t):
 
 
 def _fit(ys: List[Dict], segs: List[str], counts: Dict[str, int],
-         key: str) -> Dict[str, float]:
-    """base + Σ slope·count from the probes (the first at 1 of every
-    segment, then each segment at 2), evaluated at ``counts``; per-key
-    maps (coll_by_kind / coll_by_axis) fitted entry by entry."""
+         key: str, base: int = 1) -> Dict[str, float]:
+    """y0 + Σ slope·(count - base) from the probes (the first at ``base``
+    of every segment, then each segment at ``base`` + 1), evaluated at
+    ``counts``; per-key maps (coll_by_kind, coll_by_axis, coll_by_site)
+    fitted entry by entry."""
     def val(y, k):
         return y[key].get(k, 0.0) if k is not None else y[key]
 
     def one(k):
-        slopes = {s: val(ys[1 + i], k) - val(ys[0], k)
-                  for i, s in enumerate(segs)}
-        base = val(ys[0], k) - sum(slopes.values())
-        return base + sum(slopes[s] * counts[s] for s in segs), slopes
+        y0 = val(ys[0], k)
+        return y0 + sum((val(ys[1 + i], k) - y0) * (counts[s] - base)
+                        for i, s in enumerate(segs))
     if isinstance(ys[0][key], dict):
         names = sorted({k for y in ys for k in y[key]})
-        return {k: one(k)[0] for k in names}
-    return one(None)[0]
+        return {k: one(k) for k in names}
+    return one(None)
 
 
 def corrected_costs(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
@@ -240,9 +252,9 @@ def corrected_costs(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
                     fused_dual: bool = False, method: str = "cascaded"
                     ) -> Dict[str, float]:
     """Probe, solve, extrapolate. Returns one rank's {flops, bytes,
-    coll_bytes, peak_bytes, output_bytes, coll_by_kind, coll_by_axis} at
-    the FULL segment counts, the per-segment slopes and the probes' trace
-    seconds."""
+    coll_bytes, peak_bytes, output_bytes, coll_by_kind, coll_by_axis,
+    coll_by_site} at the FULL segment counts, the per-segment slopes and
+    the probes' trace seconds."""
     if shape.is_decode:
         cfg = dataclasses.replace(cfg, remat=False)
     segs = sorted(_segment_counts(cfg))
@@ -250,18 +262,30 @@ def corrected_costs(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
     kw = dict(window=window, gather_experts=gather_experts,
               zoo_queries=zoo_queries, param_rules=param_rules,
               fused_dual=fused_dual, method=method)
+    probes: Dict[tuple, Dict] = {}
+
+    def probe(pt):
+        key = tuple(sorted(pt.items()))
+        if key not in probes:
+            probes[key] = measure(_probe_cfg(cfg, pt), shape, mesh, **kw)
+        return probes[key]
     pts = _probe_points(cfg)
     # a warm-up trace first: DTensor fills its sharding caches on an op's
     # first call, and on some torch versions MemTracker counts the
     # propagation's tensors then, which would inflate the first probe
     warm = measure(_probe_cfg(cfg, pts[0]), shape, mesh, **kw)
-    ys = [measure(_probe_cfg(cfg, pt), shape, mesh, **kw) for pt in pts]
-    out = {k: _fit(ys, segs, full, k) for k in METRICS}
-    out["coll_by_kind"] = _fit(ys, segs, full, "coll_by_kind")
-    out["coll_by_axis"] = _fit(ys, segs, full, "coll_by_axis")
+    ys = [probe(pt) for pt in pts]
+    deep = [probe(pt) for pt in _probe_points(cfg, base=2)]
+    out = {k: _fit(ys, segs, full, k) for k in METRICS if k != "peak_bytes"}
+    out["peak_bytes"] = _fit(deep, segs, full, "peak_bytes", base=2)
+    for k in ("coll_by_kind", "coll_by_axis", "coll_by_site"):
+        out[k] = _fit(ys, segs, full, k)
     out["segments"] = full
-    out["per_segment"] = {
-        s: {k: ys[1 + i][k] - ys[0][k] for k in METRICS}
-        for i, s in enumerate(segs)}
-    out["trace_s"] = warm["trace_s"] + sum(y["trace_s"] for y in ys)
+    out["per_segment"] = {}
+    for i, s in enumerate(segs):
+        seg = {k: ys[1 + i][k] - ys[0][k] for k in METRICS}
+        seg["peak_bytes"] = deep[1 + i]["peak_bytes"] - deep[0]["peak_bytes"]
+        out["per_segment"][s] = seg
+    out["trace_s"] = warm["trace_s"] + sum(y["trace_s"]
+                                           for y in probes.values())
     return out

@@ -31,13 +31,17 @@ work; ``data_ptr`` is never read. ``launch/roofline.py``'s
 The result JSON keeps the JAX package's fields, with two changes: its
 ``lower_s`` and ``compile_s`` become one ``trace_s`` (the probes' eager
 trace: there is nothing to compile), and ``roofline_raw_scanned`` (XLA's
-uncorrected scan count) has no counterpart and is left out. The memory
+uncorrected scan count) has no counterpart and is left out. One field is
+the port's own: ``coll_by_site``, the collective bytes by mesh axis, kind
+and the line of the port's code that issued them (``utils/comms.py``).
+The memory
 fields are one rank's: ``argument_bytes_per_dev`` its parameter, input
 (and cache) shards (``param_bytes_per_dev`` the parameters' alone),
 ``output_bytes_per_dev`` the step's results,
 ``temp_bytes_per_dev`` the peak of the live tensors the step makes beside
 its arguments (the tracer's peak: the counterpart of
-``memory_analysis()``), and ``peak_hbm_estimate_per_dev`` their sum.
+``memory_analysis()``; fitted from probes of 2 and 3 layers, see
+``costmodel.py``), and ``peak_hbm_estimate_per_dev`` their sum.
 
 Run it in a process of its own (``python -m``): it joins a fake group,
 which a process with a real group must not.
@@ -82,11 +86,19 @@ def skip_reason(cfg, shape) -> str:
     return ""
 
 
+UNPORTED_VARIANTS = ("--window-gather and a --remat-policy other than "
+                     "'full' have no counterpart in the port: its models "
+                     "read no gathered decode window, and its remat "
+                     "recomputes the whole block under either policy")
+
+
 @dataclasses.dataclass
 class Variant:
-    """Hillclimb switches. Defaults = paper-faithful baseline."""
+    """Hillclimb switches. Defaults = paper-faithful baseline. The JAX
+    package's ``window_gather`` and ``remat_policy`` are not among them:
+    the CLI keeps their flags and refuses them
+    (:data:`UNPORTED_VARIANTS`)."""
     name: str = "baseline"
-    window_gather: bool = False     # (the port's models have no such read)
     gather_experts: bool = False    # tiny-batch MoE expert weight gather
     remat: bool = True              # activation checkpointing in train
     zoo_queries: int = 1
@@ -95,7 +107,6 @@ class Variant:
     mla_absorb: bool = False        # latent-space MLA decode
     no_fsdp: bool = False           # TP/EP only: no weight gathers
     fused_dual: bool = False        # one stacked clean+perturbed pass
-    remat_policy: str = "full"      # full | dots
     capacity_factor: float = 0.0    # >0 overrides the MoE capacity factor
 
 
@@ -141,8 +152,6 @@ def run_one(arch, shape_name: str, *, multi_pod: bool = False,
         cfg = dataclasses.replace(cfg, iota_embed=variant.iota_embed,
                                   rs_outputs=variant.rs_outputs,
                                   mla_absorb=variant.mla_absorb)
-    if variant.remat_policy != "full":
-        cfg = dataclasses.replace(cfg, remat_policy=variant.remat_policy)
     if variant.capacity_factor:
         cfg = dataclasses.replace(cfg,
                                   capacity_factor=variant.capacity_factor)
@@ -197,9 +206,11 @@ def run_one(arch, shape_name: str, *, multi_pod: bool = False,
         },
         "roofline": roof.as_dict(),
         "cost_segments": corr.get("per_segment"),
+        "coll_by_site": corr["coll_by_site"],
     }
     if traced is not None:
-        result["traced"] = {k: traced[k] for k in costmodel.METRICS}
+        result["traced"] = {k: traced[k] for k in costmodel.METRICS
+                            + ("coll_by_site",)}
     if verbose:
         r = result["roofline"]
         hbm_gb = result["memory"]["peak_hbm_estimate_per_dev"] / 2**30
@@ -250,20 +261,19 @@ def main(argv=None):
         else [args.shape]
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
 
-    any_opt = (args.window_gather or args.gather_experts or args.iota_embed
-               or args.rs_outputs or args.mla_absorb or args.no_fsdp
-               or args.fused_dual or args.remat_policy != "full"
+    if args.window_gather or args.remat_policy != "full":
+        ap.error(UNPORTED_VARIANTS)
+    any_opt = (args.gather_experts or args.iota_embed or args.rs_outputs
+               or args.mla_absorb or args.no_fsdp or args.fused_dual
                or args.capacity_factor)
     variant = Variant(
         name=args.variant_name or ("baseline" if not any_opt else "opt"),
-        window_gather=args.window_gather,
         gather_experts=args.gather_experts,
         iota_embed=args.iota_embed,
         rs_outputs=args.rs_outputs,
         mla_absorb=args.mla_absorb,
         no_fsdp=args.no_fsdp,
         fused_dual=args.fused_dual,
-        remat_policy=args.remat_policy,
         capacity_factor=args.capacity_factor)
 
     failures = []

@@ -16,11 +16,15 @@ The per-op byte conventions (per participating device) are ``hlo.py``'s:
 
 and a broadcast counts its operand bytes. :func:`collective_bytes` sums
 them by kind with a ``"total"``, as ``hlo.collective_bytes`` does;
-:func:`bytes_by_axis` sums them by the mesh axis whose group carried them.
+:func:`bytes_by_axis` sums them by the mesh axis whose group carried them,
+and :func:`bytes_by_site` by axis, kind and the line of the port's code
+that issued them (HLO has no such line to give).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import sys
 from typing import Dict, Iterable, List
 
 import torch
@@ -43,6 +47,7 @@ class CommRecord:
     operand_bytes: int         # the local operand
     output_bytes: int          # the local result
     axis: str                  # the mesh axis of the group ("?" unknown)
+    site: str = ""             # the port's line that issued it (_site)
 
 
 def op_bytes(rec: CommRecord) -> int:
@@ -74,6 +79,41 @@ def bytes_by_axis(records: Iterable[CommRecord]) -> Dict[str, int]:
     return agg
 
 
+def bytes_by_site(records: Iterable[CommRecord]) -> Dict[str, int]:
+    """Per-device collective traffic by ``"axis kind site"``."""
+    agg: Dict[str, int] = {}
+    for rec in records:
+        key = f"{rec.axis} {rec.kind} {rec.site}"
+        agg[key] = agg.get(key, 0) + op_bytes(rec)
+    return agg
+
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the recorders' own frames
+_OWN = (os.path.join("utils", "comms.py"), os.path.join("launch",
+                                                        "roofline.py"))
+
+
+def _site() -> str:
+    """The innermost frame of the port's code on the stack, outside the
+    recorders, as ``"path:line function"`` (path under the package);
+    prefixed ``"backward"`` while autograd runs a backward pass (the
+    remat recompute's frames are the forward's)."""
+    f = sys._getframe(1)
+    while f is not None:
+        path = f.f_code.co_filename
+        if path.startswith(_PKG) and not path.endswith(_OWN):
+            where = (f"{os.path.relpath(path, _PKG)}:{f.f_lineno} "
+                     f"{f.f_code.co_name}")
+            break
+        f = f.f_back
+    else:
+        where = "?"
+    if torch._C._current_graph_task_id() != -1:
+        return f"backward {where}"
+    return where
+
+
 def _nbytes(t) -> int:
     return t.numel() * t.element_size() if isinstance(t, torch.Tensor) else 0
 
@@ -81,7 +121,8 @@ def _nbytes(t) -> int:
 class CommRecorder(CommDebugMode):
     """``CommDebugMode`` that also keeps a :class:`CommRecord` of every
     collective: its kind, local operand and result bytes and, through
-    ``mesh``, the axis of its group. DTensor ops pass through to DTensor
+    ``mesh``, the axis of its group, and its site (:func:`_site`; one stack
+    walk a collective). DTensor ops pass through to DTensor
     (``CommDebugMode`` returns ``NotImplemented`` for them), so this mode
     sees the local ops DTensor runs, the collectives among them."""
 
@@ -103,5 +144,5 @@ class CommRecorder(CommDebugMode):
             self.records.append(CommRecord(
                 kind, _nbytes(args[0]) if args else 0,
                 sum(_nbytes(t) for t in torch.utils._pytree.tree_leaves(out)),
-                self._axes.get(group, "?")))
+                self._axes.get(group, "?"), _site()))
         return out

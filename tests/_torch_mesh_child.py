@@ -33,6 +33,9 @@ import torch.distributed as dist
 # KV head (the GQA fallback)
 CASES = (("phi3", "phi3-mini-3.8b", {}),
          ("qwen3_gqa", "qwen3-moe-30b-a3b", {"n_kv_heads": 1}))
+# the dry run's traced depth: beyond the probes of the fit (1 and 2
+# layers; 2 and 3 for the peak)
+DRYRUN_LAYERS = 4
 TRAIN = dict(batch=4, seq=32, use_reduced=False, device="cpu",
              log_every=100, keep_params=True)
 
@@ -159,7 +162,7 @@ def comms_dump():
 
 def dryrun_dump():
     from repro_torch.launch import dryrun
-    cfg = case_cfg("phi3-mini-3.8b", {"n_layers": 3})
+    cfg = case_cfg("phi3-mini-3.8b", {"n_layers": DRYRUN_LAYERS})
     res = dryrun.run_one(cfg, "train_4k", trace_full=True, verbose=False)
     res["param_bytes_per_dev"] = _param_bytes()
     return res
@@ -173,7 +176,7 @@ def _param_bytes():
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.models import common, model_api
     from repro_torch.tree import tree_leaves, tree_map
-    cfg = case_cfg("phi3-mini-3.8b", {"n_layers": 3})
+    cfg = case_cfg("phi3-mini-3.8b", {"n_layers": DRYRUN_LAYERS})
     mesh = make_production_mesh(device="cpu")
     specs = model_api.build_model(
         cfg, max_seq=dryrun.get_shape("train_4k").seq_len).param_specs

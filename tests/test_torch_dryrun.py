@@ -8,11 +8,14 @@
 * ``Roofline``'s terms equal ``repro``'s once the TPU's peaks are swapped
   for the H100's (and ``repro``'s bf16 correction for 1);
 * ``model_flops_for`` equals ``repro``'s for every arch and shape;
-* ``run_one`` of reduced phi3 (3 layers) at ``train_4k`` on a fake
+* ``run_one`` of reduced phi3 (4 layers) at ``train_4k`` on a fake
   256-rank group (a child process) returns every field of ``repro``'s
   result JSON, per-device argument bytes equal to the shards
-  ``resolve_spec`` gives, and a cost fit from 1 and 2 layers equal to the
-  traced 3-layer count in FLOPs, bytes and collective bytes.
+  ``resolve_spec`` gives, and a cost fit equal to the traced 4-layer
+  count: from 1 and 2 layers in FLOPs, bytes, collective bytes (by kind,
+  axis and site) and output bytes, from 2 and 3 in the peak;
+* the CLI refuses the JAX package's two variants the port has no
+  counterpart of.
 """
 import json
 import os
@@ -129,12 +132,22 @@ def test_run_one_fields_bytes_and_an_exact_fit(tmp_path):
         res["roofline"])
     assert (res["mesh"], res["kind"], res["method"]) == ("16x16", "train",
                                                          "cascaded")
-    # the fit from probes of 1 and 2 layers is the traced 3-layer count
-    r = res["roofline"]
-    assert r["flops_per_dev"] == res["traced"]["flops"]
-    assert r["bytes_per_dev"] == res["traced"]["bytes"]
-    assert r["coll_bytes_per_dev"] == res["traced"]["coll_bytes"]
+    # the fit from probes of 1 and 2 layers (2 and 3 for the peak) is the
+    # traced 4-layer count
+    r, traced, mem = res["roofline"], res["traced"], res["memory"]
+    assert r["flops_per_dev"] == traced["flops"]
+    assert r["bytes_per_dev"] == traced["bytes"]
+    assert r["coll_bytes_per_dev"] == traced["coll_bytes"]
     assert r["coll_bytes_per_dev"] == r["coll_by_kind"]["total"] > 0
+    assert mem["temp_bytes_per_dev"] == traced["peak_bytes"] > 0
+    assert mem["output_bytes_per_dev"] == traced["output_bytes"] > 0
+    assert mem["peak_hbm_estimate_per_dev"] == (
+        mem["argument_bytes_per_dev"] + traced["output_bytes"]
+        + traced["peak_bytes"])
+    # every collective byte has its site, and the sites' fit is exact too
+    assert sum(res["coll_by_site"].values()) == r["coll_bytes_per_dev"]
+    assert res["coll_by_site"] == traced["coll_by_site"]
+    assert not any(k.endswith(" ?") for k in res["coll_by_site"])
     # tokens and labels (256, 4096) int32 over the 16-way data axis, beside
     # the parameter shards
     tokens = 2 * 256 * 4096 * 4 // 16
@@ -146,3 +159,14 @@ def test_run_one_fields_bytes_and_an_exact_fit(tmp_path):
     # forward, the perturbed lane and attention come on top)
     assert r["flops_per_dev"] * r["n_devices"] >= r["model_flops"]
     assert r["bottleneck"] in ("compute", "memory", "collective")
+
+
+@pytest.mark.parametrize("flags", [["--window-gather"],
+                                   ["--remat-policy", "dots"]])
+def test_cli_refuses_the_variants_it_has_no_counterpart_of(flags, capsys):
+    from repro_torch.launch import dryrun
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(["--arch", "phi3-mini-3.8b", "--shape", "train_4k"]
+                    + flags)
+    assert e.value.code == 2
+    assert dryrun.UNPORTED_VARIANTS in capsys.readouterr().err

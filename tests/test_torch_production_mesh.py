@@ -11,13 +11,21 @@
   φ/μ, so the client is held to the one-step parity tolerances of
   ``test_torch_train_step.py`` (``repro``'s fused-vs-unrolled ZOO
   tolerance, rtol 2e-3 and atol 5e-4, and its update to 1% of its largest
-  entry); after the second step the server and the loss have seen that
-  client, so they and the client are held to the ZOO tolerance.
+  entry). The second step is also held alone: the unplaced run resumes
+  from the placed run's own parameters after its first step (the
+  checkpoint of an unplaced first step, its parameters swapped), and its
+  loss and server agree with the placed second step to 1e-5, its client
+  to the ZOO tolerance, with an update that is the unplaced one times
+  one scalar (the loss difference over μ: on qwen3 the φ/μ-amplified
+  rounding scales it by 0.985 at this step). Against the unplaced two
+  steps, whose server and loss have seen the unplaced client, everything
+  is held to the ZOO tolerance.
   Each leaf's local shape is the one ``repro``'s spec gives, and the
   ``shard_constraint`` calls are counted against their derivation;
 The rules' placements and the no-mesh identity are
 ``test_torch_mesh_rules.py``'s.
 """
+import importlib.util
 import os
 import pathlib
 import subprocess
@@ -33,6 +41,7 @@ from repro import configs as j_configs
 from repro.models import model_api as j_model_api
 from repro.sharding import rules as j_rules
 from repro_torch.core.partition import split_params
+from repro_torch.federation import Federation
 from repro_torch.launch.train import train
 from repro_torch.models import common, model_api
 from test_torch_support import torch_threads
@@ -98,6 +107,36 @@ def _parts(name):
             dict(_paths(p0)))
 
 
+def _unpaths(flat):
+    tree = {}
+    for path, v in flat.items():
+        *keys, last = path.strip("/").split("/")
+        node = tree
+        for k in keys:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return tree
+
+
+def _second_step_from(name, start, tmp_path):
+    """The unplaced run's second step taken from ``start`` (the placed
+    run's parameters after its first step, by path): an unplaced first
+    step is checkpointed, its parameters are swapped for ``start``, and
+    the run resumes for the second."""
+    _, arch, over = _case(name)
+    one, swapped = str(tmp_path / "one"), str(tmp_path / "swapped")
+    with torch_threads(1):
+        train(case_cfg(arch, over), steps=1, checkpoint_path=one, **TRAIN)
+        fed, params, state = Federation.restore(one, device="cpu")
+        assert set(dict(_paths(params))) == set(start)
+        fed.save(swapped, _unpaths(start), step=state.step,
+                 opt_state=state.opt_state, ledger=state.ledger,
+                 dp_releases=state.dp_releases, metadata=state.metadata)
+        r = train(steps=2, resume=swapped, **TRAIN)
+    r["params"] = dict(_paths(r["params"]))
+    return r
+
+
 def _check(got, want, name, server_tol, one_step):
     """The losses, the server's leaves at ``server_tol``, and the client's
     ZOO-updated leaves at ``repro``'s ZOO tolerance and, after one step,
@@ -130,8 +169,26 @@ def test_one_placed_step_matches_the_unplaced_step(placed, unplaced, name):
 
 
 @pytest.mark.parametrize("name", NAMES)
-def test_two_placed_steps_match_the_unplaced_steps(placed, unplaced, name):
+def test_two_placed_steps_match_the_unplaced_steps(placed, unplaced, name,
+                                                   tmp_path):
     got, want = placed[f"{name}/2"], unplaced[f"{name}/2"]
+    # the second step alone, from the placed run's own first step; its
+    # loss is the second of the two that loss_last averages
+    start = placed[f"{name}/1"]["params"]
+    alone = _second_step_from(name, start, tmp_path)
+    second = dict(got, loss_first=2 * got["loss_last"] - got["loss_first"])
+    _check(second, alone, name, dict(rtol=1e-5, atol=1e-5), one_step=False)
+    # the client's update is the unplaced update times one scalar, the
+    # loss difference over μ, which carries the loss's rounding times φ/μ
+    # (qwen3's reads 0.9852 here, where its losses differ by 2 ulps); up
+    # to the parameters' own rounding
+    for path in _parts(name)[0]:
+        g = got["params"][path] - start[path]
+        w = alone["params"][path] - start[path]
+        c = float((g * w).sum() / (w * w).sum())
+        ulp = torch.finfo(torch.float32).eps * start[path].abs().max()
+        np.testing.assert_allclose(g.numpy(), (c * w).numpy(), rtol=0,
+                                   atol=float(2 * ulp), err_msg=path)
     _check(got, want, name, ZOO_TOL, one_step=False)
     np.testing.assert_allclose(got["loss_last"], want["loss_last"],
                                **ZOO_TOL)
@@ -160,27 +217,18 @@ def test_local_shapes_are_repros_specs(placed, name):
         assert got[path] == tuple(want), path
 
 
-def derived_calls(cfg, steps: int, q: int = 1) -> int:
-    """``shard_constraint`` calls of ``steps`` cascaded steps: a forward
-    constrains the embeddings and the logits, and in every block its input
-    (``seq_shard_acts``), q and the attention output, then the MLP's
-    hidden or the MoE dispatch's five (groups, dispatch, expert hidden,
-    expert output, return); a step runs the clean forward, q perturbed
-    ones, and recomputes each block in the backward (remat)."""
-    block = ((1 if cfg.seq_shard_acts else 0) + 2
-             + (5 if cfg.n_experts else 1) + (2 if cfg.rs_outputs else 0))
-    fwd = 2 + cfg.n_layers * block
-    recompute = cfg.n_layers * block if cfg.remat else 0
-    return steps * ((1 + q) * fwd + recompute)
-
-
 @pytest.mark.parametrize("name", NAMES)
 def test_shard_constraint_fires_at_its_derived_count(placed, name):
+    # the derivation phase 14 (a) of chip_smoke.py holds the card's run to
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
     _, arch, over = _case(name)
     cfg = case_cfg(arch, over)
     for steps in (1, 2):
-        assert placed[f"{name}/{steps}"]["calls"] == derived_calls(cfg,
-                                                                   steps)
+        assert placed[f"{name}/{steps}"]["calls"] == \
+            smoke.mesh_constraint_plan(cfg, steps)
 
 
 def test_production_mesh_refuses_a_four_rank_group(placed):
