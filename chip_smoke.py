@@ -47,13 +47,25 @@ and prints no result):
    timed at both serve widths' prefill and decode rows from CUDA graphs
    over inputs rotated through more than 3 x the L2 (no host and no L2 in
    the reading), beside F.rms_norm, the general kernel, the time per
-   Python call and, at M = 8, an empty kernel's;
+   Python call and, at M = 8, an empty kernel's; flash attention
+   captured in a CUDA graph and replayed on fresh contents of the same
+   buffers, bitwise its eager launch (Whisper's cross-attention decode
+   call, a causal GQA chunk in bf16, f32);
 3. the tabular main path at the paper's width: cascaded hybrid VFL (ZOO
    clients through the fused kernel, FOO server) over an MNIST-sized
-   stand-in, 500 rounds, with the kernel's launch count read around the
-   run; a profile of 50 rounds; agreement with the plain lanes on the CPU
-   on the same draws; the other four methods and a q = 4, block = 3
-   cascaded run; the quickstart's accuracy;
+   stand-in, 500 rounds through the captured round (round 0 eager, one
+   CUDA graph replayed 499 times: ms a round of the replays, the capture
+   seconds apart), with the kernel's launch count read around the run
+   (one a round, 499 replayed); the same rounds bitwise (losses, params,
+   table, delays) against the internal eager loop of the same body on
+   the card; a profile of 50 rounds read over the replays (busy share,
+   device events a round); agreement with the plain lanes on the CPU on
+   the same draws; the other four methods, a q = 4, block = 3 cascaded
+   run and the DP loss channel, each bitwise graph against eager; a
+   reduced ``from_model_config`` Phi-3 round at ``bench_lm_async``'s
+   shape (flash and RMSNorm under the capture, autograd in the server
+   update) bitwise graph against eager, its launches held to their
+   derivation; the quickstart's accuracy;
 4. the split serve path of two models at full width and depth (bf16,
    random weights from a seed), each through ``launch.serve.serve`` of
    8 requests of 1024 prompt + 128 generated tokens over 2 client parties:
@@ -215,13 +227,23 @@ and prints no result):
    then one ``fed.sync_step`` of each on seeded inputs in which the
    projector ``proj.w`` moves; (d) one reduced f32 cascaded step of each
    and its global loss on the card against the CPU, and reduced Whisper's
-   encoder and 8 decode steps against the CPU;
+   encoder and 8 decode steps against the CPU. Both serves run the
+   global decode through two captured steps (prefill and decode, one
+   graph pool; the first of each eager): their capture seconds, nodes
+   and replays are logged and their launches, replays included, held to
+   the derivation; on the checks' weights and prompts, ``global_decode``
+   of 8 x (32 + 32) through the graphs gives bitwise the tokens and
+   final logits of the eager loop the teacher-forcing check decodes
+   from, and a profile of its decode replays gives the device's busy
+   share;
 11. the sharded engine and the analysis plane: (a) the tabular main
    path at the paper's width through ``Federation.build(...,
    EngineConfig(mesh_shards=1))`` on a one-rank NCCL group (the client
    block's ``("data",)`` ``DeviceMesh``), 500 rounds after 20 of warm-up,
-   in turns with the unsharded run: losses, params, table and delays
-   bitwise equal to it and to phase 3's, the fused kernel launched once a
+   in turns (sharded, graph, eager, eager, graph, sharded) with the
+   unsharded run through the captured round and through the internal
+   eager loop: losses, params, table and delays bitwise equal to the
+   graph run and to phase 3's, the fused kernel launched once a
    round, the collectives of 20 profiled rounds equal to their derivation
    (2 all-gathers and 2 client leaves all-reduces a round), ms a
    round of both, and vafl and zoo-vfl bitwise over 25 rounds each (D > 1
@@ -248,7 +270,8 @@ and prints no result):
    six) loaded in this process and its ``main()`` called with
    ``sys.argv`` set and no ``--device``, its asserts holding and its
    lines and seconds logged (``paper_experiments.py`` at ``--steps 200``
-   into ``build/``); around ``train_lm_cascaded.py`` and
+   into ``build/``), every engine run of theirs through the captured
+   round; around ``train_lm_cascaded.py`` and
    ``serve_decode.py`` the flash, RMSNorm and SSD launches held to their
    derivation from the configs they run;
 14. the production mesh: (a) ``launch.train.train(mesh=)`` of Phi-3-mini
@@ -776,6 +799,59 @@ def flash_layer_times(flash_ops, flash_ref, g, d):
         f"{out['bound_ms']:.6f} ms: the kernel is "
         f"{out['library_ms'] / out['ms']:.2f}x SDPA's speed")
     return out
+
+
+# flash attention under capture (tests/test_torch_kernels.py's gpu case):
+# Whisper-medium's cross-attention decode call, a causal prefill chunk at
+# GQA and d = 96 in bf16 (wgmma, TMA maps), and f32 (the CUDA cores);
+# (B, Sq, Skv, Hq, Hkv, d, causal, dtype)
+FLASH_CAPTURE_CASES = (
+    (8, 1, 1500, 16, 16, 64, False, torch.bfloat16),
+    (2, 64, 192, 8, 2, 96, True, torch.bfloat16),
+    (2, 64, 128, 4, 4, 64, True, torch.float32),
+)
+
+
+def check_flash_capture(flash_ops) -> None:
+    """Phase 2: flash attention captured in a CUDA graph
+    (``graphs.StepGraph``) and replayed after fresh contents are copied
+    into the same q, k and v buffers equals its eager launch on those
+    contents, bitwise (the bf16 launch's TMA maps and the f32 launch's
+    pointers, recorded at capture, still address the buffers); one
+    launch a replay."""
+    from repro_torch import graphs
+    g = torch.Generator("cuda").manual_seed(12)
+    for B, Sq, Skv, Hq, Hkv, d, causal, dtype in FLASH_CAPTURE_CASES:
+        shapes = ((B, Sq, Hq, d), (B, Skv, Hkv, d), (B, Skv, Hkv, d))
+
+        def fresh():
+            return [torch.randn(s, generator=g, device="cuda").to(dtype)
+                    for s in shapes]
+        q, k, v = fresh()
+        o = torch.empty((B, Sq, Hq, d), dtype=dtype, device="cuda")
+
+        def body():
+            o.copy_(flash_ops.flash_attention_bshd(q, k, v, causal=causal))
+        graph = graphs.StepGraph(body, "cuda")
+        if graph.launches() != {"flash_attention": 1}:
+            raise AssertionError(f"a flash capture recorded "
+                                 f"{graph.launches()}")
+        for _ in range(3):
+            for buf, new in zip((q, k, v), fresh()):
+                buf.copy_(new)
+            graph.replay()
+            want = flash_ops.flash_attention_bshd(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            if not torch.equal(o, want):
+                raise AssertionError(
+                    f"flash replayed from a graph differs from its eager "
+                    f"launch: {(o.float() - want.float()).abs().max()}")
+        log(f"check flash_attention under capture {str(dtype)[6:]} B={B} "
+            f"Sq={Sq} Skv={Skv} Hq={Hq} Hkv={Hkv} d={d} causal={causal}: 3 "
+            f"replays on fresh buffer contents bitwise equal to the eager "
+            f"launch ({graph.nodes} graph nodes, captured in "
+            f"{graph.capture_s:.4f} s)")
+        del graph
 
 
 def check_flash_kernel(flash_ops, flash_ref):
@@ -1940,41 +2016,43 @@ def scan_vs_eager(fed, params, cfg, bitwise=False):
     return eager
 
 
-def profile_rounds(fed, params, x_parts, y) -> None:
-    """Where a main-path round's time goes: torch.profiler over a 50-round
-    run (its set-up included), the device's busy share and its kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+def profile_rounds(fed, params, x_parts, y) -> dict:
+    """Where a main-path round's time goes once it is captured:
+    torch.profiler over a run, read in the window of its replays alone
+    (from ``graphs.REPLAYS_START``, lasting the replays' synchronised host
+    seconds): the device's busy share there, its device events a round
+    and the top kernels. Raises if the profiler saw no device time."""
+    from repro_torch import graphs
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        with record_function(BUSY_START):
-            pass
-        t0 = time.perf_counter()
-        fed.run(params, x_parts, y)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-    busy_sum = sum(dev_us(e) for e in kernels)
-    if not busy_sum:
-        log("profile: the profiler saw no CUDA kernel time; device busy "
-            "share not measured")
-        return
-    busy = busy_union("profile of main-path rounds", prof, wall_us,
-                      busy_sum)
-    steps = fed.engine.steps
-    log(f"profile, {steps} main-path rounds under torch.profiler: wall "
-        f"{wall_us / steps:.1f} us per round, device busy "
-        f"{busy / steps:.1f} us per round ({busy / wall_us:.2%} of wall), "
-        f"{sum(e.count for e in kernels) / steps:.1f} kernel launches "
-        f"per round")
-    for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
-        log(f"  {dev_us(e) / steps:8.2f} us/round  x{e.count / steps:5.2f}"
-            f"  {e.key[:90]}")
+        res = fed.run(params, x_parts, y)
+    rg = res.round_graph
+    n, wall_us = rg["replays"], rg["replay_s"] * 1e6
+    events = device_events(prof)
+    if not events:
+        raise AssertionError("profile: the profiler saw no device event in "
+                             "the round replays")
+    spans = [(e.time_range.start, e.time_range.end) for e in events]
+    lo, hi = busy_window(prof, spans, wall_us, after=graphs.REPLAYS_START)
+    inside = [e for e in events
+              if e.time_range.start >= lo and e.time_range.end <= hi]
+    sum_us = sum(e.time_range.elapsed_us() for e in inside)
+    busy = busy_union("profile of main-path round replays", prof, wall_us,
+                      sum_us, after=graphs.REPLAYS_START)
+    log(f"profile, {n} replays of the captured main-path round under "
+        f"torch.profiler: wall {wall_us / n:.1f} us a round, device busy "
+        f"{busy / n:.1f} us a round ({busy / wall_us:.2%} of wall), "
+        f"{len(inside) / n:.1f} device events a round ({rg['kernel_nodes']} "
+        f"kernel nodes in the graph)")
+    by_name: dict = {}
+    for e in inside:
+        c, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (c + 1, us + e.time_range.elapsed_us())
+    for key, (c, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
+        log(f"  {us / n:8.2f} us/round  x{c / n:5.2f}  {key[:90]}")
+    return dict(busy_share=busy / wall_us, round_us=wall_us / n,
+                device_events_a_round=len(inside) / n)
 
 
 class CpuDrawsOn:
@@ -4919,6 +4997,17 @@ def modal_serve(rows, counters, arch, traffic) -> dict:
         f"included); peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB; final logits max |.| {res['final_logits_absmax']:.4g}; "
         f"launches {launches}, derived {want}")
+    pg, dg = res["prefill_graph"], res["decode_graph"]
+    if pg is None or dg is None:
+        raise AssertionError(f"{arch}: the global serve captured no graph")
+    log(f"serve {arch}: prefill through {pg['replays']} replays of the "
+        f"captured step (capture {pg['capture_s']:.4f} s, {pg['nodes']} "
+        f"nodes, {pg['kernel_nodes']} kernel nodes; {pg['replay_s']:.4f} s "
+        f"of replays), decode through {dg['replays']} replays (capture "
+        f"{dg['capture_s']:.4f} s, {dg['nodes']} nodes, "
+        f"{dg['kernel_nodes']} kernel nodes; "
+        f"{dg['replay_s'] * 1e3 / dg['replays']:.4f} ms a step); a decode "
+        f"replay launches {dg['launches_a_replay']}")
     if res["mode"] != "global" or "fallback" not in res:
         raise AssertionError(f"{arch} did not take the global fallback: "
                              f"{res}")
@@ -4934,11 +5023,83 @@ def modal_serve(rows, counters, arch, traffic) -> dict:
     return res
 
 
+def decode_graph_vs_eager(what, model, params, cfg, toks, extra, eager,
+                          counters) -> dict:
+    """``launch.serve.global_decode`` of ``toks`` for MODAL_CHECK's
+    generation through the captured prefill and decode steps against
+    ``eager``, :func:`greedy_decode`'s result on the same weights, prompts
+    and ``extra``: greedy tokens and final logits bitwise equal; the graph
+    run's flash and RMSNorm launches (replays included) equal to their
+    derivation; then the graph run again under torch.profiler, the
+    device's busy share read over the decode replays alone."""
+    from repro_torch import graphs
+    from repro_torch.launch import serve as serve_mod
+    from torch.profiler import ProfilerActivity, profile
+    B, P = toks.shape
+    G = MODAL_CHECK["gen_len"]
+
+    def run():
+        caches = serve_mod._zero_caches(cfg, B, P + G, "cuda")
+        return serve_mod.global_decode(
+            model, params, toks, caches, extra, gen_len=G, temperature=0.0,
+            vocab_size=cfg.vocab_size)
+    eager_toks, eager_logits, eager_s = eager
+    for c in counters:
+        c.reset_launches()
+    got = run()
+    ran = _launches(counters)
+    want = modal_serve_plan(cfg, P + G)
+    if cfg.is_encoder_decoder:
+        want["flash_attention"] -= cfg.n_encoder_layers   # no encoder here
+    same = (torch.equal(got["tokens"], eager_toks)
+            and torch.equal(got["logits"], eager_logits))
+    pg, dg = got["prefill_graph"], got["decode_graph"]
+    log(f"{what}: {B} x ({P} + {G}) greedy through the captured steps "
+        f"against the eager loop: tokens and final logits bitwise equal "
+        f"{same}; prefill {got['prefill_s']:.4f} s (eager "
+        f"{eager_s[0]:.4f} s), decode "
+        f"{B * G / got['decode_s']:.1f} tokens/s (eager "
+        f"{B * G / eager_s[1]:.1f}); captures {pg['capture_s']:.4f} "
+        f"+ {dg['capture_s']:.4f} s ({pg['nodes']} and {dg['nodes']} "
+        f"nodes); launches {ran}, derived {want}")
+    if not same:
+        raise AssertionError(f"{what}: the captured decode differs from the "
+                             "eager loop")
+    if {k: ran[k] for k in want} != want:
+        raise AssertionError(f"{what}: launches {ran}, want {want}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_res = run()
+    dg = prof_res["decode_graph"]
+    wall_us, n = dg["replay_s"] * 1e6, dg["replays"]
+    events = device_events(prof)
+    spans = [(e.time_range.start, e.time_range.end) for e in events]
+    if not spans:
+        raise AssertionError(f"{what}: the profiler saw no device event")
+    lo, hi = busy_window(prof, spans, wall_us, after=graphs.REPLAYS_START)
+    inside = [e for e in events
+              if e.time_range.start >= lo and e.time_range.end <= hi]
+    busy = busy_union(f"{what}: decode replays", prof, wall_us,
+                      sum(e.time_range.elapsed_us() for e in inside),
+                      after=graphs.REPLAYS_START)
+    log(f"{what}: {n} decode replays under torch.profiler: wall "
+        f"{wall_us / n / 1e3:.4f} ms a step, device busy "
+        f"{busy / n / 1e3:.4f} ms a step ({busy / wall_us:.2%}), "
+        f"{len(inside) / n:.1f} device events a step "
+        f"({dg['kernel_nodes']} kernel nodes)")
+    return dict(prefill_s=got["prefill_s"],
+                decode_tok_per_s=B * G / got["decode_s"],
+                eager_decode_tok_per_s=B * G / eager_s[1],
+                capture_s=[pg["capture_s"], dg["capture_s"]],
+                busy_share=busy / wall_us)
+
+
 def greedy_decode(model, params, cfg, toks, gen_len, extra,
                   cache_dtype=None):
     """Token-by-token greedy decode through ``decode_fn`` over zero caches
-    (bf16, the global serve path's, unless ``cache_dtype``): (generated
-    (B, G), the last step's logits)."""
+    (bf16, the global serve path's, unless ``cache_dtype``), at Python-int
+    positions: (generated (B, G), the last step's logits, (prefill s,
+    decode s) synchronised)."""
     from repro_torch.federation import serving
     from repro_torch.models.model_api import build_cache_specs
     from repro_torch.tree import tree_map
@@ -4948,15 +5109,20 @@ def greedy_decode(model, params, cfg, toks, gen_len, extra,
                                                 torch, cache_dtype or s.dtype)),
                       build_cache_specs(cfg, B, P + gen_len))
     logits = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for t in range(P):
         logits, caches = model.decode_fn(
             params, {"tokens": toks[:, t:t + 1], **extra}, caches, t)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
     gen = torch.empty((B, gen_len), dtype=torch.int32, device="cuda")
     for i in range(gen_len):
         gen[:, i] = serving.sample_token(logits, P + i, 0.0, cfg.vocab_size)
         logits, caches = model.decode_fn(
             params, {"tokens": gen[:, i:i + 1], **extra}, caches, P + i)
-    return gen, logits
+    torch.cuda.synchronize()
+    return gen, logits, (t1 - t0, time.perf_counter() - t1)
 
 
 @contextlib.contextmanager
@@ -5079,8 +5245,9 @@ def whisper_checks(rows, counters, kernels) -> None:
     with torch.no_grad(), Capture(flash_ops, KERNEL_ENTRIES[
             "flash_attention"], keep) as cap:
         enc_out = encdec.encode(cfg, params, frames["frames"])
-        gen, _ = greedy_decode(model, params, cfg, toks, G,
-                               {"enc_out": enc_out})
+        eager = greedy_decode(model, params, cfg, toks, G,
+                              {"enc_out": enc_out})
+        gen = eager[0]
     torch.cuda.synchronize()
     ran = _launches(counters)["flash_attention"]
     log(f"whisper decode on seeded frames ({B} x ({P} + {G})): flash "
@@ -5141,6 +5308,10 @@ def whisper_checks(rows, counters, kernels) -> None:
         del caches
         teacher_forced(f"serve {WHISPER} (seeded frames, bf16)", model,
                        params, cfg, toks, gen, frames, kernels)
+    rows["flash_attention"].setdefault("whisper_decode", {})["graph"] = \
+        decode_graph_vs_eager(f"global decode {WHISPER}", model, params,
+                              cfg, toks, {"enc_out": enc_out}, eager,
+                              counters)
     del params, enc_out, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -5244,9 +5415,14 @@ def internvl_checks(rows, counters, kernels) -> None:
     P, G = MODAL_CHECK["prompt_len"], MODAL_CHECK["gen_len"]
     toks = serve_mod._prompts(cfg, B, P, 0, "cuda")
     with torch.no_grad():
-        gen, _ = greedy_decode(model, params, cfg, toks, G, {})
+        eager = greedy_decode(model, params, cfg, toks, G, {})
+        gen = eager[0]
         teacher_forced(f"serve {INTERNVL} (text only, bf16)", model, params,
                        cfg, toks, gen, {}, kernels)
+    rows["rmsnorm"].setdefault("internvl2_decode", {})["graph"] = \
+        decode_graph_vs_eager(f"global decode {INTERNVL}", model, params,
+                              cfg, toks, {}, eager, counters)
+    with torch.no_grad():
         # one decode step's device time and profile by kernel family
         from repro_torch.models.model_api import build_cache_specs
         from repro_torch.tree import tree_map
@@ -5499,28 +5675,70 @@ SHARD = dict(rounds=500, warm=20, profile=20, methods=25)
 SHARD_METHODS = (("vafl", False, 0.05), ("zoo-vfl", True, LRS["zoo-vfl"]))
 
 
-def engine_rounds(fed, params, x_parts, y) -> dict:
+def engine_rounds(fed, params, x_parts, y, graph=True) -> dict:
     """``Federation.run``'s rounds through the engine's round loop, on
     the run's default draws: the params, table, delays, losses and
     per-round max delays the result does not all carry (a sharded run's
-    table is this rank's rows: all of them at one shard)."""
+    table is this rank's rows: all of them at one shard), and ``graph``,
+    the captured round's readings (None where the body looped: with
+    ``graph=False``, the internal eager loop, or on the sharded path)."""
     from repro_torch.core import async_engine
     from repro_torch.core.draws import TorchDraws
+    stats = {}
     (p, table, delays), (losses, maxd) = async_engine._rounds(
         fed.adapter, fed.transport, fed.vfl, fed.engine, params, x_parts, y,
-        draws=TorchDraws(fed.engine.seed, fed.device), mesh=fed.mesh)
+        draws=TorchDraws(fed.engine.seed, fed.device), mesh=fed.mesh,
+        graph=graph, stats=stats)
     return dict(params=p, table=table, delays=delays, losses=losses,
-                maxd=maxd)
+                maxd=maxd, graph=stats or None)
+
+
+def _leaves(tree, prefix="params"):
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in _leaves(tree[k], f"{prefix}/{k}")]
+    return [(prefix, tree)]
 
 
 def unequal(a: dict, b: dict) -> list:
     """The keys (and param leaves) where two ``engine_rounds`` differ."""
     out = [k for k in ("table", "delays", "losses", "maxd")
            if not torch.equal(a[k], b[k])]
-    for part, leaves in a["params"].items():
-        out += [f"params/{part}/{n}" for n, t in leaves.items()
-                if not torch.equal(t, b["params"][part][n])]
-    return out
+    return out + [k for (k, x), (_, y) in zip(_leaves(a["params"]),
+                                              _leaves(b["params"]))
+                  if not torch.equal(x, y)]
+
+
+def graph_vs_eager(what, fed, params, x_parts, y) -> dict:
+    """The same run's rounds through the captured round (replays of one
+    CUDA graph) and through the internal eager loop of the same body on
+    the card, on the same draws: losses, params, table, delays and max
+    delays must be bitwise equal. Logs both runs' ms a round end to end
+    (each run's whole wall, the graph run's round 0 and capture included)
+    and their ratio, and the graph run's capture seconds and replays
+    alone; returns the graph run's ``engine_rounds``."""
+    out, wall = {}, {}
+    for graph in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[graph] = engine_rounds(fed, params, x_parts, y, graph=graph)
+        torch.cuda.synchronize()
+        wall[graph] = time.perf_counter() - t0
+    g, T = out[True]["graph"], fed.engine.steps
+    if g is None:
+        raise AssertionError(f"{what}: the rounds were not captured")
+    diffs = unequal(out[True], out[False])
+    if diffs:
+        raise AssertionError(f"{what}: the captured rounds differ from the "
+                             f"eager loop in {diffs}")
+    log(f"{what}: {T} rounds through the graph bitwise equal to the eager "
+        f"loop (losses, params, table, delays, max delays); the whole run "
+        f"eager {wall[False] * 1e3 / T:.4f} ms a round, through the graph "
+        f"{wall[True] * 1e3 / T:.4f} ({wall[False] / wall[True]:.2f}x); "
+        f"graph: capture {g['capture_s']:.4f} s ({g['nodes']} nodes, "
+        f"{g['kernel_nodes']} kernel nodes), {g['replays']} replays at "
+        f"{g['replay_s'] * 1e3 / g['replays']:.4f} ms a round")
+    return out[True]
 
 
 def collective_counts(prof) -> dict:
@@ -5572,21 +5790,25 @@ def sharded_tabular(rows, ops, card, base=None) -> dict:
                          use_lanes=lanes, mesh_shards=shards),
             n_clients=cfg.n_clients, device="cuda")
 
-    def timed(fed, params):
-        """(result, ms a round) of one synchronised run."""
+    def timed(fed, params, use_graph=True):
+        """(result, ms a round) of one synchronised run; the sharded run
+        and ``use_graph=False`` loop the round body eagerly, the
+        unsharded default replays the captured round."""
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = fed.run(params, x_parts, y_dev)
+        out = fed.run(params, x_parts, y_dev, use_graph=use_graph)
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) * 1e3 / rounds
 
     t_phase = time.perf_counter()
-    # the unsharded engine before any process group exists, for the
-    # group's own cost to the host (its threads) beside the collectives'
+    # the unsharded engine's eager loop before any process group exists,
+    # for the group's own cost to the host (its threads) beside the
+    # collectives'
     plain = build(rounds, 0)
     params = plain.init_params(torch.Generator().manual_seed(0))
     build(SHARD["warm"], 0).run(params, x_parts, y_dev)
-    no_group = timed(plain, params)[1]
+    build(SHARD["warm"], 0).run(params, x_parts, y_dev, use_graph=False)
+    no_group = timed(plain, params, use_graph=False)[1]
     # the group meets through a file, so no port is raced for
     tmp = tempfile.TemporaryDirectory()
     dist.init_process_group("nccl", store=dist.FileStore(
@@ -5601,29 +5823,50 @@ def sharded_tabular(rows, ops, card, base=None) -> dict:
             f"mesh {mesh}; D > 1 needs one card a rank (NCCL refuses two "
             "ranks on one GPU): it waits for a four-chip cell")
         build(SHARD["warm"], 1).run(params, x_parts, y_dev)
-        ms = {"unsharded": [], "sharded": []}
-        res = {}
-        for what, fed in (("unsharded", plain), ("sharded", sharded),
-                          ("sharded", sharded), ("unsharded", plain)):
+        # the three runs in turns in this one process: the sharded D = 1
+        # run (an eager loop), the unsharded run through the captured
+        # round, and the unsharded run through the internal eager loop
+        kinds = {"sharded": (sharded, True), "graph": (plain, True),
+                 "eager": (plain, False)}
+        ms = {kind: [] for kind in kinds}
+        res, replay_ms = {}, []
+        for kind in ("sharded", "graph", "eager", "eager", "graph",
+                     "sharded"):
+            fed, use_graph = kinds[kind]
             ops.reset_launches()
-            res[what], t = timed(fed, params)
-            ms[what].append(t)
-            if what == "sharded":
+            res[kind], t = timed(fed, params, use_graph)
+            ms[kind].append(t)
+            if kind == "sharded":
                 launches = dict(ops.launches)
+            if kind == "graph":
+                rg = res[kind].round_graph
+                replay_ms.append(rg["replay_s"] * 1e3 / rg["replays"])
         if launches["zoo_dual_matmul_stacked_bias_relu"] != rounds:
             raise AssertionError(f"sharded run launched {launches}, not the "
                                  f"fused kernel {rounds} times")
-        log(f"phase 11 (a): {rounds} cascaded rounds at {cfg}: sharded "
-            f"(D = 1) {', '.join(f'{t:.4f}' for t in ms['sharded'])} ms a "
-            f"round, unsharded {', '.join(f'{t:.4f}' for t in ms['unsharded'])}"
-            f" (in turns), unsharded before the group existed {no_group:.4f}"
-            f" on {card}; kernel launches {launches}")
+        main = rows.get("zoo_dual_matmul_stacked_bias_relu", {})
+        base_ms = ("" if base is None or "round_ms" not in main else
+                   f"; phase 3's captured run {main['round_ms']:.4f} ms a "
+                   f"round end to end")
+        log(f"phase 11 (a): {rounds} cascaded rounds at {cfg}, in turns "
+            f"(sharded, graph, eager, eager, graph, sharded), each the whole "
+            f"Federation.run: sharded (D = "
+            f"1, eager) {', '.join(f'{t:.4f}' for t in ms['sharded'])} ms a "
+            f"round; unsharded through the graph "
+            f"{', '.join(f'{t:.4f}' for t in ms['graph'])} (replays alone "
+            f"{', '.join(f'{t:.4f}' for t in replay_ms)}); unsharded eager "
+            f"loop {', '.join(f'{t:.4f}' for t in ms['eager'])}; the eager "
+            f"loop before the group existed {no_group:.4f}{base_ms} on "
+            f"{card}; kernel launches {launches}")
         name = "zoo_dual_matmul_stacked_bias_relu"
         if name in rows:
             rows[name]["launches"] += launches[name]
             rows[name].setdefault("launches_by_path", {})[
                 "sharded engine, one NCCL rank"] = launches[name]
-        a, b = res["unsharded"], res["sharded"]
+        a, b = res["graph"], res["sharded"]
+        if not np.array_equal(res["eager"].losses, a.losses):
+            raise AssertionError("the unsharded eager loop's losses != the "
+                                 "captured rounds'")
         if not (np.array_equal(a.losses, b.losses)
                 and a.max_delay_seen == b.max_delay_seen
                 and a.mean_delay == b.mean_delay
@@ -5638,7 +5881,8 @@ def sharded_tabular(rows, ops, card, base=None) -> dict:
         if diffs:
             raise AssertionError(f"sharded round loop differs: {diffs}")
         log(f"phase 11 (a): losses, params, table and delays bitwise equal "
-            f"to the unsharded run{' and phase 3' if base else ''} "
+            f"to the unsharded run through the graph"
+            f"{' and phase 3' if base else ''} "
             f"({rounds} rounds; final loss {float(b.losses[-1]):.6f})")
 
         # the collectives a round, from a profile of sharded rounds
@@ -5686,8 +5930,8 @@ def sharded_tabular(rows, ops, card, base=None) -> dict:
         tmp.cleanup()
     spent = time.perf_counter() - t_phase
     log(f"phase 11 (a): {spent:.1f} s")
-    return dict(ms=ms, no_group=no_group, launches=launches,
-                collectives=fams, seconds=spent)
+    return dict(ms=ms, replay_ms=replay_ms, no_group=no_group,
+                launches=launches, collectives=fams, seconds=spent)
 
 
 def sentinel_drain(srv):
@@ -6048,10 +6292,35 @@ class ServeRecorder:
         self.Fed.serve = self.inner
 
 
+class EngineRecorder:
+    """Keeps every engine run's (rounds, sharded, ``round_graph``) inside
+    one ``with`` (``Federation.run`` and ``async_engine.run`` both go
+    through ``async_engine._session_run``)."""
+
+    def __enter__(self):
+        from repro_torch.core import async_engine
+        self.mod, self.runs = async_engine, []
+        self.inner = async_engine._session_run
+        rec = self
+
+        def session_run(*args, **kw):
+            res = rec.inner(*args, **kw)
+            rec.runs.append((len(res.losses), kw.get("mesh") is not None,
+                             res.round_graph))
+            return res
+        async_engine._session_run = session_run
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._session_run = self.inner
+
+
 def examples_phase(rows, card, counters) -> None:
     """Phase 13: each example of ``examples_torch/`` run in this process
-    on the card, its own asserts holding; the kernel launches of
-    train_lm_cascaded.py and serve_decode.py held to their derivation."""
+    on the card, its own asserts holding, every engine run of theirs
+    (quickstart.py, async_adapters.py, paper_experiments.py) through the
+    captured round; the kernel launches of train_lm_cascaded.py and
+    serve_decode.py held to their derivation."""
     t_phase = time.perf_counter()
     for name in EXAMPLES:
         mod = load_example(name)
@@ -6060,9 +6329,20 @@ def examples_phase(rows, card, counters) -> None:
                           / "experiments_torch")
         for c in counters:
             c.reset_launches()
-        with ServeRecorder() as rec:
+        with ServeRecorder() as rec, EngineRecorder() as eng:
             out, _ = run_example(name, mod)
         launches = _launches(counters)
+        if eng.runs:
+            # every unsharded run of more than one round replays the
+            # captured round
+            eager = [T for T, sharded, g in eng.runs
+                     if T > 1 and not sharded and g is None]
+            log(f"example {name}: {len(eng.runs)} engine runs, rounds "
+                f"{[T for T, _, _ in eng.runs]}, replays "
+                f"{[g and g['replays'] for _, _, g in eng.runs]}")
+            if eager:
+                raise AssertionError(f"example {name}: engine runs of "
+                                     f"{eager} rounds were not captured")
         if name == "train_lm_cascaded":
             from repro_torch.configs import ARCH_REGISTRY
             cfg = ARCH_REGISTRY["lm-ci"]
@@ -6407,6 +6687,7 @@ def main() -> int:
     if 2 in phases:
         rows = check_kernels(ops, ref)
         rows.update(check_flash_kernel(flash_ops, flash_ref))
+        check_flash_capture(flash_ops)
         rows.update(check_rmsnorm(rms_ops, rms_ref, rms_kernel))
         rows.update(check_ssd_kernel(ssd_ops, ssd_ref, ssd_kernel,
                                      reports["ssd_chunk"]))
@@ -6516,16 +6797,20 @@ def main() -> int:
 
 
 def tabular_phase(rows, ops, flash_ops, rms_ops, ssd_ops, kind, card):
-    """Phase 3: the tabular main path at the paper's width; returns the
-    500-round run's result (phase 11 holds the sharded run to it)."""
+    """Phase 3: the tabular main path at the paper's width, through the
+    captured round; returns the 500-round run's result (phase 11 holds
+    the sharded run to it)."""
+    from repro_torch import graphs
     from repro_torch.configs.base import VFLConfig
     from repro_torch.configs.paper_mlp import PaperMLPConfig
     from repro_torch.core.adapters import tabular_adapter
     from repro_torch.core.async_engine import EngineConfig
     from repro_torch.core.draws import TorchDraws
+    from repro_torch.core.privacy import GaussianLossChannel
     from repro_torch.data import make_classification, vertical_partition
     from repro_torch.federation import Federation
     from repro_torch.models import tabular
+    t_phase = time.perf_counter()
     cfg = PaperMLPConfig()
     X, y = make_classification(seed=0, n=60000, n_features=cfg.n_features,
                                n_classes=cfg.n_classes)
@@ -6534,27 +6819,44 @@ def tabular_phase(rows, ops, flash_ops, rms_ops, ssd_ops, kind, card):
     vfl = VFLConfig(mu=MU, lr_server=0.05, lr_client=0.05)
     kernel_ad = tabular_adapter(cfg, use_kernel_lanes=True)
 
-    def build(method, steps, vfl=vfl, **kw):
+    def build(method, steps, vfl=vfl, noise=None, **kw):
         return Federation.build(
             kernel_ad if kw.get("use_lanes") else cfg, vfl,
-            EngineConfig(method=method, steps=steps, batch_size=64, **kw))
+            EngineConfig(method=method, steps=steps, batch_size=64, **kw),
+            noise=noise)
 
     fed = build("cascaded", 500, use_lanes=True)
     params = fed.init_params(torch.Generator().manual_seed(0))
     fed_warm = build("cascaded", 20, use_lanes=True)
     fed_warm.run(params, x_parts, y_dev)               # cuBLAS/allocator warm-up
+    fed_warm.run(params, x_parts, y_dev, use_graph=False)
 
+    name = "zoo_dual_matmul_stacked_bias_relu"
     for counter in (ops, flash_ops, rms_ops, ssd_ops):
         counter.reset_launches()
+    graphs.reset_replayed()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = fed.run(params, x_parts, y_dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
-    log(f"main path: cascaded, {cfg}, n = 60000, 500 rounds of batch 64: "
-        f"{wall * 1e3 / 500:.4f} ms per round on {kind} ({card}); "
-        f"kernel launches {launches}")
+    replayed = graphs.replayed["zoo_dual_matmul"][name]
+    rg = res.round_graph
+    if rg is None:
+        raise AssertionError("the main path's rounds were not captured")
+    replay_ms = rg["replay_s"] * 1e3 / rg["replays"]
+    log(f"main path: cascaded, {cfg}, n = 60000, 500 rounds of batch 64 "
+        f"through the captured round on {kind} ({card}): "
+        f"{wall * 1e3 / 500:.4f} ms a round end to end (the whole "
+        f"Federation.run, round 0 and the capture included); the replays "
+        f"{replay_ms:.4f} ms a round over {rg['replays']}; capture "
+        f"{rg['capture_s']:.4f} s ({rg['nodes']} graph nodes, "
+        f"{rg['kernel_nodes']} kernel nodes; round 0 eager as the warm-up);"
+        f" kernel launches {launches} ({replayed} of them replayed)")
+    rows[name]["round_ms"] = wall * 1e3 / 500
+    rows[name]["round_replay_ms"] = replay_ms
+    rows[name]["round_capture_s"] = rg["capture_s"]
     losses = res.losses
     if losses.shape != (500,) or not np.isfinite(losses).all():
         raise AssertionError(f"main path losses not finite: {losses}")
@@ -6564,16 +6866,22 @@ def tabular_phase(rows, ops, flash_ops, rms_ops, ssd_ops, kind, card):
         f"{res.mean_delay:.3f}, wire {res.wire_bytes} B")
     if not last < first:
         raise AssertionError("main path loss did not fall")
-    if launches != {"zoo_dual_matmul_stacked_bias_relu": 500,
-                    "zoo_dual_matmul_stacked": 0, "zoo_dual_matmul": 0}:
-        raise AssertionError(f"kernel launches {launches} != one per round")
+    if launches != {name: 500, "zoo_dual_matmul_stacked": 0,
+                    "zoo_dual_matmul": 0} or replayed != 499:
+        raise AssertionError(f"kernel launches {launches} ({replayed} "
+                             f"replayed) != one per round")
     if (flash_ops.launches["flash_attention"] or rms_ops.launches["rmsnorm"]
             or ssd_ops.launches["ssd_chunk"]):
         raise AssertionError("the tabular path launched an LM kernel")
-    for name in KERNELS:
-        rows[name]["launches"] = launches[name]
-    profile_rounds(build("cascaded", 50, use_lanes=True), params, x_parts,
-                   y_dev)
+    for kname in KERNELS:
+        rows[kname]["launches"] = launches[kname]
+    main = graph_vs_eager("main path (cascaded lanes)", fed, params, x_parts,
+                          y_dev)
+    if not np.array_equal(main["losses"].cpu().numpy(), res.losses):
+        raise AssertionError("the engine's captured rounds differ from "
+                             "Federation.run's")
+    rows[name]["round_profile"] = profile_rounds(
+        build("cascaded", 50, use_lanes=True), params, x_parts, y_dev)
 
     # the same rounds on the card (kernel lanes) and on the CPU (plain
     # lanes), from the same params on one CPU draw stream. φ/μ (d/μ =
@@ -6597,30 +6905,44 @@ def tabular_phase(rows, ops, flash_ops, rms_ops, ssd_ops, kind, card):
             cpu_params, x_parts[:, sub].cpu(), y_dev[sub].cpu(),
             draws=CpuDrawsOn(TorchDraws(0, "cpu"), "cpu"))
         gap = float(np.abs(gpu.losses - cpu.losses).max())
-        log(f"card (kernel lanes) vs CPU (plain lanes), {dist}, {steps} "
-            f"rounds at paper width: max loss gap {gap:.3e} (atol {atol})")
-        if not gap <= atol:
+        log(f"card (kernel lanes, captured rounds) vs CPU (plain lanes), "
+            f"{dist}, {steps} rounds at paper width: max loss gap {gap:.3e} "
+            f"(atol {atol})")
+        if gpu.round_graph is None or not gap <= atol:
             raise AssertionError(f"card and CPU trajectories differ by {gap}")
 
     for method in ("vafl", "zoo-vfl", "split", "syn-zoo"):
         lr = LRS[method]
-        r = build(method, 50, VFLConfig(mu=MU, lr_server=lr,
-                                        lr_client=lr)).run(
-            params, x_parts, y_dev)
+        mfed = build(method, 50, VFLConfig(mu=MU, lr_server=lr, lr_client=lr))
+        r = mfed.run(params, x_parts, y_dev)
         log(f"{method}: 50 rounds, loss {r.losses[0]:.4f} -> "
             f"{r.losses[-1]:.4f}, gradients on the wire: "
             f"{r.transmits_gradients}")
         if not np.isfinite(r.losses).all():
             raise AssertionError(f"{method} losses not finite")
-    before = ops.launches["zoo_dual_matmul_stacked_bias_relu"]
-    r = build("cascaded", 50, VFLConfig(mu=MU, lr_server=0.05,
-                                        lr_client=0.05, zoo_queries=4),
-              block_size=3, use_lanes=True).run(params, x_parts, y_dev)
-    blk = ops.launches["zoo_dual_matmul_stacked_bias_relu"] - before
+        graph_vs_eager(method, mfed, params, x_parts, y_dev)
+    before = ops.launches[name]
+    bfed = build("cascaded", 50, VFLConfig(mu=MU, lr_server=0.05,
+                                           lr_client=0.05, zoo_queries=4),
+                 block_size=3, use_lanes=True)
+    r = bfed.run(params, x_parts, y_dev)
+    blk = ops.launches[name] - before
     log(f"cascaded q=4 block=3: 50 rounds, loss {r.losses[0]:.4f} -> "
         f"{r.losses[-1]:.4f}, kernel launches {blk}")
     if not np.isfinite(r.losses).all() or blk != 50:
         raise AssertionError("q=4 block=3 run failed")
+    graph_vs_eager("cascaded q=4 block=3", bfed, params, x_parts, y_dev)
+    # the DP loss channel: normal directions at μ = 0.1 and client lr 1e-4
+    # keep the noised client steps (σ/μ ≈ 480) finite over 25 rounds
+    dfed = build("cascaded", 25, VFLConfig(
+        mu=0.1, lr_server=0.05, lr_client=1e-4, zoo_queries=2,
+        zoo_dist="normal"), noise=GaussianLossChannel(
+        clip=10.0, epsilon=1.0, delta=1e-5), block_size=3, use_lanes=True)
+    dp = graph_vs_eager("cascaded under the DP loss channel (q=2 block=3)",
+                        dfed, params, x_parts, y_dev)
+    if not torch.isfinite(dp["losses"]).all():
+        raise AssertionError("the DP run's losses are not finite")
+    lm_round_graph(rows, (ops, flash_ops, rms_ops, ssd_ops))
 
     # the quickstart's width and outcome (examples/quickstart.py)
     qcfg = PaperMLPConfig(n_features=64, n_classes=10, n_clients=4,
@@ -6635,11 +6957,64 @@ def tabular_phase(rows, ops, flash_ops, rms_ops, ssd_ops, kind, card):
     qres = qfed.run(qfed.init_params(torch.Generator().manual_seed(0)), xq,
                     yq)
     acc = float(tabular.accuracy(qres.params, xq, yq))
-    log(f"quickstart through the kernel lanes: acc {acc:.4f}, final loss "
-        f"{qres.losses[-25:].mean():.4f}")
+    log(f"quickstart through the kernel lanes (captured rounds): acc "
+        f"{acc:.4f}, final loss {qres.losses[-25:].mean():.4f}")
     if not acc > 0.9:
         raise AssertionError(f"quickstart accuracy {acc} <= 0.9")
+    log(f"phase 3: {time.perf_counter() - t_phase:.1f} s")
     return res
+
+
+# the reduced LM round held graph against eager: benchmarks/lm_async.py's
+# shape (phi3 reduced to d_model 64, 2 heads of 32 and 1 KV head, d_ff
+# 128, vocab 256, its 2 layers; 4 client parties over 32 tokens, batch 8,
+# cascaded with the fused lanes over the active rows), at its larger q
+LM_ROUND = dict(queries=4, rounds=20, batch=8, seq=32, n_clients=4, rows=128)
+
+
+def lm_round_graph(rows, counters) -> None:
+    """Phase 3: ``from_model_config``'s reduced Phi-3 through the captured
+    round (flash attention and RMSNorm under the capture, with autograd
+    in the server update) bitwise to its eager loop, its flash and
+    RMSNorm launches through the replays equal to their derivation."""
+    from repro_torch.configs import VFLConfig, get_config, reduced
+    from repro_torch.core.async_engine import EngineConfig
+    from repro_torch.data import lm_token_batches, vertical_partition
+    from repro_torch.federation import Federation
+    cfg = reduced(get_config("phi3-mini-3.8b"), d_model=64, n_heads=2,
+                  n_kv_heads=1, d_ff=128, vocab_size=256)
+    q, T = LM_ROUND["queries"], LM_ROUND["rounds"]
+    toks = next(lm_token_batches(0, cfg.vocab_size, LM_ROUND["rows"],
+                                 LM_ROUND["seq"]))["tokens"]
+    fed = Federation.build(
+        cfg, VFLConfig(mu=1e-3, lr_server=0.05, lr_client=1e-4,
+                       zoo_queries=q, active_rows_only=True),
+        EngineConfig(method="cascaded", steps=T,
+                     batch_size=LM_ROUND["batch"], use_lanes=True),
+        n_clients=LM_ROUND["n_clients"], seq_len=LM_ROUND["seq"])
+    params, x, y = fed._engine_inputs(
+        fed.init_params(torch.Generator(fed.device).manual_seed(0)),
+        vertical_partition(toks, LM_ROUND["n_clients"]), toks)
+    engine_rounds(fed, params, x, y, graph=False)          # warm-up
+    for c in counters:
+        c.reset_launches()
+    out = graph_vs_eager(f"engine round, reduced phi3 at lm_async's shape "
+                         f"(q = {q})", fed, params, x, y)
+    ran = _launches(counters)
+    plan = pop_plan(cfg, q, 2 * T, 2 * T)    # the eager run and the graph's
+    want = plan["launches"]
+    log(f"engine round, reduced phi3: launches over the eager and the "
+        f"captured run {ran}, derived {want} ({plan['why']}); a replay "
+        f"{out['graph']['launches_a_replay']}")
+    if {k: ran[k] for k in want} != want:
+        raise AssertionError(f"the LM round launched {ran}, want {want}")
+    if not torch.isfinite(out["losses"]).all():
+        raise AssertionError("the LM round's losses are not finite")
+    for kname in ("flash_attention", "rmsnorm"):
+        rows[kname]["launches"] += want[kname]
+        rows[kname].setdefault("launches_by_path", {})[
+            "engine round: reduced phi3 (lm_async shape), eager + graph"] = \
+            want[kname]
 
 
 if __name__ == "__main__":

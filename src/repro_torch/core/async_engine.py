@@ -19,12 +19,14 @@ wire is a :class:`repro_torch.federation.Transport` (ledger, canonical
 method names, DP noise hook on the loss downlink). Every random number
 comes from a draw source (:mod:`repro_torch.core.draws`).
 
-Where the JAX engine compiled the rounds into one ``lax.scan``, the port
-runs a Python loop of eager device work: the block is a leading batch dim
-(no ``vmap``), the losses and per-round max delays stay on the device and
-are read once at the end, and nothing syncs the host inside a round. The
-run updates its own copies of the parameters, table and delay counters in
-place (the caller's tensors are untouched).
+Where the JAX engine compiles the rounds into one ``lax.scan``, the port
+captures ONE round as a CUDA graph on static buffers and replays it once
+a round (on the CPU the same round body runs in a Python loop; see
+:func:`_make_runner`): the block is a leading batch dim (no ``vmap``),
+the round index, the losses and the per-round max delays stay on the
+device and are read once at the end, and nothing syncs the host inside a
+round. The run updates its own copies of the parameters, table and delay
+counters in place (the caller's tensors are untouched).
 
 Synchronous baselines (Split-Learning, Syn-ZOO-VFL) activate *all* clients
 every round with fresh embeddings (no table staleness).
@@ -75,11 +77,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import graphs
 from repro_torch.analysis import marks, tags
 from repro_torch.configs.base import VFLConfig
 from repro_torch.core import zoo
 from repro_torch.core.adapters import ModelAdapter, tabular_adapter
-from repro_torch.core.draws import make_schedule
+from repro_torch.core.draws import RoundDraws, make_schedule
 from repro_torch.core.methods import SYNC_METHODS
 from repro_torch.core.partition import (tree_leaves, tree_map,
                                         tree_unflatten)
@@ -126,6 +129,10 @@ class EngineResult:
     # channel: structurally safe wire, no formal guarantee)
     epsilon: float = math.inf
     delta: float = 0.0
+    # the captured round's CUDA graph (a run on the card): capture_s,
+    # nodes, kernel_nodes, replays, replay_s (the replays' host time,
+    # synchronised) and launches_a_replay; None where the rounds looped
+    round_graph: Optional[dict] = None
 
 
 def _validate_mesh(mesh, sync: bool, method: str, block: int, M: int):
@@ -179,16 +186,19 @@ def _shard_rows(mesh, M: int, table_spec) -> tuple:
 
 def _session_run(adapter: ModelAdapter, transport, vfl: VFLConfig,
                  cfg_engine: EngineConfig, params, x_parts, y, *,
-                 draws, probs=None, mesh=None) -> EngineResult:
+                 draws, probs=None, mesh=None,
+                 graph: bool = True) -> EngineResult:
     """The engine proper, driven by a ``Federation`` session, with the
-    params and data already on the session's device."""
+    params and data already on the session's device. ``graph=False``
+    loops the round body on the card too (see :func:`_make_runner`)."""
     M = x_parts.shape[0]
     T, bs = cfg_engine.steps, cfg_engine.batch_size
     sync = transport.method in SYNC_METHODS
     block = 1 if sync else cfg_engine.block_size
+    stats: dict = {}
     (params, table, delays), (losses, maxd) = _rounds(
         adapter, transport, vfl, cfg_engine, params, x_parts, y,
-        draws=draws, probs=probs, mesh=mesh)
+        draws=draws, probs=probs, mesh=mesh, graph=graph, stats=stats)
 
     # the Transport owns the q-gating (queries only fan out on ZOO wires)
     ledger = transport.account(batch=bs, embed=int(table.shape[-1]),
@@ -204,15 +214,17 @@ def _session_run(adapter: ModelAdapter, transport, vfl: VFLConfig,
                         mean_delay=float(delays.double().mean()),
                         wire_bytes=ledger.total_bytes,
                         transmits_gradients=ledger.transmits_gradients,
-                        ledger=ledger, epsilon=eps, delta=delta)
+                        ledger=ledger, epsilon=eps, delta=delta,
+                        round_graph=stats or None)
 
 
 def _rounds(adapter: ModelAdapter, transport, vfl: VFLConfig,
             cfg_engine: EngineConfig, params, x_parts, y, *, draws,
-            probs=None, mesh=None):
+            probs=None, mesh=None, graph: bool = True, stats=None):
     """The run's draws, initial table and round loop: ``((params, table,
     delays), (losses, max_delays))`` on the device. With a ``mesh`` the
-    table is this rank's rows of it; everything else is replicated."""
+    table is this rank's rows of it; everything else is replicated.
+    ``graph`` and ``stats``: see :func:`_make_runner`."""
     method = transport.method
     M, n, _ = x_parts.shape
     T, bs = cfg_engine.steps, cfg_engine.batch_size
@@ -251,7 +263,7 @@ def _rounds(adapter: ModelAdapter, transport, vfl: VFLConfig,
     runner = _make_runner(adapter, transport, vfl, sync, block,
                           cfg_engine.use_lanes, mesh, table_spec)
     return runner(params, table0, delays0, schedule, sample_idx, draws,
-                  x_parts, y)
+                  x_parts, y, graph=graph, stats=stats)
 
 
 # ------------------------------------------------------------------------
@@ -261,9 +273,30 @@ def _make_runner(adapter: ModelAdapter, transport, vfl: VFLConfig,
                  table_spec=None):
     """The round loop for one (adapter, transport, vfl, block, mesh)
     protocol: ``run_rounds(params, table0, delays0, schedule, sample_idx,
-    draws, x_parts, y) -> ((params, table, delays), (losses,
-    max_delays))``. With a ``mesh``, ``table0`` and the returned table are
-    this rank's rows (see :func:`_make_sharded_step`)."""
+    draws, x_parts, y, *, graph=True, stats=None) -> ((params, table,
+    delays), (losses, max_delays))``. With a ``mesh``, ``table0`` and the
+    returned table are this rank's rows (see :func:`_make_sharded_step`).
+
+    The counterpart of the JAX engine's ``lax.scan`` under ``jax.jit``:
+    ONE round body on static buffers (the params tree, the table, the
+    delays, the round index t as a (1,) int64 device tensor, and (T,)
+    buffers for the losses and the per-round max delays). The body reads
+    its schedule and sample rows at the device t, draws through a
+    :class:`~repro_torch.core.draws.RoundDraws` over ``draws``, runs the
+    step, copies the server's new leaves into the captured parameters,
+    keeps the delay bookkeeping, writes the loss and ``delays.max()`` at
+    t and advances t. On a CUDA device round 0 runs eagerly, the body is
+    captured as a CUDA graph (:class:`repro_torch.graphs.StepGraph`; a
+    failed capture raises) and replayed T - 1 times, each replay after
+    :meth:`RoundDraws.fill` has put round t's draws into its buffers;
+    ``stats`` (a dict) then takes the graph's capture seconds, nodes,
+    replays and the replays' host time. On the CPU, under the certifier's
+    trace, with ``graph=False`` (an internal switch: no config field,
+    flag or entry point sets it) and on the sharded path the same body
+    runs in a Python loop. The sharded round (``mesh``) stays a loop:
+    its NCCL collectives are not captured (ROADMAP 1.1(b)). Either form
+    runs the same kernels in the same order on the same draws, so the
+    results are bitwise equal."""
     if sync:
         step_fn = _make_sync_step(adapter, transport, vfl)
     elif mesh is not None:
@@ -273,30 +306,73 @@ def _make_runner(adapter: ModelAdapter, transport, vfl: VFLConfig,
         step_fn = _make_async_step(adapter, transport, vfl, use_lanes)
 
     def run_rounds(params, table0, delays0, schedule, sample_idx, draws,
-                   x_parts, y):
-        params = tree_map(torch.clone, params)
-        table, delays = table0.clone(), delays0.clone()
+                   x_parts, y, *, graph: bool = True, stats=None):
+        T = schedule.shape[0]
+        rd = RoundDraws(draws)
+        st = {"params": tree_map(torch.clone, params),
+              "table": table0.clone(), "delays": delays0.clone(),
+              "t": torch.zeros((1,), dtype=torch.int64,
+                               device=x_parts.device),
+              "losses": None, "maxd": None}
         if mesh is not None:
             # one spare row past the owned ones takes the refresh writes
             # of block rows another shard owns (no host sync to drop them)
-            table = torch.cat([table, table.new_zeros((1,) + table.shape[1:])])
-        losses, maxd = [], []
-        for t in range(schedule.shape[0]):
-            m_blk, idx = schedule[t], sample_idx[t]
-            params, table, loss = step_fn(params, table, m_blk, idx, t,
-                                          draws, x_parts, y)
+            table = st["table"]
+            st["table"] = torch.cat(
+                [table, table.new_zeros((1,) + table.shape[1:])])
+
+        def body():
+            """One round on the static buffers ``st``: its schedule and
+            sample rows read at the device round index, its draws from
+            ``rd``, its results written in place."""
+            t = st["t"]
+            m_blk = schedule.index_select(0, t)[0]
+            idx = sample_idx.index_select(0, t)[0]
+            new, table, loss = step_fn(st["params"], st["table"], m_blk,
+                                       idx, rd.t, rd, x_parts, y)
+            rd.done()
+            if table is not st["table"]:
+                raise RuntimeError("the round step must update the table "
+                                   "in place")
+            # the server's (and a sync round's every) new leaves into the
+            # captured parameters; clients updated in place stay as they are
+            tree_map(lambda old, nw: None if nw is old else old.copy_(nw),
+                     st["params"], new)
             # delay bookkeeping (§III-C): activated (m,i) resets, others +1
+            delays = st["delays"]
             if sync:
                 delays.zero_()
             else:
                 delays += 1
-                delays[m_blk[:, None], idx[None, :]] = 0
-            losses.append(loss)
-            maxd.append(delays.max())
+                # a device zero (a Python 0 would be a host copy, which a
+                # capture refuses)
+                delays.index_put_((m_blk[:, None], idx[None, :]),
+                                  delays.new_zeros(()))
+            if st["losses"] is None:        # the first round, never captured
+                st["losses"] = loss.new_empty((T,))
+                st["maxd"] = delays.new_empty((T,))
+            st["losses"].index_copy_(0, t, loss.reshape(1))
+            st["maxd"].index_copy_(0, t, delays.max().reshape(1))
+            t.add_(1)
+
+        captured = (graph and T > 1 and mesh is None
+                    and x_parts.device.type == "cuda" and not marks.tracing())
+        if captured:
+            rd.fill(0)
+            g = graphs.StepGraph(body, x_parts.device)
+            g.timed_replays(T - 1, lambda i: rd.fill(i + 1))
+            if stats is not None:
+                stats.update(g.stats())
+            del g
+        else:
+            for t in range(T):
+                rd.fill(t)
+                body()
+        table = st["table"]
         if mesh is not None:
             table = table[:-1]
-        return (params, table, delays), (torch.stack(losses),
-                                         torch.stack(maxd))
+        return (st["params"], table, st["delays"]), (st["losses"],
+                                                     st["maxd"])
 
     return run_rounds
 

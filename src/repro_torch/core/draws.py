@@ -43,6 +43,11 @@ function of (seed, stream, t, row), so its ``client_directions`` stacks
 the rows' ``directions`` and an in-process run (``Federation.run``) and a
 population run over the wire draw the same numbers, and a resumed run
 draws what an unbroken one draws.
+
+A captured engine round (a CUDA graph) cannot call a draw source: it
+reads its draws from buffers that outlive the graph. :class:`RoundDraws`
+wraps any source for it, recording the calls the first round makes and
+refilling their buffers in the same order before each later round.
 """
 from __future__ import annotations
 
@@ -292,6 +297,92 @@ class RowDraws:
             return torch.stack([
                 torch.randn((n,), generator=self._g(_NOISE, t, r),
                             device=self.device) for r in range(n_rows)])
+
+
+def _counts(args) -> tuple:
+    """The integer arguments of a draw call (rows, lanes, lengths)."""
+    return tuple(a for a in args if isinstance(a, int))
+
+
+class RoundDraws:
+    """A round's draws on static buffers: the draw source a captured
+    round (``async_engine._make_runner``) reads, so its random numbers
+    outlive the CUDA graph that replays it.
+
+    The first round a step runs over it is recorded: each call is passed
+    to ``source`` as the step made it, the answer is copied into a buffer
+    and the step reads the buffer. From then on a step's calls are
+    answered from those buffers, in the recorded order (each call checks
+    it asks what was recorded), and :meth:`fill` refills them for round
+    ``t`` in place before the round runs: it asks ``source`` for exactly
+    the recorded calls, in the recorded order, with ``t``. So a
+    ``TorchDraws`` generator advances as the eager step advances it, and
+    any source (``RowDraws``, ``StepDraws``, an injected replay) answers
+    what it would answer the eager step. :meth:`done` closes a round.
+    ``t`` is the round :meth:`fill` last set.
+
+    The certifier traces over :class:`FilledDraws` instead, and cannot
+    take this class: its tree walk (``analysis.ifc._flatten`` and
+    ``_rebuild``) finds a step's draws as graph inputs only in a dict
+    keyed by kind, and rebuilds that dict over the trace's proxies,
+    whereas these buffers sit in a call record with a cursor, known only
+    after an eager round has run. The certifier runs no round before it
+    traces, and the population trace fills the noise alone."""
+
+    def __init__(self, source) -> None:
+        self.source = source
+        self.t = 0
+        self.calls: list = []          # (method, args) in the step's order
+        self.buffers: list = []
+        self.recorded = False
+        self._next = 0
+
+    def fill(self, t: int) -> None:
+        """Round ``t``'s draws into the buffers (the first round records
+        instead, as its step asks)."""
+        self.t = int(t)
+        if not self.recorded:
+            return
+        for (name, args), buf in zip(self.calls, self.buffers):
+            tree_map(lambda b, a: b.copy_(a), buf,
+                     getattr(self.source, name)(self.t, *args))
+
+    def done(self) -> None:
+        """Close a round: after the first it seals the record; after
+        every other it checks the step asked for every buffer."""
+        if self.recorded and self._next != len(self.calls):
+            raise RuntimeError(f"the round asked for {self._next} of its "
+                               f"{len(self.calls)} recorded draws")
+        self.recorded, self._next = True, 0
+
+    def _ask(self, name: str, t, *args):
+        if not self.recorded:
+            out = getattr(self.source, name)(self.t, *args)
+            buf = tree_map(torch.clone, out)
+            self.calls.append((name, args))
+            self.buffers.append(buf)
+            return buf
+        i = self._next
+        want = self.calls[i] if i < len(self.calls) else ("nothing", ())
+        if (want[0] != name
+                or _counts(want[1]) != _counts(args)):
+            raise RuntimeError(f"draw {i} of the round asks {name}"
+                               f"{_counts(args)}, the record has "
+                               f"{want[0]}{_counts(want[1])}")
+        self._next += 1
+        return self.buffers[i]
+
+    def client_directions(self, t, template, n_rows, q):
+        return self._ask("client_directions", t, template, n_rows, q)
+
+    def server_directions(self, t, template, q):
+        return self._ask("server_directions", t, template, q)
+
+    def global_directions(self, t, template, q):
+        return self._ask("global_directions", t, template, q)
+
+    def noise(self, t, n_rows, n):
+        return self._ask("noise", t, n_rows, n)
 
 
 class FilledDraws(dict):

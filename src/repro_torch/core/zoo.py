@@ -96,8 +96,13 @@ def sample_directions(raw, tree, n_queries: int, dist: str = "sphere",
         raise ValueError(f"raw draws have leading dims {lead}, expected "
                          f"(..., {n_queries})")
     u_stack, d_eff = sample_direction(raw, tree, dist, row_mask)
-    d_eff = torch.as_tensor(d_eff, dtype=torch.float32,
-                            device=first_raw.device)
+    if isinstance(d_eff, torch.Tensor):
+        d_eff = d_eff.to(torch.float32)
+    else:
+        # a fill on the device, not a host-to-device copy: a captured
+        # round (a CUDA graph) cannot copy from pageable host memory
+        d_eff = torch.full((), d_eff, dtype=torch.float32,
+                           device=first_raw.device)
     return u_stack, torch.broadcast_to(d_eff, lead)
 
 
@@ -190,5 +195,5 @@ def zoo_gradient(raw, loss_fn, tree, mu: float, dist: str = "sphere",
 def embedding_row_mask(tokens, vocab: int):
     """0/1 mask of vocabulary rows present in the batch (active-row mode)."""
     mask = torch.zeros((vocab,), dtype=torch.float32, device=tokens.device)
-    mask[tokens.reshape(-1).long()] = 1.0
+    mask.index_fill_(0, tokens.reshape(-1).long(), 1.0)
     return mask

@@ -213,7 +213,7 @@ class Federation:
         return self.adapter.init_params(generator, device=self.device)
 
     def run(self, params, x_parts, y, *, probs=None,
-            draws: Optional[DrawSource] = None
+            draws: Optional[DrawSource] = None, use_graph: bool = True
             ) -> async_engine.EngineResult:
         """Asynchronous protocol simulation (staleness, blocks, sharding).
 
@@ -222,13 +222,21 @@ class Federation:
         ``params`` leaves may be numpy arrays or tensors too. ``draws``
         defaults to :class:`TorchDraws` seeded with ``engine.seed`` on the
         session's device. A sharded session's ranks each call ``run`` with
-        the same arguments; every rank returns the replicated result."""
+        the same arguments; every rank returns the replicated result.
+
+        On the card an unsharded run captures one round as a CUDA graph
+        and replays it (the result's ``round_graph`` holds its capture
+        seconds, nodes and replays); on the CPU the same round body runs
+        in a Python loop. ``use_graph=False`` loops it on the card too:
+        the eager comparison the smoke run holds the graph to (no entry
+        point passes it)."""
         params, x_parts, y = self._engine_inputs(params, x_parts, y)
         if draws is None:
             draws = TorchDraws(self.engine.seed, self.device)
         return async_engine._session_run(
             self.adapter, self.transport, self.vfl, self.engine, params,
-            x_parts, y, draws=draws, probs=probs, mesh=self.mesh)
+            x_parts, y, draws=draws, probs=probs, mesh=self.mesh,
+            graph=use_graph)
 
     def _engine_inputs(self, params, x_parts, y):
         """The engine's params and data on the session's device: float

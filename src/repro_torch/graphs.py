@@ -22,10 +22,20 @@ it (the buffers it is replayed on):
 A graph must only ever replay on the buffers it was captured on. That
 holds doubly where a kernel's launcher encodes host-side descriptors of
 its operands: the bf16 flash-attention launcher passes TMA tensor maps
-(which hold the operands' addresses) by value as kernel parameters, so a
-graph that captured it would replay them as they were. No captured step
-reaches flash attention today: the decode steps attend through the plain
-masked einsum, and prefill stays eager.
+(which hold the operands' addresses) by value as kernel parameters, and
+a replay passes them as they were captured. Captured steps do reach
+flash attention: Whisper's cross-attention in the captured global decode
+step (``launch/serve.py``) and the LM adapter's server loss in a
+captured engine round (``core/async_engine.py``). Such a launch is valid
+only because its operands keep their addresses across replays: q, k, v
+and o are either static buffers or temporaries of the graph's own pool,
+which every replay re-creates at the addresses of the capture. The
+launch path keeps that true: ``kernels/flash_attention/ops.py`` takes
+the output from the caching allocator (the pool, under capture), reads
+no tensor to the host, and ``kernel.py`` passes the captured pointers on
+the current (capturing) stream; the C launcher encodes the tensor maps
+from those pointers and sets the kernel's shared-memory attribute, host
+calls that a capture allows and that record nothing.
 
 **Launch accounting.** The kernels' Python wrappers count launches
 (``ops.launches``); a replay never runs them. So a capture moves what its
@@ -40,9 +50,10 @@ from __future__ import annotations
 import ctypes
 import functools
 import time
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
@@ -75,6 +86,10 @@ def _add(delta: Dict[str, Dict[str, int]], times: int, *targets) -> None:
             for target in targets:
                 target[group][name] += n * times
 
+
+# the zero-length profiler range :meth:`StepGraph.timed_replays` opens
+# where its replays start
+REPLAYS_START = "graph replays start"
 
 # CUgraphNodeType of a kernel node (the CUDA driver API)
 _KERNEL_NODE = 0
@@ -120,7 +135,8 @@ class StepGraph:
     concurrently; None: a pool of its own). :meth:`replay` runs it.
 
     ``capture_s`` is the capture and instantiation's host time (the
-    warm-up step is not in it); ``nodes`` and ``kernel_nodes`` count the
+    warm-up step is not in it); ``replay_s`` the host time of
+    :meth:`timed_replays`; ``nodes`` and ``kernel_nodes`` count the
     captured graph; ``captured`` is the kernel launches one replay makes,
     counter by counter. The graph keeps ``body``, and so every tensor it
     closes over, alive: a replay reads them where they were captured."""
@@ -153,6 +169,8 @@ class StepGraph:
         self.graph.instantiate()
         self.capture_s = time.perf_counter() - tic
         self.replays = 0
+        self.replay_s = 0.0
+        self.device = device
         self.body = body
 
     def replay(self, n: int = 1) -> None:
@@ -161,6 +179,36 @@ class StepGraph:
             self.graph.replay()
         self.replays += n
         _add(self.captured, n, COUNTERS, replayed)
+
+    def timed_replays(self, n: int,
+                      before: Optional[Callable[[int], None]] = None
+                      ) -> float:
+        """``n`` replays between two synchronisations of the device, each
+        after ``before(i)`` (i = 0 .. n - 1) where given (a step's refill
+        of its input buffers); returns their host seconds and adds them
+        to :attr:`replay_s`. A zero-length profiler range
+        :data:`REPLAYS_START` marks where they start, so a profile's
+        window over the replays alone starts there and lasts the
+        returned seconds."""
+        torch.cuda.synchronize(self.device)
+        with record_function(REPLAYS_START):
+            pass
+        tic = time.perf_counter()
+        for i in range(n):
+            if before is not None:
+                before(i)
+            self.replay()
+        torch.cuda.synchronize(self.device)
+        spent = time.perf_counter() - tic
+        self.replay_s += spent
+        return spent
+
+    def stats(self) -> dict:
+        """The graph's readings as a result dict carries them."""
+        return {"capture_s": self.capture_s, "nodes": self.nodes,
+                "kernel_nodes": self.kernel_nodes, "replays": self.replays,
+                "replay_s": self.replay_s,
+                "launches_a_replay": self.launches()}
 
     def launches(self) -> Dict[str, int]:
         """One replay's kernel launches, by kernel (routes left out)."""

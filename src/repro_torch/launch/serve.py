@@ -192,11 +192,7 @@ def _serve_federated(arch: str, cfg, *, batch: int, prompt_len: int,
         "wire_has_gradients": res.transmits_gradients,
         "final_logits_absmax": absmax,
         "sample_output": res.tokens[0, :8].tolist(),
-        "decode_graph": None if res.graph is None else {
-            "capture_s": res.graph.capture_s, "nodes": res.graph.nodes,
-            "kernel_nodes": res.graph.kernel_nodes,
-            "replays": res.graph.replays,
-            "launches_a_replay": res.graph.launches()},
+        "decode_graph": None if res.graph is None else res.graph.stats(),
     }
 
 
@@ -258,15 +254,117 @@ def _serve_continuous(arch: str, cfg, *, batch: int, prompt_len: int,
 
 # ------------------------------------------------------------ global path ---
 
+def make_global_steps(model, params, toks, caches, extra: dict, *,
+                      gen_len: int, temperature: float, vocab_size: int):
+    """The global decode's two step bodies on static buffers: the
+    counterpart of the JAX package's ``jax.jit(model.decode_fn)`` with the
+    caches donated. Returns ``(prefill, decode, st)``: ``st`` holds
+    ``pos`` (1,) int64 the device position, ``logits`` (B, 1, vocab) the
+    carried logits (made by the first step), ``out`` (B, gen_len) int32
+    the tokens, ``caches`` (updated in place; a step's new leaves are
+    copied into them) and ``noise``, which the caller sets before the
+    first decode step when temperature > 0.
+
+    ``prefill()`` feeds the prompt's column at the device position
+    through ``model.decode_fn`` and carries its logits (it samples
+    nothing). ``decode()`` samples from the carried logits as
+    :func:`serving.sample_token` does (greedy, or ``argmax(logits / T +
+    gumbel)`` with the noise read from ``st["noise"]``, the (gen_len, B,
+    vocab) table :func:`serving.noise_table` fills, at the device
+    position), writes the token into ``out``, steps, and carries the
+    logits. Both advance the position. ``toks``, ``params`` and ``extra`` (Whisper's
+    ``enc_out``) are static inputs: nothing rebinds them."""
+    B, prompt_len = toks.shape
+    st = {"pos": torch.zeros((1,), dtype=torch.int64, device=toks.device),
+          "logits": None, "caches": caches, "noise": None,
+          "out": torch.zeros((B, gen_len), dtype=torch.int32,
+                             device=toks.device)}
+
+    def step(tok):
+        logits, new = model.decode_fn(params, {"tokens": tok, **extra},
+                                      st["caches"], st["pos"])
+        tree_map(lambda old, nw: None if nw is old else old.copy_(nw),
+                 st["caches"], new)
+        if st["logits"] is None:            # the first step, never captured
+            st["logits"] = torch.empty_like(logits)
+        st["logits"].copy_(logits)
+        st["pos"].add_(1)
+
+    def prefill():
+        step(toks.index_select(1, st["pos"]))
+
+    def decode():
+        i = st["pos"] - prompt_len
+        lg = st["logits"][:, -1].float()
+        if temperature > 0:
+            lg = lg / temperature + st["noise"].index_select(0, i)[0]
+        nxt = torch.clamp(torch.argmax(lg, dim=-1),
+                          max=vocab_size - 1).to(torch.int32)
+        st["out"].index_copy_(1, i, nxt[:, None])
+        step(nxt[:, None])
+
+    return prefill, decode, st
+
+
 @torch.no_grad()
+def global_decode(model, params, toks, caches, extra: dict, *, gen_len: int,
+                  temperature: float, vocab_size: int, draws=None) -> dict:
+    """Prefill ``toks`` (B, P) token by token through ``model.decode_fn``
+    and generate ``gen_len`` tokens: ``{"tokens": (B, gen_len) int32 on
+    the device, "logits": the last step's, "prefill_s", "decode_s",
+    "prefill_graph", "decode_graph"}``.
+
+    On the card the prompt and the generation replay two captured steps
+    (:func:`make_global_steps`, in one graph pool; the first prefill and
+    the first decode step are the graphs' warm-ups, run eagerly; a failed
+    capture raises): the counterpart of the JAX package's
+    ``jax.jit(model.decode_fn)``. On the CPU the same step bodies run in
+    loops. The seconds leave out the captures, which ``prefill_graph``
+    and ``decode_graph`` carry (None where nothing was captured)."""
+    from repro_torch import graphs
+    device = toks.device
+    B, prompt_len = toks.shape
+    res = {"prefill_graph": None, "decode_graph": None}
+    prefill, decode, st = make_global_steps(
+        model, params, toks, caches, extra, gen_len=gen_len,
+        temperature=float(temperature), vocab_size=vocab_size)
+    on_card = device.type == "cuda"
+    pool = torch.cuda.graph_pool_handle() if on_card else None
+    for body, n, name in ((prefill, prompt_len, "prefill"),
+                          (decode, gen_len, "decode")):
+        t0 = time.perf_counter()
+        if name == "decode" and temperature > 0:
+            # the eager loop's draws, one position at a time, in order
+            st["noise"] = serving.noise_table(
+                draws, prompt_len, gen_len, B, st["logits"].shape[-1],
+                device)
+        capture_s = 0.0
+        if on_card and n > 1:
+            graph = graphs.StepGraph(body, device, pool=pool)
+            graph.timed_replays(n - 1)
+            res[f"{name}_graph"] = graph.stats()
+            capture_s = graph.capture_s
+            del graph
+        else:
+            for _ in range(n):
+                body()
+        _sync(device)
+        res[f"{name}_s"] = time.perf_counter() - t0 - capture_s
+    return dict(res, tokens=st["out"], logits=st["logits"])
+
+
 def _serve_global(arch: str, cfg, *, batch: int, prompt_len: int,
                   gen_len: int, seed: int, temperature: float,
                   device: torch.device) -> dict:
+    """The global decode (one party) of random weights drawn from
+    ``seed``: :func:`global_decode`, CUDA graphs on the card, loops on the
+    CPU. Whisper's encoder runs once before the prefill."""
     max_seq = prompt_len + gen_len
     model = build_model(cfg, max_seq=max_seq)
-    params = common.materialize(
-        model.param_specs, torch.Generator(device).manual_seed(seed),
-        device=device)
+    with torch.no_grad():
+        params = common.materialize(
+            model.param_specs, torch.Generator(device).manual_seed(seed),
+            device=device)
     toks = _prompts(cfg, batch, prompt_len, seed, device)
     caches = _zero_caches(cfg, batch, max_seq, device)
     draws = serving.TorchGumbel(seed, device) if temperature > 0 else None
@@ -278,39 +376,26 @@ def _serve_global(arch: str, cfg, *, batch: int, prompt_len: int,
         t0 = time.perf_counter()
         frames = torch.zeros((batch, cfg.encoder_seq, cfg.frontend_dim),
                              dtype=torch.bfloat16, device=device)
-        extra["enc_out"] = encdec.encode(cfg, params, frames)
+        with torch.no_grad():
+            extra["enc_out"] = encdec.encode(cfg, params, frames)
         _sync(device)
         timed["encode_s"] = time.perf_counter() - t0
 
-    # prefill: feed prompt tokens through the decode path one at a time
-    t0 = time.perf_counter()
-    logits = None
-    for t in range(prompt_len):
-        logits, caches = model.decode_fn(
-            params, {"tokens": toks[:, t:t + 1], **extra}, caches, t)
-    _sync(device)
-    t_prefill = time.perf_counter() - t0
-
-    out = torch.empty((batch, gen_len), dtype=torch.int32, device=device)
-    t0 = time.perf_counter()
-    for i, t in enumerate(range(prompt_len, max_seq)):
-        nxt = serving.sample_token(logits, t, temperature, cfg.vocab_size,
-                                   draws)
-        out[:, i] = nxt
-        logits, caches = model.decode_fn(
-            params, {"tokens": nxt[:, None], **extra}, caches, t)
-    gen = out.cpu().numpy()
-    _sync(device)
-    t_decode = time.perf_counter() - t0
-    absmax = _check_logits(logits)
+    res = global_decode(model, params, toks, caches, extra, gen_len=gen_len,
+                        temperature=temperature, vocab_size=cfg.vocab_size,
+                        draws=draws)
+    gen = res["tokens"].cpu().numpy()
+    absmax = _check_logits(res["logits"])
     return {
         "arch": arch, "batch": batch, "mode": "global",
         "prompt_len": prompt_len, "gen_len": gen_len,
         "device": str(device),
-        "prefill_s": t_prefill, "decode_s": t_decode, **timed,
-        "decode_tok_per_s": batch * gen_len / max(t_decode, 1e-9),
+        "prefill_s": res["prefill_s"], "decode_s": res["decode_s"], **timed,
+        "decode_tok_per_s": batch * gen_len / max(res["decode_s"], 1e-9),
         "final_logits_absmax": absmax,
         "sample_output": gen[0, :8].tolist(),
+        "prefill_graph": res["prefill_graph"],
+        "decode_graph": res["decode_graph"],
     }
 
 

@@ -123,13 +123,19 @@ def decode_blocks(cfg, params, x, enc_out, *, positions, caches=None,
 
 def forward(cfg, params, inputs, *, caches=None, cur_pos=None, window=0):
     """Training and prefill: inputs = {frames, tokens}. Decode: {tokens
-    (B, 1), enc_out} with the caches, at ``cur_pos``. The learned decoder
+    (B, 1), enc_out} with the caches, at ``cur_pos``: a Python int, or a
+    0-d or (1,) int64 device tensor (the captured global decode step: no
+    host read); both forms compute the same. The learned decoder
     positions are clipped to the table. Returns (logits, caches or None,
     aux 0.0)."""
     tokens = inputs["tokens"]
     if caches is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         enc_out = encode(cfg, params, inputs["frames"])
+    elif isinstance(cur_pos, torch.Tensor):
+        cur_pos = cur_pos.reshape(1)
+        positions = cur_pos
+        enc_out = inputs["enc_out"]
     else:
         positions = torch.full((1,), int(cur_pos), device=tokens.device)
         enc_out = inputs["enc_out"]

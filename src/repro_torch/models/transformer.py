@@ -219,13 +219,16 @@ def _maybe_remat(cfg, fn, caches=None):
     ``"dots"`` policy (keep the weight products, recompute the rest) has
     no checkpoint counterpart in torch, so both policies recompute the
     whole block. A forward that nothing differentiates runs ``fn`` as it
-    is."""
+    is. The blocks draw no random numbers, so the checkpoint keeps no RNG
+    state: a captured engine round (a CUDA graph) may neither read nor
+    set the card's generator state."""
     if not cfg.remat or caches is not None or not torch.is_grad_enabled():
         return fn
 
     def remat(*args, **kwargs):
         return torch.utils.checkpoint.checkpoint(
-            fn, *args, use_reentrant=False, **kwargs)
+            fn, *args, use_reentrant=False, preserve_rng_state=False,
+            **kwargs)
     return remat
 
 
@@ -355,7 +358,10 @@ def forward(cfg, params, inputs, *, caches=None, cur_pos=None, window=0,
             gather_experts=False):
     """Full forward. Training/prefill: inputs over S (a VLM input's S
     counts its vision positions first). Decode: S == 1, or a
-    cur_pos-offset chunk (chunked prefill); text only.
+    cur_pos-offset chunk (chunked prefill); text only. ``cur_pos`` is a
+    Python int, or for a one-token step a 0-d or (1,) int64 device tensor
+    (the captured global decode step: positions are built on the device,
+    with no host read); both forms compute the same.
 
     Returns (logits (B, S, vocab), caches, aux)."""
     tokens = inputs["tokens"]
@@ -364,7 +370,11 @@ def forward(cfg, params, inputs, *, caches=None, cur_pos=None, window=0,
         S += cfg.n_vision_tokens
     positions = torch.arange(S, device=tokens.device)
     if caches is not None:
-        positions = positions + int(cur_pos)
+        if isinstance(cur_pos, torch.Tensor):
+            cur_pos = cur_pos.reshape(1)
+            positions = positions + cur_pos
+        else:
+            positions = positions + int(cur_pos)
     x = embed_inputs(cfg, params, inputs, positions=positions)
     h, new_caches, aux = backbone_apply(
         cfg, params, x, positions=positions, caches=caches, cur_pos=cur_pos,

@@ -220,3 +220,47 @@ def test_cuda_kernel_matches_plain_version():
     n = 2 * len(shapes)
     assert ops.launches == {"zoo_dual_matmul": n, "zoo_dual_matmul_stacked": n,
                             "zoo_dual_matmul_stacked_bias_relu": n}
+
+
+# flash attention under capture: (B, Sq, Skv, Hq, Hkv, d, causal, dtype):
+# Whisper-medium's cross-attention decode call, a causal prefill chunk at
+# GQA and d = 96 in bf16 (wgmma, TMA maps), and f32 (the CUDA cores)
+FLASH_CAPTURE_CASES = [
+    (8, 1, 1500, 16, 16, 64, False, torch.bfloat16),
+    (2, 64, 192, 8, 2, 96, True, torch.bfloat16),
+    (2, 64, 128, 4, 4, 64, True, torch.float32),
+]
+
+
+@pytest.mark.gpu
+def test_flash_captured_replays_on_fresh_buffer_contents():
+    """Flash attention captured in a CUDA graph (``graphs.StepGraph``)
+    and replayed after fresh contents are copied into the same q, k and v
+    buffers equals its eager launch on those contents, bitwise: the bf16
+    launch's TMA maps and the f32 launch's pointers, recorded at capture,
+    still address the buffers. One launch a replay is counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU form")
+    from repro_torch import graphs
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    g = torch.Generator("cuda").manual_seed(0)
+    for B, Sq, Skv, Hq, Hkv, d, causal, dtype in FLASH_CAPTURE_CASES:
+        shapes = ((B, Sq, Hq, d), (B, Skv, Hkv, d), (B, Skv, Hkv, d))
+
+        def fresh():
+            return [torch.randn(s, generator=g, device="cuda").to(dtype)
+                    for s in shapes]
+        q, k, v = fresh()
+        o = torch.empty((B, Sq, Hq, d), dtype=dtype, device="cuda")
+
+        def body():
+            o.copy_(flash_ops.flash_attention_bshd(q, k, v, causal=causal))
+        graph = graphs.StepGraph(body, "cuda")
+        assert graph.launches() == {"flash_attention": 1}
+        for _ in range(3):
+            for buf, new in zip((q, k, v), fresh()):
+                buf.copy_(new)
+            graph.replay()
+            want = flash_ops.flash_attention_bshd(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            assert torch.equal(o, want)
