@@ -317,6 +317,7 @@ process, and phase 14's dry runs are child processes that are joined,
 or killed if a phase fails.
 """
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -2149,16 +2150,20 @@ def train_plan(cfg, q: int = 1, steps: int = 1) -> dict:
 
 class StepRecorder:
     """Wraps ``Federation.sync_step`` (at the script's level, for one
-    ``with``) so every step a driver takes is recorded: its StepOutput,
-    and the host clock after a synchronise (the driver reads the loss
-    right after, so the synchronise adds no wait). ``profile_at`` runs
-    that step (0-based) under torch.profiler. ``Federation.save`` is timed
+    ``with``) so every step a driver takes is recorded: a copy of its
+    StepOutput (a replayed step's outputs are the graph's, overwritten by
+    the next replay), and the host clock after a synchronise (the driver
+    reads the loss right after, so the synchronise adds no wait). The
+    recorder wraps the step the driver calls, graphed or not, so its
+    synchronise never runs under a capture. ``profile_at`` runs that step
+    (0-based) under torch.profiler. ``graph=False`` makes every step of
+    the driver eager (the comparison runs). ``Federation.save`` is timed
     too."""
 
-    def __init__(self, profile_at=None):
+    def __init__(self, profile_at=None, graph=None):
         from repro_torch.federation import session
         self.session = session
-        self.profile_at = profile_at
+        self.profile_at, self.graph = profile_at, graph
         self.outputs, self.ends, self.saves = [], [], []
         self.profile = None
 
@@ -2168,6 +2173,8 @@ class StepRecorder:
         rec = self
 
         def sync_step(fed, optimizer, **kw):
+            if rec.graph is not None:
+                kw["graph"] = rec.graph
             step = rec.inner_step(fed, optimizer, **kw)
 
             def recorded(*args):
@@ -2175,10 +2182,14 @@ class StepRecorder:
                     out, rec.profile = profile_train_step(step, args)
                 else:
                     out = step(*args)
+                rec.outputs.append(type(out[2])(*(
+                    getattr(out[2], f.name).detach().clone()
+                    for f in dataclasses.fields(out[2]))))
                 torch.cuda.synchronize()
                 rec.ends.append(time.perf_counter())
-                rec.outputs.append(out[2])
                 return out
+            if hasattr(step, "stats"):       # the compiled step's readings
+                recorded.stats = step.stats
             return recorded
 
         def save(fed, path, *args, **kw):
@@ -2202,6 +2213,20 @@ class StepRecorder:
                 for o in self.outputs]
 
 
+def host_copy(tree):
+    """A tree's leaves copied to the host."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda x: x.detach().cpu(), tree)
+
+
+def same_on_host(tree, host) -> bool:
+    """Every leaf of ``tree`` bitwise equal to ``host``'s (one leaf at a
+    time on the host)."""
+    from repro_torch.tree import tree_leaves
+    return all(torch.equal(a.detach().cpu(), b)
+               for a, b in zip(tree_leaves(tree), tree_leaves(host)))
+
+
 PROFILE_WARMUP = "profiler warm-up"
 
 
@@ -2220,7 +2245,8 @@ def profile_train_step(step, args):
         out = step(*args)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    return out, split_profile(prof, wall_us)
+    return out, dict(split_profile(prof, wall_us), t0=t0,
+                     t1=t0 + wall_us * 1e-6)
 
 
 def profiler_warmup() -> None:
@@ -2313,16 +2339,28 @@ def split_profile(prof, wall_us) -> dict:
     # summed by name from the parsed events (``key_averages`` would parse
     # the trace a second time)
     host_time, host_count = {}, Counter()
+    rms_fn, launch_api, gc_in = [], [], []
     for e in prof.events():
         if e.device_type == DeviceType.CPU:
             host_time[e.key] = host_time.get(e.key, 0.0) + \
                 e.self_cpu_time_total
             host_count[e.key] += 1
+            if e.key == "RMSNormFn":
+                rms_fn.append((e.time_range.start, e.time_range.end,
+                               e.self_cpu_time_total))
+            elif e.key.startswith(GC_RANGE):
+                parent = e.cpu_parent
+                gc_in.append((e.key, e.time_range.end - e.time_range.start,
+                              parent.key if parent is not None else None))
+            elif "LaunchKernel" in e.key or "Command Buffer Full" in e.key:
+                launch_api.append((e.time_range.start, e.time_range.end,
+                                   e.key))
     host = sorted(((k, v, host_count[k]) for k, v in host_time.items()),
                   key=lambda kv: -kv[1])[:12]
     return dict(wall_us=wall_us, busy_us=busy,
                 busy_sum_us=sum(split.values()), split=split,
-                by_name=by_name, kernels=n_kernels, host=host)
+                by_name=by_name, kernels=n_kernels, host=host,
+                rms_fn=rms_fn, launch_api=launch_api, gc=gc_in)
 
 
 def log_profile(what, prof) -> None:
@@ -2624,7 +2662,8 @@ def train_phase(rows, card, counters) -> None:
     against the CPU, then ``launch.train.train`` of Phi-3-mini at full
     width and depth (20 cascaded steps, the CLI's defaults), Zamba2-2.7B
     at full width cut to 6 layers (5 steps through
-    ``Federation.sync_step``), and resume-equivalence at full width with
+    ``Federation.sync_step(graph=True)``, held bitwise to the same 5
+    steps eager), and resume-equivalence at full width with
     2 layers."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention import ref as flash_ref
@@ -2644,55 +2683,212 @@ def _launches(counters):
     return {k: v for c in counters for k, v in c.launches.items()}
 
 
+class LaunchTimer:
+    """Wraps a kernel module's ``launch`` (its ctypes call into the
+    library, for one ``with``) and keeps each call's host interval on
+    ``time.perf_counter``'s clock."""
+
+    def __init__(self, module):
+        self.module, self.calls = module, []
+
+    def __enter__(self):
+        self.inner = self.module.launch
+
+        def launch(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return self.inner(*args, **kw)
+            finally:
+                self.calls.append((t0, time.perf_counter()))
+        self.module.launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        self.module.launch = self.inner
+
+
+GC_RANGE = "python gc, generation"
+
+
+class GcTimer:
+    """Keeps the host interval of every Python garbage collection (by
+    ``gc.callbacks``, for one ``with``) with its generation."""
+
+    def __init__(self):
+        self.pauses, self._t0 = [], None
+
+    def _callback(self, phase, info):
+        from torch.profiler import record_function
+        if phase == "start":
+            self._t0 = time.perf_counter()
+            # a profiler range around the pause, so a profile shows which
+            # host event it fell inside (its parent)
+            self._range = record_function(f"{GC_RANGE} {info['generation']}")
+            self._range.__enter__()
+        elif self._t0 is not None:
+            self._range.__exit__(None, None, None)
+            self.pauses.append((self._t0, time.perf_counter(),
+                                info["generation"]))
+
+    def __enter__(self):
+        gc.callbacks.append(self._callback)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._callback)
+
+
+def log_rms_host(what, prof, timer, gct) -> None:
+    """Where the host self time of the profiler's ``RMSNormFn`` events
+    goes in a profiled eager step: the events' self time, the host time
+    of the rmsnorm library's ctypes launch calls made in the step
+    (``timer``), the launch API calls and the "Command Buffer Full" waits
+    the profiler recorded, inside the RMSNormFn events and in the whole
+    step, and the Python garbage collections in the step (``gct``)."""
+    fn = prof["rms_fn"]
+    if not fn:
+        log(f"{what}: the profile holds no RMSNormFn event")
+        return
+    self_us = sorted(x[2] for x in fn)
+    dur = sorted(e - b for b, e, _ in fn)
+    calls = sorted((b - a) * 1e6 for a, b in timer.calls
+                   if prof["t0"] <= a and b <= prof["t1"])
+    api = prof["launch_api"]
+    inside = sorted(e - b for b, e, _ in api
+                    if any(fb <= b and e <= fe for fb, fe, _ in fn))
+    every = sorted(e - b for b, e, _ in api)
+    names = sorted({k for _, _, k in api})
+
+    pauses = sorted((b - a) * 1e6 for a, b, _ in gct.pauses
+                    if prof["t0"] <= a and b <= prof["t1"])
+    gens = sorted({g for a, b, g in gct.pauses
+                   if prof["t0"] <= a and b <= prof["t1"]})
+
+    def spread(xs):
+        if not xs:
+            return "none"
+        return (f"{len(xs)} x, sum {sum(xs):.1f} us, median "
+                f"{xs[len(xs) // 2]:.1f} us, max {xs[-1]:.1f} us")
+    log(f"{what}: RMSNormFn events: self time {spread(self_us)}; whole "
+        f"duration {spread(dur)}. The rmsnorm library's ctypes launch "
+        f"calls in the step (host clock): {spread(calls)}. Launch API "
+        f"calls the profiler recorded ({names}): inside RMSNormFn events "
+        f"{spread(inside)}; in the whole step {spread(every)}. Python "
+        f"garbage collections in the step (host clock, generations "
+        f"{gens}): {spread(pauses)}; in the profile, each over 1 ms with "
+        f"the host event it fell inside: "
+        f"{[(k, round(d, 1), p) for k, d, p in prof['gc'] if d > 1000]}")
+
+
 def train_phi3(rows, card, counters) -> None:
+    """Phi-3-mini at full width and depth, TRAIN_STEPS cascaded steps
+    through ``launch.train.train``: through its captured step (step 0
+    eager, then replays), then the same steps eagerly; losses and final
+    parameters must be bitwise equal, the launches equal the derivation
+    (the replayed share: every step but the first), and each run's last
+    step is profiled (the graph's: a replay). The eager run's profile
+    says where RMSNormFn's host self time goes (:func:`log_rms_host`)."""
+    from repro_torch import graphs
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
     from repro_torch.launch import train as train_mod
     arch = "phi3-mini-3.8b"
     cfg = train_mod.get_config(arch)
     plan = train_plan(cfg, q=1, steps=TRAIN_STEPS)
-    with StepRecorder(profile_at=TRAIN_STEPS - 1) as rec:
-        for c in counters:
-            c.reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        res = train_mod.train(arch, use_reduced=False, steps=TRAIN_STEPS,
-                              method="cascaded", log_every=5, **TRAIN)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = _launches(counters)
-    peak = torch.cuda.max_memory_allocated()
-    losses = rec.losses
-    timed = rec.ends[TRAIN_WARMUP - 1:TRAIN_STEPS - 1]
-    ms = (timed[-1] - timed[0]) * 1e3 / (len(timed) - 1)
-    log(f"train: {arch} full width and depth ({cfg.n_layers} layers, "
-        f"d_model {cfg.d_model}, {cfg.param_count() / 1e9:.3f} B params, "
-        f"bf16), cascaded, batch {TRAIN['batch']} x {TRAIN['seq']}, SGD lr "
-        f"0.01, mu 1e-3, q = 1, remat {cfg.remat}: {TRAIN_STEPS} steps, "
-        f"{ms:.3f} ms per step (host clock after a synchronise, steps "
-        f"{TRAIN_WARMUP}..{TRAIN_STEPS - 2} after {TRAIN_WARMUP} warm-up "
-        f"steps; step {TRAIN_STEPS - 1} profiled) on {card}; peak memory "
-        f"{peak / 2**30:.2f} GiB; whole call {wall:.2f} s (weights drawn "
-        f"on the card included)")
-    log(f"train losses: {[round(x, 4) for x in losses]}")
+    replay_plan = train_plan(cfg, q=1, steps=TRAIN_STEPS - 1)["launches"]
+    runs = {}
+    for graphed in (False, True):
+        with StepRecorder(profile_at=TRAIN_STEPS - 1,
+                          graph=None if graphed else False) as rec, \
+                LaunchTimer(rms_kernel) as timer, GcTimer() as gct:
+            for c in counters:
+                c.reset_launches()
+            graphs.reset_replayed()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = train_mod.train(arch, use_reduced=False, steps=TRAIN_STEPS,
+                                  method="cascaded", log_every=5,
+                                  keep_params=True, **TRAIN)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _launches(counters)
+        timed = rec.ends[TRAIN_WARMUP - 1:TRAIN_STEPS - 1]
+        runs[graphed] = dict(
+            res=res, params=res.pop("params"), losses=rec.losses,
+            ms=(timed[-1] - timed[0]) * 1e3 / (len(timed) - 1),
+            peak=torch.cuda.max_memory_allocated() - held, held=held,
+            wall=wall,
+            launches=launches, profile=rec.profile, timer=timer, gc=gct,
+            replayed={k: v for g, counts in graphs.replayed.items()
+                      if g != "rmsnorm_routes" for k, v in counts.items()
+                      if v})
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+    g, e = runs[True], runs[False]
+    losses = g["losses"]
+    same_losses = losses == e["losses"]
+    same_params = _same_trees(g["params"], e["params"])
+    stats = g["res"]["step_graph"]
+    for name, r in (("captured", g), ("eager", e)):
+        log(f"train: {arch} full width and depth ({cfg.n_layers} layers, "
+            f"d_model {cfg.d_model}, {cfg.param_count() / 1e9:.3f} B "
+            f"params, bf16), cascaded, batch {TRAIN['batch']} x "
+            f"{TRAIN['seq']}, SGD lr 0.01, mu 1e-3, q = 1, remat "
+            f"{cfg.remat}, {name} step: {TRAIN_STEPS} steps, "
+            f"{r['ms']:.3f} ms per step (host clock after a synchronise, "
+            f"steps {TRAIN_WARMUP}..{TRAIN_STEPS - 2} after {TRAIN_WARMUP} "
+            f"warm-up steps; step {TRAIN_STEPS - 1} profiled) on {card}; "
+            f"peak memory {r['peak'] / 2**30:.2f} GiB above the "
+            f"{r['held'] / 2**30:.2f} GiB held before the run; whole call "
+            f"{r['wall']:.2f} s (weights drawn on the card included)")
+    log(f"train graph: {arch}: one step captured after the eager first "
+        f"step: capture {stats['capture_s'][0]:.3f} s, "
+        f"{stats['nodes'][0]} nodes ({stats['kernel_nodes'][0]} kernel "
+        f"nodes), {stats['replays'][0]} replays; launches replayed "
+        f"{g['replayed']}, derived {replay_plan} ({TRAIN_STEPS - 1} steps)")
+    log(f"train losses (captured): {[round(x, 4) for x in losses]}; the "
+        f"eager run's bitwise equal {same_losses}; final parameters "
+        f"bitwise equal {same_params}")
+    if not (same_losses and same_params):
+        raise AssertionError(f"the captured training step differs from the "
+                             f"eager one: losses {losses} vs {e['losses']}")
     first, last5 = losses[0], float(np.mean(losses[-5:]))
     if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
         raise AssertionError(f"training losses not finite: {losses}")
     if not last5 < first:
         raise AssertionError(f"training loss did not fall: first {first}, "
                              f"mean of the last 5 {last5}")
-    log(f"train launches {launches}, derived {plan['launches']}: "
-        f"{plan['why']}")
-    if {k: launches[k] for k in plan["launches"]} != plan["launches"] or \
-            any(launches[k] for k in launches if k not in plan["launches"]):
-        raise AssertionError(f"training launches {launches}, want "
-                             f"{plan['launches']} and no ZOO kernel")
-    check_train_wire(arch, cfg, res, TRAIN_STEPS)
-    log_profile(f"train profile, step {TRAIN_STEPS - 1} of {arch} on "
-                f"{card}", rec.profile)
+    for r in (g, e):
+        log(f"train launches {r['launches']}, derived {plan['launches']}: "
+            f"{plan['why']}")
+        if {k: r["launches"][k] for k in plan["launches"]} != \
+                plan["launches"] or any(r["launches"][k] for k in
+                                        r["launches"]
+                                        if k not in plan["launches"]):
+            raise AssertionError(f"training launches {r['launches']}, want "
+                                 f"{plan['launches']} and no ZOO kernel")
+    if g["replayed"] != {k: n for k, n in replay_plan.items() if n} or \
+            stats["replays"] != [TRAIN_STEPS - 1]:
+        raise AssertionError(f"replayed launches {g['replayed']}, want "
+                             f"{replay_plan}")
+    check_train_wire(arch, cfg, g["res"], TRAIN_STEPS)
+    log_profile(f"train profile, step {TRAIN_STEPS - 1} of {arch} (a "
+                f"replay) on {card}", g["profile"])
+    log_profile(f"train profile, step {TRAIN_STEPS - 1} of {arch} "
+                f"(eager) on {card}", e["profile"])
+    log_rms_host(f"train profile, step {TRAIN_STEPS - 1} of {arch} "
+                 f"(eager)", e["profile"], e["timer"], e["gc"])
     for name, n in plan["launches"].items():
         if n:
-            rows[name]["launches"] += launches[name]
+            rows[name]["launches"] += g["launches"][name]
             rows[name].setdefault("launches_by_path", {})[
-                f"train:{arch}"] = launches[name]
+                f"train:{arch}"] = g["launches"][name]
+            rows[name].setdefault("replayed_by_path", {})[
+                f"train:{arch}"] = g["replayed"].get(name, 0)
+    del runs, g, e
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def check_train_wire(arch, cfg, res, steps) -> None:
@@ -2733,33 +2929,61 @@ def train_zamba2(rows, counters) -> None:
                            seq_len=TRAIN["seq"])
     fed.vfl = dataclasses.replace(
         fed.vfl, lr_client=_normalized_lr_client(fed, 0.01))
-    params = common.materialize(fed.model.param_specs,
-                                torch.Generator(fed.device).manual_seed(0),
-                                device=fed.device)
-    opt = sgd(0.01)
-    step, state = fed.sync_step(opt), opt.init(params)
-    data = BatchIterator(lm_token_batches(1, cfg.vocab_size, TRAIN["batch"],
-                                          TRAIN["seq"]), fed.device)
-    draws = StepDraws(0, fed.device)
-    first = next(data)
+
+    def run(graph: bool):
+        """``steps`` steps from the seed-0 weights over the batches of
+        seed 1: (final params, losses, the step, the first batch)."""
+        params = common.materialize(
+            fed.model.param_specs, torch.Generator(fed.device).manual_seed(0),
+            device=fed.device)
+        opt = sgd(0.01)
+        step, state = fed.sync_step(opt, graph=graph), opt.init(params)
+        data = BatchIterator(lm_token_batches(1, cfg.vocab_size,
+                                              TRAIN["batch"], TRAIN["seq"]),
+                             fed.device)
+        draws = StepDraws(0, fed.device)
+        batches = [next(data) for _ in range(steps)]
+        losses = []
+        for t, batch in enumerate(batches):
+            params, state, out = step(params, state, batch, t, draws)
+            losses.append(float(out.loss))
+        return params, losses, step, batches[0]
+
     for c in counters:
         c.reset_launches()
-    losses = []
-    for t in range(steps):
-        params, state, out = step(params, state, first if t == 0
-                                  else next(data), t, draws)
-        losses.append(float(out.loss))
+    params, losses, step, first = run(graph=True)
     launches = _launches(counters)
+    stats = step.stats()
     log(f"train: {arch} full width cut to {cfg.n_layers} layers "
         f"({cfg.n_layers // cfg.attn_every} shared-attention site(s)), bf16, "
-        f"{steps} cascaded steps through Federation.sync_step: losses "
+        f"{steps} cascaded steps through Federation.sync_step(graph=True) "
+        f"(the SSD scan's forward under capture): losses "
         f"{[round(x, 4) for x in losses]}; launches {launches}, derived "
-        f"{plan['launches']}: {plan['why']}")
+        f"{plan['launches']}: {plan['why']}; step graph: capture "
+        f"{stats['capture_s'][0]:.3f} s, {stats['nodes'][0]} nodes "
+        f"({stats['kernel_nodes'][0]} kernel nodes), {stats['replays'][0]} "
+        f"replays")
+    if stats["replays"] != [steps - 1]:
+        raise AssertionError(f"zamba2's step graph: {stats}")
     if not np.isfinite(losses).all():
         raise AssertionError(f"zamba2 training losses not finite: {losses}")
     if {k: launches[k] for k in plan["launches"]} != plan["launches"]:
         raise AssertionError(f"zamba2 training launches {launches}, want "
                              f"{plan['launches']}")
+    # the same steps eagerly, from the same weights, batches and draws
+    g_params = host_copy(params)
+    del params, step
+    gc.collect()
+    params, e_losses, _, first = run(graph=False)
+    same_losses = losses == e_losses
+    same_params = same_on_host(params, g_params)
+    log(f"train: {arch} {steps} captured steps against {steps} eager "
+        f"steps: eager losses {[round(x, 4) for x in e_losses]}, bitwise "
+        f"equal {same_losses}; final parameters bitwise equal {same_params}")
+    if not (same_losses and same_params):
+        raise AssertionError(f"{arch}: the captured training step differs "
+                             f"from the eager one")
+    del g_params
     # the server's gradient reaches in_proj of the first Mamba2 layer
     # (through the SSD scan's and the norms' plain backward)
     _, g = cascade._value_and_grad(fed.model.loss_fn, params, first,
@@ -2776,7 +3000,8 @@ def train_zamba2(rows, counters) -> None:
         rows[name]["launches"] += launches[name]
         rows[name].setdefault("launches_by_path", {})[f"train:{arch}"] = \
             launches[name]
-    del params, state, g
+    del params, g
+    gc.collect()
     torch.cuda.empty_cache()
 
 
@@ -3550,19 +3775,32 @@ class RoundRecorder:
     server update after a synchronise — the loop reads each round's
     losses on the host anyway — and to run one round cycle (round
     ``profile_round``'s server update to the next round's) under
-    torch.profiler."""
+    torch.profiler. It wraps the functions the engine calls, graphed or
+    not, so its synchronise never runs under a capture. It keeps each
+    round's server loss h, the run's server tree (updated in place every
+    round) and each call's key (``graphs.signature`` of its arguments):
+    the admitted block's length sets the server update's; the loss
+    downlink's client and row are device indices, so its calls share
+    one. ``graph=False`` makes the engine run both functions eagerly
+    (the comparison runs)."""
 
-    def __init__(self, profile_round=None):
+    def __init__(self, profile_round=None, graph=True):
+        from repro_torch import graphs
         from repro_torch.core import async_engine
         self.engine, self.profile_round = async_engine, profile_round
+        self.graph, self.signature = graph, graphs.signature
         self.starts, self.profile, self._prof = [], None, None
+        self.h, self.server = [], None
+        self.update_keys, self.loss_keys = set(), set()
+        self.lengths, self.downlinks = set(), 0
 
     def __enter__(self):
         self.inner = self.engine._population_fns
         rec = self
 
-        def fns(*args):
-            server_update, losses_fn = rec.inner(*args)
+        def fns(*args, graph=True):
+            server_update, losses_fn = rec.inner(*args,
+                                                 graph=graph and rec.graph)
 
             def recorded(*a):
                 torch.cuda.synchronize()
@@ -3578,8 +3816,21 @@ class RoundRecorder:
                     rec._t0 = time.perf_counter()
                 elif rec._prof is not None and rec.profile is None:
                     rec.stop(now)
-                return server_update(*a)
-            return recorded, losses_fn
+                rec.update_keys.add(rec.signature(a[:-2]))
+                rec.lengths.add(a[3].shape[0])
+                server, h = server_update(*a)
+                rec.server = server
+                rec.h.append(h.clone())
+                return server, h
+
+            def downlink(*a):
+                rec.loss_keys.add(rec.signature(a[:-2]))
+                rec.downlinks += 1
+                return losses_fn(*a)
+            if hasattr(server_update, "stats"):   # the graphs' readings
+                recorded.stats = server_update.stats
+                downlink.stats = losses_fn.stats
+            return recorded, downlink
 
         self.engine._population_fns = fns
         return self
@@ -3734,6 +3985,7 @@ def pop_full(rows, card, counters, kernels) -> None:
         f"the wire, stop); the profiled cycle's trace processing "
         f"{rec.profile_s:.2f} s of it")
     log(f"population result: {json.dumps(res)}")
+    pop_graphs(f"population (a), {arch}", res["graphs"], rec)
     admitted = round(res["participation"] * T)
     plan = pop_plan(cfg, q, T, admitted)
     log(f"population launches {launches}, derived {plan['launches']}: "
@@ -3773,8 +4025,59 @@ def pop_full(rows, card, counters, kernels) -> None:
         rows[name].setdefault("launches_by_path", {})[path] = launches[name]
     log(f"population (a): the kernels held on the run's inputs "
         f"{time.perf_counter() - t_checks:.2f} s")
+    del caps
+    # the same run with the server's functions eager, bitwise
+    h, server = rec.h, rec.server
     gc.collect()
     torch.cuda.empty_cache()
+    with RoundRecorder(graph=False) as eager:
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        train_mod.train_population(
+            arch, use_reduced=False, steps=T, batch=POP["batch"],
+            seq=POP["seq"], n_clients=POP["n_clients"], rows=POP["rows"],
+            zoo_queries=q, lr=POP["lr"], mu=POP["mu"], seed=0)
+        torch.cuda.synchronize()
+        t_eager = time.perf_counter() - t0
+    span = eager.starts[POP_WARMUP:POP_PROFILE_ROUND]
+    ms_eager = (span[-1] - span[0]) * 1e3 / (len(span) - 1)
+    same = (len(h) == len(eager.h) == T
+            and all(torch.equal(a, b) for a, b in zip(h, eager.h))
+            and _same_trees(server, eager.server))
+    log(f"population (a): the same {T} rounds with the server's functions "
+        f"eager: {ms_eager:.3f} ms a round (the same clock and rounds) "
+        f"against {ms:.3f} ms from the graphs; peak memory "
+        f"{(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} GiB "
+        f"eager above the {held / 2**30:.2f} GiB held before it (the "
+        f"graphed run's server tree) against {peak:.2f} GiB from the "
+        f"graphs; whole call {t_eager:.2f} s; every "
+        f"round's server loss and the final server parameters bitwise "
+        f"equal: {same}")
+    if not same:
+        raise AssertionError("the population run's server graphs differ "
+                             "from its eager functions")
+    del rec, eager, h, server
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def pop_graphs(what, graphs_stats, rec) -> None:
+    """A population run's server graphs: one captured per distinct key
+    the run's calls had (``rec``'s), each replayed for the rest."""
+    up, down = graphs_stats["server_update"], graphs_stats["losses_fn"]
+    log(f"{what}: server_update {up['graphs']} graph(s) for "
+        f"{len(rec.update_keys)} key(s), the admitted lengths "
+        f"{sorted(rec.lengths)} (capture s {up['capture_s']}, nodes "
+        f"{up['nodes']}, kernel nodes {up['kernel_nodes']}, replays "
+        f"{up['replays']}); losses_fn {down['graphs']} graph(s) for "
+        f"{len(rec.loss_keys)} key(s) over {rec.downlinks} downlinks "
+        f"(capture s {down['capture_s']}, nodes {down['nodes']}, replays "
+        f"{down['replays']})")
+    if up["graphs"] != len(rec.update_keys) or \
+            down["graphs"] != len(rec.loss_keys):
+        raise AssertionError(f"{what}: graphs {graphs_stats} for keys "
+                             f"{rec.update_keys}, {rec.loss_keys}")
 
 
 class CpuRowDraws:
@@ -3895,6 +4198,15 @@ def _same_trees(a, b) -> bool:
                                                  tree_leaves(b)))
 
 
+def _same_pop(a, b) -> bool:
+    """Two population results' losses, params, table and delays bitwise
+    equal."""
+    return (np.array_equal(a.losses, b.losses)
+            and _same_trees(a.params, b.params)
+            and torch.equal(a.state.table, b.state.table)
+            and np.array_equal(a.state.delays, b.state.delays))
+
+
 def _tabular_faults(plan, admission):
     """The fault check's CPU counterpart: the same plan, admission and
     schedule (``RowDraws(0)`` over the same parties, rounds and rows) on a
@@ -3962,7 +4274,9 @@ def pop_small(counters) -> dict:
             draws.schedule(R, M, None, 1),
             draws.sample_indices(R, POP["batch"], n), draws, x_d, y_d)
         whole = fed.run(params, xp, toks, draws=RowDraws(0, "cuda"))
-        same = (np.array_equal(pop.losses, losses.cpu().numpy())
+        eager = fed.run_population(params, xp, toks, use_graph=False)
+        same = (_same_pop(pop, eager)
+                and np.array_equal(pop.losses, losses.cpu().numpy())
                 and np.array_equal(pop.losses, whole.losses)
                 and _same_trees(pop.params, p)
                 and _same_trees(pop.params, whole.params)
@@ -3971,11 +4285,13 @@ def pop_small(counters) -> dict:
         log(f"population == run: Phi-3 full width, {cfg.n_layers} layers, "
             f"{R} rounds, FaultPlan.none(), RowDraws(0) on the card: "
             f"losses {[round(float(x), 5) for x in pop.losses]}; losses, "
-            f"params, table and delays bitwise equal: {same} (population "
-            f"{t_pop:.2f} s)")
+            f"params, table and delays bitwise equal to run()'s, the "
+            f"captured round's, and the population run's with its server "
+            f"functions eager: {same} (population {t_pop:.2f} s; server "
+            f"graphs {pop.stats['graphs']})")
         if not same:
             raise AssertionError("the population run differs from run()")
-        t0 = lap("population == run (3 runs)", t0)
+        t0 = lap("population == run (4 runs)", t0)
 
         # ---- (b) until=5, save, restore, resume -------------------------
         build = Path(__file__).resolve().parent / "build"
@@ -4024,9 +4340,24 @@ def pop_small(counters) -> dict:
         # ---- (c) faults: card against the CPU ----------------------------
         plan = FaultPlan(**POP_FAULTS)
         admission = PopulationConfig(**POP_ADMISSION)
-        faulty = fed.run_population(
+        with RoundRecorder() as rec:
+            faulty = fed.run_population(
+                params, xp, toks, fault_plan=plan, population=admission,
+                draws=CpuRowDraws(0, "cuda", directions=False))
+        faulty_eager = fed.run_population(
             params, xp, toks, fault_plan=plan, population=admission,
-            draws=CpuRowDraws(0, "cuda", directions=False))
+            draws=CpuRowDraws(0, "cuda", directions=False),
+            use_graph=False)
+        pop_graphs("population faults", faulty.stats["graphs"], rec)
+        same = _same_pop(faulty, faulty_eager)
+        log(f"population faults: the run from its server graphs against "
+            f"the same run with the functions eager: losses, params, table "
+            f"and delays bitwise equal {same}")
+        if not same or len(rec.lengths) < 2:
+            raise AssertionError(f"the faulty run's server graphs differ "
+                                 f"from the eager functions, or it "
+                                 f"captured one server_update key "
+                                 f"({rec.lengths})")
         t1 = time.perf_counter()
         cpu = _tabular_faults(plan, admission)
         t_cpu = time.perf_counter() - t1
@@ -4166,6 +4497,8 @@ CONT_RWKV_LAYERS = 8
 # gated one takes lr 1.0
 FAMILY_TRAIN = (("qwen3-moe-30b-a3b", 4, 1.0), ("rwkv6-7b", 8, 0.01))
 FAMILY_TRAIN_STEPS, FAMILY_TRAIN_WARMUP = 10, 3
+# steps of a captured run held bitwise to an eager run of as many
+EAGER_STEPS = 3
 CLI_LR = 0.01
 # the MoE gather form under capture: batch 2 (B·k = 16 <= 128 experts)
 GATHER_CASE = dict(batch=2, layers=2, steps=4)
@@ -4176,32 +4509,90 @@ ATTACK_SEEDS = dict(label=2, feature=3)
 ATTACK_MSE_RTOL = 1e-4
 
 
-def train_run(arch, layers, lr, counters, cfg=None, profile=False):
-    """One ``launch.train.train`` run at full width cut to ``layers`` (of
-    ``cfg`` where given: a registry entry with its experts cut):
-    (result, losses, ms a step, peak bytes, wall s, launches, the last
-    step's profile where ``profile``: that step is then left out of the
-    timed ones)."""
+def train_run(arch, layers, lr, counters, cfg=None, profile=False,
+              graph=None, steps=FAMILY_TRAIN_STEPS, keep_params=False,
+              warmup=FAMILY_TRAIN_WARMUP):
+    """One ``launch.train.train`` run of ``steps`` steps at full width cut
+    to ``layers`` (of ``cfg`` where given: a registry entry with its
+    experts cut), through the captured step (``graph=False``: eager):
+    (result, losses, ms a step after ``warmup`` steps, peak bytes, wall s,
+    launches, the last step's profile where ``profile``: that step is
+    then left out of the timed ones). ``keep_params`` leaves the final
+    parameters in the result."""
     from repro_torch.launch import train as train_mod
     gc.collect()
     torch.cuda.empty_cache()
-    last = FAMILY_TRAIN_STEPS - 1 if profile else None
-    with StepRecorder(profile_at=last) as rec:
+    last = steps - 1 if profile else None
+    with StepRecorder(profile_at=last, graph=graph) as rec:
         for c in counters:
             c.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res = train_mod.train(cfg or arch, use_reduced=False,
-                              n_layers=layers,
-                              steps=FAMILY_TRAIN_STEPS, method="cascaded",
-                              lr=lr, log_every=5, **TRAIN)
+                              n_layers=layers, steps=steps,
+                              method="cascaded", lr=lr, log_every=5,
+                              keep_params=keep_params, **TRAIN)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _launches(counters)
-    timed = rec.ends[FAMILY_TRAIN_WARMUP - 1:last]
+    timed = rec.ends[warmup - 1:last]
     ms = (timed[-1] - timed[0]) * 1e3 / (len(timed) - 1)
     return (res, rec.losses, ms, torch.cuda.max_memory_allocated(), wall,
             launches, rec.profile)
+
+
+@contextlib.contextmanager
+def deterministic(on: bool):
+    """``torch.use_deterministic_algorithms`` for the block where ``on``
+    (warn-only: cuBLAS, whose calls at fixed shapes repeat their bits
+    anyway, would raise without ``CUBLAS_WORKSPACE_CONFIG``)."""
+    if not on:
+        yield
+        return
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+
+
+def graph_vs_eager_steps(arch, layers, lr, counters, base, cfg,
+                         depth) -> None:
+    """EAGER_STEPS steps through the captured step against as many eager
+    steps, from the same weights and batches: losses and final parameters
+    bitwise. A config with routed experts runs both under
+    :func:`deterministic`: the gathers of its dispatch
+    (``models/moe.py::moe_apply_dispatch``) scatter-add their gradients
+    with atomics, whose order changes from run to run, eager or captured
+    (step 0, eager in every run, gave three different server gradient
+    norms in three Qwen3 runs of one call: PERF.md §6)."""
+    n, det = EAGER_STEPS, bool(cfg.n_experts)
+    runs = {}
+    with deterministic(det):
+        for graph in (None, False):
+            res, losses, ms, peak, wall, _, _ = train_run(
+                arch, layers, lr, counters, base, graph=graph, steps=n,
+                keep_params=True, warmup=1)
+            runs[graph] = (losses, host_copy(res.pop("params")), ms, peak,
+                           wall)
+            del res
+    (g_losses, g_params, g_ms, g_peak, g_wall), (
+        e_losses, e_params, e_ms, e_peak, e_wall) = runs[None], runs[False]
+    same_losses = g_losses == e_losses
+    same_params = same_on_host(g_params, e_params)
+    log(f"train: {arch} {depth}, {n} steps through the captured step "
+        f"({g_ms:.3f} ms a step over steps 1..{n - 1}, the replays; call "
+        f"{g_wall:.2f} s, peak {g_peak / 2**30:.2f} GiB) against {n} eager "
+        f"steps ({e_ms:.3f} ms a step over steps 1..{n - 1}; call "
+        f"{e_wall:.2f} s, peak {e_peak / 2**30:.2f} GiB)"
+        + (", both under torch.use_deterministic_algorithms" if det else "")
+        + f": losses {[round(x, 4) for x in g_losses]}, bitwise equal "
+        f"{same_losses}; final parameters bitwise equal {same_params}")
+    if not (same_losses and same_params):
+        raise AssertionError(f"{arch}: the captured training step differs "
+                             f"from the eager one")
 
 
 def lost_updates(w, g, lr, chunk=1 << 26) -> int:
@@ -4302,6 +4693,7 @@ def train_family(rows, card, counters, arch, layers, lr, base=None,
                                  f"finite: {at_cli}")
     res, losses, ms, peak, wall, launches, prof = train_run(
         arch, layers, lr, counters, base, profile)
+    stats = res["step_graph"]
     depth = (f"cut to {layers} layers" if 0 < layers < get_config(
         arch).n_layers else "at full depth")
     log(f"train: {arch} full width {depth} (d_model "
@@ -4316,7 +4708,10 @@ def train_family(rows, card, counters, arch, layers, lr, base=None,
         f"{peak / 2**30:.2f} GiB; "
         f"whole call {wall:.2f} s (weights drawn on the card included); "
         f"losses {[round(x, 4) for x in losses]}; launches {launches}, "
-        f"derived {plan['launches']}: {plan['why']}")
+        f"derived {plan['launches']}: {plan['why']}; step graph: capture "
+        f"{stats['capture_s'][0]:.3f} s, {stats['nodes'][0]} nodes "
+        f"({stats['kernel_nodes'][0]} kernel nodes), {stats['replays'][0]} "
+        f"replays")
     first, last5 = losses[0], float(np.mean(losses[-5:]))
     if len(losses) != steps or not np.isfinite(losses).all():
         raise AssertionError(f"{arch} training losses not finite: {losses}")
@@ -4328,9 +4723,12 @@ def train_family(rows, card, counters, arch, layers, lr, base=None,
         raise AssertionError(f"{arch} training launches {launches}, want "
                              f"{plan['launches']} and no ZOO kernel")
     check_train_wire(arch, cfg, res, steps)
+    if stats["replays"] != [steps - 1]:
+        raise AssertionError(f"{arch}'s step graph: {stats}")
     if profile:
-        log_profile(f"train profile, step {steps - 1} of {arch} on {card}",
-                    prof)
+        log_profile(f"train profile, step {steps - 1} of {arch} (a replay) "
+                    f"on {card}", prof)
+    graph_vs_eager_steps(arch, layers, lr, counters, base, cfg, depth)
     for name, n in plan["launches"].items():
         if n:
             rows[name]["launches"] += launches[name]

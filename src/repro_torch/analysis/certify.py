@@ -279,7 +279,7 @@ def _trace_population(fed: Federation) -> Tuple[ifc.IFCReport,
                                                 Dict[str, Any]]:
     """Trace ``losses_fn`` — the population engine's whole downlink.
 
-    Args are ``(server, c_stale, m, emb_lanes, yb, t, r, n_rows)``; the
+    Args are ``(server, c_stale, m, emb_lanes, yb, r, n_rows, t)``; the
     server party owns positions 0 (its parameters) and 1 (the stale
     embedding table it caches), so the SERVER seed is by position, not
     by key name."""
@@ -299,7 +299,8 @@ def _trace_population(fed: Federation) -> Tuple[ifc.IFCReport,
     c_stale = zeros((_TOY.n_clients, _BATCH, _TOY.client_embed))
     emb_lanes = zeros((1 + q, _BATCH, _TOY.client_embed))
     yb = zeros((_BATCH,), torch.int64)
-    args = (server, c_stale, 0, emb_lanes, yb, 0, 0, 1)
+    row = zeros((1,), torch.int64)         # client m = block row r = 0
+    args = (server, c_stale, row, emb_lanes, yb, row.clone(), 1, 0)
 
     def is_server(path: str) -> bool:
         return path.startswith("[0]") or path.startswith("[1]")

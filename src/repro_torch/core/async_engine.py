@@ -334,8 +334,9 @@ def _make_runner(adapter: ModelAdapter, transport, vfl: VFLConfig,
             if table is not st["table"]:
                 raise RuntimeError("the round step must update the table "
                                    "in place")
-            # the server's (and a sync round's every) new leaves into the
-            # captured parameters; clients updated in place stay as they are
+            # the new leaves into the captured parameters; those a round
+            # updated in place (an async round's server, the unsharded
+            # one's clients) stay as they are
             tree_map(lambda old, nw: None if nw is old else old.copy_(nw),
                      st["params"], new)
             # delay bookkeeping (§III-C): activated (m,i) resets, others +1
@@ -505,9 +506,22 @@ def _server_update(adapter: ModelAdapter, method: str, vfl: VFLConfig,
                    server, c_batch, yb, t, draws):
     """One server step on the round's (stale + fresh-block) embeddings.
 
-    Returns (new_server, h). FOO methods backprop locally (Eq. 4);
-    zoo-vfl estimates with the same q-point two-point oracle the client
-    uses (vfl.zoo_queries — the server is a ZOO party too)."""
+    The new leaves are written into ``server``'s, one at a time
+    (``copy_`` rounds to the leaf's type), so no second server tree is
+    alive. Returns (server, h); see :func:`_server_grad`."""
+    g_server, h = _server_grad(adapter, method, vfl, server, c_batch, yb, t,
+                               draws)
+    for w, g in zip(tree_leaves(server), tree_leaves(g_server)):
+        w.copy_(w - vfl.lr_server * g)
+    return server, h
+
+
+def _server_grad(adapter: ModelAdapter, method: str, vfl: VFLConfig,
+                 server, c_batch, yb, t, draws):
+    """The server's gradient and loss h on the round's embeddings. FOO
+    methods backprop locally (Eq. 4); zoo-vfl estimates with the same
+    q-point two-point oracle the client uses (vfl.zoo_queries — the
+    server is a ZOO party too)."""
     if method in ("cascaded", "vafl"):
         h, g_server = _value_and_grad(adapter.server_loss, server,
                                       c_batch.detach(), yb)
@@ -523,9 +537,7 @@ def _server_update(adapter: ModelAdapter, method: str, vfl: VFLConfig,
             draws.server_directions(t, server, vfl.zoo_queries), s_loss,
             server, vfl.mu, vfl.zoo_dist, vfl.zoo_queries,
             unrolled=vfl.zoo_unrolled_oracle)
-    server = tree_map(lambda w, g: (w - vfl.lr_server * g).to(w.dtype),
-                      server, g_server)
-    return server, h
+    return g_server, h
 
 
 def _make_async_step(adapter: ModelAdapter, transport, vfl: VFLConfig,
@@ -783,16 +795,30 @@ class PopulationResult(EngineResult):
 
 
 def _population_fns(adapter: ModelAdapter, transport, vfl: VFLConfig,
-                    draws):
+                    device, *, graph: bool = True):
     """The server-side compute of the population engine (the worker side
     lives in ``repro_torch.wire.worker``): the in-process round's ops,
     split at the wire — the server consumes UPLOADED embedding lanes
-    instead of running ``client_forward``."""
+    instead of running ``client_forward``. Each takes the round index
+    ``t`` and the run's draw source last.
+
+    The counterpart of the JAX engine's ``jax.jit(server_update),
+    jax.jit(losses_fn)``: with ``graph`` each is a
+    :class:`repro_torch.graphs.GraphedFn` on ``device`` (one memory pool
+    for both), captured as a CUDA graph for each new key — the admitted
+    block's length for ``server_update`` (a degraded round's 0
+    included); ``losses_fn`` takes the client ``m`` and block row ``r``
+    as (1,) int64 device indices, so one key serves every row — and
+    replayed for a key seen before; on the CPU the same bodies loop on
+    their static buffers. ``server_update`` writes the new server leaves
+    into the tree it is given (donated: the run passes its own tree every
+    round). ``graph=False`` returns the bodies themselves (the eager
+    comparison and the certifier's trace)."""
     method = transport.method
     q = vfl.zoo_queries
 
     @tags.party("server")
-    def server_update(server, c_stale, c_fresh, m_adm, yb, t):
+    def server_update(server, c_stale, c_fresh, m_adm, yb, t, draws):
         c_batch = c_stale.index_put((m_adm,), c_fresh)
         return _server_update(adapter, method, vfl, server, c_batch, yb, t,
                               draws)
@@ -802,21 +828,27 @@ def _population_fns(adapter: ModelAdapter, transport, vfl: VFLConfig,
                reason="the (1+q) scalar losses of one admitted client, "
                       "sanitized by transport.downlink before they leave")
     @torch.no_grad()
-    def losses_fn(server, c_stale, m, emb_lanes, yb, t, r, n_rows):
-        """The (1+q) lanes' server losses for block row r (client m): the
-        server loss over a (1+q, M, bs, e) stack, one forward a lane for
-        the LM adapter (its kernels cannot be vmapped)."""
+    def losses_fn(server, c_stale, m, emb_lanes, yb, r, n_rows, t, draws):
+        """The (1+q) lanes' server losses for block row r (client m), both
+        (1,) int64 device indices: the server loss over a (1+q, M, bs, e)
+        stack, one forward a lane for the LM adapter (its kernels cannot
+        be vmapped)."""
         # the lanes arrived as "emb" wire frames: anchor the uplink
         emb_lanes = marks.wire_boundary(emb_lanes, kind="emb",
                                         direction="up")
         lanes = c_stale.unsqueeze(0).repeat(1 + q, 1, 1, 1)
-        lanes[:, m] = emb_lanes
+        lanes.index_copy_(1, m, emb_lanes.unsqueeze(1))
         losses = adapter.server_loss(server, lanes, yb)
         noise = (None if transport.noise is None
-                 else draws.noise(t, n_rows, 1 + q)[r])
+                 else draws.noise(t, n_rows, 1 + q).index_select(0, r)[0])
         return transport.downlink(losses, noise)
 
-    return server_update, losses_fn
+    if not graph:
+        return server_update, losses_fn
+    pool = (torch.cuda.graph_pool_handle()
+            if torch.device(device).type == "cuda" else None)
+    return (graphs.GraphedFn(server_update, device, donate=(0,), pool=pool),
+            graphs.GraphedFn(losses_fn, device, donate=(0,), pool=pool))
 
 
 def _fresh_counters() -> dict:
@@ -841,8 +873,8 @@ def run_population(adapter: ModelAdapter, transport, vfl: VFLConfig,
                    ledger: Optional[Ledger] = None, dp_releases: int = 0,
                    until: Optional[int] = None,
                    stop_workers: bool = True,
-                   wire_timeout_s: Optional[float] = None
-                   ) -> PopulationResult:
+                   wire_timeout_s: Optional[float] = None,
+                   graph: bool = True) -> PopulationResult:
     """The asynchronous protocol over a REAL wire with fault injection.
 
     ``params``, ``x_parts`` and ``y`` are on the engine's device (the
@@ -882,6 +914,13 @@ def run_population(adapter: ModelAdapter, transport, vfl: VFLConfig,
     its parameter row falls back to the initial params the engine holds.
     ``counters["dead_parties"]`` reports the toll. Loopback parties never
     take this path — their failures are real bugs and stay fail-fast.
+
+    The server's two functions run through :func:`_population_fns`: on
+    the card from CUDA graphs keyed by shape (``stats["graphs"]`` holds
+    their readings), on the CPU in a loop; ``graph=False`` (an internal
+    switch: no config field, flag or entry point sets it) runs them
+    eagerly. Either form runs the same kernels on the same draws, so the
+    results are bitwise equal.
     """
     from repro_torch.core.privacy import Message
     from repro_torch.wire import codec
@@ -923,7 +962,8 @@ def run_population(adapter: ModelAdapter, transport, vfl: VFLConfig,
     idx_all = draws.sample_indices(T, bs, n).to(dev)
     idx_h = idx_all.cpu().numpy()
 
-    server = params["server"]
+    # the run's own server tree, updated in place every round
+    server = tree_map(torch.clone, params["server"])
     if state is None:
         table = adapter.client_forward(params["clients"], x_parts)
         delays = np.zeros((M, n), np.int32)
@@ -986,7 +1026,9 @@ def run_population(adapter: ModelAdapter, transport, vfl: VFLConfig,
         return channels[m].recv()
 
     server_update, losses_fn = _population_fns(adapter, transport, vfl,
-                                               draws)
+                                               dev, graph=graph)
+    # losses_fn's device indices: client m is rows[m:m + 1]
+    rows_d = torch.arange(max(M, block), device=dev)
     losses_out = []
 
     for t in range(start, stop_at):
@@ -1068,14 +1110,17 @@ def run_population(adapter: ModelAdapter, transport, vfl: VFLConfig,
             counters["degraded_rounds"] += 1
             m_adm = torch.zeros((0,), dtype=torch.int64, device=dev)
             c_fresh = table.new_zeros((0, bs, table.shape[-1]))
-        server, h = server_update(server, c_stale, c_fresh, m_adm, yb, t)
-        losses_out.append(h)
+        server, h = server_update(server, c_stale, c_fresh, m_adm, yb, t,
+                                  draws)
+        # a graph's output holds until the next replay: keep a copy
+        losses_out.append(h.clone())
 
         # ---- phase 3: loss downlinks to admitted clients ----------------
         for r, m, lanes in admitted:
             emb_lanes = torch.stack(lanes).to(dev)
-            losses_h = losses_fn(server, c_stale, m, emb_lanes, yb, t, r,
-                                 len(m_blk)).cpu()
+            losses_h = losses_fn(server, c_stale, rows_d[m:m + 1],
+                                 emb_lanes, yb, rows_d[r:r + 1], len(m_blk),
+                                 t, draws).cpu()
             down = plan.delivery(t, m, "down")
             try:
                 for lane in range(1 + q):
@@ -1177,6 +1222,9 @@ def run_population(adapter: ModelAdapter, transport, vfl: VFLConfig,
                                     "retransmit_frames",
                                     "dead_parties")},
     }
+    if dev.type == "cuda" and hasattr(server_update, "stats"):
+        stats["graphs"] = {"server_update": server_update.stats(),
+                           "losses_fn": losses_fn.stats()}
     losses = (torch.stack(losses_out).cpu().numpy() if losses_out
               else np.zeros((0,), np.float32))
     return PopulationResult(

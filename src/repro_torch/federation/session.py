@@ -41,6 +41,7 @@ and the session runs:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -49,6 +50,7 @@ from typing import Any, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import graphs
 from repro_torch.checkpoint.io import atomic_write, load_tree, save_checkpoint
 from repro_torch.configs.base import ModelConfig, VFLConfig
 from repro_torch.configs.paper_mlp import PaperMLPConfig
@@ -67,12 +69,17 @@ from repro_torch.federation.parties import (ClientParty, Parties, ServerParty,
 from repro_torch.federation.transport import Transport
 from repro_torch.launch.mesh import make_client_mesh
 from repro_torch.models import model_api
+from repro_torch.optim import in_place
 from repro_torch.sharding.rules import PARAM_RULES, resolve_spec
 
 ModelLike = Union[ModelAdapter, ModelConfig, PaperMLPConfig]
 
 SESSION_MANIFEST = "session.json"
 CHECKPOINT_VERSION = 1
+
+
+def _with_draws(fn, draws, *args):
+    return fn(*args, draws)
 
 
 def _to_device(a, device: torch.device, dtype=None) -> torch.Tensor:
@@ -255,7 +262,8 @@ class Federation:
                        state=None, ledger: Optional[Ledger] = None,
                        dp_releases: int = 0, until: Optional[int] = None,
                        stop_workers: bool = True, draws=None,
-                       wire_timeout_s: Optional[float] = None
+                       wire_timeout_s: Optional[float] = None,
+                       use_graph: bool = True
                        ) -> async_engine.PopulationResult:
         """The asynchronous protocol over the REAL wire
         (``repro_torch.wire``).
@@ -271,7 +279,13 @@ class Federation:
         deterministic drops/latency. ``state``/``until``/``ledger``/
         ``dp_releases`` continue a checkpointed run exactly (see
         :meth:`save`'s ``async_state``). ``draws`` defaults to
-        ``RowDraws(engine.seed)`` on the session's device."""
+        ``RowDraws(engine.seed)`` on the session's device.
+
+        On the card the server's two functions run from CUDA graphs, one
+        captured for each new input shape (``stats["graphs"]`` counts
+        them); on the CPU the same bodies run in a loop.
+        ``use_graph=False`` runs them eagerly: the comparison the smoke
+        run holds the graphs to (no entry point passes it)."""
         params, x_parts, y = self._engine_inputs(params, x_parts, y)
         if draws is None:
             draws = RowDraws(self.engine.seed, self.device)
@@ -281,7 +295,7 @@ class Federation:
             fault_plan=fault_plan, population=population, channels=channels,
             state=state, ledger=ledger, dp_releases=dp_releases,
             until=until, stop_workers=stop_workers,
-            wire_timeout_s=wire_timeout_s)
+            wire_timeout_s=wire_timeout_s, graph=use_graph)
 
     def params_from_global(self, global_params):
         """Replicate a global ``build_model`` param tree into the engine
@@ -293,22 +307,37 @@ class Federation:
         return lm_engine_params(global_params, self.n_clients)
 
     # ------------------------------------------------------- sync driver --
-    def sync_step(self, optimizer, *, vocab: Optional[int] = None):
+    def sync_step(self, optimizer, *, vocab: Optional[int] = None,
+                  graph: bool = False):
         """Cascade/baseline step over the GLOBAL model's loss — the
         ``launch/train.py`` plane: ``step(params, opt_state, batch, t,
         draws) -> (params, opt_state, StepOutput)`` (see
         :mod:`repro_torch.core.cascade`). Requires a ModelConfig
-        session; params and batches live on the session's device."""
+        session; params and batches live on the session's device.
+
+        ``graph=True`` gives the compiled form, the counterpart of the
+        JAX driver's ``jax.jit(step_fn, donate_argnums=(0, 1))``: a
+        :class:`repro_torch.graphs.GraphedFn` over the step with the
+        optimizer's in-place update, which writes the new parameters and
+        state into the ``params`` and ``opt_state`` it is given (donated:
+        pass the returned trees back). On the card its first call runs
+        eagerly and the step is then captured as a CUDA graph and
+        replayed; on the CPU the same step runs on its static buffers in
+        a loop. The StepOutput of a replay holds until the next call."""
         if self.model_cfg is None:
             raise ValueError(
                 "sync_step drives a global-model loss; build the session "
                 "from a ModelConfig (tabular/adapter sessions train through "
                 "Federation.run)")
         vocab = self.model_cfg.padded_vocab if vocab is None else vocab
-        return cascade.make_step_for_method(
+        step = cascade.make_step_for_method(
             self.transport.method, self.model.loss_fn,
-            self.model.client_keys, self.vfl, optimizer, vocab=vocab,
+            self.model.client_keys, self.vfl,
+            in_place(optimizer) if graph else optimizer, vocab=vocab,
             transport=self.transport)
+        if not graph:
+            return step
+        return graphs.GraphedFn(step, self.device, donate=(0, 1))
 
     # -------------------------------------------------- certifier plane ---
     def boundary_meta(self) -> dict:
@@ -335,7 +364,8 @@ class Federation:
         async, or device-sharded per the engine config — for the
         certifier to trace. Signature: ``step(params, table, m_blk, idx,
         t, draws, x_parts, y) -> (params, table, h)``; it updates
-        ``params["clients"]`` and ``table`` in place. The sharded variant
+        ``table`` in place; an asynchronous step also writes the server's
+        new leaves into ``params``, and the unsharded one the clients'. The sharded variant
         needs ``table_shape`` (the (M, n, e) embedding-table shape) to
         resolve the table's partition spec the same way ``run`` does,
         and its ``table`` carries one spare row past this rank's own
@@ -363,11 +393,15 @@ class Federation:
         ``draws`` (default: ``RowDraws(engine.seed)`` on the session's
         device, as :meth:`run_population` draws) — ``losses_fn`` is the
         server->client downlink closure the certifier traces: its whole
-        output is client-bound."""
+        output is client-bound. Both run eagerly, ``draws`` bound as
+        their last argument."""
         if draws is None:
             draws = RowDraws(self.engine.seed, self.device)
-        return async_engine._population_fns(self.adapter, self.transport,
-                                            self.vfl, draws)
+        fns = async_engine._population_fns(self.adapter, self.transport,
+                                           self.vfl, self.device,
+                                           graph=False)
+        return tuple(functools.partial(_with_draws, fn, draws)
+                     for fn in fns)
 
     # ------------------------------------------------------ party plane ---
     @property

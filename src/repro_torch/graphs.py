@@ -25,8 +25,11 @@ its operands: the bf16 flash-attention launcher passes TMA tensor maps
 (which hold the operands' addresses) by value as kernel parameters, and
 a replay passes them as they were captured. Captured steps do reach
 flash attention: Whisper's cross-attention in the captured global decode
-step (``launch/serve.py``) and the LM adapter's server loss in a
-captured engine round (``core/async_engine.py``). Such a launch is valid
+step (``launch/serve.py``), the LM adapter's server loss in a captured
+engine round (``core/async_engine.py``), and every forward of a captured
+training step and of the population server's graphed functions
+(:class:`GraphedFn`), the step's q, k, v and o graph-pool temporaries.
+Such a launch is valid
 only because its operands keep their addresses across replays: q, k, v
 and o are either static buffers or temporaries of the graph's own pool,
 which every replay re-creates at the addresses of the capture. The
@@ -44,6 +47,20 @@ run) into :attr:`StepGraph.captured`, and every replay adds them back,
 once a replay. The counters then read the launches that ran on the card,
 eager and replayed alike, and :data:`replayed` keeps the replayed share.
 There is no eager fallback: a capture that fails raises.
+
+**Graphs keyed by shape.** The JAX package also compiles functions that
+run once a call on inputs whose shapes vary: the LM training step
+(``jax.jit(step_fn, donate_argnums=(0, 1))``) and the population
+server's two functions, which ``jax.jit`` retraces for each new input
+shape. :class:`GraphedFn` is the counterpart of that cache: a function
+``fn(*args, t, draws)`` captured once per key (the inputs' tree
+structure, shapes and dtypes, and any other value among them, such as a
+Python index), each capture a :class:`StepGraph` on static input
+buffers, its draws recorded through a
+:class:`~repro_torch.core.draws.RoundDraws` and refilled for each call's
+``t``. The arguments it is told are donated are read and written where
+they are, as ``donate_argnums`` lets XLA do: the caller passes the same
+trees every call and ``fn`` updates them in place.
 """
 from __future__ import annotations
 
@@ -55,10 +72,13 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch.profiler import record_function
 
+from repro_torch.analysis import marks
+from repro_torch.core.draws import RoundDraws
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.ssd_chunk import ops as ssd_ops
 from repro_torch.kernels.zoo_dual_matmul import ops as zoo_ops
+from repro_torch.tree import tree_leaves, tree_map
 
 # every launch counter of the kernel wrappers, by a name for each
 COUNTERS: Dict[str, Dict[str, int]] = {
@@ -139,10 +159,14 @@ class StepGraph:
     :meth:`timed_replays`; ``nodes`` and ``kernel_nodes`` count the
     captured graph; ``captured`` is the kernel launches one replay makes,
     counter by counter. The graph keeps ``body``, and so every tensor it
-    closes over, alive: a replay reads them where they were captured."""
+    closes over, alive: a replay reads them where they were captured.
+    ``free_cache`` hands the warm-up's freed temporaries back to the card
+    (``torch.cuda.empty_cache()``) before the capture, so the graph's
+    pool can take their memory (a training step's graph, whose warm-up
+    frees a whole step's activations)."""
 
     def __init__(self, body: Callable[[], None], device: torch.device,
-                 pool=None):
+                 pool=None, *, free_cache: bool = False):
         device = torch.device(device)
         if device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, got {device}")
@@ -152,6 +176,8 @@ class StepGraph:
             body()
         torch.cuda.current_stream(device).wait_stream(side)
         torch.cuda.synchronize(device)
+        if free_cache:
+            torch.cuda.empty_cache()
 
         tic = time.perf_counter()
         before = _snapshot()
@@ -216,3 +242,121 @@ class StepGraph:
                 if group != "rmsnorm_routes" for name, n in counts.items()
                 if n}
 
+
+def signature(tree):
+    """The key of a call's arguments: the tree's structure, each tensor
+    leaf's shape, dtype and device, and every other leaf as it is (a
+    Python int, a string, None)."""
+    if isinstance(tree, dict):
+        return ("dict",) + tuple((k, signature(tree[k])) for k in sorted(tree))
+    if isinstance(tree, (tuple, list)):
+        return (type(tree).__name__,) + tuple(signature(x) for x in tree)
+    if isinstance(tree, torch.Tensor):
+        return ("tensor", tuple(tree.shape), tree.dtype, tree.device)
+    return ("value", tree)
+
+
+def _tensors(tree) -> list:
+    return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+class GraphedFn:
+    """``fn(*args, t, draws)`` compiled once per key of ``args``
+    (:func:`signature`): the counterpart of ``jax.jit``'s cache. ``t``
+    indexes the draws of the call and ``draws`` is its draw source; ``fn``
+    uses ``t`` only to ask ``draws``. Arguments at the positions in
+    ``donate`` are the caller's own trees, read and written where they
+    are (the caller passes the same trees every call; a tree passed anew
+    is copied into the captured one); every other argument is copied into
+    a static buffer of the key before the call.
+
+    The first call of a key runs ``fn`` eagerly on those buffers, its
+    draws recorded through a :class:`RoundDraws` over ``draws``, and
+    returns what it returns. On a CUDA ``device`` that call is the warm-up
+    of a :class:`StepGraph` capturing ``fn`` on the same buffers (every
+    graph of the object in one memory pool: they never run at once), and
+    every later call of the key copies its inputs in, refills the draws
+    for its ``t`` and replays, returning the captured outputs: they hold
+    until the next replay of any graph of the object, so a caller reads
+    or copies them before it calls again. A capture that fails raises.
+    On the CPU every later call runs ``fn`` eagerly on the key's buffers
+    and refilled draws, the captured program's loop form; under the
+    certifier's trace ``fn`` runs on the arguments as they are.
+
+    ``graphs`` holds each key's :class:`StepGraph` (None on the CPU)."""
+
+    def __init__(self, fn: Callable, device, *, donate: Tuple[int, ...] = (),
+                 pool=None):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.donate = frozenset(donate)
+        self.capture = self.device.type == "cuda"
+        if self.capture and pool is None:
+            pool = torch.cuda.graph_pool_handle()
+        self.pool = pool
+        self._keys: Dict[tuple, "_Keyed"] = {}
+
+    @property
+    def graphs(self) -> Dict[tuple, Optional[StepGraph]]:
+        return {key: keyed.graph for key, keyed in self._keys.items()}
+
+    def __call__(self, *args):
+        *args, t, draws = args
+        if marks.tracing():
+            return self.fn(*args, t, draws)
+        key = signature(args)
+        keyed = self._keys.get(key)
+        if keyed is None:
+            keyed = self._keys[key] = _Keyed(self, args, t, draws)
+            return keyed.first
+        return keyed(args, t, draws)
+
+    def stats(self) -> dict:
+        """The captured graphs' readings: how many, their capture seconds,
+        nodes, kernel nodes and replays, each in capture order."""
+        gs = [g for g in self.graphs.values() if g is not None]
+        return {"graphs": len(gs),
+                "capture_s": [g.capture_s for g in gs],
+                "nodes": [g.nodes for g in gs],
+                "kernel_nodes": [g.kernel_nodes for g in gs],
+                "replays": [g.replays for g in gs]}
+
+
+class _Keyed:
+    """One key of a :class:`GraphedFn`: its static inputs, recorded
+    draws and, on the card, its graph."""
+
+    def __init__(self, owner: GraphedFn, args, t: int, draws):
+        self.inputs = [a if i in owner.donate else tree_map(
+            lambda x: x.clone() if isinstance(x, torch.Tensor) else x, a)
+            for i, a in enumerate(args)]
+        self.leaves = _tensors(self.inputs)
+        self.draws = RoundDraws(draws)
+        self.draws.fill(t)
+        outs = []
+
+        def body():
+            outs.append(owner.fn(*self.inputs, self.draws.t, self.draws))
+            self.draws.done()
+        self.body, self.outs = body, outs
+        self.graph = None
+        if owner.capture:
+            self.graph = StepGraph(body, owner.device, owner.pool,
+                                   free_cache=True)
+            self.first, self.out = outs
+            outs.clear()
+        else:
+            body()
+            self.first = outs.pop()
+
+    def __call__(self, args, t: int, draws):
+        for dst, src in zip(self.leaves, _tensors(args)):
+            if src is not dst:
+                dst.copy_(src)
+        self.draws.source = draws
+        self.draws.fill(t)
+        if self.graph is None:
+            self.body()
+            return self.outs.pop()
+        self.graph.replay()
+        return self.out

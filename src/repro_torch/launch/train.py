@@ -40,6 +40,14 @@ with deterministic fault injection (``--fault-*``), straggler admission
 k with the async plane saved, and ``--resume DIR`` finishes the same
 horizon bitwise.
 
+The step is compiled as the JAX driver's ``jax.jit(step_fn,
+donate_argnums=(0, 1))`` is: ``fed.sync_step(opt, graph=True)`` updates
+the parameters and optimizer state in place, and on the card runs the
+first step eagerly, captures the step as a CUDA graph and replays it
+every later step (the result's ``step_graph`` holds its capture seconds,
+nodes and replays); on the CPU the same step loops on its static
+buffers. A placed run (``mesh``, ``--production-mesh``) steps eagerly.
+
 Ported from the JAX package's ``launch/train.py``. Step t's ZOO
 directions and DP noise come from ``StepDraws(seed)``, seeded by
 (seed, t), where the JAX driver folds t into its key; the population
@@ -189,7 +197,10 @@ def train(arch: Union[str, ModelConfig] = "", *, steps: int = 100,
     dev = fed.device
     model = fed.model
     opt = sgd(make_schedule(schedule, lr, total_steps=sched_total))
-    step_fn = fed.sync_step(opt)
+    # the compiled step (jax.jit(step_fn, donate_argnums=(0, 1)) in the
+    # JAX driver): captured on the card after its first call; a placed
+    # run steps eagerly
+    step_fn = fed.sync_step(opt, graph=mesh is None)
     if not resume:
         params = common.materialize(
             model.param_specs, torch.Generator(dev).manual_seed(seed),
@@ -250,6 +261,8 @@ def train(arch: Union[str, ModelConfig] = "", *, steps: int = 100,
     if noise is not None:
         eps, delta = fed.transport.privacy_spent(dp_releases)
         result["dp_epsilon"], result["dp_delta"] = eps, delta
+    if dev.type == "cuda" and hasattr(step_fn, "stats"):
+        result["step_graph"] = step_fn.stats()
     if keep_params:
         result["params"] = params
     if checkpoint_path:
@@ -445,6 +458,8 @@ def train_population(arch: str = "", *, steps: int = 60, batch: int = 8,
             "degraded_rounds": stats["degraded_rounds"],
         },
     }
+    if "graphs" in stats:
+        result["graphs"] = stats["graphs"]
     if resume:
         result["resumed_from"] = resume
         result["start_step"] = int(state.async_state.step)

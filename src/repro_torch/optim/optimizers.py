@@ -7,7 +7,11 @@ so production configs default to SGD; AdamW is provided for ablations and
 small-scale runs. State is a dict of trees with a 0-dim int32 ``step``;
 moments are float32 whatever the params' dtype, and each update is
 ``(p.f32 − η·u).to(p.dtype)`` as in the JAX package. ``update`` returns
-new trees and leaves its inputs untouched. ``η·u`` is formed in f32, as
+new trees and leaves its inputs untouched; :func:`in_place` gives the
+form whose ``update`` writes the new values into the trees it is given,
+the counterpart of the JAX driver's ``donate_argnums=(0, 1)`` (a captured
+training step, ``graphs.GraphedFn``, updates its static trees that way).
+``η·u`` is formed in f32, as
 the JAX package's jitted step computes it (XLA keeps the f32 of
 ``p.f32 − η·u`` and drops the bf16 rounding of a bf16 ``η·u`` that its
 eager type promotion would insert); torch keeps bf16 against a 0-dim f32
@@ -17,7 +21,7 @@ range ("SGD update", "AdamW update").
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 from torch.profiler import record_function
@@ -30,6 +34,23 @@ class Optimizer:
     init: Callable      # params -> state
     update: Callable    # (grads, state, params) -> (new_params, new_state)
     name: str = "sgd"
+    # the donated form of ``update``: (grads, state, params) -> (params,
+    # state), the new values written into the given trees; None:
+    # ``in_place`` copies ``update``'s values in
+    apply: Optional[Callable] = None
+
+
+def in_place(opt: Optimizer) -> Optimizer:
+    """``opt`` whose ``update`` writes the new parameters and state into
+    the trees it is given and returns those trees, with the bits of the
+    functional update."""
+    def copied(grads, state, params):
+        new_params, new_state = opt.update(grads, state, params)
+        for old, new in zip(tree_leaves((params, state)),
+                            tree_leaves((new_params, new_state))):
+            old.copy_(new)
+        return params, state
+    return dataclasses.replace(opt, update=opt.apply or copied, apply=None)
 
 
 def _tree_zeros_f32(params):
@@ -53,28 +74,37 @@ def sgd(lr, momentum: float = 0.0, weight_decay: float = 0.0,
             state["mom"] = _tree_zeros_f32(params)
         return state
 
-    def update(grads, state, params):
+    def step_(grads, state, params, put):
+        """The update's arithmetic; ``put(old, new)`` stores each new leaf
+        and returns it: written into ``old`` (``copy_`` rounds to its
+        type) or as a new tensor of ``old``'s type. Either way one new
+        leaf's f32 temporaries are alive at once."""
         step = state["step"]
         eta = lr_fn(step)
         grads = _clip(grads, grad_clip)
         if weight_decay:
             grads = tree_map(lambda g, p: g.float() + weight_decay * p.float(),
                              grads, params)
+        upd = grads
+        new_state = {}
         if momentum:
-            mom = tree_map(lambda m, g: momentum * m + g.float(),
-                           state["mom"], grads)
-            upd = mom
-            new_state = {"step": step + 1, "mom": mom}
-        else:
-            upd = grads
-            new_state = {"step": step + 1}
+            upd = new_state["mom"] = tree_map(
+                lambda m, g: put(m, momentum * m + g.float()),
+                state["mom"], grads)
         new_params = tree_map(
-            lambda p, u: (p.float() - eta * u.float()).to(p.dtype),
-            params, upd)
+            lambda p, u: put(p, p.float() - eta * u.float()), params, upd)
+        new_state["step"] = put(step, step + 1)
         return new_params, new_state
 
+    def update(grads, state, params):
+        return step_(grads, state, params, lambda old, new: new.to(old.dtype))
+
+    def apply(grads, state, params):
+        step_(grads, state, params, lambda old, new: old.copy_(new))
+        return params, state
+
     return Optimizer(init=init, update=_ranged("SGD", update),
-                     name="sgd")
+                     name="sgd", apply=_ranged("SGD", apply))
 
 
 def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
