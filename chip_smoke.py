@@ -2,6 +2,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 4,6     # the build and the phases named
+    python3 chip_smoke.py --sharded-ranks 2  # phase 11's captured sharded
+                                             # round at D = 2, on 2 cards
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
@@ -240,14 +242,19 @@ and prints no result):
    path at the paper's width through ``Federation.build(...,
    EngineConfig(mesh_shards=1))`` on a one-rank NCCL group (the client
    block's ``("data",)`` ``DeviceMesh``), 500 rounds after 20 of warm-up,
-   in turns (sharded, graph, eager, eager, graph, sharded) with the
-   unsharded run through the captured round and through the internal
-   eager loop: losses, params, table and delays bitwise equal to the
-   graph run and to phase 3's, the fused kernel launched once a
-   round, the collectives of 20 profiled rounds equal to their derivation
-   (2 all-gathers and 2 client leaves all-reduces a round), ms a
-   round of both, and vafl and zoo-vfl bitwise over 25 rounds each (D > 1
-   needs a card a rank: NCCL refuses two ranks on one GPU); (b) phase 6's
+   its round captured as a CUDA graph that holds the NCCL collectives,
+   in turns (sharded, sharded eager, graph, eager, eager, graph, sharded
+   eager, sharded) with its internal eager loop and the unsharded run
+   through the captured round and through its eager loop: losses,
+   params, table and delays bitwise equal to all three and to phase 3's,
+   the fused kernel launched once a round (all but round 0 replayed), the
+   collectives recorded in the graph (the calls made under its capture)
+   and those of 20 profiled eager rounds equal to their derivation (2
+   all-gathers and 2 client leaves all-reduces a round), the graph's
+   nodes by kind and its NCCL kernels by name, ms a round of all four,
+   and vafl and zoo-vfl captured and eager bitwise over 25 rounds each
+   (D > 1 needs a card a rank, NCCL refusing two ranks on one GPU:
+   ``--sharded-ranks D`` below); (b) phase 6's
    run A of Phi-3-mini drains under ``analysis.runtime.strict``: its host
    reads equal the scheduler's ``host_transfers``, all at the retirement
    waves, its fresh compiles are the one graph capture of the warm-up
@@ -277,10 +284,15 @@ and prints no result):
 14. the production mesh: (a) ``launch.train.train(mesh=)`` of Phi-3-mini
    at full width cut to 4 layers, 3 cascaded steps of 8 x 128 tokens, on
    a one-rank NCCL group at a (1, 1) ``("data", "model")`` mesh with
-   DTensor parameters, against the same run with no mesh in turns
-   (without, with, with, without): losses and parameters bitwise, flash
-   and RMSNorm launches equal to the unplaced run's and the derivation,
-   ``shard_constraint`` calls equal to theirs, the ms a step of both;
+   DTensor parameters, through its captured step (step 0 eager, then one
+   CUDA graph replayed), against the placed eager step and the unplaced
+   captured step in turns (unplaced, placed, placed eager, placed eager,
+   placed, unplaced): losses and parameters bitwise, flash and RMSNorm
+   launches equal to the derivation (all but step 0's replayed),
+   ``shard_constraint`` calls equal to theirs ((1 + 1) x a step's under
+   capture: step 0 and the capture), the ms a step of all three; then
+   the placed captured step at Phi-3-mini's full depth, 20 steps (steps
+   3..18 timed, the last a profiled replay), with its peak memory;
    (b) ``python -m repro_torch.launch.dryrun --arch phi3-mini-3.8b
    --shape train_4k`` and phi3 cut to 4 layers with its full depth
    traced, in child processes on a fake 256-rank group with CUDA hidden,
@@ -6079,7 +6091,7 @@ def engine_rounds(fed, params, x_parts, y, graph=True) -> dict:
     per-round max delays the result does not all carry (a sharded run's
     table is this rank's rows: all of them at one shard), and ``graph``,
     the captured round's readings (None where the body looped: with
-    ``graph=False``, the internal eager loop, or on the sharded path)."""
+    ``graph=False``, the internal eager loop)."""
     from repro_torch.core import async_engine
     from repro_torch.core.draws import TorchDraws
     stats = {}
@@ -6157,15 +6169,52 @@ def collective_counts(prof) -> dict:
     return fams
 
 
+class CollectiveCounter:
+    """Counts the engine's ``torch.distributed`` collective calls inside
+    a ``with``, apart for the calls made while a CUDA graph is being
+    captured (each recorded once in the graph and run by every replay)
+    and the calls that ran eagerly."""
+
+    NAMES = {"all_gather_into_tensor": "all_gather",
+             "all_reduce": "all_reduce"}
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.dist, self.inner = dist, {}
+        self.reset()
+        for name, kind in self.NAMES.items():
+            inner = self.inner[name] = getattr(dist, name)
+
+            def counted(*args, _inner=inner, _kind=kind, **kw):
+                where = (self.captured
+                         if torch.cuda.is_current_stream_capturing()
+                         else self.eager)
+                where[_kind] = where.get(_kind, 0) + 1
+                return _inner(*args, **kw)
+            setattr(dist, name, counted)
+        return self
+
+    def reset(self):
+        self.captured, self.eager = {}, {}
+
+    def __exit__(self, *exc):
+        for name, inner in self.inner.items():
+            setattr(self.dist, name, inner)
+
+
 def sharded_tabular(rows, ops, card, base=None) -> dict:
     """Phase 11 (a): the tabular main path through ``Federation.build(...,
-    EngineConfig(mesh_shards=1))`` on a one-rank NCCL process group, held
-    bitwise to the unsharded run on the same draws, with its kernel
-    launches, its collectives a round counted from a profile against
-    their derivation, and its ms a round beside the unsharded run's.
-    ``base`` is phase 3's result when phase 3 ran."""
+    EngineConfig(mesh_shards=1))`` on a one-rank NCCL process group: its
+    round captured as a CUDA graph that holds the collectives, held
+    bitwise to its eager loop and to the unsharded run through its graph
+    on the same draws, with its kernel launches (the replayed share), its
+    collectives a round (those recorded in the graph, and those of a
+    profiled eager loop) against their derivation, its graph's nodes by
+    kind and its ms a round beside the other runs', in turns. ``base`` is
+    phase 3's result when phase 3 ran."""
     import tempfile
     import torch.distributed as dist
+    from repro_torch import graphs
     from repro_torch.configs.base import VFLConfig
     from repro_torch.configs.paper_mlp import PaperMLPConfig
     from repro_torch.core.adapters import tabular_adapter
@@ -6189,9 +6238,9 @@ def sharded_tabular(rows, ops, card, base=None) -> dict:
             n_clients=cfg.n_clients, device="cuda")
 
     def timed(fed, params, use_graph=True):
-        """(result, ms a round) of one synchronised run; the sharded run
-        and ``use_graph=False`` loop the round body eagerly, the
-        unsharded default replays the captured round."""
+        """(result, ms a round) of one synchronised run: through the
+        captured round by default, the body looped with
+        ``use_graph=False``."""
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fed.run(params, x_parts, y_dev, use_graph=use_graph)
@@ -6219,85 +6268,126 @@ def sharded_tabular(rows, ops, card, base=None) -> dict:
                                  "shard")
         log(f"phase 11 (a): one-rank {dist.get_backend()} group, client "
             f"mesh {mesh}; D > 1 needs one card a rank (NCCL refuses two "
-            "ranks on one GPU): it waits for a four-chip cell")
+            f"ranks on one GPU): {SHARDED_RANKS} D runs it on D cards")
         build(SHARD["warm"], 1).run(params, x_parts, y_dev)
-        # the three runs in turns in this one process: the sharded D = 1
-        # run (an eager loop), the unsharded run through the captured
-        # round, and the unsharded run through the internal eager loop
-        kinds = {"sharded": (sharded, True), "graph": (plain, True),
-                 "eager": (plain, False)}
+        build(SHARD["warm"], 1).run(params, x_parts, y_dev, use_graph=False)
+        # the four runs in turns in this one process: the sharded D = 1
+        # run through its captured round and through its eager loop, and
+        # the unsharded run through its captured round and its eager loop
+        kinds = {"sharded": (sharded, True), "sharded_eager": (sharded, False),
+                 "graph": (plain, True), "eager": (plain, False)}
         ms = {kind: [] for kind in kinds}
-        res, replay_ms = {}, []
-        for kind in ("sharded", "graph", "eager", "eager", "graph",
-                     "sharded"):
-            fed, use_graph = kinds[kind]
-            ops.reset_launches()
-            res[kind], t = timed(fed, params, use_graph)
-            ms[kind].append(t)
-            if kind == "sharded":
-                launches = dict(ops.launches)
-            if kind == "graph":
-                rg = res[kind].round_graph
-                replay_ms.append(rg["replay_s"] * 1e3 / rg["replays"])
-        if launches["zoo_dual_matmul_stacked_bias_relu"] != rounds:
-            raise AssertionError(f"sharded run launched {launches}, not the "
-                                 f"fused kernel {rounds} times")
-        main = rows.get("zoo_dual_matmul_stacked_bias_relu", {})
+        res, replay_ms = {}, {"sharded": [], "graph": []}
+        capture_s = {"sharded": [], "graph": []}
+        name = "zoo_dual_matmul_stacked_bias_relu"
+        with CollectiveCounter() as calls:
+            for kind in ("sharded", "sharded_eager", "graph", "eager",
+                         "eager", "graph", "sharded_eager", "sharded"):
+                fed, use_graph = kinds[kind]
+                ops.reset_launches()
+                graphs.reset_replayed()
+                calls.reset()
+                res[kind], t = timed(fed, params, use_graph)
+                ms[kind].append(t)
+                if kind in replay_ms:
+                    rg = res[kind].round_graph
+                    replay_ms[kind].append(rg["replay_s"] * 1e3
+                                           / rg["replays"])
+                    capture_s[kind].append(rg["capture_s"])
+                if kind == "sharded":
+                    launches = dict(ops.launches)
+                    replayed = graphs.replayed["zoo_dual_matmul"][name]
+                    in_graph = dict(calls.captured)
+                    eager_calls = dict(calls.eager)
+        if launches[name] != rounds or replayed != rounds - 1:
+            raise AssertionError(f"sharded run launched {launches} "
+                                 f"({replayed} replayed), not the fused "
+                                 f"kernel {rounds} times ({rounds - 1} "
+                                 f"replayed)")
+        main = rows.get(name, {})
         base_ms = ("" if base is None or "round_ms" not in main else
                    f"; phase 3's captured run {main['round_ms']:.4f} ms a "
                    f"round end to end")
+
+        def fmt(ts):
+            return ", ".join(f"{t:.4f}" for t in ts)
         log(f"phase 11 (a): {rounds} cascaded rounds at {cfg}, in turns "
-            f"(sharded, graph, eager, eager, graph, sharded), each the whole "
-            f"Federation.run: sharded (D = "
-            f"1, eager) {', '.join(f'{t:.4f}' for t in ms['sharded'])} ms a "
-            f"round; unsharded through the graph "
-            f"{', '.join(f'{t:.4f}' for t in ms['graph'])} (replays alone "
-            f"{', '.join(f'{t:.4f}' for t in replay_ms)}); unsharded eager "
-            f"loop {', '.join(f'{t:.4f}' for t in ms['eager'])}; the eager "
-            f"loop before the group existed {no_group:.4f}{base_ms} on "
-            f"{card}; kernel launches {launches}")
-        name = "zoo_dual_matmul_stacked_bias_relu"
+            f"(sharded, sharded eager, graph, eager, eager, graph, sharded "
+            f"eager, sharded), each the whole Federation.run: sharded (D = "
+            f"1) through the graph {fmt(ms['sharded'])} ms a round (replays "
+            f"alone {fmt(replay_ms['sharded'])}); sharded eager loop "
+            f"{fmt(ms['sharded_eager'])}; unsharded through the graph "
+            f"{fmt(ms['graph'])} (replays alone {fmt(replay_ms['graph'])}); "
+            f"unsharded eager loop {fmt(ms['eager'])}; the eager loop before "
+            f"the group existed {no_group:.4f}{base_ms} on {card}; kernel "
+            f"launches {launches}, {replayed} of them replayed")
+        sg, ug = res["sharded"].round_graph, res["graph"].round_graph
+        nccl = {k: n for k, n in sg["kernels"].items()
+                if "nccl" in k.lower()}
+        log(f"phase 11 (a): the sharded round's graph: capture "
+            f"{fmt(capture_s['sharded'])} s, {sg['nodes']} nodes "
+            f"{sg['node_kinds']} ({sg['kernel_nodes']} kernel nodes; NCCL "
+            f"kernels among them {nccl or 'none'}); the unsharded round's "
+            f"{ug['nodes']} nodes {ug['node_kinds']}, capture "
+            f"{fmt(capture_s['graph'])} s")
         if name in rows:
             rows[name]["launches"] += launches[name]
             rows[name].setdefault("launches_by_path", {})[
                 "sharded engine, one NCCL rank"] = launches[name]
-        a, b = res["graph"], res["sharded"]
-        if not np.array_equal(res["eager"].losses, a.losses):
-            raise AssertionError("the unsharded eager loop's losses != the "
-                                 "captured rounds'")
-        if not (np.array_equal(a.losses, b.losses)
-                and a.max_delay_seen == b.max_delay_seen
-                and a.mean_delay == b.mean_delay
-                and all(torch.equal(p, q) for p, q in zip(
-                    [t for v in a.params.values() for t in v.values()],
-                    [t for v in b.params.values() for t in v.values()]))):
-            raise AssertionError("sharded run != unsharded run")
-        if base is not None and not np.array_equal(base.losses, b.losses):
+            rows[name].setdefault("replayed_by_path", {})[
+                "sharded engine, one NCCL rank"] = replayed
+        a = res["graph"]
+        for kind in ("eager", "sharded", "sharded_eager"):
+            b = res[kind]
+            if not (np.array_equal(a.losses, b.losses)
+                    and a.max_delay_seen == b.max_delay_seen
+                    and a.mean_delay == b.mean_delay
+                    and all(torch.equal(p, q) for p, q in zip(
+                        [t for v in a.params.values() for t in v.values()],
+                        [t for v in b.params.values() for t in v.values()]))):
+                raise AssertionError(f"{kind} run != the unsharded run "
+                                     "through the graph")
+        if base is not None and not np.array_equal(
+                base.losses, res["sharded"].losses):
             raise AssertionError("sharded run's losses != phase 3's")
-        diffs = unequal(engine_rounds(plain, params, x_parts, y_dev),
-                        engine_rounds(sharded, params, x_parts, y_dev))
-        if diffs:
-            raise AssertionError(f"sharded round loop differs: {diffs}")
-        log(f"phase 11 (a): losses, params, table and delays bitwise equal "
-            f"to the unsharded run through the graph"
-            f"{' and phase 3' if base else ''} "
-            f"({rounds} rounds; final loss {float(b.losses[-1]):.6f})")
+        want = engine_rounds(plain, params, x_parts, y_dev)
+        for graph in (True, False):
+            diffs = unequal(want, engine_rounds(sharded, params, x_parts,
+                                                y_dev, graph=graph))
+            if diffs:
+                raise AssertionError(f"sharded round loop (graph={graph}) "
+                                     f"differs: {diffs}")
+        log(f"phase 11 (a): losses, params, table and delays of the sharded "
+            f"run through the graph bitwise equal to its eager loop and to "
+            f"the unsharded run through the graph and its eager loop"
+            f"{' and phase 3' if base else ''} ({rounds} rounds; final loss "
+            f"{float(res['sharded'].losses[-1]):.6f})")
 
-        # the collectives a round, from a profile of sharded rounds
+        # the collectives a round: recorded in the sharded round's graph
+        # (the calls made under its capture; a replay issues none on the
+        # host), issued by its eager round 0, and counted from a profile
+        # of the sharded eager loop
         leaves = len(params["clients"])
+        a_round = {"all_gather": 2, "all_reduce": leaves}
+        log(f"phase 11 (a): collectives recorded in the sharded round's "
+            f"graph {in_graph} and issued eagerly by its run {eager_calls} "
+            f"(round 0, the capture's warm-up); derived {a_round} a round (2 "
+            f"all-gathers and {leaves} client leaves all-reduces)")
+        if in_graph != a_round or eager_calls != a_round:
+            raise AssertionError(f"collectives in the graph {in_graph}, "
+                                 f"eager {eager_calls}, want {a_round}")
         prof_fed = build(SHARD["profile"], 1)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            prof_fed.run(params, x_parts, y_dev)
+            prof_fed.run(params, x_parts, y_dev, use_graph=False)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         fams = collective_counts(prof)
         R = SHARD["profile"]
-        derived = {"all_gather": 2 * R, "all_reduce": leaves * R}
-        log(f"phase 11 (a): collectives in {R} profiled rounds by family "
-            f"{fams}; derived {derived} (2 all-gathers and {leaves} client "
-            "leaves all-reduces a round)")
+        derived = {k: n * R for k, n in a_round.items()}
+        log(f"phase 11 (a): collectives in {R} profiled rounds of the "
+            f"sharded eager loop by family {fams}; derived {derived}")
         fam = next((f for f in ("c10d", "nccl") if f in fams), None)
         if fam is None or fams[fam] != derived:
             raise AssertionError(f"collectives {fams} != {derived}")
@@ -6307,8 +6397,8 @@ def sharded_tabular(rows, ops, card, base=None) -> dict:
         host_us = sum(e.cpu_time_total for e in coll
                       if e.key.startswith(fam + ":"))
         dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in coll)
-        log(f"phase 11 (a): collectives' share of a profiled round: host "
-            f"{host_us / R:.1f} us of {wall_us / R:.1f} us "
+        log(f"phase 11 (a): collectives' share of a profiled eager round: "
+            f"host {host_us / R:.1f} us of {wall_us / R:.1f} us "
             f"({host_us / wall_us:.2%}); device {dev_us / R:.2f} us a round")
         for e in sorted(coll, key=lambda e: e.cpu_time_total, reverse=True):
             log(f"  {e.key}: x{e.count / R:.2f} a round, "
@@ -6317,19 +6407,213 @@ def sharded_tabular(rows, ops, card, base=None) -> dict:
         for method, lanes, lr in SHARD_METHODS:
             p, s = (build(SHARD["methods"], shards, method, lanes, lr)
                     for shards in (0, 1))
-            diffs = unequal(engine_rounds(p, params, x_parts, y_dev),
-                            engine_rounds(s, params, x_parts, y_dev))
-            if diffs:
-                raise AssertionError(f"sharded {method} differs: {diffs}")
+            want = engine_rounds(p, params, x_parts, y_dev)
+            for graph in (True, False):
+                got = engine_rounds(s, params, x_parts, y_dev, graph=graph)
+                if graph and got["graph"] is None:
+                    raise AssertionError(f"sharded {method}: the rounds "
+                                         "were not captured")
+                diffs = unequal(want, got)
+                if diffs:
+                    raise AssertionError(f"sharded {method} (graph={graph}) "
+                                         f"differs: {diffs}")
         log(f"phase 11 (a): vafl and zoo-vfl, {SHARD['methods']} rounds "
-            "each: sharded bitwise equal to unsharded")
+            "each: sharded through the graph and its eager loop bitwise "
+            "equal to unsharded through the graph")
     finally:
         dist.destroy_process_group()
         tmp.cleanup()
     spent = time.perf_counter() - t_phase
     log(f"phase 11 (a): {spent:.1f} s")
     return dict(ms=ms, replay_ms=replay_ms, no_group=no_group,
-                launches=launches, collectives=fams, seconds=spent)
+                launches=launches, collectives=fams, in_graph=in_graph,
+                seconds=spent)
+
+
+SHARDED_RANK = "--sharded-rank"      # argv[1] of one rank's process
+SHARDED_RANKS = "--sharded-ranks"    # argv[1] of the D-card run
+# block 4 (every client each round, so D = 2 and 4 divide it) at lr 0.01:
+# at the main path's 0.05 a block of 4 spikes to losses near 28 in its
+# first rounds, where the ranks' rounding grows into a divergence
+SHARDED_D = dict(rounds=500, block=4, lr=0.01)
+
+
+def sharded_rank(argv) -> int:
+    """One rank of :func:`sharded_ranks`: ``RANK WORLD STORE OUT``. On
+    ``cuda:RANK`` in a WORLD-rank NCCL group (joined through the
+    ``FileStore`` STORE), the paper-width tabular path with
+    ``mesh_shards=WORLD`` and block 4: its captured run and its eager
+    loop in turns (captured, eager, eager, captured), both held bitwise
+    (losses, params, this rank's table rows, delays) to each other and
+    compared with the unsharded captured run on this card; the
+    collectives recorded in the graph; its nodes by kind and NCCL kernels
+    by name. Writes its readings to OUT (JSON)."""
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from repro_torch import graphs
+    from repro_torch.configs.base import VFLConfig
+    from repro_torch.configs.paper_mlp import PaperMLPConfig
+    from repro_torch.core.adapters import tabular_adapter
+    from repro_torch.core.async_engine import EngineConfig
+    from repro_torch.data import make_classification, vertical_partition
+    from repro_torch.federation import Federation
+    from repro_torch.kernels.zoo_dual_matmul import ops
+    rank, world, store, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        cfg, rounds = PaperMLPConfig(), SHARDED_D["rounds"]
+        X, y = make_classification(seed=0, n=60000,
+                                   n_features=cfg.n_features,
+                                   n_classes=cfg.n_classes)
+        x_parts = torch.from_numpy(vertical_partition(X, cfg.n_clients)
+                                   ).cuda()
+        y_dev = torch.from_numpy(y).long().cuda()
+        ad = tabular_adapter(cfg, use_kernel_lanes=True)
+
+        def build(steps, shards):
+            return Federation.build(
+                ad, VFLConfig(mu=MU, lr_server=SHARDED_D["lr"],
+                              lr_client=SHARDED_D["lr"]),
+                EngineConfig(method="cascaded", steps=steps, batch_size=64,
+                             use_lanes=True, block_size=SHARDED_D["block"],
+                             mesh_shards=shards),
+                n_clients=cfg.n_clients, device="cuda")
+        plain, sharded = build(rounds, 0), build(rounds, world)
+        params = plain.init_params(torch.Generator().manual_seed(0))
+        build(SHARD["warm"], world).run(params, x_parts, y_dev)
+        build(SHARD["warm"], world).run(params, x_parts, y_dev,
+                                        use_graph=False)
+        ms = {True: [], False: []}
+        name = "zoo_dual_matmul_stacked_bias_relu"
+        with CollectiveCounter() as calls:
+            for graph in (True, False, False, True):
+                ops.reset_launches()
+                graphs.reset_replayed()
+                calls.reset()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = sharded.run(params, x_parts, y_dev, use_graph=graph)
+                torch.cuda.synchronize()
+                ms[graph].append((time.perf_counter() - t0) * 1e3 / rounds)
+                if graph:
+                    rg, in_graph = res.round_graph, dict(calls.captured)
+                    launches = (ops.launches[name],
+                                graphs.replayed["zoo_dual_matmul"][name])
+        got = {g: engine_rounds(sharded, params, x_parts, y_dev, graph=g)
+               for g in (True, False)}
+        want = engine_rounds(plain, params, x_parts, y_dev)
+        rows = want["table"].shape[0] // world
+        want["table"] = want["table"][rank * rows:(rank + 1) * rows]
+        vs_unsharded = {k: (float((got[True][k].float()
+                                   - want[k].float()).abs().max())
+                            if k in ("table", "losses")
+                            else int(not torch.equal(got[True][k], want[k])))
+                        for k in ("table", "delays", "losses", "maxd")}
+        vs_unsharded["params"] = max(
+            float((a.float() - b.float()).abs().max()) for (_, a), (_, b)
+            in zip(_leaves(got[True]["params"]), _leaves(want["params"])))
+        differ = (got[True]["losses"] != want["losses"]).nonzero()
+        vs_unsharded["first_round_apart"] = (int(differ[0]) if len(differ)
+                                             else None)
+        vs_unsharded["losses_first_5"] = [
+            got[True]["losses"][:5].tolist(), want["losses"][:5].tolist()]
+        result = dict(
+            rank=rank, world=world, device=torch.cuda.get_device_name(rank),
+            ms_graph=ms[True], ms_eager=ms[False],
+            replay_ms=rg["replay_s"] * 1e3 / rg["replays"],
+            capture_s=rg["capture_s"], nodes=rg["nodes"],
+            node_kinds=rg["node_kinds"],
+            nccl_kernels={k: n for k, n in rg["kernels"].items()
+                          if "nccl" in k.lower()},
+            in_graph=in_graph, launches=launches,
+            derived={"all_gather": 2, "all_reduce": len(params["clients"])},
+            graph_vs_eager=unequal(got[True], got[False]),
+            vs_unsharded=vs_unsharded,
+            losses_sum=float(got[True]["losses"].double().sum()))
+        with open(out, "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def sharded_ranks(world: int) -> int:
+    """``python3 chip_smoke.py --sharded-ranks D``: the captured sharded
+    round at D > 1, one card a rank (NCCL refuses two ranks on one GPU;
+    this run needs D cards, the default run one): builds the kernels,
+    starts D processes of :func:`sharded_rank` and holds what they
+    report: on every rank the captured run bitwise to its eager loop,
+    the collectives in its graph equal to the derivation (2 all-gathers
+    and one all-reduce a client leaf), the fused kernel once a round (all
+    but round 0 replayed), the losses finite and every rank's the same;
+    logs the ms a round, the graph's nodes by kind and its NCCL kernels,
+    and how far each rank's results lie from the unsharded run's (from
+    which round on)."""
+    import tempfile
+    if torch.cuda.device_count() < world:
+        print(f"chip_smoke {SHARDED_RANKS} {world}: needs {world} cards, "
+              f"found {torch.cuda.device_count()}", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import _build
+    card = nvidia_smi()
+    t0 = time.perf_counter()
+    _build.build_all(["zoo_dual_matmul"])
+    log(f"D = {world}: build {time.perf_counter() - t0:.1f} s; cards: "
+        f"{card}; torch {torch.__version__}, NCCL "
+        f"{'.'.join(map(str, torch.cuda.nccl.version()))}")
+    tmp = tempfile.TemporaryDirectory()
+    outs = [f"{tmp.name}/rank{r}.json" for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), SHARDED_RANK,
+         str(r), str(world), f"{tmp.name}/store", outs[r]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=240)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    bad = [(r, p.returncode, t[-3000:]) for r, (p, t)
+           in enumerate(zip(procs, texts)) if p.returncode]
+    if bad:
+        raise AssertionError(f"D = {world}: ranks failed: {bad}")
+    res = [json.load(open(o)) for o in outs]
+    tmp.cleanup()
+    rounds = SHARDED_D["rounds"]
+    for r in res:
+        log(f"D = {world}, rank {r['rank']} on {r['device']}: "
+            f"{rounds} cascaded rounds, block {SHARDED_D['block']}, through "
+            f"the graph {', '.join(f'{t:.4f}' for t in r['ms_graph'])} ms a "
+            f"round (replays alone {r['replay_ms']:.4f}), the eager loop "
+            f"{', '.join(f'{t:.4f}' for t in r['ms_eager'])} (turns: graph, "
+            f"eager, eager, graph); capture {r['capture_s']:.4f} s, "
+            f"{r['nodes']} nodes {r['node_kinds']}, NCCL kernels "
+            f"{r['nccl_kernels'] or 'none'}; collectives in the graph "
+            f"{r['in_graph']} (derived {r['derived']}: 2 all-gathers and "
+            f"one all-reduce a client leaf); the fused kernel "
+            f"{r['launches'][0]} launches, {r['launches'][1]} replayed; the "
+            f"graph against the eager loop differs in "
+            f"{r['graph_vs_eager'] or 'nothing (bitwise)'}; against the "
+            f"unsharded run: {r['vs_unsharded']} (max |diff| of the table, "
+            f"losses and params; 1 where delays or max delays differ; the "
+            f"first round whose loss differs; the first 5 losses of both)")
+    log(f"D = {world} on {card}")
+    for r in res:
+        if r["graph_vs_eager"] or r["in_graph"] != r["derived"] or \
+                tuple(r["launches"]) != (rounds, rounds - 1) or \
+                not math.isfinite(r["losses_sum"]):
+            raise AssertionError(f"D = {world}, rank {r['rank']}: {r}")
+    if len({r["losses_sum"] for r in res}) != 1:
+        raise AssertionError(f"D = {world}: the ranks' losses differ")
+    return 0
 
 
 def sentinel_drain(srv):
@@ -6814,7 +7098,8 @@ def join_dryruns(procs) -> list:
     return outs
 
 
-def mesh_constraint_plan(cfg, steps: int, q: int = 1) -> int:
+def mesh_constraint_plan(cfg, steps: int, q: int = 1,
+                         captured: bool = False) -> int:
     """``shard_constraint`` calls of ``steps`` cascaded steps: a forward
     constrains the embeddings and the logits, and in every block its input
     (``seq_shard_acts``), q and the attention output, then the MLP's
@@ -6822,85 +7107,257 @@ def mesh_constraint_plan(cfg, steps: int, q: int = 1) -> int:
     expert output, return), and the two output projections with
     ``rs_outputs``; a step runs the clean forward, q perturbed ones, and
     recomputes each block in the backward (remat). The CPU test of the
-    (2, 2) mesh holds the count to this derivation too."""
+    (2, 2) mesh holds the count to this derivation too (the step's loop
+    form runs its body every step). ``captured``: the step on the card,
+    whose body runs at step 0 (eager) and at the capture only, so any
+    number of steps makes (1 + 1) x a step's calls (a replay runs
+    none)."""
     block = ((1 if cfg.seq_shard_acts else 0) + 2
              + (5 if cfg.n_experts else 1) + (2 if cfg.rs_outputs else 0))
     fwd = 2 + cfg.n_layers * block
     recompute = cfg.n_layers * block if cfg.remat else 0
-    return steps * ((1 + q) * fwd + recompute)
+    return (1 + 1 if captured else steps) * ((1 + q) * fwd + recompute)
+
+
+def mesh_run(cfg, mesh, counters, graph=None, profile_at=None, **kw):
+    """One ``train(cfg, mesh=mesh)`` call, recorded: its losses, the
+    host clock after each step, its launches (the replayed share), its
+    ``shard_constraint`` calls and its peak memory; ``graph=False`` steps
+    eagerly (:class:`StepRecorder`)."""
+    from repro_torch import graphs
+    from repro_torch.launch import train as train_mod
+    from repro_torch.sharding import rules
+    for c in counters:
+        c.reset_launches()
+    graphs.reset_replayed()
+    rules.reset_calls()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with StepRecorder(profile_at=profile_at, graph=graph) as rec:
+        res = train_mod.train(cfg, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    return dict(res=res, losses=rec.losses, ends=rec.ends,
+                launches=_launches(counters), profile=rec.profile,
+                replayed={k: v for g, counts in graphs.replayed.items()
+                          if g != "rmsnorm_routes"
+                          for k, v in counts.items() if v},
+                calls=rules.calls["shard_constraint"],
+                peak=torch.cuda.max_memory_allocated() - held)
+
+
+def _full_params(res):
+    """A result's final parameters, each whole (a DTensor's
+    ``full_tensor()``)."""
+    from repro_torch.tree import tree_leaves
+    return [getattr(p, "full_tensor", lambda p=p: p)()
+            for p in tree_leaves(res["params"])]
+
+
+def check_capture_gc() -> None:
+    """A capture during which dead graphs become garbage in a reference
+    cycle, and a collection runs wherever the collector is on: it stays
+    off inside a capture (``graphs._no_collection``), so the capture
+    holds. A collection inside it would destroy the dead graphs there,
+    which CUDA forbids: an automatic one ended a captured placed step's
+    capture before the collector was switched off."""
+    from repro_torch import graphs
+    x = torch.zeros(1024, device="cuda")
+    junk = [graphs.StepGraph(lambda: x.add_(1), "cuda") for _ in range(2)]
+    junk.append(junk)
+    holder = [junk]
+    del junk
+
+    def body():
+        x.add_(1)
+        if torch.cuda.is_current_stream_capturing():
+            holder.clear()              # the dead graphs become garbage
+            if gc.isenabled():          # a collection, where one may run
+                gc.collect()
+    g = graphs.StepGraph(body, "cuda")
+    g.replay(3)
+    torch.cuda.synchronize()
+    gc.collect()
+    log(f"phase 14 (a): a capture during which dead graphs become cyclic "
+        f"garbage holds ({g.nodes} nodes; the buffer after 3 warm-ups and "
+        f"3 replays reads {float(x[0]):.0f})")
+    if float(x[0]) != 6:
+        raise AssertionError(f"the graph's buffer reads {float(x[0])}, not 6")
 
 
 def mesh_train(rows, card, counters) -> None:
     """(a) ``train(mesh=)`` on a one-rank NCCL group at a (1, 1) mesh,
-    placement forced, against the same run with no mesh, in turns."""
+    placement forced: its captured step (step 0 eager through DTensor,
+    then replays) against the placed eager step and the unplaced
+    captured step, in turns, bitwise; then once at Phi-3-mini's full
+    depth, captured, with a profiled replay."""
     import tempfile
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
     from repro_torch.configs import cut_depth, get_config
-    from repro_torch.launch import train as train_mod
-    from repro_torch.sharding import rules
-    from repro_torch.tree import tree_leaves
     cfg = cut_depth(get_config(MESH_TRAIN["arch"]), MESH_TRAIN["layers"])
-    kw = dict(steps=MESH_TRAIN["steps"], batch=MESH_TRAIN["batch"],
+    steps = MESH_TRAIN["steps"]
+    kw = dict(steps=steps, batch=MESH_TRAIN["batch"],
               seq=MESH_TRAIN["seq"], use_reduced=False, log_every=1000,
               keep_params=True)
     tmp = tempfile.TemporaryDirectory()
     dist.init_process_group("nccl", store=dist.FileStore(
         f"{tmp.name}/store", 1), rank=0, world_size=1)
     runs = {}
+    check_capture_gc()
     try:
         mesh = DeviceMesh("cuda", torch.zeros((1, 1), dtype=int),
                           mesh_dim_names=("data", "model"))
-        for turn, placed in enumerate((False, True, True, False)):
-            for c in counters:
-                c.reset_launches()
-            rules.reset_calls()
-            with StepRecorder() as rec:
-                res = train_mod.train(cfg, mesh=mesh if placed else None,
-                                      **kw)
-            ends = rec.ends
-            runs.setdefault(placed, []).append(dict(
-                res=res, losses=rec.losses, launches=_launches(counters),
-                calls=rules.calls["shard_constraint"],
-                ms=(ends[-1] - ends[0]) * 1e3 / (len(ends) - 1)))
+        kinds = {"placed": (mesh, None), "placed_eager": (mesh, False),
+                 "unplaced": (None, None)}
+        for kind in ("unplaced", "placed", "placed_eager", "placed_eager",
+                     "placed", "unplaced"):
+            m, graph = kinds[kind]
+            r = mesh_run(cfg, m, counters, graph=graph, **kw)
+            ends = r["ends"]
+            r["ms"] = (ends[-1] - ends[0]) * 1e3 / (len(ends) - 1)
+            res = r.pop("res")
+            r["graph"] = res.get("step_graph")
+            if kind not in runs:        # the first run of a kind is compared
+                r["params"] = _full_params(res)
+            del res
+            runs.setdefault(kind, []).append(r)
+        want = check_mesh_turns(runs, cfg, steps, card)
+        full = mesh_full_depth(mesh, card, counters)
     finally:
         dist.destroy_process_group()
         tmp.cleanup()
-    plain, placed = runs[False][0], runs[True][0]
-    same = (plain["losses"] == placed["losses"] and all(
-        torch.equal(a, b.full_tensor()) for a, b in zip(
-            tree_leaves(plain["res"]["params"]),
-            tree_leaves(placed["res"]["params"]))))
-    want = train_plan(cfg, q=1, steps=MESH_TRAIN["steps"])["launches"]
-    calls = mesh_constraint_plan(cfg, MESH_TRAIN["steps"])
-    log(f"phase 14 (a): {MESH_TRAIN['arch']} full width cut to "
-        f"{cfg.n_layers} layers, {MESH_TRAIN['steps']} cascaded steps of "
-        f"{MESH_TRAIN['batch']} x {MESH_TRAIN['seq']} tokens on a one-rank "
-        f"NCCL (1, 1) mesh, DTensor parameters: losses {placed['losses']}; "
-        f"losses and params bitwise equal to the run with no mesh: {same}")
-    log(f"phase 14 (a): launches with the mesh {placed['launches']}, "
-        f"without {plain['launches']}, derived {want}; shard_constraint "
-        f"calls {placed['calls']} (derived {calls}: {MESH_TRAIN['steps']} "
-        f"x [2 forwards x (2 + 4 a layer) + 4 a layer recomputed]), "
-        f"without a mesh {plain['calls']}")
-    log(f"phase 14 (a): ms a step (host clock after a synchronise, steps "
-        f"1..{MESH_TRAIN['steps'] - 1}) with the mesh "
-        f"{[round(r['ms'], 3) for r in runs[True]]}, without "
-        f"{[round(r['ms'], 3) for r in runs[False]]} (in turns: without, "
-        f"with, with, without) on {card}")
-    if not same:
-        raise AssertionError("the placed run differs from the unplaced one")
-    for r in runs[True] + runs[False]:
-        if {k: r["launches"][k] for k in want} != want:
-            raise AssertionError(f"phase 14 (a) launches {r['launches']}, "
-                                 f"want {want}")
-    if placed["calls"] != calls or plain["calls"] != 0:
-        raise AssertionError(f"shard_constraint calls {placed['calls']} "
-                             f"and {plain['calls']}, want {calls} and 0")
     for k, n in want.items():
-        rows[k]["launches"] += 2 * n
+        rows[k]["launches"] += 2 * n + full["launches"][k]
         rows[k].setdefault("launches_by_path", {})[
-            "production mesh (1, 1), 2 runs"] = 2 * n
+            "production mesh (1, 1), 2 placed captured runs"] = 2 * n
+        rows[k]["launches_by_path"][
+            "production mesh (1, 1), full depth"] = full["launches"][k]
+        rows[k].setdefault("replayed_by_path", {})[
+            "production mesh (1, 1), full depth"] = full["replayed"].get(k, 0)
+
+
+def check_mesh_turns(runs, cfg, steps, card) -> dict:
+    """Phase 14 (a)'s turns at 4 layers, logged and held: the placed
+    captured run bitwise to the placed eager run and to the unplaced
+    captured run; every run's launches (the replayed share) and
+    ``shard_constraint`` calls equal to their derivation. Returns the
+    derived launches of one run."""
+    placed = runs["placed"][0]
+    same = {kind: runs[kind][0]["losses"] == placed["losses"] and all(
+        torch.equal(a, b) for a, b in zip(runs[kind][0]["params"],
+                                          placed["params"]))
+        for kind in ("placed_eager", "unplaced")}
+    want = train_plan(cfg, q=1, steps=steps)["launches"]
+    replay_want = {k: n for k, n in train_plan(
+        cfg, q=1, steps=steps - 1)["launches"].items() if n}
+    calls = {"placed": mesh_constraint_plan(cfg, steps, captured=True),
+             "placed_eager": mesh_constraint_plan(cfg, steps),
+             "unplaced": 0}
+    log(f"phase 14 (a): {MESH_TRAIN['arch']} full width cut to "
+        f"{cfg.n_layers} layers, {steps} cascaded steps of "
+        f"{MESH_TRAIN['batch']} x {MESH_TRAIN['seq']} tokens on a one-rank "
+        f"NCCL (1, 1) mesh, DTensor parameters, through the captured step: "
+        f"losses {placed['losses']}; losses and params bitwise equal to the "
+        f"placed eager run's {same['placed_eager']} and to the unplaced "
+        f"captured run's {same['unplaced']}")
+    for kind in ("placed", "unplaced"):
+        g = runs[kind][0]["graph"]
+        log(f"phase 14 (a): the {kind} step's graph: capture "
+            f"{g['capture_s'][0]:.3f} s, {g['nodes'][0]} nodes "
+            f"({g['kernel_nodes'][0]} kernel nodes), {g['replays'][0]} "
+            f"replays")
+    log(f"phase 14 (a): launches placed captured {placed['launches']} "
+        f"({placed['replayed']} replayed), placed eager "
+        f"{runs['placed_eager'][0]['launches']}, unplaced "
+        f"{runs['unplaced'][0]['launches']}; derived {want} ({replay_want} "
+        f"replayed); shard_constraint calls placed captured "
+        f"{placed['calls']} (derived {calls['placed']}: (1 + 1) x [2 "
+        f"forwards x (2 + 4 a layer) + 4 a layer recomputed], step 0 and "
+        f"the capture), placed eager {runs['placed_eager'][0]['calls']} "
+        f"(derived {calls['placed_eager']}: {steps} steps), unplaced "
+        f"{runs['unplaced'][0]['calls']}")
+    log(f"phase 14 (a): ms a step (host clock after a synchronise, steps "
+        f"1..{steps - 1}) placed captured "
+        f"{[round(r['ms'], 3) for r in runs['placed']]}, placed eager "
+        f"{[round(r['ms'], 3) for r in runs['placed_eager']]}, unplaced "
+        f"captured {[round(r['ms'], 3) for r in runs['unplaced']]} (in "
+        f"turns: unplaced, placed, placed eager, placed eager, placed, "
+        f"unplaced) on {card}")
+    if not all(same.values()):
+        raise AssertionError(f"the placed captured run differs: {same}")
+    for kind, rs in runs.items():
+        for r in rs:
+            if {k: r["launches"][k] for k in want} != want:
+                raise AssertionError(f"phase 14 (a) {kind} launches "
+                                     f"{r['launches']}, want {want}")
+            if r["calls"] != calls[kind]:
+                raise AssertionError(f"phase 14 (a) {kind} shard_constraint "
+                                     f"calls {r['calls']}, want "
+                                     f"{calls[kind]}")
+            if r["replayed"] != ({} if kind == "placed_eager"
+                                 else replay_want):
+                raise AssertionError(f"phase 14 (a) {kind} replayed "
+                                     f"{r['replayed']}, want {replay_want}")
+    return want
+
+
+def mesh_full_depth(mesh, card, counters) -> dict:
+    """``train(mesh=)`` at Phi-3-mini's full width and depth on the (1,
+    1) mesh, through the captured step, as phase 5 times the unplaced
+    step: TRAIN_STEPS steps of TRAIN's batch, steps TRAIN_WARMUP ..
+    TRAIN_STEPS - 2 timed, the last a profiled replay; losses finite and
+    falling, launches and ``shard_constraint`` calls equal to their
+    derivation."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MESH_TRAIN["arch"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r = mesh_run(cfg, mesh, counters, profile_at=TRAIN_STEPS - 1,
+                 steps=TRAIN_STEPS, use_reduced=False, log_every=1000,
+                 **TRAIN)
+    wall = time.perf_counter() - t0
+    timed = r["ends"][TRAIN_WARMUP - 1:TRAIN_STEPS - 1]
+    ms = (timed[-1] - timed[0]) * 1e3 / (len(timed) - 1)
+    stats = r["res"]["step_graph"]
+    want = train_plan(cfg, q=1, steps=TRAIN_STEPS)["launches"]
+    replay_want = {k: n for k, n in train_plan(
+        cfg, q=1, steps=TRAIN_STEPS - 1)["launches"].items() if n}
+    calls = mesh_constraint_plan(cfg, TRAIN_STEPS, captured=True)
+    losses = r["losses"]
+    log(f"phase 14 (a): {MESH_TRAIN['arch']} at full width and depth "
+        f"({cfg.n_layers} layers) on the (1, 1) mesh, placed, through the "
+        f"captured step: {TRAIN_STEPS} steps of {TRAIN['batch']} x "
+        f"{TRAIN['seq']} tokens, {ms:.3f} ms a step (host clock after a "
+        f"synchronise, steps {TRAIN_WARMUP}..{TRAIN_STEPS - 2}; step "
+        f"{TRAIN_STEPS - 1} profiled) on {card}; peak memory "
+        f"{r['peak'] / 2**30:.2f} GiB above what was held; whole call "
+        f"{wall:.2f} s (weights drawn and placed included); capture "
+        f"{stats['capture_s'][0]:.3f} s, {stats['nodes'][0]} nodes "
+        f"({stats['kernel_nodes'][0]} kernel nodes), "
+        f"{stats['replays'][0]} replays; launches {r['launches']} "
+        f"({r['replayed']} replayed), derived {want} ({replay_want}); "
+        f"shard_constraint calls {r['calls']} (derived {calls}); losses "
+        f"{[round(x, 4) for x in losses]}")
+    log_profile(f"phase 14 (a) profile, step {TRAIN_STEPS - 1} of the "
+                f"placed {MESH_TRAIN['arch']} (a replay) on {card}",
+                r["profile"])
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all() or \
+            not float(np.mean(losses[-5:])) < losses[0]:
+        raise AssertionError(f"placed full-depth losses {losses}")
+    if {k: r["launches"][k] for k in want} != want or \
+            r["replayed"] != replay_want or r["calls"] != calls:
+        raise AssertionError(f"placed full depth: launches {r['launches']} "
+                             f"({r['replayed']} replayed), calls "
+                             f"{r['calls']}; want {want} ({replay_want}), "
+                             f"{calls}")
+    out = dict(ms=ms, peak=r["peak"], wall=wall, launches=r["launches"],
+               replayed=r["replayed"], busy=r["profile"]["busy_us"]
+               / r["profile"]["wall_us"])
+    del r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def local_param_bytes(cfg, seq_len) -> int:
@@ -7020,7 +7477,8 @@ def parse_phases(argv) -> set:
     if not argv:
         return set(range(1, 16))
     if len(argv) != 2 or argv[0] != "--phases":
-        raise SystemExit("usage: python3 chip_smoke.py [--phases N,N,...]")
+        raise SystemExit("usage: python3 chip_smoke.py [--phases N,N,...] "
+                         f"| {SHARDED_RANKS} D")
     return {1} | {int(n) for n in argv[1].split(",")}
 
 
@@ -7028,6 +7486,13 @@ def main() -> int:
     t_start = time.perf_counter()
     if sys.argv[1:2] == [POP_WORKER]:
         return pop_worker(sys.argv[2:])
+    if sys.argv[1:2] == [SHARDED_RANK]:
+        return sharded_rank(sys.argv[2:])
+    if sys.argv[1:2] == [SHARDED_RANKS] and len(sys.argv) == 3:
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            return 1
+        return sharded_ranks(int(sys.argv[2]))
     phases = parse_phases(sys.argv[1:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one "

@@ -130,8 +130,9 @@ class EngineResult:
     epsilon: float = math.inf
     delta: float = 0.0
     # the captured round's CUDA graph (a run on the card): capture_s,
-    # nodes, kernel_nodes, replays, replay_s (the replays' host time,
-    # synchronised) and launches_a_replay; None where the rounds looped
+    # nodes, kernel_nodes, node_kinds, kernels (its kernel nodes by
+    # name), replays, replay_s (the replays' host time, synchronised) and
+    # launches_a_replay; None where the rounds looped
     round_graph: Optional[dict] = None
 
 
@@ -289,14 +290,29 @@ def _make_runner(adapter: ModelAdapter, transport, vfl: VFLConfig,
     captured as a CUDA graph (:class:`repro_torch.graphs.StepGraph`; a
     failed capture raises) and replayed T - 1 times, each replay after
     :meth:`RoundDraws.fill` has put round t's draws into its buffers;
-    ``stats`` (a dict) then takes the graph's capture seconds, nodes,
-    replays and the replays' host time. On the CPU, under the certifier's
-    trace, with ``graph=False`` (an internal switch: no config field,
-    flag or entry point sets it) and on the sharded path the same body
-    runs in a Python loop. The sharded round (``mesh``) stays a loop:
-    its NCCL collectives are not captured (ROADMAP 1.1(b)). Either form
-    runs the same kernels in the same order on the same draws, so the
-    results are bitwise equal."""
+    ``stats`` (a dict) then takes the graph's capture seconds, nodes (by
+    kind, and its kernels by name), replays and the replays' host time.
+    On the CPU (gloo included), under the certifier's trace and with
+    ``graph=False`` (an internal switch: no config field, flag or entry
+    point sets it) the same body runs in a Python loop. Either form runs
+    the same kernels in the same order on the same draws, so the results
+    are bitwise equal.
+
+    The sharded round (``mesh``, NCCL on the card) is captured as the
+    unsharded one is, as the JAX engine's ``lax.scan`` compiles its
+    ``shard_map``ped body: its two all-gathers and its all-reduce a
+    client leaf are recorded in the graph with the kernels around them
+    and replayed with them. Round 0 runs eagerly first, so the NCCL
+    communicator exists before the capture (a lazy first collective
+    would create it inside one). The body's collectives are the
+    synchronous ``torch.distributed`` calls, and the card's torch (2.11)
+    captures them in its default (global) capture mode with nothing set
+    on the process group. At one rank NCCL records no kernel: it copies
+    an out-of-place gather and does nothing for an in-place all-reduce.
+    The body reads nothing to the host: the shard index and rows are host
+    arithmetic on the mesh (:func:`_shard_rows`), and its device fills
+    take no host constant (a capture refuses copies from pageable host
+    memory)."""
     if sync:
         step_fn = _make_sync_step(adapter, transport, vfl)
     elif mesh is not None:
@@ -356,14 +372,14 @@ def _make_runner(adapter: ModelAdapter, transport, vfl: VFLConfig,
             st["maxd"].index_copy_(0, t, delays.max().reshape(1))
             t.add_(1)
 
-        captured = (graph and T > 1 and mesh is None
-                    and x_parts.device.type == "cuda" and not marks.tracing())
+        captured = (graph and T > 1 and x_parts.device.type == "cuda"
+                    and not marks.tracing())
         if captured:
             rd.fill(0)
             g = graphs.StepGraph(body, x_parts.device)
             g.timed_replays(T - 1, lambda i: rd.fill(i + 1))
             if stats is not None:
-                stats.update(g.stats())
+                stats.update(g.stats(), kernels=g.kernel_names())
             del g
         else:
             for t in range(T):
@@ -662,8 +678,10 @@ def _make_sharded_step(adapter: ModelAdapter, transport, vfl: VFLConfig,
         # each global row is written by exactly one shard and the sum of
         # one value plus zeros is float-exact (== index_put_); every rank
         # holds the whole block, so the rows' mask needs no collective
+        # (a fill, not ``mask[m_blk] = True``: that copies a host scalar,
+        # which a capture refuses)
         mask = torch.zeros(M, dtype=torch.bool, device=x_parts.device)
-        mask[m_blk] = True
+        mask.index_fill_(0, m_blk, True)
 
         def replicate_rows(all_, new):
             buf = torch.zeros_like(all_)

@@ -56,6 +56,7 @@ from typing import Optional, Protocol, Sequence
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 from torch.profiler import record_function
 
 from repro_torch.core.partition import tree_leaves, tree_map, tree_unflatten
@@ -299,6 +300,24 @@ class RowDraws:
                             device=self.device) for r in range(n_rows)])
 
 
+def copy_into(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``src``'s values written into ``dst``, a static buffer. Two
+    DTensors copy their local shards (``to_local()``): the buffer's mesh
+    and placements are ``src``'s, so nothing moves between ranks and
+    DTensor's dispatch is not entered; a DTensor placed otherwise is
+    refused."""
+    if isinstance(dst, DTensor) or isinstance(src, DTensor):
+        if not (isinstance(dst, DTensor) and isinstance(src, DTensor)
+                and dst.device_mesh == src.device_mesh
+                and dst.placements == src.placements):
+            raise ValueError(
+                f"cannot refill a buffer placed "
+                f"{getattr(dst, 'placements', None)} from one placed "
+                f"{getattr(src, 'placements', None)}")
+        dst, src = dst.to_local(), src.to_local()
+    return dst.copy_(src)
+
+
 def _counts(args) -> tuple:
     """The integer arguments of a draw call (rows, lanes, lengths)."""
     return tuple(a for a in args if isinstance(a, int))
@@ -319,7 +338,9 @@ class RoundDraws:
     ``TorchDraws`` generator advances as the eager step advances it, and
     any source (``RowDraws``, ``StepDraws``, an injected replay) answers
     what it would answer the eager step. :meth:`done` closes a round.
-    ``t`` is the round :meth:`fill` last set.
+    ``t`` is the round :meth:`fill` last set. The draws of a placed run
+    (:class:`PlacedDraws`) are DTensors: their buffers are DTensors placed
+    as the draws are, refilled shard by shard (:func:`copy_into`).
 
     The certifier traces over :class:`FilledDraws` instead, and cannot
     take this class: its tree walk (``analysis.ifc._flatten`` and
@@ -344,7 +365,7 @@ class RoundDraws:
         if not self.recorded:
             return
         for (name, args), buf in zip(self.calls, self.buffers):
-            tree_map(lambda b, a: b.copy_(a), buf,
+            tree_map(copy_into, buf,
                      getattr(self.source, name)(self.t, *args))
 
     def done(self) -> None:

@@ -64,16 +64,19 @@ trees every call and ``fn`` updates them in place.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import gc
 import time
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.profiler import record_function
 
 from repro_torch.analysis import marks
-from repro_torch.core.draws import RoundDraws
+from repro_torch.core.draws import RoundDraws, copy_into
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.ssd_chunk import ops as ssd_ops
@@ -111,8 +114,21 @@ def _add(delta: Dict[str, Dict[str, int]], times: int, *targets) -> None:
 # where its replays start
 REPLAYS_START = "graph replays start"
 
-# CUgraphNodeType of a kernel node (the CUDA driver API)
-_KERNEL_NODE = 0
+# CUgraphNodeType (the CUDA driver API), by value
+_NODE_KINDS = ("kernel", "memcpy", "memset", "host", "graph", "empty",
+               "wait_event", "event_record", "ext_semas_signal",
+               "ext_semas_wait", "mem_alloc", "mem_free", "batch_mem_op",
+               "conditional")
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """``CUDA_KERNEL_NODE_PARAMS_v2`` of ``cuda.h`` (CUDA 12)."""
+    _fields_ = [("func", ctypes.c_void_p)] + [
+        (f, ctypes.c_uint) for f in (
+            "gridDimX", "gridDimY", "gridDimZ", "blockDimX", "blockDimY",
+            "blockDimZ", "sharedMemBytes")] + [
+        (f, ctypes.c_void_p) for f in ("kernelParams", "extra", "kern",
+                                       "ctx")]
 
 
 @functools.cache
@@ -125,27 +141,81 @@ def _driver():
     return lib
 
 
-def node_counts(raw_graph: int) -> Tuple[int, int]:
-    """(nodes, kernel nodes) of a captured ``cudaGraph_t``, from the
-    driver's ``cuGraphGetNodes``."""
+def _check(err: int, call: str) -> None:
+    if err:
+        raise RuntimeError(f"{call} failed with CUDA error {err}")
+
+
+def _nodes(raw_graph: int) -> list:
+    """The nodes of a captured ``cudaGraph_t`` with their kinds (an index
+    of :data:`_NODE_KINDS`), from the driver's ``cuGraphGetNodes``."""
     lib = _driver()
     n = ctypes.c_size_t(0)
-    err = lib.cuGraphGetNodes(raw_graph, None, ctypes.byref(n))
-    if err:
-        raise RuntimeError(f"cuGraphGetNodes failed with CUDA error {err}")
+    _check(lib.cuGraphGetNodes(raw_graph, None, ctypes.byref(n)),
+           "cuGraphGetNodes")
     nodes = (ctypes.c_void_p * n.value)()
-    err = lib.cuGraphGetNodes(raw_graph, nodes, ctypes.byref(n))
-    if err:
-        raise RuntimeError(f"cuGraphGetNodes failed with CUDA error {err}")
-    kinds = ctypes.c_int(0)
-    kernels = 0
+    _check(lib.cuGraphGetNodes(raw_graph, nodes, ctypes.byref(n)),
+           "cuGraphGetNodes")
+    kind = ctypes.c_int(0)
+    out = []
     for node in nodes:
-        err = lib.cuGraphNodeGetType(node, ctypes.byref(kinds))
-        if err:
-            raise RuntimeError(f"cuGraphNodeGetType failed with CUDA error "
-                               f"{err}")
-        kernels += kinds.value == _KERNEL_NODE
-    return n.value, kernels
+        _check(lib.cuGraphNodeGetType(node, ctypes.byref(kind)),
+               "cuGraphNodeGetType")
+        out.append((node, kind.value))
+    return out
+
+
+def node_kinds(raw_graph: int) -> Dict[str, int]:
+    """A captured graph's nodes counted by kind ("kernel", "memcpy",
+    "memset", ...)."""
+    counts: Dict[str, int] = {}
+    for _, k in _nodes(raw_graph):
+        name = _NODE_KINDS[k] if k < len(_NODE_KINDS) else str(k)
+        counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def kernel_names(raw_graph: int) -> Dict[str, int]:
+    """A captured graph's kernel nodes counted by their function's
+    (mangled) name, from ``cuGraphKernelNodeGetParams_v2`` and
+    ``cuFuncGetName`` (``cuKernelGetName`` for a node that names its
+    kernel by a ``CUkernel`` handle alone; CUDA 12.3 and later)."""
+    lib = _driver()
+    params, name = _KernelNodeParams(), ctypes.c_char_p()
+    counts: Dict[str, int] = {}
+    for node, k in _nodes(raw_graph):
+        if k != 0:
+            continue
+        _check(lib.cuGraphKernelNodeGetParams_v2(
+            ctypes.c_void_p(node), ctypes.byref(params)),
+            "cuGraphKernelNodeGetParams_v2")
+        if params.func:
+            _check(lib.cuFuncGetName(ctypes.byref(name),
+                                     ctypes.c_void_p(params.func)),
+                   "cuFuncGetName")
+        else:
+            _check(lib.cuKernelGetName(ctypes.byref(name),
+                                       ctypes.c_void_p(params.kern)),
+                   "cuKernelGetName")
+        key = name.value.decode()
+        counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+@contextlib.contextmanager
+def _no_collection():
+    """Python's cyclic garbage collector off inside: a collection that
+    frees a dead graph during a capture (one left in a reference cycle)
+    destroys a CUDA graph, which a capture forbids, and the capture
+    fails. The garbage waits for the next collection after the
+    capture."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class StepGraph:
@@ -156,10 +226,13 @@ class StepGraph:
 
     ``capture_s`` is the capture and instantiation's host time (the
     warm-up step is not in it); ``replay_s`` the host time of
-    :meth:`timed_replays`; ``nodes`` and ``kernel_nodes`` count the
-    captured graph; ``captured`` is the kernel launches one replay makes,
+    :meth:`timed_replays`; ``nodes``, ``kernel_nodes`` and ``node_kinds``
+    count the captured graph (:meth:`kernel_names` names its kernels);
+    ``captured`` is the kernel launches one replay makes,
     counter by counter. The graph keeps ``body``, and so every tensor it
     closes over, alive: a replay reads them where they were captured.
+    The capture runs with Python's cyclic garbage collector off
+    (:func:`_no_collection`).
     ``free_cache`` hands the warm-up's freed temporaries back to the card
     (``torch.cuda.empty_cache()``) before the capture, so the graph's
     pool can take their memory (a training step's graph, whose warm-up
@@ -182,7 +255,7 @@ class StepGraph:
         tic = time.perf_counter()
         before = _snapshot()
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(self.graph, pool=pool):
+        with _no_collection(), torch.cuda.graph(self.graph, pool=pool):
             body()
         after = _snapshot()
         self.captured = {
@@ -190,8 +263,9 @@ class StepGraph:
                     for name in counts}
             for group, counts in after.items()}
         _add(self.captured, -1, COUNTERS)       # recorded, not run
-        self.nodes, self.kernel_nodes = node_counts(
-            self.graph.raw_cuda_graph())
+        self.node_kinds = node_kinds(self.graph.raw_cuda_graph())
+        self.nodes = sum(self.node_kinds.values())
+        self.kernel_nodes = self.node_kinds.get("kernel", 0)
         self.graph.instantiate()
         self.capture_s = time.perf_counter() - tic
         self.replays = 0
@@ -232,9 +306,15 @@ class StepGraph:
     def stats(self) -> dict:
         """The graph's readings as a result dict carries them."""
         return {"capture_s": self.capture_s, "nodes": self.nodes,
-                "kernel_nodes": self.kernel_nodes, "replays": self.replays,
+                "kernel_nodes": self.kernel_nodes,
+                "node_kinds": self.node_kinds, "replays": self.replays,
                 "replay_s": self.replay_s,
                 "launches_a_replay": self.launches()}
+
+    def kernel_names(self) -> Dict[str, int]:
+        """The captured graph's kernel nodes counted by function name
+        (:func:`kernel_names`)."""
+        return kernel_names(self.graph.raw_cuda_graph())
 
     def launches(self) -> Dict[str, int]:
         """One replay's kernel launches, by kernel (routes left out)."""
@@ -245,12 +325,17 @@ class StepGraph:
 
 def signature(tree):
     """The key of a call's arguments: the tree's structure, each tensor
-    leaf's shape, dtype and device, and every other leaf as it is (a
-    Python int, a string, None)."""
+    leaf's shape, dtype and device, each DTensor leaf's global shape,
+    dtype, device mesh and placements (``jax.jit``'s cache keys on
+    shardings), and every other leaf as it is (a Python int, a string,
+    None)."""
     if isinstance(tree, dict):
         return ("dict",) + tuple((k, signature(tree[k])) for k in sorted(tree))
     if isinstance(tree, (tuple, list)):
         return (type(tree).__name__,) + tuple(signature(x) for x in tree)
+    if isinstance(tree, DTensor):
+        return ("dtensor", tuple(tree.shape), tree.dtype, tree.device_mesh,
+                tuple(tree.placements))
     if isinstance(tree, torch.Tensor):
         return ("tensor", tuple(tree.shape), tree.dtype, tree.device)
     return ("value", tree)
@@ -268,7 +353,8 @@ class GraphedFn:
     ``donate`` are the caller's own trees, read and written where they
     are (the caller passes the same trees every call; a tree passed anew
     is copied into the captured one); every other argument is copied into
-    a static buffer of the key before the call.
+    a static buffer of the key before the call (a DTensor's local shard
+    into the buffer's: the key fixed its mesh and placements).
 
     The first call of a key runs ``fn`` eagerly on those buffers, its
     draws recorded through a :class:`RoundDraws` over ``draws``, and
@@ -333,11 +419,13 @@ class _Keyed:
         self.leaves = _tensors(self.inputs)
         self.draws = RoundDraws(draws)
         self.draws.fill(t)
-        outs = []
+        # the body closes over neither the key nor its owner, so a graph
+        # is freed with its GraphedFn, not at a later garbage collection
+        fn, inputs, rd, outs = owner.fn, self.inputs, self.draws, []
 
         def body():
-            outs.append(owner.fn(*self.inputs, self.draws.t, self.draws))
-            self.draws.done()
+            outs.append(fn(*inputs, rd.t, rd))
+            rd.done()
         self.body, self.outs = body, outs
         self.graph = None
         if owner.capture:
@@ -352,7 +440,7 @@ class _Keyed:
     def __call__(self, args, t: int, draws):
         for dst, src in zip(self.leaves, _tensors(args)):
             if src is not dst:
-                dst.copy_(src)
+                copy_into(dst, src)
         self.draws.source = draws
         self.draws.fill(t)
         if self.graph is None:

@@ -46,7 +46,11 @@ the parameters and optimizer state in place, and on the card runs the
 first step eagerly, captures the step as a CUDA graph and replays it
 every later step (the result's ``step_graph`` holds its capture seconds,
 nodes and replays); on the CPU the same step loops on its static
-buffers. A placed run (``mesh``, ``--production-mesh``) steps eagerly.
+buffers. A placed run (``mesh``, ``--production-mesh``) is compiled the
+same way, as the JAX driver jits its step under the mesh's shardings:
+its parameters, optimizer state, batch and draws are DTensors, the
+graph is keyed by their placements, and DTensor's sharding propagation
+and Python dispatch run at step 0 and at the capture only.
 
 Ported from the JAX package's ``launch/train.py``. Step t's ZOO
 directions and DP noise come from ``StepDraws(seed)``, seeded by
@@ -146,6 +150,9 @@ def train(arch: Union[str, ModelConfig] = "", *, steps: int = 100,
     (1, 1) NCCL mesh on one card). A placed run draws every batch,
     direction and noise whole on each rank, then places it, so its draws
     are bitwise the unplaced run's; it neither resumes nor checkpoints.
+    Its step is the unplaced run's compiled step: on the card step 0
+    runs eagerly through DTensor and the step is then captured and
+    replayed (the result's ``step_graph``); on the CPU (gloo) it loops.
     ``keep_params`` puts the final parameters (DTensors on a mesh) in the
     result under ``"params"``, for a caller that compares two runs."""
     if production_mesh and mesh is None:
@@ -198,9 +205,9 @@ def train(arch: Union[str, ModelConfig] = "", *, steps: int = 100,
     model = fed.model
     opt = sgd(make_schedule(schedule, lr, total_steps=sched_total))
     # the compiled step (jax.jit(step_fn, donate_argnums=(0, 1)) in the
-    # JAX driver): captured on the card after its first call; a placed
-    # run steps eagerly
-    step_fn = fed.sync_step(opt, graph=mesh is None)
+    # JAX driver): captured on the card after its first call, placed or
+    # not; the in-place update writes placed parameters where they are
+    step_fn = fed.sync_step(opt, graph=True)
     if not resume:
         params = common.materialize(
             model.param_specs, torch.Generator(dev).manual_seed(seed),

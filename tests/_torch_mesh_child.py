@@ -10,8 +10,14 @@ here, never in a pytest worker.
 each case of :data:`CASES` it runs ``launch.train.train(cfg, mesh=)`` for
 1 and for 2 cascaded steps on the CPU, counts the ``shard_constraint``
 calls, and keeps every leaf's local shape and its full value
-(``full_tensor()``); it also keeps ``make_production_mesh``'s refusal on
-this group. Rank 0 writes all of it to OUT (``torch.save``).
+(``full_tensor()``); then 2 steps of each case and of the DP case
+(:data:`DP_CASE`) through the compiled step ``train`` builds (a
+``graphs.GraphedFn``: its loop form on the CPU) and through that step's
+body called bare on the run's own trees. It also keeps
+``make_production_mesh``'s refusal on this group and ``graphs.signature``
+of DTensors placed ``Shard(0)``, ``Replicate()`` and ``Shard(0)`` again,
+and what ``copy_into`` says to a buffer refilled from another placement.
+Rank 0 writes all of it to OUT (``torch.save``).
 
 ``fake``: joins a fake process group (one process standing for 256, 512
 or 4 ranks) and writes to OUT (JSON): with KIND ``placements``, the
@@ -21,6 +27,7 @@ with ``comms``, ``utils.comms``' records of known redistributes; with
 ``dryrun``, ``launch.dryrun.run_one`` of reduced phi3 at ``train_4k``
 with the full depth traced beside the fit.
 """
+import contextlib
 import json
 import sys
 
@@ -38,6 +45,38 @@ CASES = (("phi3", "phi3-mini-3.8b", {}),
 DRYRUN_LAYERS = 4
 TRAIN = dict(batch=4, seq=32, use_reduced=False, device="cpu",
              log_every=100, keep_params=True)
+# the DP loss channel on phi3 (σ ≈ 0.48: the clean and perturbed losses
+# stay inside the clip)
+DP_CASE = ("phi3_dp", "phi3-mini-3.8b", {})
+DP_NOISE = dict(clip=10.0, epsilon=100.0, delta=1e-5)
+
+
+def case_noise(name):
+    from repro_torch.core.privacy import GaussianLossChannel
+    return GaussianLossChannel(**DP_NOISE) if name == DP_CASE[0] else None
+
+
+@contextlib.contextmanager
+def built_steps(bare=False):
+    """Every step ``Federation.sync_step`` builds inside, recorded in the
+    yielded list; ``bare=True`` hands out the compiled step's body (the
+    step with the in-place optimizer, called on the caller's trees)
+    instead of the ``graphs.GraphedFn`` over it."""
+    from repro_torch import graphs
+    from repro_torch.federation import session
+    inner, graphed, built = (session.Federation.sync_step, graphs.GraphedFn,
+                             [])
+
+    def sync_step(fed, optimizer, **kw):
+        built.append(inner(fed, optimizer, **kw))
+        return built[-1]
+    session.Federation.sync_step = sync_step
+    if bare:
+        graphs.GraphedFn = lambda fn, device, **kw: fn
+    try:
+        yield built
+    finally:
+        session.Federation.sync_step, graphs.GraphedFn = inner, graphed
 
 
 def case_cfg(arch, overrides):
@@ -75,6 +114,16 @@ def train_rank(rank, world, store, out):
                                  for p, t in leaves.items()}
             r["params"] = {p: t.full_tensor() for p, t in leaves.items()}
             res[f"{name}/{steps}"] = r
+    for name, arch, over in CASES + (DP_CASE,):
+        for form in ("graphed", "bare"):
+            with built_steps(bare=form == "bare") as built:
+                r = train(case_cfg(arch, over), steps=2, mesh=mesh,
+                          noise=case_noise(name), **TRAIN)
+            r["step_type"] = [type(s).__name__ for s in built]
+            r["params"] = {p: t.full_tensor()
+                           for p, t in _paths(r.pop("params"))}
+            res[f"{name}/{form}"] = r
+    res["signature"] = _signatures(mesh)
     try:
         make_production_mesh(device="cpu")
         res["production_mesh"] = "built"
@@ -84,6 +133,34 @@ def train_rank(rank, world, store, out):
         torch.save(res, out)
     dist.barrier()
     dist.destroy_process_group()
+
+
+def _signatures(mesh):
+    """``graphs.signature`` of (8, 4) f32 DTensors placed Shard(0),
+    Replicate() and Shard(0) on ``mesh`` (their reprs, and whether the
+    first equals each other), ``copy_into``'s refusal of a Shard(0)
+    buffer refilled from a replicated one, and a zeroed Shard(0) buffer
+    refilled from a Shard(0) tensor (its full value)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch import graphs
+    from repro_torch.core.draws import copy_into
+    x = torch.arange(32, dtype=torch.float32).reshape(8, 4)
+    placed = [distribute_tensor(x, mesh, [pl, Replicate()],
+                                src_data_rank=None)
+              for pl in (Shard(0), Replicate(), Shard(0))]
+    keys = [graphs.signature({"batch": t}) for t in placed]
+    out = {"keys": [repr(k) for k in keys],
+           "shard_vs_replicate": keys[0] == keys[1],
+           "shard_vs_shard": keys[0] == keys[2]}
+    try:
+        copy_into(placed[0], placed[1])
+    except ValueError as e:
+        out["refused"] = str(e)
+    buf = placed[2].clone()
+    buf.zero_()
+    copy_into(buf, placed[0])
+    out["copied"] = buf.full_tensor()
+    return out
 
 
 def _join_fake(world):

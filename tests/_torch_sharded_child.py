@@ -14,6 +14,7 @@ compares. A case is a dict of :data:`DEFAULTS`' keys; its ``kind``:
   (``async_engine._rounds``: the table, gathered from every shard, and the
   delays the result does not carry), on ``TorchDraws`` or, with
   ``draws="jax"``, on ``repro``'s threefry draws from ``repro``'s params;
+  a sharded run also runs the loop with ``graph=False`` (``graph_off``);
 * ``resume``: a run, ``fed.save`` (rank 0), ``Federation.restore`` on
   every rank (the mesh from the manifest's ``mesh_shards``), a second run
   of the restored session, and the same second run without the break;
@@ -96,17 +97,25 @@ def _gather_table(fed, table):
     return torch.cat(parts)
 
 
-def rounds(fed, params, xp, y, draws):
-    """``Federation.run`` and the same rounds through the round loop:
-    the dict ``test_torch_support.assert_round_parity`` reads."""
+def round_loop(fed, params, xp, y, draws, graph=True):
+    """The run's rounds through the engine's round loop
+    (``async_engine._rounds``; ``graph=False`` is its internal switch to
+    the eager loop): the params, the whole table, the delays, losses and
+    per-round max delays."""
     from repro_torch.core import async_engine
-    res = fed.run(params, xp, y, draws=draws())
     p, x, yt = fed._engine_inputs(params, xp, y)
     (pp, table, delays), (losses, maxd) = async_engine._rounds(
         fed.adapter, fed.transport, fed.vfl, fed.engine, p, x, yt,
-        draws=draws(), mesh=fed.mesh)
-    return {"res": res, "params": pp, "table": _gather_table(fed, table),
+        draws=draws, mesh=fed.mesh, graph=graph)
+    return {"params": pp, "table": _gather_table(fed, table),
             "delays": delays, "losses": losses, "maxd": maxd}
+
+
+def rounds(fed, params, xp, y, draws):
+    """``Federation.run`` and the same rounds through the round loop:
+    the dict ``test_torch_support.assert_round_parity`` reads."""
+    res = fed.run(params, xp, y, draws=draws())
+    return dict(round_loop(fed, params, xp, y, draws()), res=res)
 
 
 def run_case(case, mesh_shards=0):
@@ -161,7 +170,13 @@ def run_case(case, mesh_shards=0):
                 "step": state.step, "mesh_shards": fed2.engine.mesh_shards,
                 "mesh_size": None if fed2.mesh is None else
                 fed2.mesh.size(0)}
-    return rounds(fed, params, xp, y, lambda: make_draws(case))
+    out = rounds(fed, params, xp, y, lambda: make_draws(case))
+    if mesh_shards:
+        # the runner's loop form whatever the graph switch says (gloo:
+        # nothing is captured on the CPU)
+        out["graph_off"] = round_loop(fed, params, xp, y, make_draws(case),
+                                      graph=False)
+    return out
 
 
 def main(argv):

@@ -10,6 +10,9 @@ case for case):
 
 * one shard, block 1 over 25 rounds and block 4 over 15: bitwise the
   unsharded engine;
+* the sharded round loop called with ``graph=True`` (the card captures
+  it; gloo loops it) and with ``graph=False``: bitwise equal, every
+  sharded case;
 * 2 and 4 shards over 8 clients, blocks 4 and 8 (and at 2 shards the
   vafl and zoo-vfl methods, the fused lanes and the DP channel): losses,
   params, the gathered table and the delays bitwise the unsharded run's.
@@ -198,6 +201,23 @@ def test_sharded_equals_unsharded_bitwise(runs, world, name):
     want = child.run_case(case)
     assert np.isfinite(got["res"].losses).all()
     _assert_bitwise(got, want)
+
+
+@pytest.mark.parametrize("world,name", SHARDED)
+def test_sharded_loop_form_ignores_the_graph_switch(runs, world, name):
+    """On gloo the sharded runner loops its round body whether it is
+    called with ``graph=True`` (as ``Federation.run`` calls it: the card
+    would capture the round) or ``graph=False``: the two loops are
+    bitwise equal (and the first is held to the unsharded engine
+    above)."""
+    got = runs[0][world][name]
+    on, off = got, got["graph_off"]
+    for key in ("table", "delays", "losses", "maxd"):
+        assert torch.equal(on[key], off[key]), key
+    a, b = _flat(on["params"]), _flat(off["params"])
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
 
 
 def _repro_rounds(c):

@@ -22,6 +22,12 @@
   is held to the ZOO tolerance.
   Each leaf's local shape is the one ``repro``'s spec gives, and the
   ``shard_constraint`` calls are counted against their derivation;
+* ``train(mesh=)`` builds the compiled step, a ``graphs.GraphedFn`` (on
+  the CPU its loop form: static DTensor buffers, ``RoundDraws`` over
+  ``PlacedDraws`` refilled shard by shard), whose two steps are bitwise
+  the placed eager step's, with and without the DP channel; with it the
+  placed run is held to the unplaced one as the two-step case is;
+  ``graphs.signature`` keys a DTensor by its placements.
 The rules' placements and the no-mesh identity are
 ``test_torch_mesh_rules.py``'s.
 """
@@ -36,7 +42,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_mesh_child import CASES, TRAIN, case_cfg
+from _torch_mesh_child import CASES, DP_CASE, TRAIN, case_cfg, case_noise
 from repro import configs as j_configs
 from repro.models import model_api as j_model_api
 from repro.sharding import rules as j_rules
@@ -55,6 +61,7 @@ MESHES = {"16x16": {"data": 16, "model": 16},
           "2x2": {"data": 2, "model": 2}}
 ZOO_TOL = dict(rtol=2e-3, atol=5e-4)
 NAMES = [c[0] for c in CASES]
+FORMS = NAMES + [DP_CASE[0]]
 
 
 def _paths(tree, path=""):
@@ -88,6 +95,11 @@ def unplaced():
                 r = train(case_cfg(arch, over), steps=steps, **TRAIN)
                 r["params"] = dict(_paths(r["params"]))
                 res[f"{name}/{steps}"] = r
+        name, arch, over = DP_CASE
+        r = train(case_cfg(arch, over), steps=2, noise=case_noise(name),
+                  **TRAIN)
+        r["params"] = dict(_paths(r["params"]))
+        res[f"{name}/2"] = r
     return res
 
 
@@ -233,3 +245,62 @@ def test_shard_constraint_fires_at_its_derived_count(placed, name):
 
 def test_production_mesh_refuses_a_four_rank_group(placed):
     assert "needs 256 ranks" in placed["production_mesh"]
+
+
+def test_train_on_a_mesh_builds_the_compiled_step(placed):
+    """``train(mesh=)`` steps through ``fed.sync_step(opt, graph=True)``,
+    a ``GraphedFn``, as the unplaced run does; its result carries
+    ``step_graph`` only on the card."""
+    for name in FORMS:
+        got = placed[f"{name}/graphed"]
+        assert got["step_type"] == ["GraphedFn"], name
+        assert "step_graph" not in got
+        assert placed[f"{name}/bare"]["step_type"] == ["function"]
+
+
+@pytest.mark.parametrize("name", FORMS)
+def test_placed_compiled_loop_is_bitwise_its_body(placed, name):
+    """Two steps of the compiled placed step's loop form (its static
+    DTensor buffers, the batch copied in and the draws recorded once and
+    refilled shard by shard) are bitwise its body's called bare on the
+    run's own trees: losses, final parameters, wire and DP accounting.
+    (The functional eager step is not held bitwise at (2, 2): it leaves
+    the norm scales, replicated parameters whose gradients over the
+    sharded batch are partial sums, placed Partial(sum), and their
+    next step rounds otherwise; the in-place update stores them back in
+    their own placement.)"""
+    got, want = placed[f"{name}/graphed"], placed[f"{name}/bare"]
+    for key in ("loss_first", "loss_last", "wire_bytes_per_round",
+                "dp_epsilon", "dp_delta"):
+        assert got.get(key) == want.get(key), key
+    assert set(got["params"]) == set(want["params"])
+    for path, w in want["params"].items():
+        assert torch.equal(got["params"][path], w), path
+
+
+def test_placed_compiled_step_with_dp_matches_the_unplaced_steps(placed,
+                                                                 unplaced):
+    """The DP channel's placed compiled step against the unplaced run on
+    the same noise: held as the two-step case is (the loss's rounding in
+    sharded sums, times φ/μ, reaches the client)."""
+    name = DP_CASE[0]
+    got, want = placed[f"{name}/graphed"], unplaced[f"{name}/2"]
+    _check(got, want, "phi3", ZOO_TOL, one_step=False)
+    np.testing.assert_allclose(got["loss_last"], want["loss_last"],
+                               **ZOO_TOL)
+    assert (got["dp_epsilon"], got["dp_delta"]) == (want["dp_epsilon"],
+                                                    want["dp_delta"])
+
+
+def test_signature_keys_dtensors_by_placement(placed):
+    """Two DTensors of one global shape and dtype placed Shard(0) and
+    Replicate() get different ``graphs.signature`` keys (a graph a
+    placement); two placed alike share one. A buffer refills only from
+    its own placement, shard by shard."""
+    sig = placed["signature"]
+    assert not sig["shard_vs_replicate"] and sig["shard_vs_shard"]
+    assert "Shard(dim=0)" in sig["keys"][0]
+    assert "Replicate()" in sig["keys"][1]
+    assert "cannot refill" in sig["refused"]
+    assert torch.equal(sig["copied"],
+                       torch.arange(32, dtype=torch.float32).reshape(8, 4))
