@@ -67,7 +67,11 @@ and prints no result):
    reduced ``from_model_config`` Phi-3 round at ``bench_lm_async``'s
    shape (flash and RMSNorm under the capture, autograd in the server
    update) bitwise graph against eager, its launches held to their
-   derivation; the quickstart's accuracy;
+   derivation; the quickstart's accuracy; a second ``Federation.run`` of
+   the 500 rounds on the same session replays the session's kept round
+   graph (capturing nothing: ``kept``, capture 0.0 s, all 500 rounds
+   replayed) bitwise the first call (losses, params, table, delays), both
+   calls' seconds logged;
 4. the split serve path of two models at full width and depth (bf16,
    random weights from a seed), each through ``launch.serve.serve`` of
    8 requests of 1024 prompt + 128 generated tokens over 2 client parties:
@@ -89,7 +93,11 @@ and prints no result):
    name, equal to the launches the capture recorded) and, for Zamba2, a
    profile of one prefill split by kernel
    family, whose device kernels show every SSD call on the tensor cores
-   (one pre-pass and one scan a call, and no f32-route kernel);
+   (one pre-pass and one scan a call, and no f32-route kernel); a second
+   ``Federation.decode`` of the same prompts and params tree replays the
+   session's kept decode graph (the same graph, all 128 tokens replayed,
+   ``compile_s`` 0.0) with the first call's tokens and final logits
+   bitwise, both calls' seconds logged;
 5. LM training on the card: each differentiable kernel's gradients (flash
    attention f32 and bf16, causal and window 64, d = 96 and 80; RMSNorm on
    both routes; the SSD scan f32 and bf16, at the training shapes) against
@@ -153,11 +161,19 @@ and prints no result):
    to their derivation from the config, the rounds and the admitted
    clients, both kernels held to their plain versions on the first and
    last layer of round 0's server update and of its loss lanes, ms a
-   round, peak memory and one round cycle profiled by kernel family; (b)
+   round (and each round's, with the rounds in which a graph was
+   captured and the mean of the timed rounds without one), peak memory
+   and one round cycle profiled by kernel family (the
+   host's ``cudaGraphLaunch`` and ``cudaLaunchKernel`` calls in it: the
+   server's two functions and each worker's uplink and update replay
+   from CUDA graphs), each worker's graphs logged, the same run with
+   every one of those functions eager bitwise in every round's server
+   loss and the final server; (b)
    at full width cut to 2 layers: ``run_population`` against
-   ``Federation.run`` over 10 rounds (losses, params, table, delays
-   bitwise), ``until=5`` + ``fed.save(async_state=)`` +
-   ``Federation.restore`` + resume against 10 unbroken rounds (bitwise),
+   ``Federation.run`` and against its own run with every function eager
+   over 10 rounds (losses, params, table, delays bitwise), ``until=5`` +
+   ``fed.save(async_state=)`` + ``Federation.restore`` + resume against
+   10 unbroken rounds (bitwise),
    and party 2's ``ClientWorker`` in another process on the card behind
    a ``SocketBackend`` against the loopback run (bitwise, ledger
    included); (c) a run with drops, latency, jitter, straggler admission
@@ -247,7 +263,9 @@ and prints no result):
    eager, sharded) with its internal eager loop and the unsharded run
    through the captured round and through its eager loop: losses,
    params, table and delays bitwise equal to all three and to phase 3's,
-   the fused kernel launched once a round (all but round 0 replayed), the
+   the fused kernel launched once a round (all but round 0 replayed; the
+   second sharded and unsharded runs through the graph replay their
+   session's kept graph, all 500 rounds, issuing no collective), the
    collectives recorded in the graph (the calls made under its capture)
    and those of 20 profiled eager rounds equal to their derivation (2
    all-gathers and 2 client leaves all-reduces a round), the graph's
@@ -290,7 +308,10 @@ and prints no result):
    placed, unplaced): losses and parameters bitwise, flash and RMSNorm
    launches equal to the derivation (all but step 0's replayed),
    ``shard_constraint`` calls equal to theirs ((1 + 1) x a step's under
-   capture: step 0 and the capture), the ms a step of all three; then
+   capture: step 0 and the capture), the ms a step of all three; the
+   placed run saved after step 1 (every placed leaf gathered whole) and
+   resumed, placed, to 3, bitwise the straight placed run in losses and
+   parameters, the save's and the restore's seconds logged; then
    the placed captured step at Phi-3-mini's full depth, 20 steps (steps
    3..18 timed, the last a profiled replay), with its peak memory;
    (b) ``python -m repro_torch.launch.dryrun --arch phi3-mini-3.8b
@@ -1841,14 +1862,15 @@ def call_site(name, i, args, kw, plan):
 
 
 def serve_phase(rows, arch, zoo_ops, kernels, layers=0, bitwise=False,
-                after=None):
+                after=None, again=False):
     """Phase 4: the split serve path of ``arch`` at full width and depth
     (``layers`` > 0 cuts the depth: ``configs.cut_depth``), decoding
     through the captured step (``use_scan``, the default). ``kernels``
     maps each serve kernel's name to its (ops, ref) modules. ``bitwise``
     gates the captured decode's final logits on bitwise equality with the
     eager loop's; ``after(fed, params, cfg, eager)`` runs on the session
-    of that comparison before it is freed."""
+    of that comparison before it is freed; ``again`` decodes the same
+    prompts a second time through the kept graph (:func:`decode_again`)."""
     from repro_torch import graphs
     from repro_torch.configs import cut_depth, get_config
     from repro_torch.federation import Transport, serving
@@ -1983,7 +2005,7 @@ def serve_phase(rows, arch, zoo_ops, kernels, layers=0, bitwise=False,
                                  "pre-pass and one tensor-core scan")
         rows["ssd_chunk"]["device_kernels_per_call"] = (
             sum(seen[k] for k in SSD_DEVICE_KERNELS) / seen["calls"])
-    eager = scan_vs_eager(fed, fed_params, cfg, bitwise)
+    eager = scan_vs_eager(fed, fed_params, cfg, bitwise, again)
     profile_decode(fed, fed_params, serving)
     if after is not None:
         after(fed, fed_params, cfg, eager)
@@ -1992,7 +2014,7 @@ def serve_phase(rows, arch, zoo_ops, kernels, layers=0, bitwise=False,
     torch.cuda.empty_cache()
 
 
-def scan_vs_eager(fed, params, cfg, bitwise=False):
+def scan_vs_eager(fed, params, cfg, bitwise=False, again=False):
     """The serve traffic's prompts decoded eagerly (``use_scan=False``)
     and through the captured step (the default) on one session: the
     greedy tokens must be equal, and the final logits within 2 bf16 steps
@@ -2009,8 +2031,10 @@ def scan_vs_eager(fed, params, cfg, bitwise=False):
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated() / 2**30
         r = fed.decode(params, toks, gen_len=G, use_scan=use_scan)
-        out[use_scan] = (r, before, torch.cuda.max_memory_allocated() / 2**30)
-    (eager, e0, epk), (scan, s0, spk) = out[False], out[True]
+        gc.collect()
+        out[use_scan] = (r, before, torch.cuda.max_memory_allocated() / 2**30,
+                         torch.cuda.memory_allocated() / 2**30)
+    (eager, e0, epk, _), (scan, s0, spk, s1) = out[False], out[True]
     diff = float((eager.logits.float() - scan.logits.float()).abs().max())
     gate = 2 * bf16_ulp(float(eager.logits.float().abs().max()))
     log(f"decode, {cfg.arch_id}: eager loop {B * G / eager.decode_s:.1f} "
@@ -2026,7 +2050,45 @@ def scan_vs_eager(fed, params, cfg, bitwise=False):
             or (bitwise and not torch.equal(eager.logits, scan.logits)):
         raise AssertionError(f"{cfg.arch_id}: the captured decode differs "
                              "from the eager loop")
+    if again:
+        decode_again(fed, params, cfg, toks, scan, s1 - s0)
     return eager
+
+
+def decode_again(fed, params, cfg, toks, first, held):
+    """Phase 4: a second ``Federation.decode`` of the same prompts, length
+    and params tree on the session replays the kept decode graph
+    (``graphs.Kept``, the counterpart of the JAX package's cached
+    compiled scan): it captures nothing (``kept``, the same graph, all
+    gen_len tokens replayed, ``compile_s`` 0.0) and its tokens and final
+    logits are bitwise the first call's. ``held``: the GiB the first
+    call left allocated, what the session's kept key holds (its KV
+    caches, buffers and the graph pool's live blocks) while the params
+    tree lives."""
+    G = SERVE["gen_len"]
+    before = first.graph.replays
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fed.decode(params, toks, gen_len=G)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    same = (np.array_equal(first.tokens, r.tokens)
+            and torch.equal(first.logits, r.logits))
+    log(f"decode, {cfg.arch_id}, a second call of the same shapes and "
+        f"params: whole call {wall:.4f} s, prefill {r.prefill_s:.4f} s, "
+        f"decode {r.decode_s:.4f} s ({SERVE['batch'] * G / r.decode_s:.1f} "
+        f"tokens/s), compile_s {r.compile_s} against the first call's "
+        f"prefill {first.prefill_s:.4f} s, decode {first.decode_s:.4f} s, "
+        f"compile_s {first.compile_s:.4f} s (its capture "
+        f"{first.graph.capture_s:.4f} s); kept {r.kept}, the same graph "
+        f"{r.graph is first.graph}, replays {before} -> {r.graph.replays}; "
+        f"tokens and final logits bitwise the first call's: {same}; the "
+        f"kept key holds {held:.3f} GiB allocated (its caches, buffers "
+        f"and graph pool's live blocks; {len(fed._kept_decodes)} key(s))")
+    if not (r.kept and r.graph is first.graph and r.compile_s == 0.0
+            and r.graph.replays == before + G and same):
+        raise AssertionError(f"{cfg.arch_id}: the second decode captured "
+                             "or differs from the first")
 
 
 def profile_rounds(fed, params, x_parts, y) -> dict:
@@ -2369,10 +2431,13 @@ def split_profile(prof, wall_us) -> dict:
                                    e.key))
     host = sorted(((k, v, host_count[k]) for k, v in host_time.items()),
                   key=lambda kv: -kv[1])[:12]
+    # the launch calls the host made: graph launches and kernel launches
+    api = {k: sum(n for name, n in host_count.items() if name.startswith(k))
+           for k in ("cudaGraphLaunch", "cudaLaunchKernel")}
     return dict(wall_us=wall_us, busy_us=busy,
                 busy_sum_us=sum(split.values()), split=split,
                 by_name=by_name, kernels=n_kernels, host=host,
-                rms_fn=rms_fn, launch_api=launch_api, gc=gc_in)
+                rms_fn=rms_fn, launch_api=launch_api, gc=gc_in, api=api)
 
 
 def log_profile(what, prof) -> None:
@@ -3793,8 +3858,9 @@ class RoundRecorder:
     round) and each call's key (``graphs.signature`` of its arguments):
     the admitted block's length sets the server update's; the loss
     downlink's client and row are device indices, so its calls share
-    one. ``graph=False`` makes the engine run both functions eagerly
-    (the comparison runs)."""
+    one. ``graph=False`` makes the engine run both functions, and each
+    loopback worker its uplink and update, eagerly (the comparison
+    runs)."""
 
     def __init__(self, profile_round=None, graph=True):
         from repro_torch import graphs
@@ -3805,10 +3871,26 @@ class RoundRecorder:
         self.h, self.server = [], None
         self.update_keys, self.loss_keys = set(), set()
         self.lengths, self.downlinks = set(), 0
+        # for each graph captured, the server updates recorded before it
+        self.captured_in = []
 
     def __enter__(self):
+        from repro_torch import graphs
+        from repro_torch.wire import worker
         self.inner = self.engine._population_fns
+        self.worker, self.worker_fns = worker, worker._worker_fns
+        self.graphs, self.step_graph = graphs, graphs.StepGraph
         rec = self
+        if not self.graph:
+            worker._worker_fns = lambda up, upd, device, graph: \
+                rec.worker_fns(up, upd, device, False)
+
+        class Counted(graphs.StepGraph):
+            """A capture, its round recorded (the rounds so far)."""
+            def __init__(self, *a, **k):
+                rec.captured_in.append(len(rec.starts))
+                super().__init__(*a, **k)
+        graphs.StepGraph = Counted
 
         def fns(*args, graph=True):
             server_update, losses_fn = rec.inner(*args,
@@ -3857,6 +3939,14 @@ class RoundRecorder:
 
     def __exit__(self, *exc):
         self.engine._population_fns = self.inner
+        self.worker._worker_fns = self.worker_fns
+        self.graphs.StepGraph = self.step_graph
+
+    def capture_free(self, lo: int, hi: int) -> list:
+        """The rounds in lo..hi - 1 (each from its server update to the
+        next) in which no graph was captured."""
+        return [k for k in range(lo, hi) if k not in
+                {n - 1 for n in self.captured_in}]
 
 
 class FrameMeter:
@@ -3977,10 +4067,24 @@ def pop_full(rows, card, counters, kernels) -> None:
         wall = t_end - t0
         launches = _launches(counters)
     peak = torch.cuda.max_memory_allocated() / 2**30
+    reserved = torch.cuda.max_memory_reserved() / 2**30
     starts = rec.starts
     head, tail = starts[0] - t0, t_end - starts[-1]
     span = starts[POP_WARMUP:POP_PROFILE_ROUND]
     ms = (span[-1] - span[0]) * 1e3 / (len(span) - 1)
+    # each round's ms, server update to server update (the workers'
+    # graphs are captured before round 0; a new admitted length captures
+    # a server update graph in its round)
+    each = [round((b - a) * 1e3, 3) for a, b in zip(starts, starts[1:])]
+    free = rec.capture_free(POP_WARMUP, POP_PROFILE_ROUND - 1)
+    steady = (float(np.mean([each[k] for k in free])) if free
+              else float("nan"))
+    in_rounds = sorted({n - 1 for n in rec.captured_in})
+    log(f"population: ms from each round's server update to the next "
+        f"(rounds 0..{T - 2}; round {POP_PROFILE_ROUND} profiled): {each}; "
+        f"graphs captured in rounds {in_rounds} (-1: before round 0's "
+        f"server update); rounds {POP_WARMUP}..{POP_PROFILE_ROUND - 2} "
+        f"without a capture {free}: {steady:.3f} ms a round")
     log(f"population: {arch} full width and depth ({cfg.n_layers} layers, "
         f"d_model {cfg.d_model}, bf16), cascaded, {POP['n_clients']} client "
         f"parties over loopback wires, batch {POP['batch']} x {POP['seq']} "
@@ -3988,7 +4092,8 @@ def pop_full(rows, card, counters, kernels) -> None:
         f"{ms:.3f} ms a round (host clock at each round's server update "
         f"after a synchronise, rounds {POP_WARMUP}..{POP_PROFILE_ROUND - 1}"
         f"; the cycle from round {POP_PROFILE_ROUND} profiled) on {card}; "
-        f"peak memory {peak:.2f} GiB; train_population {res['wall_s']} s "
+        f"peak memory {peak:.2f} GiB ({reserved:.2f} GiB reserved, the "
+        f"graphs' pools in it); train_population {res['wall_s']} s "
         f"of run_population, whole call {wall:.2f} s: {head:.2f} s before "
         f"round 0's server update (the weights drawn on the card, the "
         f"table, round 0's uplink), {starts[-1] - starts[0]:.2f} s from it "
@@ -4024,6 +4129,10 @@ def pop_full(rows, card, counters, kernels) -> None:
                              "frames sent")
     log_profile(f"population profile, round cycle {POP_PROFILE_ROUND} of "
                 f"{arch} on {card}", rec.profile)
+    log(f"population profile, round cycle {POP_PROFILE_ROUND}: the host's "
+        f"launch calls {rec.profile['api']} with the workers' uplinks and "
+        f"updates from their graphs (the workers eager instead: 2 "
+        f"cudaGraphLaunch, 63 cudaLaunchKernel)")
     t_checks = time.perf_counter()
     path = f"population:{arch}"
     for name, cap in caps.items():
@@ -4058,7 +4167,8 @@ def pop_full(rows, card, counters, kernels) -> None:
             and all(torch.equal(a, b) for a, b in zip(h, eager.h))
             and _same_trees(server, eager.server))
     log(f"population (a): the same {T} rounds with the server's functions "
-        f"eager: {ms_eager:.3f} ms a round (the same clock and rounds) "
+        f"and the workers' uplinks and updates eager: {ms_eager:.3f} ms a "
+        f"round (the same clock and rounds) "
         f"against {ms:.3f} ms from the graphs; peak memory "
         f"{(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} GiB "
         f"eager above the {held / 2**30:.2f} GiB held before it (the "
@@ -4067,8 +4177,8 @@ def pop_full(rows, card, counters, kernels) -> None:
         f"round's server loss and the final server parameters bitwise "
         f"equal: {same}")
     if not same:
-        raise AssertionError("the population run's server graphs differ "
-                             "from its eager functions")
+        raise AssertionError("the population run's graphs differ from "
+                             "its eager functions")
     del rec, eager, h, server
     gc.collect()
     torch.cuda.empty_cache()
@@ -4090,6 +4200,23 @@ def pop_graphs(what, graphs_stats, rec) -> None:
             down["graphs"] != len(rec.loss_keys):
         raise AssertionError(f"{what}: graphs {graphs_stats} for keys "
                              f"{rec.update_keys}, {rec.loss_keys}")
+    # each loopback worker's own uplink and update graphs: one key each
+    # (its batch and draws keep their shapes), captured by the worker's
+    # warm-up before round 0's server update, none in the rounds
+    workers = graphs_stats.get("workers", {})
+    for m, w in sorted(workers.items()):
+        log(f"{what}: worker {m}: " + "; ".join(
+            f"{name} {g['graphs']} graph(s) (capture s "
+            f"{[round(c, 4) for c in g['capture_s']]}, nodes {g['nodes']}, "
+            f"replays {g['replays']})" for name, g in sorted(w.items())))
+    before = sum(1 for n in rec.captured_in if n == 0)
+    log(f"{what}: graphs captured before round 0's server update: "
+        f"{before}")
+    if not workers or any(set(w) != {"uplink", "update"} or any(
+            g["graphs"] != 1 for g in w.values())
+            for w in workers.values()) or before != 2 * len(workers):
+        raise AssertionError(f"{what}: the workers' graphs {workers}, "
+                             f"{before} captured before round 0")
 
 
 class CpuRowDraws:
@@ -4299,8 +4426,8 @@ def pop_small(counters) -> dict:
             f"losses {[round(float(x), 5) for x in pop.losses]}; losses, "
             f"params, table and delays bitwise equal to run()'s, the "
             f"captured round's, and the population run's with its server "
-            f"functions eager: {same} (population {t_pop:.2f} s; server "
-            f"graphs {pop.stats['graphs']})")
+            f"functions and its workers' uplinks and updates eager: {same} "
+            f"(population {t_pop:.2f} s; graphs {pop.stats['graphs']})")
         if not same:
             raise AssertionError("the population run differs from run()")
         t0 = lap("population == run (4 runs)", t0)
@@ -6279,6 +6406,7 @@ def sharded_tabular(rows, ops, card, base=None) -> dict:
         ms = {kind: [] for kind in kinds}
         res, replay_ms = {}, {"sharded": [], "graph": []}
         capture_s = {"sharded": [], "graph": []}
+        kept = {"sharded": [], "graph": []}
         name = "zoo_dual_matmul_stacked_bias_relu"
         with CollectiveCounter() as calls:
             for kind in ("sharded", "sharded_eager", "graph", "eager",
@@ -6294,16 +6422,32 @@ def sharded_tabular(rows, ops, card, base=None) -> dict:
                     replay_ms[kind].append(rg["replay_s"] * 1e3
                                            / rg["replays"])
                     capture_s[kind].append(rg["capture_s"])
-                if kind == "sharded":
+                    kept[kind].append(rg["kept"])
+                if kind == "sharded" and not rg["kept"]:
+                    # the first sharded run captures; the second replays
+                    # the session's kept graph, issuing no collective
                     launches = dict(ops.launches)
                     replayed = graphs.replayed["zoo_dual_matmul"][name]
                     in_graph = dict(calls.captured)
                     eager_calls = dict(calls.eager)
+                elif kind == "sharded":
+                    again = (dict(ops.launches),
+                             graphs.replayed["zoo_dual_matmul"][name],
+                             dict(calls.captured), dict(calls.eager))
         if launches[name] != rounds or replayed != rounds - 1:
             raise AssertionError(f"sharded run launched {launches} "
                                  f"({replayed} replayed), not the fused "
                                  f"kernel {rounds} times ({rounds - 1} "
                                  f"replayed)")
+        log(f"phase 11 (a): the second run of each session through the "
+            f"graph replays its kept graph: kept {kept}; the second sharded "
+            f"run's launches {again[0]} ({again[1]} replayed), collectives "
+            f"recorded {again[2] or 'none'}, issued {again[3] or 'none'}")
+        if kept != {"sharded": [False, True], "graph": [False, True]} or \
+                again[0][name] != rounds or again[1] != rounds or \
+                any(again[2].values()) or any(again[3].values()):
+            raise AssertionError(f"phase 11 (a): the second runs captured: "
+                                 f"kept {kept}, {again}")
         main = rows.get(name, {})
         base_ms = ("" if base is None or "round_ms" not in main else
                    f"; phase 3's captured run {main['round_ms']:.4f} ms a "
@@ -6498,7 +6642,9 @@ def sharded_rank(argv) -> int:
                 res = sharded.run(params, x_parts, y_dev, use_graph=graph)
                 torch.cuda.synchronize()
                 ms[graph].append((time.perf_counter() - t0) * 1e3 / rounds)
-                if graph:
+                # the first run through the graph captures; the second
+                # replays the session's kept graph
+                if graph and not res.round_graph["kept"]:
                     rg, in_graph = res.round_graph, dict(calls.captured)
                     launches = (ops.launches[name],
                                 graphs.replayed["zoo_dual_matmul"][name])
@@ -7052,6 +7198,8 @@ def examples_phase(rows, card, counters) -> None:
 
 MESH_TRAIN = dict(arch="phi3-mini-3.8b", layers=4, steps=3, batch=8,
                   seq=128)
+# the step phase 14 (a)'s placed run is saved at, then resumed to steps
+MESH_RESUME_AT = 1
 DRYRUN_OUT = Path(__file__).resolve().parent / "build" / "dryrun"
 DRYRUN_FIT_LAYERS = 4
 DRYRUN_FIT = """
@@ -7142,7 +7290,8 @@ def mesh_run(cfg, mesh, counters, graph=None, profile_at=None, **kw):
                           if g != "rmsnorm_routes"
                           for k, v in counts.items() if v},
                 calls=rules.calls["shard_constraint"],
-                peak=torch.cuda.max_memory_allocated() - held)
+                peak=torch.cuda.max_memory_allocated() - held,
+                saves=rec.saves)
 
 
 def _full_params(res):
@@ -7222,6 +7371,7 @@ def mesh_train(rows, card, counters) -> None:
             del res
             runs.setdefault(kind, []).append(r)
         want = check_mesh_turns(runs, cfg, steps, card)
+        mesh_resume(cfg, mesh, counters, kw, runs["placed"][0], card)
         full = mesh_full_depth(mesh, card, counters)
     finally:
         dist.destroy_process_group()
@@ -7299,6 +7449,54 @@ def check_mesh_turns(runs, cfg, steps, card) -> dict:
                 raise AssertionError(f"phase 14 (a) {kind} replayed "
                                      f"{r['replayed']}, want {replay_want}")
     return want
+
+
+def mesh_resume(cfg, mesh, counters, kw, straight, card) -> None:
+    """Phase 14 (a): the placed run saved and resumed, captured: 1 step
+    saved (every leaf gathered whole, the checkpoint in ``checkpoint/io``'s
+    format), then ``train(mesh=, resume=)`` to the run's 3 steps (the
+    restored trees placed again). Its losses and final parameters must be
+    bitwise the straight placed run's (``straight``, the first placed run
+    of the turns); logs the save's and the restore's seconds."""
+    import shutil
+    import tempfile
+    from repro_torch.federation import session
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_", dir=build)
+    inner, restores = session.Federation.restore, []
+
+    def timed_restore(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*a, **k)
+        torch.cuda.synchronize()
+        restores.append(time.perf_counter() - t0)
+        return out
+    session.Federation.restore = timed_restore
+    try:
+        first = mesh_run(cfg, mesh, counters, **dict(
+            kw, steps=MESH_RESUME_AT, checkpoint_path=f"{root}/ck"))
+        rest = mesh_run(cfg, mesh, counters,
+                        **dict(kw, resume=f"{root}/ck"))
+    finally:
+        session.Federation.restore = inner
+        shutil.rmtree(root, ignore_errors=True)
+    params = _full_params(rest["res"])
+    losses = first["losses"] + rest["losses"]
+    same = losses == straight["losses"] and all(
+        torch.equal(a, b) for a, b in zip(params, straight["params"]))
+    graph = rest["res"].get("step_graph") or {}
+    log(f"phase 14 (a): the placed run saved after step {MESH_RESUME_AT} "
+        f"(fed.save {[round(t, 3) for t in first['saves']]} s) and "
+        f"resumed (Federation.restore {[round(t, 3) for t in restores]} s) "
+        f"to {kw['steps']} steps, its resumed steps captured "
+        f"({graph.get('graphs')} graph, replays {graph.get('replays')}): "
+        f"losses {losses}; losses and params bitwise the straight placed "
+        f"run's: {same} on {card}")
+    if not (same and len(first["saves"]) == 1 and len(restores) == 1):
+        raise AssertionError(f"the resumed placed run differs: {losses} "
+                             f"against {straight['losses']}")
 
 
 def mesh_full_depth(mesh, card, counters) -> dict:
@@ -7570,7 +7768,7 @@ def main() -> int:
                      "ssd_chunk": (ssd_ops, ssd_ref)}
     if 4 in phases:
         for arch in SERVE_ARCHS:
-            serve_phase(rows, arch, ops, serve_kernels)
+            serve_phase(rows, arch, ops, serve_kernels, again=True)
         t0 = lap(4, t0)
 
     # ---- phase 5: LM training on the card --------------------------------
@@ -7738,6 +7936,7 @@ def tabular_phase(rows, ops, flash_ops, rms_ops, ssd_ops, kind, card):
         raise AssertionError("the tabular path launched an LM kernel")
     for kname in KERNELS:
         rows[kname]["launches"] = launches[kname]
+    tabular_again(fed, params, x_parts, y_dev, res, wall, ops, name)
     main = graph_vs_eager("main path (cascaded lanes)", fed, params, x_parts,
                           y_dev)
     if not np.array_equal(main["losses"].cpu().numpy(), res.losses):
@@ -7826,6 +8025,48 @@ def tabular_phase(rows, ops, flash_ops, rms_ops, ssd_ops, kind, card):
         raise AssertionError(f"quickstart accuracy {acc} <= 0.9")
     log(f"phase 3: {time.perf_counter() - t_phase:.1f} s")
     return res
+
+
+def tabular_again(fed, params, x_parts, y, first, first_s, ops, name):
+    """Phase 3: a second ``Federation.run`` of the same shapes on the same
+    session replays the kept round graph (``graphs.Kept`` on the session,
+    the counterpart of the JAX engine's cached runner): it captures
+    nothing (``kept``, ``capture_s`` 0.0, all 500 rounds replayed) and
+    its losses, params, table and delays are bitwise the first call's
+    (the table and delays read from the key's buffers after each call)."""
+    from repro_torch import graphs
+    (key,) = fed._kept_rounds.keys()
+    st = fed._kept_rounds.get(key)["st"]
+    table, delays = st["table"].clone(), st["delays"].clone()
+    ops.reset_launches()
+    graphs.reset_replayed()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fed.run(params, x_parts, y)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rg = res.round_graph
+    launches = (ops.launches[name], graphs.replayed["zoo_dual_matmul"][name])
+    same = (np.array_equal(first.losses, res.losses)
+            and _same_trees(first.params, res.params)
+            and torch.equal(table, st["table"])
+            and torch.equal(delays, st["delays"])
+            and (first.max_delay_seen, first.mean_delay)
+            == (res.max_delay_seen, res.mean_delay))
+    log(f"main path, a second Federation.run of the same shapes: "
+        f"{wall:.4f} s ({wall * 1e3 / 500:.4f} ms a round) against the "
+        f"first call's {first_s:.4f} s ({first_s * 1e3 / 500:.4f}; its "
+        f"capture {first.round_graph['capture_s']:.4f} s); kept "
+        f"{rg['kept']}, capture {rg['capture_s']} s, {rg['replays']} "
+        f"replays ({rg['replay_s'] * 1e3 / rg['replays']:.4f} ms each), "
+        f"kernel launches {launches[0]} ({launches[1]} replayed); "
+        f"{len(fed._kept_rounds)} key kept; losses, params, table and "
+        f"delays bitwise the first call's: {same}")
+    if not (rg["kept"] and rg["capture_s"] == 0.0 and rg["replays"] == 500
+            and launches == (500, 500) and len(fed._kept_rounds) == 1
+            and same):
+        raise AssertionError(f"the second run captured or differs: {rg}, "
+                             f"launches {launches}, bitwise {same}")
 
 
 # the reduced LM round held graph against eager: benchmarks/lm_async.py's

@@ -82,7 +82,7 @@ from repro_torch.analysis import marks, tags
 from repro_torch.configs.base import VFLConfig
 from repro_torch.core import zoo
 from repro_torch.core.adapters import ModelAdapter, tabular_adapter
-from repro_torch.core.draws import RoundDraws, make_schedule
+from repro_torch.core.draws import RoundDraws, copy_into, make_schedule
 from repro_torch.core.methods import SYNC_METHODS
 from repro_torch.core.partition import (tree_leaves, tree_map,
                                         tree_unflatten)
@@ -188,10 +188,11 @@ def _shard_rows(mesh, M: int, table_spec) -> tuple:
 def _session_run(adapter: ModelAdapter, transport, vfl: VFLConfig,
                  cfg_engine: EngineConfig, params, x_parts, y, *,
                  draws, probs=None, mesh=None,
-                 graph: bool = True) -> EngineResult:
+                 graph: bool = True, kept=None) -> EngineResult:
     """The engine proper, driven by a ``Federation`` session, with the
     params and data already on the session's device. ``graph=False``
-    loops the round body on the card too (see :func:`_make_runner`)."""
+    loops the round body on the card too; ``kept`` keeps the round graph
+    across calls (see :func:`_make_runner`)."""
     M = x_parts.shape[0]
     T, bs = cfg_engine.steps, cfg_engine.batch_size
     sync = transport.method in SYNC_METHODS
@@ -199,7 +200,8 @@ def _session_run(adapter: ModelAdapter, transport, vfl: VFLConfig,
     stats: dict = {}
     (params, table, delays), (losses, maxd) = _rounds(
         adapter, transport, vfl, cfg_engine, params, x_parts, y,
-        draws=draws, probs=probs, mesh=mesh, graph=graph, stats=stats)
+        draws=draws, probs=probs, mesh=mesh, graph=graph, stats=stats,
+        kept=kept)
 
     # the Transport owns the q-gating (queries only fan out on ZOO wires)
     ledger = transport.account(batch=bs, embed=int(table.shape[-1]),
@@ -221,11 +223,12 @@ def _session_run(adapter: ModelAdapter, transport, vfl: VFLConfig,
 
 def _rounds(adapter: ModelAdapter, transport, vfl: VFLConfig,
             cfg_engine: EngineConfig, params, x_parts, y, *, draws,
-            probs=None, mesh=None, graph: bool = True, stats=None):
+            probs=None, mesh=None, graph: bool = True, stats=None,
+            kept=None):
     """The run's draws, initial table and round loop: ``((params, table,
     delays), (losses, max_delays))`` on the device. With a ``mesh`` the
     table is this rank's rows of it; everything else is replicated.
-    ``graph`` and ``stats``: see :func:`_make_runner`."""
+    ``graph``, ``stats`` and ``kept``: see :func:`_make_runner`."""
     method = transport.method
     M, n, _ = x_parts.shape
     T, bs = cfg_engine.steps, cfg_engine.batch_size
@@ -264,7 +267,7 @@ def _rounds(adapter: ModelAdapter, transport, vfl: VFLConfig,
     runner = _make_runner(adapter, transport, vfl, sync, block,
                           cfg_engine.use_lanes, mesh, table_spec)
     return runner(params, table0, delays0, schedule, sample_idx, draws,
-                  x_parts, y, graph=graph, stats=stats)
+                  x_parts, y, graph=graph, stats=stats, kept=kept)
 
 
 # ------------------------------------------------------------------------
@@ -274,9 +277,10 @@ def _make_runner(adapter: ModelAdapter, transport, vfl: VFLConfig,
                  table_spec=None):
     """The round loop for one (adapter, transport, vfl, block, mesh)
     protocol: ``run_rounds(params, table0, delays0, schedule, sample_idx,
-    draws, x_parts, y, *, graph=True, stats=None) -> ((params, table,
-    delays), (losses, max_delays))``. With a ``mesh``, ``table0`` and the
-    returned table are this rank's rows (see :func:`_make_sharded_step`).
+    draws, x_parts, y, *, graph=True, stats=None, kept=None) -> ((params,
+    table, delays), (losses, max_delays))``. With a ``mesh``, ``table0``
+    and the returned table are this rank's rows (see
+    :func:`_make_sharded_step`).
 
     The counterpart of the JAX engine's ``lax.scan`` under ``jax.jit``:
     ONE round body on static buffers (the params tree, the table, the
@@ -312,7 +316,23 @@ def _make_runner(adapter: ModelAdapter, transport, vfl: VFLConfig,
     The body reads nothing to the host: the shard index and rows are host
     arithmetic on the mesh (:func:`_shard_rows`), and its device fills
     take no host constant (a capture refuses copies from pageable host
-    memory)."""
+    memory).
+
+    ``kept`` (a :class:`repro_torch.graphs.Kept`) keeps the round body,
+    its static buffers, its recorded draws and its graph across calls, as
+    the JAX engine's cached runner keeps its compiled scan: keyed by the
+    signature of (params, table0, delays0, schedule, sample_idx, x_parts,
+    y), the mesh, the protocol and whether the round is captured. A call
+    of a kept key copies its inputs into the key's buffers, resets t,
+    points the recorded draws at its ``draws`` and replays all T rounds
+    (on the CPU loops them): nothing is captured, and ``stats`` reads
+    ``kept`` True, ``capture_s`` 0.0 and this call's replays. The key
+    owns its inputs (cloned at its first call), and what the call
+    returns is a copy of the key's buffers."""
+    # what a kept key's graph depends on beside its inputs' signature
+    # (the adapter and the transport by identity: the kept body holds them)
+    protocol = (id(adapter), id(transport), vfl, sync, block, use_lanes,
+                repr(table_spec))
     if sync:
         step_fn = _make_sync_step(adapter, transport, vfl)
     elif mesh is not None:
@@ -321,8 +341,12 @@ def _make_runner(adapter: ModelAdapter, transport, vfl: VFLConfig,
     else:
         step_fn = _make_async_step(adapter, transport, vfl, use_lanes)
 
-    def run_rounds(params, table0, delays0, schedule, sample_idx, draws,
-                   x_parts, y, *, graph: bool = True, stats=None):
+    def build(params, table0, delays0, inputs, draws) -> dict:
+        """The round body on static buffers: ``st`` (the params tree, the
+        table, the delays, t, the losses and max delays), the draws ``rd``
+        and ``body``, which closes over these and ``inputs`` (schedule,
+        sample_idx, x_parts, y)."""
+        schedule, sample_idx, x_parts, y = inputs
         T = schedule.shape[0]
         rd = RoundDraws(draws)
         st = {"params": tree_map(torch.clone, params),
@@ -371,25 +395,73 @@ def _make_runner(adapter: ModelAdapter, transport, vfl: VFLConfig,
             st["losses"].index_copy_(0, t, loss.reshape(1))
             st["maxd"].index_copy_(0, t, delays.max().reshape(1))
             t.add_(1)
+        return {"st": st, "rd": rd, "body": body, "graph": None,
+                "inputs": inputs}
 
+    def refill(k: dict, params, table0, delays0, inputs, draws) -> None:
+        """A kept key's buffers set for a new call: its inputs copied in,
+        the round index and the spare table row zeroed, the draws pointed
+        at the call's source."""
+        st = k["st"]
+        for dst, src in zip(tree_leaves((st["params"], k["inputs"])),
+                            tree_leaves((params, inputs))):
+            if src is not dst:
+                copy_into(dst, src)
+        table = st["table"]
+        copy_into(table[:table0.shape[0]], table0)
+        table[table0.shape[0]:].zero_()
+        copy_into(st["delays"], delays0)
+        st["t"].zero_()
+        k["rd"].source = draws
+
+    def run_rounds(params, table0, delays0, schedule, sample_idx, draws,
+                   x_parts, y, *, graph: bool = True, stats=None,
+                   kept=None):
+        T = schedule.shape[0]
+        inputs = (schedule, sample_idx, x_parts, y)
         captured = (graph and T > 1 and x_parts.device.type == "cuda"
                     and not marks.tracing())
-        if captured:
+        key = k = None
+        if kept is not None and not marks.tracing():
+            key = (graphs.signature((params, table0, delays0) + inputs),
+                   mesh, protocol, captured)
+            k = kept.get(key)
+        if k is not None:
+            refill(k, params, table0, delays0, inputs, draws)
+        else:
+            if key is not None:
+                # the key owns its inputs: a later call copies into them
+                inputs = tree_map(torch.clone, inputs)
+            k = build(params, table0, delays0, inputs, draws)
+            if key is not None:
+                kept.put(key, k)
+        rd, g = k["rd"], k["graph"]
+        if g is not None:           # a kept key's graph: all T replayed
+            spent = g.timed_replays(T, rd.fill)
+            if stats is not None:
+                stats.update(g.stats(), kernels=g.kernel_names(),
+                             capture_s=0.0, replays=T, replay_s=spent,
+                             kept=True)
+        elif captured:
             rd.fill(0)
-            g = graphs.StepGraph(body, x_parts.device)
+            g = k["graph"] = graphs.StepGraph(k["body"], x_parts.device)
             g.timed_replays(T - 1, lambda i: rd.fill(i + 1))
             if stats is not None:
-                stats.update(g.stats(), kernels=g.kernel_names())
-            del g
+                stats.update(g.stats(), kernels=g.kernel_names(),
+                             kept=False)
         else:
             for t in range(T):
                 rd.fill(t)
-                body()
+                k["body"]()
+        st = k["st"]
         table = st["table"]
         if mesh is not None:
             table = table[:-1]
-        return (st["params"], table, st["delays"]), (st["losses"],
-                                                     st["maxd"])
+        out = (st["params"], table, st["delays"]), (st["losses"], st["maxd"])
+        if key is not None:
+            # the key's buffers take the next call's rounds
+            out = tree_map(torch.clone, out)
+        return out
 
     return run_rounds
 
@@ -933,12 +1005,14 @@ def run_population(adapter: ModelAdapter, transport, vfl: VFLConfig,
     ``counters["dead_parties"]`` reports the toll. Loopback parties never
     take this path — their failures are real bugs and stay fail-fast.
 
-    The server's two functions run through :func:`_population_fns`: on
-    the card from CUDA graphs keyed by shape (``stats["graphs"]`` holds
-    their readings), on the CPU in a loop; ``graph=False`` (an internal
-    switch: no config field, flag or entry point sets it) runs them
-    eagerly. Either form runs the same kernels on the same draws, so the
-    results are bitwise equal.
+    The server's two functions run through :func:`_population_fns`, and
+    each loopback worker's uplink and update through graphs of its own
+    (``ClientWorker``): on the card from CUDA graphs keyed by shape
+    (``stats["graphs"]`` holds their readings, the workers' under
+    ``"workers"`` by party), on the CPU in a loop; ``graph=False`` (an
+    internal switch: no config field, flag or entry point sets it) runs
+    them all eagerly. Either form runs the same kernels on the same
+    draws, so the results are bitwise equal.
     """
     from repro_torch.core.privacy import Message
     from repro_torch.wire import codec
@@ -1017,7 +1091,10 @@ def run_population(adapter: ModelAdapter, transport, vfl: VFLConfig,
             eng_end, wk_end = LoopbackBackend.pair()
             local_workers[m] = ClientWorker(
                 adapter, vfl, tree_map(lambda a: a[m], params["clients"]),
-                x_parts[m], m, wk_end, directions=draws.directions)
+                x_parts[m], m, wk_end, directions=draws.directions,
+                graph=graph)
+            # the worker's graphs captured before the rounds, not in them
+            local_workers[m].warm(bs, draws.row_key(0, 0))
             channels[m] = eng_end
 
     # failures a dying REMOTE party can surface through its channel;
@@ -1242,7 +1319,9 @@ def run_population(adapter: ModelAdapter, transport, vfl: VFLConfig,
     }
     if dev.type == "cuda" and hasattr(server_update, "stats"):
         stats["graphs"] = {"server_update": server_update.stats(),
-                           "losses_fn": losses_fn.stats()}
+                           "losses_fn": losses_fn.stats(),
+                           "workers": {m: w.stats()
+                                       for m, w in local_workers.items()}}
     losses = (torch.stack(losses_out).cpu().numpy() if losses_out
               else np.zeros((0,), np.float32))
     return PopulationResult(

@@ -63,7 +63,7 @@ from repro_torch.core.adapters import ModelAdapter
 from repro_torch.core.privacy import Ledger
 from repro_torch.kernels import _build
 from repro_torch.models.common import torch_dtype
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 # the kernels the serve plane's models launch on the card
 SERVE_KERNELS = ("flash_attention", "rmsnorm", "ssd_chunk")
@@ -81,6 +81,11 @@ class ServeResult:
     compile_s: float = 0.0          # first-use kernel build and the decode
                                     # graph's capture in this call
     graph: Optional[graphs.StepGraph] = None   # the captured decode step
+                                    # (a session's kept one reads the params
+                                    # where they are: replay it while the
+                                    # tree lives)
+    kept: bool = False              # the decode replayed a kept graph
+                                    # (or, on the CPU, its kept buffers)
 
     @property
     def wire_bytes(self) -> int:
@@ -243,8 +248,13 @@ def make_decode_scan(adapter: ModelAdapter, n_clients: int, seq_len: int,
     for the rest (the :class:`repro_torch.graphs.StepGraph` is returned;
     a failed capture raises); on the CPU the body runs in a Python loop
     (None is returned). Either way the result equals the eager loop's:
-    the same kernels in the same order, the same draws."""
+    the same kernels in the same order, the same draws. A later call of
+    the same ``scan`` (a kept scan, seeded again through
+    :func:`decode_buffers` ``into=``, on the same params tree) replays the
+    graph for all ``gen_len`` tokens and captures nothing, as a second
+    call of a compiled function does."""
     step = make_serve_step(adapter, n_clients, seq_len)
+    captured: list = []          # the graph, once captured
 
     @tags.wire("up", accounted_by="Transport.account_serve", kind="embedding",
                reason="scan-form decode: per step one-token uplink; the "
@@ -273,18 +283,32 @@ def make_decode_scan(adapter: ModelAdapter, n_clients: int, seq_len: int,
                 for _ in range(gen_len):
                     body(params, st)
                 return None
-            graph = graphs.StepGraph(lambda: body(params, st),
-                                     st["pos"].device)
-            graph.replay(gen_len - 1)
-        return graph
+            if captured:
+                captured[0].replay(gen_len)
+            else:
+                captured.append(graphs.StepGraph(lambda: body(params, st),
+                                                 st["pos"].device))
+                captured[0].replay(gen_len - 1)
+        return captured[0]
 
     return scan
 
 
 def decode_buffers(logits, caches, prompt_len: int, gen_len: int,
-                   noise: Optional[torch.Tensor] = None) -> dict:
+                   noise: Optional[torch.Tensor] = None,
+                   into: Optional[dict] = None) -> dict:
     """:func:`make_decode_scan`'s static buffers, seeded from the
-    prefill's last logits (copied) and the caches (taken as they are)."""
+    prefill's last logits (copied) and the caches (taken as they are).
+    ``into``: buffers of a kept scan, seeded in place instead (a cache
+    the prefill made anew copied into the kept one) and returned."""
+    if into is not None:
+        tree_map(lambda old, new: None if new is old else old.copy_(new),
+                 into["caches"], caches)
+        into["logits"].copy_(logits)
+        into["pos"].fill_(prompt_len)
+        if noise is not None:
+            into["noise"].copy_(noise)
+        return into
     B, device = logits.shape[0], logits.device
     return {"logits": logits.clone(), "caches": caches,
             "pos": torch.full((1,), prompt_len, dtype=torch.int64,
@@ -380,12 +404,27 @@ def run_decode(adapter: ModelAdapter, transport, *, n_clients: int,
                temperature: float = 0.0,
                draws: Optional[GumbelSource] = None,
                ledger: Optional[Ledger] = None, use_scan: bool = True,
-               chunked_prefill: bool = True) -> ServeResult:
+               chunked_prefill: bool = True,
+               kept: Optional[graphs.Kept] = None) -> ServeResult:
     """Prefill + decode through the split serve plane (the
     ``Federation.decode`` engine). ``use_scan`` decodes through
     :func:`make_decode_scan` (a CUDA graph on the card); ``use_scan=False``
     runs the eager loop of one-token steps. ``chunked_prefill=False``
-    prefills with the per-token step loop (the equivalence oracle)."""
+    prefills with the per-token step loop (the equivalence oracle).
+
+    ``kept`` keeps the decode scan (its graph) and its static buffers
+    across calls, as the JAX package's cache of compiled scans does:
+    keyed by the prompts' :func:`graphs.signature`, ``gen_len``, the
+    temperature and the identity of the params tree's leaves (the graph
+    reads the parameters where they are; a key of shapes alone would need
+    a copy of them). The key does not keep the parameters alive: it is
+    dropped when any leaf of the tree dies. What it keeps is its buffers
+    (the KV caches at B x (prompt + gen_len) slots, the logits, the
+    tokens, the noise table) and its graph's memory pool. A call of a
+    kept key zeroes the key's caches, prefills into them, and replays
+    all ``gen_len`` tokens: nothing is captured, ``compile_s`` holds no
+    capture and ``graph`` is the kept graph, its replays counted. On the
+    CPU the key keeps the buffers its loop runs on."""
     if not isinstance(prompts, torch.Tensor):
         prompts = torch.from_numpy(np.array(prompts))
     prompts = prompts.to(device=device, dtype=torch.int32)
@@ -399,7 +438,17 @@ def run_decode(adapter: ModelAdapter, transport, *, n_clients: int,
                  if device.type == "cuda" else 0.0)
     span = seq_len // n_clients
     step = make_serve_step(adapter, n_clients, seq_len)
-    caches = zero_caches(adapter, B, max_seq, device)
+    key = hit = None
+    if use_scan and kept is not None and gen_len >= 1:
+        key = (graphs.signature(prompts), gen_len, float(temperature),
+               tuple(id(x) for x in tree_leaves(params)))
+        hit = kept.get(key)
+    if hit is None:
+        caches = zero_caches(adapter, B, max_seq, device)
+    else:
+        caches = hit["st"]["caches"]
+        for c in tree_leaves(caches):
+            c.zero_()
 
     # ------------------------------------------------------- prefill ----
     tic = time.perf_counter()
@@ -428,11 +477,21 @@ def run_decode(adapter: ModelAdapter, transport, *, n_clients: int,
                                  "Gumbel draw source")
             noise = noise_table(draws, prompt_len, gen_len, B,
                                 logits.shape[-1], device)
-        st = decode_buffers(logits, caches, prompt_len, gen_len, noise)
-        graph = make_decode_scan(adapter, n_clients, seq_len, prompt_len,
-                                 gen_len, float(temperature),
-                                 vocab_size)(params, st)
+        entry = hit or {"st": None, "scan": make_decode_scan(
+            adapter, n_clients, seq_len, prompt_len, gen_len,
+            float(temperature), vocab_size)}
+        st = entry["st"] = decode_buffers(logits, caches, prompt_len,
+                                          gen_len, noise, into=entry["st"])
+        graph = entry["scan"](params, st)
+        if key is not None and hit is None:
+            if graph is not None:
+                graph.release()     # the caller's tree is the key's owner
+            kept.put(key, entry, owners=tree_leaves(params))
         out, logits = st["out"], st["logits"]
+        if key is not None:
+            # the key's buffers take the next call's decode (on the CPU
+            # the fetched tokens would share the buffer's memory)
+            out, logits = out.clone(), logits.clone()
     else:
         out = torch.empty((B, gen_len), dtype=torch.int32, device=device)
         for i, t in enumerate(range(prompt_len, max_seq)):
@@ -442,7 +501,7 @@ def run_decode(adapter: ModelAdapter, transport, *, n_clients: int,
     out_tokens = out.cpu().numpy()
     _sync(device)
     decode_s = time.perf_counter() - tic
-    if graph is not None:
+    if graph is not None and hit is None:
         compile_s += graph.capture_s
         decode_s -= graph.capture_s
 
@@ -453,4 +512,5 @@ def run_decode(adapter: ModelAdapter, transport, *, n_clients: int,
                                      ledger=ledger)
     return ServeResult(tokens=out_tokens, logits=logits, ledger=ledger,
                        prefill_s=prefill_s, decode_s=decode_s,
-                       compile_s=compile_s, graph=graph)
+                       compile_s=compile_s, graph=graph,
+                       kept=hit is not None)

@@ -69,12 +69,16 @@ from repro_torch.federation.parties import (ClientParty, Parties, ServerParty,
 from repro_torch.federation.transport import Transport
 from repro_torch.launch.mesh import make_client_mesh
 from repro_torch.models import model_api
-from repro_torch.optim import in_place
+from repro_torch.optim import in_place, placed_like_params
 from repro_torch.sharding.rules import PARAM_RULES, resolve_spec
 
 ModelLike = Union[ModelAdapter, ModelConfig, PaperMLPConfig]
 
 SESSION_MANIFEST = "session.json"
+# keys of kept decode graphs (each holds its KV caches) and of kept round
+# graphs a session holds at once
+KEPT_DECODES = 2
+KEPT_ROUNDS = 4
 CHECKPOINT_VERSION = 1
 
 
@@ -129,6 +133,15 @@ class Federation:
     _model: Optional[model_api.Model] = None
     # a ModelConfig session's derived adapters, by vfl.active_rows_only
     _lm_adapters: dict = dataclasses.field(default_factory=dict)
+    # the decode graphs and the round graphs kept across calls of one key
+    # (freed with the session), as the JAX package's caches of compiled
+    # functions keep theirs
+    _kept_decodes: graphs.Kept = dataclasses.field(
+        default_factory=lambda: graphs.Kept(KEPT_DECODES), repr=False,
+        compare=False)
+    _kept_rounds: graphs.Kept = dataclasses.field(
+        default_factory=lambda: graphs.Kept(KEPT_ROUNDS), repr=False,
+        compare=False)
 
     @classmethod
     def build(cls, model_cfg: ModelLike,
@@ -236,14 +249,20 @@ class Federation:
         seconds, nodes and replays); on the CPU the same round body runs
         in a Python loop. ``use_graph=False`` loops it on the card too:
         the eager comparison the smoke run holds the graph to (no entry
-        point passes it)."""
+        point passes it).
+
+        The session keeps the round graph, its buffers and its recorded
+        draws across calls (at most :data:`KEPT_ROUNDS` keys): a later
+        call whose params, data, schedule and sample indices have the
+        same shapes replays all its rounds from the kept graph, capturing
+        nothing (``round_graph["kept"]``)."""
         params, x_parts, y = self._engine_inputs(params, x_parts, y)
         if draws is None:
             draws = TorchDraws(self.engine.seed, self.device)
         return async_engine._session_run(
             self.adapter, self.transport, self.vfl, self.engine, params,
             x_parts, y, draws=draws, probs=probs, mesh=self.mesh,
-            graph=use_graph)
+            graph=use_graph, kept=self._kept_rounds)
 
     def _engine_inputs(self, params, x_parts, y):
         """The engine's params and data on the session's device: float
@@ -281,9 +300,10 @@ class Federation:
         :meth:`save`'s ``async_state``). ``draws`` defaults to
         ``RowDraws(engine.seed)`` on the session's device.
 
-        On the card the server's two functions run from CUDA graphs, one
-        captured for each new input shape (``stats["graphs"]`` counts
-        them); on the CPU the same bodies run in a loop.
+        On the card the server's two functions and each loopback
+        worker's uplink and update run from CUDA graphs, one captured for
+        each new input shape (``stats["graphs"]`` counts them); on the
+        CPU the same bodies run in a loop.
         ``use_graph=False`` runs them eagerly: the comparison the smoke
         run holds the graphs to (no entry point passes it)."""
         params, x_parts, y = self._engine_inputs(params, x_parts, y)
@@ -323,13 +343,22 @@ class Federation:
         pass the returned trees back). On the card its first call runs
         eagerly and the step is then captured as a CUDA graph and
         replayed; on the CPU the same step runs on its static buffers in
-        a loop. The StepOutput of a replay holds until the next call."""
+        a loop. The StepOutput of a replay holds until the next call.
+
+        On a mesh (DTensor parameters) each gradient is brought to its
+        parameter's placement before the update
+        (:func:`repro_torch.optim.placed_like_params`), so both forms
+        return every leaf placed as it came in, with the same bits."""
         if self.model_cfg is None:
             raise ValueError(
                 "sync_step drives a global-model loss; build the session "
                 "from a ModelConfig (tabular/adapter sessions train through "
                 "Federation.run)")
         vocab = self.model_cfg.padded_vocab if vocab is None else vocab
+        # a placed run's mesh is its parameters' (``train(mesh=)``), not
+        # the session's client mesh: the wrap looks at each leaf, and a
+        # plain tensor passes as it is
+        optimizer = placed_like_params(optimizer)
         step = cascade.make_step_for_method(
             self.transport.method, self.model.loss_fn,
             self.model.client_keys, self.vfl,
@@ -458,13 +487,23 @@ class Federation:
         token is captured as a CUDA graph and replayed (its capture time
         lands in ``compile_s``; a failed capture raises); on the CPU the
         same step body runs in a loop. ``use_scan=False`` is the eager loop
-        of one-token steps; both give the same tokens and logits."""
+        of one-token steps; both give the same tokens and logits.
+
+        The session keeps the decode graph and its buffers across calls
+        (at most :data:`KEPT_DECODES` keys): a later call with prompts of
+        the same shapes, the same ``gen_len`` and temperature and the
+        same params tree (the same leaf objects) prefills into the kept
+        caches and replays the kept graph, capturing nothing (the
+        result's ``kept``). A key holds its KV caches and buffers, not
+        the params tree: it goes when a leaf of the tree dies."""
         if self.model_cfg is None:
             raise ValueError(
                 "decode needs a ModelConfig-built session (tabular/adapter "
                 "sessions have no serve plane)")
+        kept = self._kept_decodes
         if not is_engine_layout(params):
-            params = self.params_from_global(params)
+            # a tree made anew each call: its leaves are never a kept key's
+            params, kept = self.params_from_global(params), None
         if draws is None and temperature > 0:
             draws = serving.TorchGumbel(seed, self.device)
         return serving.run_decode(
@@ -473,7 +512,8 @@ class Federation:
             vocab_size=self.model_cfg.vocab_size, params=params,
             prompts=prompts, gen_len=gen_len, device=self.device,
             temperature=temperature, draws=draws, ledger=ledger,
-            use_scan=use_scan, chunked_prefill=chunked_prefill)
+            use_scan=use_scan, chunked_prefill=chunked_prefill,
+            kept=kept)
 
     def serve(self, params, *, max_batch: int = 4,
               temperature: float = 0.0, page_size: Optional[int] = None,

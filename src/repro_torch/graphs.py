@@ -64,11 +64,13 @@ trees every call and ``fn`` updates them in place.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import functools
 import gc
 import time
+import weakref
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -303,6 +305,13 @@ class StepGraph:
         self.replay_s += spent
         return spent
 
+    def release(self) -> None:
+        """Stop keeping ``body`` and what it closes over alive: for an
+        owner that keeps the tensors a replay reads alive itself and drops
+        the graph before they die (a session's kept decode graph, whose
+        parameters are the caller's)."""
+        self.body = None
+
     def stats(self) -> dict:
         """The graph's readings as a result dict carries them."""
         return {"capture_s": self.capture_s, "nodes": self.nodes,
@@ -321,6 +330,59 @@ class StepGraph:
         return {name: n for group, counts in self.captured.items()
                 if group != "rmsnorm_routes" for name, n in counts.items()
                 if n}
+
+
+class Kept:
+    """Graphs kept across calls, with their static buffers: a map from a
+    call's key to what its first call built, bounded at ``maxsize`` keys,
+    the least recently used evicted (its graph and buffers freed with
+    it), as ``functools.lru_cache(maxsize=)`` bounds the JAX package's
+    compiled functions. The owner (a ``Federation``) frees them all when
+    it goes.
+
+    A key put with ``owners`` is also dropped when any of them dies
+    (``weakref.finalize``): the tensors a kept graph reads where they are
+    but does not keep alive (a decode graph's parameters), so a caller's
+    tree that goes frees its key's graph and buffers with it, and a
+    key of their ids never outlives them."""
+
+    def __init__(self, maxsize: int) -> None:
+        self.maxsize = maxsize
+        # key -> (item, the finalizers of its owners)
+        self._items: "collections.OrderedDict" = collections.OrderedDict()
+
+    def get(self, key):
+        entry = self._items.get(key)
+        if entry is None:
+            return None
+        self._items.move_to_end(key)
+        return entry[0]
+
+    def put(self, key, item, owners=()) -> None:
+        self.drop(key)
+        ref = weakref.ref(self)
+        self._items[key] = (item, [weakref.finalize(o, _drop_kept, ref, key)
+                                   for o in owners])
+        while len(self._items) > self.maxsize:
+            self.drop(next(iter(self._items)))
+
+    def drop(self, key) -> None:
+        """Forget ``key`` (and stop watching its owners)."""
+        _, finalizers = self._items.pop(key, (None, ()))
+        for f in finalizers:
+            f.detach()
+
+    def keys(self) -> list:
+        return list(self._items)
+
+    def __len__(self) -> int:
+        return len(self._items)
+
+
+def _drop_kept(ref, key) -> None:
+    kept = ref()
+    if kept is not None:
+        kept.drop(key)
 
 
 def signature(tree):
@@ -394,7 +456,9 @@ class GraphedFn:
         keyed = self._keys.get(key)
         if keyed is None:
             keyed = self._keys[key] = _Keyed(self, args, t, draws)
-            return keyed.first
+            # the first outputs are the caller's: the key keeps no copy
+            first, keyed.first = keyed.first, None
+            return first
         return keyed(args, t, draws)
 
     def stats(self) -> dict:

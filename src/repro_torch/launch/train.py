@@ -117,7 +117,7 @@ from repro_torch.models import common
 from repro_torch.optim import make_schedule, sgd
 from repro_torch.sharding.rules import (ACT_RULES, PARAM_RULES,
                                         named_sharding, use_mesh)
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.wire.faults import FaultPlan
 
 
@@ -149,17 +149,19 @@ def train(arch: Union[str, ModelConfig] = "", *, steps: int = 100,
     and checked at a size a machine has (a (2, 2) gloo mesh on the CPU, a
     (1, 1) NCCL mesh on one card). A placed run draws every batch,
     direction and noise whole on each rank, then places it, so its draws
-    are bitwise the unplaced run's; it neither resumes nor checkpoints.
-    Its step is the unplaced run's compiled step: on the card step 0
-    runs eagerly through DTensor and the step is then captured and
-    replayed (the result's ``step_graph``); on the CPU (gloo) it loops.
+    are bitwise the unplaced run's. Its step is the unplaced run's
+    compiled step: on the card step 0 runs eagerly through DTensor and
+    the step is then captured and replayed (the result's
+    ``step_graph``); on the CPU (gloo) it loops. It checkpoints and
+    resumes as the unplaced run does, in the same on-disk format: every
+    rank restores the saved (whole) trees and places them; at the save
+    every rank gathers each placed leaf (``full_tensor()``, a
+    collective), the mesh's first rank writes the directory and every
+    rank waits at a barrier until it is complete.
     ``keep_params`` puts the final parameters (DTensors on a mesh) in the
     result under ``"params"``, for a caller that compares two runs."""
     if production_mesh and mesh is None:
         mesh = make_production_mesh(device=device)
-    if mesh is not None and (resume or checkpoint_path):
-        raise ValueError("a placed run neither resumes nor checkpoints; "
-                         "checkpoint the unplaced run")
     start = 0
     state = SessionState()
     sched_total = steps
@@ -273,13 +275,35 @@ def train(arch: Union[str, ModelConfig] = "", *, steps: int = 100,
     if keep_params:
         result["params"] = params
     if checkpoint_path:
-        fed.save(checkpoint_path, params, step=steps, opt_state=opt_state,
-                 ledger=ledger, dp_releases=dp_releases,
-                 metadata={"arch": arch, "batch": batch, "seq": seq,
-                           "seed": seed, "lr": lr, "schedule": schedule,
-                           "schedule_total_steps": sched_total})
+        _save_placed(mesh, lambda p, o: fed.save(
+            checkpoint_path, p, step=steps, opt_state=o, ledger=ledger,
+            dp_releases=dp_releases,
+            metadata={"arch": arch, "batch": batch, "seq": seq,
+                      "seed": seed, "lr": lr, "schedule": schedule,
+                      "schedule_total_steps": sched_total}),
+            params, opt_state)
         result["checkpoint"] = checkpoint_path
     return result
+
+
+def _save_placed(mesh, save, params, opt_state) -> None:
+    """``save(params, opt_state)`` with whole trees. With no mesh that is
+    the trees as they are. On a mesh every rank gathers each DTensor leaf
+    (``full_tensor()``: a collective, so every rank calls it), the mesh's
+    first rank saves, and every rank waits at a barrier after it, so no
+    rank goes on to read a directory still being written."""
+    if mesh is None:
+        save(params, opt_state)
+        return
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    def whole(x):
+        return x.full_tensor() if isinstance(x, DTensor) else x
+    params, opt_state = tree_map(whole, (params, opt_state))
+    if dist.get_rank() == int(mesh.mesh.flatten()[0]):
+        save(params, opt_state)
+    dist.barrier()
 
 
 def _placed(mesh):

@@ -24,6 +24,7 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.profiler import record_function
 
 from repro_torch.tree import tree_leaves, tree_map
@@ -51,6 +52,31 @@ def in_place(opt: Optimizer) -> Optimizer:
             old.copy_(new)
         return params, state
     return dataclasses.replace(opt, update=opt.apply or copied, apply=None)
+
+
+def placed_like_params(opt: Optimizer) -> Optimizer:
+    """``opt`` whose ``update`` and ``apply`` first bring each DTensor
+    gradient to its parameter's placement: a replicated parameter's
+    gradient over a sharded batch comes out of autograd a partial sum,
+    and this is the all-reduce the JAX driver's jitted step inserts there,
+    so every new leaf keeps its parameter's placement and the functional
+    and the in-place update agree bitwise. Plain tensors pass as they
+    are."""
+    def like(g, p):
+        if (isinstance(p, DTensor) and isinstance(g, DTensor)
+                and g.placements != p.placements):
+            return g.redistribute(p.device_mesh, p.placements)
+        return g
+
+    def wrap(fn):
+        if fn is None:
+            return None
+
+        def placed(grads, state, params):
+            return fn(tree_map(like, grads, params), state, params)
+        return placed
+    return dataclasses.replace(opt, update=wrap(opt.update),
+                               apply=wrap(opt.apply))
 
 
 def _tree_zeros_f32(params):

@@ -48,6 +48,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import graphs
 from repro_torch.analysis import tags
 from repro_torch.checkpoint.io import load_tree
 from repro_torch.configs.base import VFLConfig
@@ -96,6 +97,46 @@ def _client_fns(adapter: ModelAdapter,
     return uplink, update
 
 
+def _worker_fns(uplink: Callable, update: Callable, device: torch.device,
+                graph: bool) -> Tuple[Callable, Callable]:
+    """One worker's compiled uplink and update, the counterparts of the
+    JAX worker's ``jax.jit(uplink)`` and jitted SGD apply:
+    ``uplink(client_m, x_m, idx, raw, t, draws)`` gathers the batch rows
+    ``idx`` (a device index) of the feature slice ``x_m`` and fans the
+    row out from the raw draws ``raw``; ``update(client_m, u_stack, phi,
+    losses, t, draws)`` writes the ZOO step into ``client_m`` in place
+    and returns it. ``t`` and ``draws`` are the ``GraphedFn`` protocol's:
+    the draws enter as ``raw``, a copied input. With ``graph`` each is a
+    :class:`repro_torch.graphs.GraphedFn` of this worker alone on
+    ``device`` (``client_m`` and ``x_m`` donated: the worker passes its
+    own trees every call, and a tree donated to two workers' graphs
+    would be copied across them; the update's ``u_stack`` donated too:
+    once warmed, the worker passes the uplink's replayed output, the
+    same tensors every round, which the update's graph then reads where
+    they are): on the card a CUDA graph replayed from
+    the second call on, on the CPU the same bodies in a loop. The two
+    share one memory pool: the worker runs them in turn, and the uplink
+    is captured first, so the update's temporaries never take the
+    uplink's outputs, which the update reads. Without ``graph``, the
+    bodies themselves (the eager comparison). Either form runs the same
+    kernels, so the worker's row is bitwise the same."""
+    def uplink_(client_m, x_m, idx, raw, t, draws):
+        return uplink(client_m, x_m[idx], raw)
+
+    def update_(client_m, u_stack, phi, losses, t, draws):
+        new = update(client_m, u_stack, phi, losses)
+        for old, nw in zip(tree_leaves(client_m), tree_leaves(new)):
+            old.copy_(nw)
+        return client_m
+
+    if not graph:
+        return uplink_, update_
+    pool = (torch.cuda.graph_pool_handle() if device.type == "cuda"
+            else None)
+    return (graphs.GraphedFn(uplink_, device, donate=(0, 1), pool=pool),
+            graphs.GraphedFn(update_, device, donate=(0, 1), pool=pool))
+
+
 @dataclasses.dataclass
 class _Pending:
     """One in-flight round: the direction stack the update needs, plus
@@ -116,22 +157,30 @@ class ClientWorker:
     ``directions`` is the draw seam (default
     :func:`~repro_torch.core.draws.seed_directions`). Drive it with
     :meth:`pump` (loopback, engine-pumped) or :meth:`serve` (blocking
-    loop for a worker process)."""
+    loop for a worker process).
+
+    The worker owns a copy of its row and updates it in place. Its uplink
+    and update run through :func:`_worker_fns`: with ``graph`` (the
+    default) from CUDA graphs of its own on the card, captured by
+    :meth:`warm` or else at its first activation and first update
+    (:meth:`stats`); ``graph=False`` runs them eagerly."""
 
     def __init__(self, adapter: ModelAdapter, vfl: VFLConfig,
                  client_params: Any, x_m: Any, index: int,
                  backend: WireBackend, *,
-                 directions: Optional[Directions] = None) -> None:
+                 directions: Optional[Directions] = None,
+                 graph: bool = True) -> None:
         self.adapter = adapter
         self.vfl = vfl
-        self.client_params = client_params
+        self.client_params = tree_map(torch.clone, client_params)
         self.device = tree_leaves(client_params)[0].device
         self.x_m = torch.as_tensor(x_m).to(self.device)
         self.index = index
         self.backend = backend
         self.directions = (directions if directions is not None
                            else seed_directions)
-        self._uplink, self._update = _client_fns(adapter, vfl)
+        self._uplink, self._update = _worker_fns(
+            *_client_fns(adapter, vfl), self.device, graph)
         self._pending: Optional[_Pending] = None
         self._stopped = False
 
@@ -150,6 +199,38 @@ class ClientWorker:
                                             f"client_{index:02d}"), dev)
         return cls(adapter, vfl, tree, x_m, index, backend,
                    directions=directions)
+
+    def warm(self, batch: int, key) -> None:
+        """Capture the uplink's and the update's graphs before the run's
+        rounds, from a stand-in round of ``batch`` rows (row 0 of the
+        feature slice, the directions of the draw key ``key``, in the
+        form the engine's ``act`` frames carry, equal losses), and put
+        the row back as it was: every later activation and update then
+        replays. The update is captured on the uplink's replayed
+        direction stack (the uplink runs twice), so it reads it where
+        every later replay writes it. Eager functions (``graph=False``) are left
+        as they are."""
+        if not isinstance(self._uplink, graphs.GraphedFn):
+            return
+        row = tree_map(torch.clone, self.client_params)
+        raw = self.directions(key, self.client_params, self.vfl.zoo_queries)
+        idx = torch.zeros((batch,), dtype=torch.int64, device=self.device)
+        for _ in range(2):
+            u_stack, phi, _ = self._uplink(self.client_params, self.x_m,
+                                           idx, raw, 0, None)
+        losses = torch.zeros((1 + self.vfl.zoo_queries,),
+                             dtype=torch.float32, device=self.device)
+        self._update(self.client_params, u_stack, phi, losses, 0, None)
+        for dst, src in zip(tree_leaves(self.client_params),
+                            tree_leaves(row)):
+            dst.copy_(src)
+
+    def stats(self) -> dict:
+        """The compiled uplink's and update's readings
+        (``GraphedFn.stats``); empty when they run eagerly."""
+        return {name: fn.stats() for name, fn in
+                (("uplink", self._uplink), ("update", self._update))
+                if isinstance(fn, graphs.GraphedFn)}
 
     # ------------------------------------------------------------ driving --
     def pump(self) -> int:
@@ -200,9 +281,14 @@ class ClientWorker:
     def _on_act(self, msg: WireMessage) -> None:
         raw = self.directions(msg.payload["key"], self.client_params,
                               self.vfl.zoo_queries)
-        xb = self.x_m[msg.payload["idx"].long().to(self.device)]
-        u_stack, phi, emb_lanes = self._uplink(self.client_params, xb, raw)
+        idx = msg.payload["idx"].long().to(self.device)
+        u_stack, phi, emb_lanes = self._uplink(self.client_params, self.x_m,
+                                               idx, raw, msg.round, None)
         del raw
+        # a replay's outputs hold until the uplink's next replay, which
+        # only the next act makes, and an act replaces the pending round
+        # (the update, in the same pool, never writes them: they were
+        # held when it was captured)
         self._pending = _Pending(round=msg.round, u_stack=u_stack, phi=phi)
         emb_h = emb_lanes.cpu()
         for lane in range(emb_h.shape[0]):
@@ -227,8 +313,8 @@ class ClientWorker:
         losses = torch.stack([pend.losses[i]
                               for i in range(len(pend.losses))]).to(
             self.device)
-        self.client_params = self._update(self.client_params, pend.u_stack,
-                                          pend.phi, losses)
+        self._update(self.client_params, pend.u_stack, pend.phi, losses,
+                     msg.round, None)
 
 
 # ------------------------------------------------------------ liveness ----

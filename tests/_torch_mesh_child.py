@@ -13,7 +13,14 @@ calls, and keeps every leaf's local shape and its full value
 (``full_tensor()``); then 2 steps of each case and of the DP case
 (:data:`DP_CASE`) through the compiled step ``train`` builds (a
 ``graphs.GraphedFn``: its loop form on the CPU) and through that step's
-body called bare on the run's own trees. It also keeps
+body called bare on the run's own trees; 2 steps of each case through
+the functional eager step (``fed.sync_step(opt)``), with every leaf's
+placement beside the one ``PARAM_RULES`` gives; and for
+:data:`RESUME_CASES` a run saved at step :data:`RESUME_AT` (its
+checkpoint in the directory OUT sits in, ``ck_<case>``), the run
+resumed from it to twice that and the straight-through placed run, each
+with its step losses and each saved at its end (``ck_<case>_resumed``,
+``ck_<case>_straight``). It also keeps
 ``make_production_mesh``'s refusal on this group and ``graphs.signature``
 of DTensors placed ``Shard(0)``, ``Replicate()`` and ``Shard(0)`` again,
 and what ``copy_into`` says to a buffer refilled from another placement.
@@ -29,6 +36,7 @@ with the full depth traced beside the fit.
 """
 import contextlib
 import json
+import os
 import sys
 
 import torch
@@ -49,6 +57,10 @@ TRAIN = dict(batch=4, seq=32, use_reduced=False, device="cpu",
 # stay inside the clip)
 DP_CASE = ("phi3_dp", "phi3-mini-3.8b", {})
 DP_NOISE = dict(clip=10.0, epsilon=100.0, delta=1e-5)
+# the placed checkpoint's cases: saved after RESUME_AT steps, resumed to
+# 2 x RESUME_AT, against the straight-through placed run
+RESUME_CASES = (CASES[0], DP_CASE)
+RESUME_AT = 2
 
 
 def case_noise(name):
@@ -57,17 +69,21 @@ def case_noise(name):
 
 
 @contextlib.contextmanager
-def built_steps(bare=False):
+def built_steps(bare=False, functional=False):
     """Every step ``Federation.sync_step`` builds inside, recorded in the
     yielded list; ``bare=True`` hands out the compiled step's body (the
     step with the in-place optimizer, called on the caller's trees)
-    instead of the ``graphs.GraphedFn`` over it."""
+    instead of the ``graphs.GraphedFn`` over it; ``functional=True`` the
+    functional eager step (``fed.sync_step(opt)``), which returns new
+    trees."""
     from repro_torch import graphs
     from repro_torch.federation import session
     inner, graphed, built = (session.Federation.sync_step, graphs.GraphedFn,
                              [])
 
     def sync_step(fed, optimizer, **kw):
+        if functional:
+            kw["graph"] = False
         built.append(inner(fed, optimizer, **kw))
         return built[-1]
     session.Federation.sync_step = sync_step
@@ -123,6 +139,41 @@ def train_rank(rank, world, store, out):
             r["params"] = {p: t.full_tensor()
                            for p, t in _paths(r.pop("params"))}
             res[f"{name}/{form}"] = r
+    for name, arch, over in CASES:
+        cfg = case_cfg(arch, over)
+        with built_steps(functional=True) as built:
+            r = train(cfg, steps=2, mesh=mesh, **TRAIN)
+        leaves = dict(_paths(r.pop("params")))
+        r["step_type"] = [type(s).__name__ for s in built]
+        r["placements"] = {p: _placement(t) for p, t in leaves.items()}
+        r["rule_placements"] = _rule_placements(cfg, mesh)
+        r["params"] = {p: t.full_tensor() for p, t in leaves.items()}
+        res[f"{name}/functional"] = r
+    ck = os.path.join(os.path.dirname(out), "ck")
+    for name, arch, over in RESUME_CASES:
+        for part, kw in (("saved", dict(steps=RESUME_AT)),
+                         ("resumed", dict(steps=2 * RESUME_AT))):
+            with recorded_losses() as losses:
+                if part == "saved":
+                    r = train(case_cfg(arch, over), mesh=mesh,
+                              noise=case_noise(name),
+                              checkpoint_path=f"{ck}_{name}", **kw, **TRAIN)
+                else:
+                    r = train(mesh=mesh, resume=f"{ck}_{name}",
+                              checkpoint_path=f"{ck}_{name}_resumed", **kw,
+                              **TRAIN)
+            leaves = dict(_paths(r.pop("params")))
+            r["losses"] = losses
+            r["placements"] = {p: _placement(t) for p, t in leaves.items()}
+            r["params"] = {p: t.full_tensor() for p, t in leaves.items()}
+            res[f"{name}/{part}"] = r
+        with recorded_losses() as losses:
+            r = train(case_cfg(arch, over), steps=2 * RESUME_AT, mesh=mesh,
+                      noise=case_noise(name),
+                      checkpoint_path=f"{ck}_{name}_straight", **TRAIN)
+        r["losses"] = losses
+        r["params"] = {p: t.full_tensor() for p, t in _paths(r.pop("params"))}
+        res[f"{name}/straight"] = r
     res["signature"] = _signatures(mesh)
     try:
         make_production_mesh(device="cpu")
@@ -133,6 +184,46 @@ def train_rank(rank, world, store, out):
         torch.save(res, out)
     dist.barrier()
     dist.destroy_process_group()
+
+
+def _placement(t):
+    return tuple(repr(p) for p in t.placements)
+
+
+def _rule_placements(cfg, mesh):
+    """Each parameter's placement by ``PARAM_RULES`` on ``mesh``."""
+    from repro_torch.models import model_api
+    from repro_torch.sharding import rules
+    specs = model_api.build_model(cfg, max_seq=TRAIN["seq"]).param_specs
+    out = {}
+    for path, s in _paths(specs):
+        logical = s.logical or (None,) * len(s.shape)
+        _, pl = rules.named_sharding(mesh, s.shape, logical, rules.PARAM_RULES)
+        out[path] = tuple(repr(p) for p in pl)
+    return out
+
+
+@contextlib.contextmanager
+def recorded_losses():
+    """Each step's loss (a float) of the steps ``Federation.sync_step``
+    builds inside, in order, in the yielded list."""
+    from repro_torch.federation import session
+    from repro_torch.launch.train import _scalar
+    inner, losses = session.Federation.sync_step, []
+
+    def sync_step(fed, optimizer, **kw):
+        step = inner(fed, optimizer, **kw)
+
+        def recorded(*args):
+            out = step(*args)
+            losses.append(_scalar(out[2].loss))
+            return out
+        return recorded
+    session.Federation.sync_step = sync_step
+    try:
+        yield losses
+    finally:
+        session.Federation.sync_step = inner
 
 
 def _signatures(mesh):

@@ -14,6 +14,14 @@ buffers with their draws refilled through a ``RoundDraws``.
   ``server_update``; one for ``losses_fn``, whose client m and block row r
   are device indices.
 * ``until``/resume through the looped bodies equals the unbroken eager run.
+* Each ``ClientWorker`` runs its uplink and update through
+  ``GraphedFn``s of its own (``wire.worker._worker_fns``; on the CPU
+  their loop form): driven frame by frame over several activations, with
+  a skipped round, an undelivered downlink and an act that abandons its
+  round in between, its uplink frames and row are bitwise a
+  ``graph=False`` worker's, one key each, the row updated in place and
+  the caller's row untouched; the population run with every graph on
+  stays bitwise ``Federation.run``'s on the same ``RowDraws``.
 """
 import numpy as np
 import pytest
@@ -23,13 +31,18 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import VFLConfig
 from repro_torch.configs.paper_mlp import PaperMLPConfig
 from repro_torch.core import async_engine
+from repro_torch.core.adapters import tabular_adapter
 from repro_torch.core.async_engine import EngineConfig, PopulationConfig
+from repro_torch.core.draws import RowDraws
 from repro_torch.core.privacy import GaussianLossChannel
 from repro_torch.data import (lm_token_batches, make_classification,
                               vertical_partition)
 from repro_torch.federation import Federation
 from repro_torch.tree import tree_leaves
-from repro_torch.wire import FaultPlan
+from repro_torch import graphs
+from repro_torch.wire import ClientWorker, FaultPlan, LoopbackBackend
+from repro_torch.wire.backend import WireTimeout
+from repro_torch.wire.codec import WireMessage
 from test_torch_support import ledger_tuples, torch_threads
 
 CFG = dict(n_features=32, n_classes=4, n_clients=4, client_embed=16,
@@ -193,3 +206,102 @@ def test_run_population_leaves_the_callers_params():
     fed.run_population(params, xp, y, **kw)
     for a, b in zip(before, tree_leaves(params)):
         assert torch.equal(a, b)
+
+
+# a worker's frames: ("act", t), ("loss", t, delivered), ("skip", t)
+WORKER_FRAMES = [("act", 0), ("loss", 0, True), ("act", 1), ("skip", 1),
+                 ("act", 2), ("loss", 2, False), ("act", 3), ("act", 4),
+                 ("loss", 4, True), ("act", 5), ("loss", 5, True)]
+
+
+def _drive_worker(graph, warm=False):
+    """One tabular party (q = 2) driven through :data:`WORKER_FRAMES` on a
+    loopback pair (with ``warm``, after :meth:`ClientWorker.warm`): its
+    uplink frames in order, the worker, and the row it was given."""
+    cfg = PaperMLPConfig(**CFG)
+    vfl = VFLConfig(**VFL)
+    ad = tabular_adapter(cfg)
+    fed = Federation.build(cfg, vfl, EngineConfig(steps=8, batch_size=BATCH),
+                           device="cpu")
+    params = fed.init_params(torch.Generator().manual_seed(0))
+    X, _ = make_classification(0, 64, CFG["n_features"], CFG["n_classes"])
+    xp = torch.from_numpy(vertical_partition(X, CFG["n_clients"]))
+    draws, m, q = RowDraws(0, "cpu"), 2, vfl.zoo_queries
+    row = {k: v[m] for k, v in params["clients"].items()}
+    given = [x.clone() for x in tree_leaves(row)]
+    eng, wk = LoopbackBackend.pair()
+    worker = ClientWorker(ad, vfl, row, xp[m], m, wk,
+                          directions=draws.directions, graph=graph)
+    if warm:
+        worker.warm(BATCH, draws.row_key(0, 0))
+    own = tree_leaves(worker.client_params)
+    rng = np.random.default_rng(7)
+    frames = []
+    for ev in WORKER_FRAMES:
+        t = ev[1]
+        if ev[0] == "act":
+            idx = rng.integers(0, 64, BATCH).astype(np.int32)
+            eng.send(WireMessage("act", "server", t, {"party": m},
+                                 {"idx": idx, "key": draws.row_key(t, 0)}))
+        elif ev[0] == "skip":
+            eng.send(WireMessage("skip", "server", t, {"reason": "drop"}))
+        else:
+            for lane in range(1 + q):
+                h = torch.tensor(1.0 + 0.1 * lane + 0.01 * t)
+                eng.send(WireMessage("loss", "server", t,
+                                     {"lane": lane, "delivered": ev[2]},
+                                     {"h": h}))
+        worker.pump()
+        while True:
+            try:
+                msg, _ = eng.recv(timeout=0.0)
+            except WireTimeout:
+                break
+            frames.append((msg.round, msg.meta["lane"], msg.payload["c"]))
+    assert all(a is b for a, b in zip(own, tree_leaves(worker.client_params)))
+    for a, b in zip(given, tree_leaves(row)):
+        assert torch.equal(a, b)
+    return frames, worker, given
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warmed"])
+def test_worker_graphed_loop_equals_its_eager_functions(warm):
+    got, worker, given = _drive_worker(graph=True, warm=warm)
+    want, eager, _ = _drive_worker(graph=False)
+    assert len(got) == len(want) == 6 * (1 + VFL["zoo_queries"])
+    for (t, lane, c), (t2, lane2, c2) in zip(got, want):
+        assert (t, lane) == (t2, lane2) and torch.equal(c, c2)
+    for a, b in zip(tree_leaves(worker.client_params),
+                    tree_leaves(eager.client_params)):
+        assert torch.equal(a, b)
+    # three updates ran: the row moved
+    assert not all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(worker.client_params), given))
+    assert isinstance(worker._uplink, graphs.GraphedFn)
+    assert isinstance(worker._update, graphs.GraphedFn)
+    assert len(worker._uplink.graphs) == len(worker._update.graphs) == 1
+    assert set(worker.stats()) == {"uplink", "update"}
+    assert eager.stats() == {}
+
+
+def test_population_with_worker_graphs_equals_federation_run(monkeypatch):
+    fed, params, xp, y, _ = _tabular("clean")
+    workers = []
+    warm = ClientWorker.warm
+
+    def record(self, batch, key):
+        workers.append(self)
+        warm(self, batch, key)
+    monkeypatch.setattr(ClientWorker, "warm", record)
+    res = fed.run_population(params, xp, y)
+    # each worker warmed before the rounds: the stand-in round's keys are
+    # the ones its rounds used
+    assert len(workers) == CFG["n_clients"]
+    for w in workers:
+        assert len(w._uplink.graphs) == len(w._update.graphs) == 1
+    whole = fed.run(params, xp, y, draws=RowDraws(0, "cpu"))
+    np.testing.assert_array_equal(res.losses, whole.losses)
+    for a, b in zip(tree_leaves(res.params), tree_leaves(whole.params)):
+        assert torch.equal(a, b)
+    assert (res.max_delay_seen, res.mean_delay) == (whole.max_delay_seen,
+                                                    whole.mean_delay)

@@ -32,6 +32,7 @@ The rules' placements and the no-mesh identity are
 ``test_torch_mesh_rules.py``'s.
 """
 import importlib.util
+import json
 import os
 import pathlib
 import subprocess
@@ -42,15 +43,17 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_mesh_child import CASES, DP_CASE, TRAIN, case_cfg, case_noise
+from _torch_mesh_child import (CASES, DP_CASE, RESUME_AT, RESUME_CASES,
+                               TRAIN, case_cfg, case_noise)
 from repro import configs as j_configs
+from repro.federation import Federation as JFederation
 from repro.models import model_api as j_model_api
 from repro.sharding import rules as j_rules
 from repro_torch.core.partition import split_params
 from repro_torch.federation import Federation
 from repro_torch.launch.train import train
 from repro_torch.models import common, model_api
-from test_torch_support import torch_threads
+from test_torch_support import _flat, torch_threads
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CHILD = pathlib.Path(__file__).with_name("_torch_mesh_child.py")
@@ -62,6 +65,7 @@ MESHES = {"16x16": {"data": 16, "model": 16},
 ZOO_TOL = dict(rtol=2e-3, atol=5e-4)
 NAMES = [c[0] for c in CASES]
 FORMS = NAMES + [DP_CASE[0]]
+RESUMED = [c[0] for c in RESUME_CASES]
 
 
 def _paths(tree, path=""):
@@ -83,7 +87,9 @@ def placed(tmp_path_factory):
     logs = [p.communicate(timeout=240)[0] for p in procs]
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log[-3000:]
-    return torch.load(out, weights_only=False)
+    res = torch.load(out, weights_only=False)
+    res["ck"] = str(d / "ck")
+    return res
 
 
 @pytest.fixture(scope="module")
@@ -101,6 +107,18 @@ def unplaced():
         r["params"] = dict(_paths(r["params"]))
         res[f"{name}/2"] = r
     return res
+
+
+@pytest.fixture(scope="module")
+def unplaced_saved(tmp_path_factory):
+    """The unplaced run of each resume case saved at step RESUME_AT."""
+    d = tmp_path_factory.mktemp("unplaced")
+    with torch_threads(1):
+        for name, arch, over in RESUME_CASES:
+            train(case_cfg(arch, over), steps=RESUME_AT,
+                  noise=case_noise(name), checkpoint_path=str(d / name),
+                  **TRAIN)
+    return d
 
 
 def _case(name):
@@ -264,11 +282,9 @@ def test_placed_compiled_loop_is_bitwise_its_body(placed, name):
     DTensor buffers, the batch copied in and the draws recorded once and
     refilled shard by shard) are bitwise its body's called bare on the
     run's own trees: losses, final parameters, wire and DP accounting.
-    (The functional eager step is not held bitwise at (2, 2): it leaves
-    the norm scales, replicated parameters whose gradients over the
-    sharded batch are partial sums, placed Partial(sum), and their
-    next step rounds otherwise; the in-place update stores them back in
-    their own placement.)"""
+    (The functional eager step is held to it too, in
+    ``test_functional_placed_step_keeps_placements_and_bits``: both bring
+    each gradient to its parameter's placement before the update.)"""
     got, want = placed[f"{name}/graphed"], placed[f"{name}/bare"]
     for key in ("loss_first", "loss_last", "wire_bytes_per_round",
                 "dp_epsilon", "dp_delta"):
@@ -304,3 +320,107 @@ def test_signature_keys_dtensors_by_placement(placed):
     assert "cannot refill" in sig["refused"]
     assert torch.equal(sig["copied"],
                        torch.arange(32, dtype=torch.float32).reshape(8, 4))
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_functional_placed_step_keeps_placements_and_bits(placed, name):
+    """Two functional eager placed steps (``fed.sync_step(opt)``, new trees
+    from ``optim.sgd``'s ``update``) return every leaf in the placement
+    ``PARAM_RULES`` gives it (the norm scales, replicated parameters whose
+    gradients over the sharded batch are partial sums, included), and are
+    bitwise the compiled placed step's loop form: losses, parameters,
+    wire accounting."""
+    got, want = placed[f"{name}/functional"], placed[f"{name}/graphed"]
+    assert got["step_type"] == ["function"]
+    assert got["placements"] == got["rule_placements"]
+    for key in ("loss_first", "loss_last", "wire_bytes_per_round"):
+        assert got[key] == want[key], key
+    assert set(got["params"]) == set(want["params"])
+    for path, w in want["params"].items():
+        assert torch.equal(got["params"][path], w), path
+
+
+def _manifest(path):
+    with open(os.path.join(path, "session.json")) as f:
+        return json.load(f)
+
+
+@pytest.mark.parametrize("name", RESUMED)
+def test_placed_resume_is_bitwise_the_straight_run(placed, name):
+    """A placed run saved at step k and resumed, placed, to 2k is bitwise
+    the straight-through placed run: each step's loss, the parameters
+    (each in its ``PARAM_RULES`` placement), and the checkpoints both
+    write at 2k (step, ledger counts, DP releases, every leaf of the
+    parameters and the optimizer state)."""
+    saved, resumed = placed[f"{name}/saved"], placed[f"{name}/resumed"]
+    straight = placed[f"{name}/straight"]
+    assert len(saved["losses"]) == RESUME_AT
+    assert saved["losses"] + resumed["losses"] == straight["losses"]
+    assert resumed["start_step"] == RESUME_AT
+    assert resumed["placements"] == saved["placements"]
+    for key in ("wire_bytes_per_round", "dp_epsilon", "dp_delta"):
+        assert resumed.get(key) == straight.get(key), key
+    for path, w in straight["params"].items():
+        assert torch.equal(resumed["params"][path], w), path
+    a, b = f"{placed['ck']}_{name}_resumed", f"{placed['ck']}_{name}_straight"
+    ma, mb = _manifest(a), _manifest(b)
+    for key in ("step", "ledger_counts", "dp_releases", "noise"):
+        assert ma[key] == mb[key], key
+    _, pa, sa = Federation.restore(a, device="cpu")
+    _, pb, sb = Federation.restore(b, device="cpu")
+    fa = _flat({"params": pa, "opt": sa.opt_state})
+    fb = _flat({"params": pb, "opt": sb.opt_state})
+    assert set(fa) == set(fb)
+    for k in fa:
+        np.testing.assert_array_equal(fa[k], fb[k], err_msg=k)
+
+
+@pytest.mark.parametrize("name", RESUMED)
+def test_placed_checkpoint_matches_the_unplaced_one(placed, unplaced_saved,
+                                                    name):
+    """The placed run's checkpoint at step k, in ``checkpoint/io.py``'s
+    format, against the unplaced run's: step, ledger and DP releases
+    exact, parameters at the ZOO tolerance the placed-vs-unplaced tests
+    use (the loss's rounding in sharded sums, times φ/μ, reaches the
+    client). It also resumes unplaced: two more steps from it stay at
+    that tolerance of the placed straight-through run."""
+    ck = f"{placed['ck']}_{name}"
+    mine, theirs = _manifest(ck), _manifest(str(unplaced_saved / name))
+    for key in ("step", "ledger_counts", "dp_releases", "layout",
+                "has_opt_state"):
+        assert mine[key] == theirs[key], key
+    _, p, st = Federation.restore(ck, device="cpu")
+    _, q, sq = Federation.restore(str(unplaced_saved / name), device="cpu")
+    fp, fq = _flat(p), _flat(q)
+    assert set(fp) == set(fq)
+    for k in fp:
+        np.testing.assert_allclose(fp[k], fq[k], err_msg=k, **ZOO_TOL)
+    assert torch.equal(st.opt_state["step"], sq.opt_state["step"])
+    with torch_threads(1):
+        r = train(steps=2 * RESUME_AT, resume=ck, **TRAIN)
+    straight = placed[f"{name}/straight"]
+    got = dict(_paths(r["params"]))
+    assert set(got) == set(straight["params"])
+    for path, w in straight["params"].items():
+        np.testing.assert_allclose(got[path].numpy(), w.numpy(), err_msg=path,
+                                   **ZOO_TOL)
+    assert (r.get("dp_epsilon"), r.get("dp_delta")) == (
+        straight.get("dp_epsilon"), straight.get("dp_delta"))
+
+
+@pytest.mark.parametrize("name", RESUMED)
+def test_placed_checkpoint_restores_in_repro(placed, name):
+    """``repro``'s ``Federation.restore`` reads the placed run's checkpoint:
+    its parameters and optimizer state equal the port's restore of the
+    same directory, leaf for leaf, and its step, ledger and DP releases
+    are the saved ones."""
+    ck = f"{placed['ck']}_{name}"
+    _, p, st = Federation.restore(ck, device="cpu")
+    _, jp, jst = JFederation.restore(ck)
+    assert (jst.step, jst.dp_releases) == (st.step, st.dp_releases)
+    assert jst.ledger.to_counts() == st.ledger.to_counts()
+    fp = _flat({"params": p, "opt": st.opt_state})
+    fj = _flat({"params": jp, "opt": jst.opt_state})
+    assert set(fp) == set(fj)
+    for k in fp:
+        np.testing.assert_array_equal(fp[k], fj[k], err_msg=k)
