@@ -35,7 +35,8 @@ implementation: no launch, no ``data_ptr``), counted by
 :class:`roofline.StepCounter`. The fake tensors and the mesh are the
 CPU's: a CPU build of torch refuses to index a ``cuda`` tensor, a fake
 one too, and ``card_route`` sends them down the card's kernel route all
-the same.
+the same, as ``utils.comms.nccl_alltoall`` sends DTensor's Shard(i) ->
+Shard(j) redistributes down the card's all-to-all.
 """
 from __future__ import annotations
 
@@ -53,11 +54,11 @@ from repro_torch.launch.roofline import StepCounter
 from repro_torch.models import common
 from repro_torch.models.model_api import (build_cache_specs,
                                           build_input_specs, build_model)
-from repro_torch.optim import sgd
+from repro_torch.optim import placed_like_params, sgd
 from repro_torch.sharding.rules import ACT_RULES, PARAM_RULES, use_mesh
 from repro_torch.tree import tree_leaves, tree_map
-from repro_torch.utils.comms import bytes_by_axis, bytes_by_site, \
-    collective_bytes
+from repro_torch.utils.comms import by_axis_kind, bytes_by_axis, \
+    bytes_by_site, collective_bytes, nccl_alltoall
 
 # the counts a probe measures, each fitted on its own
 METRICS = ("flops", "bytes", "coll_bytes", "peak_bytes", "output_bytes")
@@ -160,7 +161,11 @@ def measure(cfg: ModelConfig, shape: ShapeConfig, mesh, *, window: int = 0,
     """Trace one step of ``cfg`` at ``shape`` on ``mesh`` (a CPU mesh on
     the dry run's fake group); returns one
     rank's {flops, bytes, coll_bytes, peak_bytes, output_bytes,
-    coll_by_kind, coll_by_axis, coll_by_site, trace_s}. ``peak_bytes`` is
+    coll_by_kind, coll_by_axis, coll_by_site, coll_by_axis_kind, trace_s}
+    (``coll_by_axis_kind``: :func:`utils.comms.by_axis_kind`, the
+    collectives' count and bytes). A train step updates through
+    ``placed_like_params(sgd(0.01))``, the optimizer as
+    ``Federation.sync_step`` wraps it. ``peak_bytes`` is
     ``MemTracker``'s peak of the tensors the step makes beside its
     arguments, on one rank."""
     from torch.distributed._tools.mem_tracker import MemTracker
@@ -188,9 +193,13 @@ def measure(cfg: ModelConfig, shape: ShapeConfig, mesh, *, window: int = 0,
     counter = StepCounter(mesh, fake)
     mem = MemTracker()
     with use_mesh(mesh), implicit_replication(), marks.trace_context(), \
-            marks.card_route():
+            marks.card_route(), nccl_alltoall():
         if shape.kind == "train":
-            opt = sgd(0.01)
+            # wrapped as ``Federation.sync_step`` wraps it: each gradient
+            # brought to its parameter's placement before the update (a
+            # replicated parameter's partial-sum gradient all-reduced, as
+            # the JAX package's compiled step does and its HLO counts)
+            opt = placed_like_params(sgd(0.01))
             step = make_step_for_method(
                 method, model.loss_fn, model.client_keys,
                 VFLConfig(zoo_queries=zoo_queries, fused_dual=fused_dual),
@@ -220,6 +229,7 @@ def measure(cfg: ModelConfig, shape: ShapeConfig, mesh, *, window: int = 0,
             "output_bytes": float(out_bytes), "coll_by_kind": coll,
             "coll_by_axis": bytes_by_axis(counter.records),
             "coll_by_site": bytes_by_site(counter.records),
+            "coll_by_axis_kind": by_axis_kind(counter.records),
             "trace_s": trace_s}
 
 

@@ -14,14 +14,21 @@ The per-op byte conventions (per participating device) are ``hlo.py``'s:
   all-to-all        : operand_bytes
   collective-permute: operand_bytes
 
-and a broadcast counts its operand bytes. :func:`collective_bytes` sums
-them by kind with a ``"total"``, as ``hlo.collective_bytes`` does;
+and a broadcast counts its operand bytes. DTensor's Shard(i) -> Shard(j)
+redistribute is its own op, ``_dtensor.shard_dim_alltoall``, an
+all-to-all; on a CPU mesh DTensor sends it down an all-gather and a
+chunk instead, unless :func:`nccl_alltoall` routes it as the card does.
+:func:`collective_bytes` sums them by kind with a ``"total"``, as
+``hlo.collective_bytes`` does;
 :func:`bytes_by_axis` sums them by the mesh axis whose group carried them,
-and :func:`bytes_by_site` by axis, kind and the line of the port's code
-that issued them (HLO has no such line to give).
+:func:`bytes_by_site` by axis, kind and the line of the port's code
+that issued them (HLO has no such line to give), and
+:func:`by_axis_kind` counts them and sums their bytes by axis and kind
+(what a run on a real group is held to against the dry run's trace).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import sys
@@ -37,6 +44,7 @@ _KINDS = {
     "all_reduce": "all-reduce",
     "reduce_scatter_tensor": "reduce-scatter",
     "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",
     "broadcast": "broadcast",
 }
 
@@ -86,6 +94,48 @@ def bytes_by_site(records: Iterable[CommRecord]) -> Dict[str, int]:
         key = f"{rec.axis} {rec.kind} {rec.site}"
         agg[key] = agg.get(key, 0) + op_bytes(rec)
     return agg
+
+
+def by_axis_kind(records: Iterable[CommRecord]) -> Dict[str, List[int]]:
+    """``{"axis kind": [collectives, per-device bytes]}``."""
+    agg: Dict[str, List[int]] = {}
+    for rec in records:
+        n = agg.setdefault(f"{rec.axis} {rec.kind}", [0, 0])
+        n[0] += 1
+        n[1] += op_bytes(rec)
+    return agg
+
+
+def summary(records: List[CommRecord]) -> dict:
+    """A step's collectives as a run on a real group is held to the dry
+    run's trace: ``by_axis_kind`` (count and bytes), and the bytes
+    ``by_kind``, ``by_axis`` and ``by_site``."""
+    return {"by_axis_kind": by_axis_kind(records),
+            "by_kind": collective_bytes(records),
+            "by_axis": bytes_by_axis(records),
+            "by_site": bytes_by_site(records)}
+
+
+@contextlib.contextmanager
+def nccl_alltoall():
+    """DTensor's Shard(i) -> Shard(j) redistribute as one all-to-all
+    (``_dtensor.shard_dim_alltoall``) on any mesh, as NCCL runs it. On a
+    CPU mesh DTensor falls back to an all-gather and a chunk ("Gloo does
+    not support alltoall", ``tensor/_collective_utils.py``), which moves
+    the group's size times the bytes; gloo runs the all-to-all all the
+    same. The dry run's trace, on the CPU's fake mesh, counts under this
+    the collectives the card runs."""
+    from torch.distributed.tensor import placement_types
+    inner = placement_types.shard_dim_alltoall
+
+    def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+        return torch.ops._dtensor.shard_dim_alltoall(
+            input, gather_dim, shard_dim, mesh.get_group(mesh_dim).group_name)
+    placement_types.shard_dim_alltoall = alltoall
+    try:
+        yield
+    finally:
+        placement_types.shard_dim_alltoall = inner
 
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -20,7 +20,9 @@ placement beside the one ``PARAM_RULES`` gives; and for
 checkpoint in the directory OUT sits in, ``ck_<case>``), the run
 resumed from it to twice that and the straight-through placed run, each
 with its step losses and each saved at its end (``ck_<case>_resumed``,
-``ck_<case>_straight``). It also keeps
+``ck_<case>_straight``). It keeps one eager placed step of the phi3
+case's collectives as ``utils.comms.CommRecorder`` sees them
+(``comms.summary``). It also keeps
 ``make_production_mesh``'s refusal on this group and ``graphs.signature``
 of DTensors placed ``Shard(0)``, ``Replicate()`` and ``Shard(0)`` again,
 and what ``copy_into`` says to a buffer refilled from another placement.
@@ -31,8 +33,10 @@ or 4 ranks) and writes to OUT (JSON): with KIND ``placements``, the
 placements of every parameter leaf of every registry architecture under
 both parameter rule sets on the (16, 16), (2, 16, 16) and (2, 2) meshes;
 with ``comms``, ``utils.comms``' records of known redistributes; with
-``dryrun``, ``launch.dryrun.run_one`` of reduced phi3 at ``train_4k``
-with the full depth traced beside the fit.
+``measure``, ``costmodel.measure``'s collectives (``comms.summary``'s
+keys) of the phi3 case's step at TRAIN's batch and sequence on a (2, 2)
+mesh of 4 fake ranks; with ``dryrun``, ``launch.dryrun.run_one`` of
+reduced phi3 at ``train_4k`` with the full depth traced beside the fit.
 """
 import contextlib
 import json
@@ -113,6 +117,7 @@ def train_rank(rank, world, store, out):
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.launch.train import train
     from repro_torch.sharding import rules
+    from repro_torch.utils import comms
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     torch.set_num_threads(1)
@@ -174,6 +179,9 @@ def train_rank(rank, world, store, out):
         r["losses"] = losses
         r["params"] = {p: t.full_tensor() for p, t in _paths(r.pop("params"))}
         res[f"{name}/straight"] = r
+    with recorded_comms(mesh) as recs:
+        train(case_cfg(*CASES[0][1:]), steps=1, mesh=mesh, **TRAIN)
+    res["comms"] = comms.summary(recs[0])
     res["signature"] = _signatures(mesh)
     try:
         make_production_mesh(device="cpu")
@@ -224,6 +232,36 @@ def recorded_losses():
         yield losses
     finally:
         session.Federation.sync_step = inner
+
+
+@contextlib.contextmanager
+def recorded_comms(mesh):
+    """The collectives of each functional eager step (``fed.sync_step(opt)``)
+    that ``Federation.sync_step`` builds inside, each step's
+    ``CommRecorder`` records a list in the yielded list; DTensor's
+    Shard(i) -> Shard(j) redistributes run as NCCL runs them, one
+    all-to-all (``nccl_alltoall``: gloo has it; DTensor's CPU fallback is
+    an all-gather)."""
+    from repro_torch.federation import session
+    from repro_torch.utils.comms import CommRecorder, nccl_alltoall
+    recs = []
+    with built_steps(functional=True):
+        inner = session.Federation.sync_step
+
+        def sync_step(fed, optimizer, **kw):
+            step = inner(fed, optimizer, **kw)
+
+            def recorded(*args):
+                with CommRecorder(mesh) as rec, nccl_alltoall():
+                    out = step(*args)
+                recs.append(rec.records)
+                return out
+            return recorded
+        session.Federation.sync_step = sync_step
+        try:
+            yield recs
+        finally:
+            session.Federation.sync_step = inner
 
 
 def _signatures(mesh):
@@ -328,6 +366,36 @@ def comms_dump():
     return out
 
 
+def measure_dump():
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import costmodel
+    _join_fake(4)
+    mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
+                      mesh_dim_names=("data", "model"))
+    from repro_torch.configs import get_config, reduced
+    shape = ShapeConfig("train", TRAIN["seq"], TRAIN["batch"], "train")
+    # the training CLI's cascaded step: the fused lanes
+    res = costmodel.measure(case_cfg(*CASES[0][1:]), shape, mesh,
+                            fused_dual=True)
+    out = {"by_axis_kind": res["coll_by_axis_kind"],
+           "by_kind": res["coll_by_kind"], "by_axis": res["coll_by_axis"],
+           "by_site": res["coll_by_site"]}
+    # the same step in the model's own bf16, traced as measure steps
+    # (placed_like_params over sgd) and through bare sgd: the bytes by
+    # site of each
+    inner = costmodel.placed_like_params
+    for name, wrap in (("bf16", inner), ("bf16_bare", lambda opt: opt)):
+        costmodel.placed_like_params = wrap
+        try:
+            out[name] = costmodel.measure(
+                reduced(get_config(CASES[0][1]), **CASES[0][2]), shape, mesh,
+                fused_dual=True)["coll_by_site"]
+        finally:
+            costmodel.placed_like_params = inner
+    return out
+
+
 def dryrun_dump():
     from repro_torch.launch import dryrun
     cfg = case_cfg("phi3-mini-3.8b", {"n_layers": DRYRUN_LAYERS})
@@ -364,7 +432,7 @@ def main():
         return
     kind, out = sys.argv[2:4]
     res = {"placements": placements_dump, "comms": comms_dump,
-           "dryrun": dryrun_dump}[kind]()
+           "measure": measure_dump, "dryrun": dryrun_dump}[kind]()
     with open(out, "w") as f:
         json.dump(res, f)
     dist.destroy_process_group()

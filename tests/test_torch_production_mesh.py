@@ -27,7 +27,13 @@
   ``PlacedDraws`` refilled shard by shard), whose two steps are bitwise
   the placed eager step's, with and without the DP channel; with it the
   placed run is held to the unplaced one as the two-step case is;
-  ``graphs.signature`` keys a DTensor by its placements.
+  ``graphs.signature`` keys a DTensor by its placements;
+* one eager placed step's collectives equal the dry run's trace of it
+  (``costmodel.measure`` on a fake group of 4, a child started beside
+  the ranks), and the trace's update reduce-scatters each gradient in its
+  own dtype where bare sgd moved its f32 upcast;
+* ``chip_smoke.py``'s f32 gate of the card's placed run holds each
+  leaf's update, and fails on one dropped.
 The rules' placements and the no-mesh identity are
 ``test_torch_mesh_rules.py``'s.
 """
@@ -80,15 +86,19 @@ def _paths(tree, path=""):
 def placed(tmp_path_factory):
     d = tmp_path_factory.mktemp("mesh")
     out = d / "out.pt"
+    # the dry run's trace of the phi3 case's step (a fake group) beside
+    # the four ranks
+    cmds = [["train", str(r), "4", str(d / "store"), str(out)]
+            for r in range(4)] + [["fake", "measure", str(d / "m.json")]]
     procs = [subprocess.Popen(
-        [sys.executable, str(CHILD), "train", str(r), "4", str(d / "store"),
-         str(out)], env=ENV, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(4)]
+        [sys.executable, str(CHILD)] + cmd, env=ENV, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for cmd in cmds]
     logs = [p.communicate(timeout=240)[0] for p in procs]
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log[-3000:]
     res = torch.load(out, weights_only=False)
     res["ck"] = str(d / "ck")
+    res["measure"] = json.loads((d / "m.json").read_text())
     return res
 
 
@@ -247,18 +257,113 @@ def test_local_shapes_are_repros_specs(placed, name):
         assert got[path] == tuple(want), path
 
 
-@pytest.mark.parametrize("name", NAMES)
-def test_shard_constraint_fires_at_its_derived_count(placed, name):
-    # the derivation phase 14 (a) of chip_smoke.py holds the card's run to
+def _smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_shard_constraint_fires_at_its_derived_count(placed, name):
+    # the derivation phase 14 (a) of chip_smoke.py holds the card's run to
+    smoke = _smoke()
     _, arch, over = _case(name)
     cfg = case_cfg(arch, over)
     for steps in (1, 2):
         assert placed[f"{name}/{steps}"]["calls"] == \
             smoke.mesh_constraint_plan(cfg, steps)
+
+
+def test_placed_step_collectives_equal_the_dry_runs_trace(placed):
+    """One eager placed step of the phi3 case on the four gloo ranks, its
+    collectives as ``utils.comms.CommRecorder`` sees them on rank 0,
+    equals ``costmodel.measure``'s trace of the same step (its layers,
+    batch and sequence, the CLI's fused lanes) at (2, 2) on a fake group
+    of 4: count and bytes by axis and kind, bytes by kind, by axis and by
+    issuing line. The trace steps as ``Federation.sync_step`` does, so it
+    carries the all-reduce over "data" of the replicated parameters'
+    partial-sum gradients (``optim.placed_like_params``), the one the JAX
+    package's compiled step inserts. Both run DTensor's Shard(i) ->
+    Shard(j) redistributes as NCCL does, one all-to-all each
+    (``utils.comms.nccl_alltoall``), where DTensor's CPU route would
+    all-gather. ``chip_smoke.py --mesh-ranks D`` holds the same equality
+    on NCCL."""
+    got, want = placed["comms"], placed["measure"]
+    grad_sum = [k for k in got["by_site"]
+                if k.startswith("data all-reduce optim/optimizers.py")]
+    assert grad_sum, sorted(got["by_site"])
+    assert {"data all-to-all", "model all-to-all"} <= set(got["by_axis_kind"])
+    assert set(got["by_axis"]) == {"data", "model"}
+    for key in ("by_axis_kind", "by_kind", "by_axis", "by_site"):
+        assert got[key] == want[key], key
+
+
+def test_card_f32_gate_holds_each_update():
+    """``chip_smoke.py --mesh-ranks D``'s f32 gate (``f32_check``) on a
+    step made here: a client leaf whose update is the unplaced one scaled
+    as its own ĥ − h says (9.5 f32 spacings of the loss against 8; the
+    loss logged at 10), server leaves off by a tenth of their update,
+    within their floor. It holds that step; it fails on a server update
+    or the client's update dropped, on a client update scaled apart from
+    its ĥ − h, and, by its controls, when ĥ − h is too few spacings for a
+    dropped client update to show."""
+    smoke = _smoke()
+    g = torch.Generator().manual_seed(0)
+    table, wq = "params/embed/table", "params/blocks/attn/wq"
+    start = {table: torch.randn(64, 32, generator=g) * 0.02,
+             wq: torch.randn(4, 32, 32, generator=g) * 0.02,
+             "params/blocks/ln1/scale": torch.ones(4, 32)}
+    sp = float(np.spacing(np.float32(10.4)))
+    dw = {table: 0.08 * sp * torch.randn(64, 32, generator=g) * 1e3,
+          wq: torch.randn(4, 32, 32, generator=g) * 1e-4,
+          "params/blocks/ln1/scale": torch.randn(4, 32, generator=g) * 1e-4}
+    want = {k: start[k] + d for k, d in dw.items()}
+    got = {k: start[k] + (d * 9.5 / 8 if k == table else d + 0.1 * d.abs()
+                          .max() * torch.randn(d.shape, generator=g))
+           for k, d in dw.items()}
+    floor = {k: float(0.3 * d.abs().max()) for k, d in dw.items()}
+
+    def check(got, signal=(-10 * sp, -8 * sp)):
+        return smoke.f32_check(10.4, got, 10.4, want, {table}, start, floor,
+                               signal, sp)
+    ok = check(got)
+    assert ok["held"] and not ok["blind"], ok
+    assert ok["scalars"][table] == pytest.approx(9.5 / 8, rel=1e-4)
+    for leaf, moved in ((wq, start[wq]), (table, start[table]),
+                        (table, start[table] + 0.75 * (got[table]
+                                                       - start[table]))):
+        bad = check(dict(got, **{leaf: moved}))
+        assert not bad["held"], (leaf, bad)
+    blind = check(got, signal=(-1 * sp, -sp * 8 / 9.5))
+    assert not blind["held"]
+    assert blind["blind"] == [f"{table} zeroed", f"{table} doubled"]
+
+
+def test_the_trace_reduce_scatters_each_gradient_in_its_dtype(placed):
+    """What the optimizer wrapper changed in the dry run's trace, the bf16
+    phi3 step at (2, 2) traced both ways: bare sgd's update
+    (``p.float() - eta * g.float()``) upcasts a server gradient, still a
+    partial sum over "data", before DTensor reduce-scatters it to its
+    parameter's shard, so its reduce-scatter moved f32;
+    ``placed_like_params`` reduce-scatters the bf16 gradient itself (half
+    the bytes, as the JAX package's compiled step does) and adds the
+    all-reduce of the replicated parameters' gradients. Nothing else
+    moves."""
+    like, bare = placed["measure"]["bf16"], placed["measure"]["bf16_bare"]
+    opt = "optim/optimizers.py"
+
+    def at(sites, kind):
+        return {k: n for k, n in sites.items()
+                if k.startswith(f"data {kind} {opt}")}
+    (scatter, n_like), = at(like, "reduce-scatter").items()
+    (bare_scatter, n_bare), = at(bare, "reduce-scatter").items()
+    assert scatter.endswith(" like") and bare_scatter.endswith(" <lambda>")
+    assert n_bare == 2 * n_like > 0
+    assert at(like, "all-reduce") and not at(bare, "all-reduce")
+    assert {k: n for k, n in like.items() if opt not in k} == \
+        {k: n for k, n in bare.items() if opt not in k}
 
 
 def test_production_mesh_refuses_a_four_rank_group(placed):
