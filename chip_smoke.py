@@ -6,6 +6,9 @@
                                              # round at D = 2, on 2 cards
     python3 chip_smoke.py --mesh-ranks 4     # train(mesh=) at (2, 2) over
                                              # NCCL, one card a rank
+    python3 chip_smoke.py --mesh-ranks 4 --against DIR  # and then DIR's
+                                             # checkout and this one in
+                                             # turns at full depth
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
@@ -350,9 +353,12 @@ training step across D cards, one NCCL rank a card (processes of this
 script, ``--mesh-rank``), at (2, 2) for D = 4 and at (1, 2) and then
 (2, 1) for D = 2: captured against eager bitwise, the ranks' losses equal,
 f32 against the unplaced run, launches, one eager step's collectives
-against the dry run's trace of it, NCCL in the graph, a placed checkpoint
-and full depth; it prints no result line, and the default run is as
-above. Phase 7 starts worker processes of this script (``--pop-worker``) and
+against the dry run's trace of it, the logged norms' collectives 0-dim
+all-reduces only, NCCL in the graph, a placed checkpoint and full depth;
+with ``--against DIR`` (another commit's checkout) it then runs DIR's
+package and this one in turns at full depth, their losses bitwise equal
+(:func:`mesh_against`); it prints no result line, and the default run is
+as above. Phase 7 starts worker processes of this script (``--pop-worker``) and
 stops them before it returns; phases 11 and 14 start and destroy a
 one-rank process group, phase 11 runs the analysis CLI in a child
 process, and phase 14's dry runs are child processes that are joined,
@@ -7779,6 +7785,11 @@ def mesh_phase(rows, card, counters, dry) -> None:
 
 MESH_RANK = "--mesh-rank"        # argv[1] of one rank's process
 MESH_RANKS = "--mesh-ranks"      # argv[1] of the D-card run
+MESH_TURN = "--mesh-turn"        # argv[1] of one rank's process of a turn
+AGAINST = "--against"            # --mesh-ranks D --against DIR
+# the turns of ``--against DIR`` at full depth: DIR's tree ("against")
+# and this one in turns on every card, then this one at (1, 1) on one
+MESH_TURNS = ("against", "this", "this", "against")
 # the ("data", "model") meshes of a D-card run: both axes at D = 4; at
 # D = 2 each axis alone, the model axis first; (1, 1) at D = 1
 MESH_SHAPES = {1: ((1, 1),), 2: ((1, 2), (2, 1)), 4: ((2, 2),)}
@@ -7820,7 +7831,7 @@ for data, model in shapes:
     res[f"{data}x{model}"] = dict(
         by_axis_kind=r["coll_by_axis_kind"], by_kind=r["coll_by_kind"],
         by_axis=r["coll_by_axis"], by_site=r["coll_by_site"],
-        trace_s=r["trace_s"])
+        shapes_by_site=r["coll_shapes_by_site"], trace_s=r["trace_s"])
 json.dump(res, open(out, "w"))
 """
 
@@ -7832,13 +7843,30 @@ def _local_by_path(res) -> dict:
             for k, p in _leaves(res["params"])}
 
 
+SITE_RANGE = "collective at "    # a profiler range around one collective
+
+
+def _kernels_below(event) -> list:
+    """The device kernels a profiler event and the events under it
+    launched, by name."""
+    names = [k.name for k in event.kernels]
+    for child in event.cpu_children:
+        names += _kernels_below(child)
+    return names
+
+
 def step_probe(mesh, vocab: int):
     """A ``utils.comms.CommRecorder`` for one step on ``mesh`` that also
     keeps the step's four largest local tensors (bytes, op, shape, dtype,
-    site) and, by shape, the tensors the backward makes whose last dim is
-    the padded vocabulary, whole or a model shard of it (the loss
-    gradient DTensor expands to the logits)."""
+    site), by shape the tensors the backward makes whose last dim is the
+    padded vocabulary, whole or a model shard of it (the loss gradient
+    DTensor expands to the logits), and, from a profile of the step with
+    each collective in a range named by its axis, kind and site, the
+    NCCL kernels each site launched (``site_kernels``: {"axis kind site":
+    {kernel: count}})."""
     from torch.distributed.tensor import DTensor
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.utils import comms
     from repro_torch.utils.comms import CommRecorder, _site
     model = dict(zip(mesh.mesh_dim_names, mesh.shape))["model"]
 
@@ -7846,8 +7874,39 @@ def step_probe(mesh, vocab: int):
         def __init__(self):
             super().__init__(mesh)
             self.largest, self.vocab_grads = [], {}
+            self.site_kernels, self._prof = {}, None
+
+        def __enter__(self):
+            self._prof = profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA])
+            self._prof.__enter__()
+            return super().__enter__()
+
+        def __exit__(self, *exc):
+            out = super().__exit__(*exc)
+            torch.cuda.synchronize()
+            self._prof.__exit__(*exc)
+            for e in self._prof.events():
+                if e.name.startswith(SITE_RANGE):
+                    named = self.site_kernels.setdefault(
+                        e.name[len(SITE_RANGE):], {})
+                    for k in _kernels_below(e):
+                        named[k] = named.get(k, 0) + 1
+            self._prof = None
+            return out
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = getattr(func, "_overloadpacket", func).__name__
+            kind = comms._KINDS.get(name.split(".")[-1])
+            if kind is not None and not any(t == DTensor for t in types):
+                group = args[-1] if args and isinstance(args[-1], str) \
+                    else None
+                axis = self._axes.get(group, "?")
+                with record_function(f"{SITE_RANGE}{axis} {kind} {_site()}"):
+                    return self._looked_at(func, types, args, kwargs)
+            return self._looked_at(func, types, args, kwargs)
+
+        def _looked_at(self, func, types, args, kwargs):
             out = super().__torch_dispatch__(func, types, args, kwargs)
             if out is NotImplemented or any(t == DTensor for t in types) \
                     or func.is_view:
@@ -7979,7 +8038,8 @@ def rank_turns(res, what, cfg, mesh, counters, kw) -> dict:
         ms={k: [r["ms"] for r in rs] for k, rs in runs.items()},
         capture_s=[r["capture_s"] for r in runs["captured"]],
         graph=g, comms=comms.summary(probe.records), largest=probe.largest,
-        vocab_grads=probe.vocab_grads, kernel_shapes=shapes,
+        vocab_grads=probe.vocab_grads, site_kernels=probe.site_kernels,
+        kernel_shapes=shapes,
         launches=cap["launches"], replayed=cap["replayed"])
     return cap
 
@@ -8378,6 +8438,134 @@ def mesh_rank(argv) -> int:
     return 0
 
 
+def norm_sites(summary) -> dict:
+    """A ``comms.summary``'s collectives at the lines of
+    ``core/cascade.py``, where the step factories log their gradient
+    norms (a backward collective's site reads "backward ...", the frame
+    autograd runs the model's backward from): {"axis kind site": [bytes,
+    operand shapes]}."""
+    shapes = summary.get("shapes_by_site", {})
+    return {k: [n, shapes.get(k)] for k, n in summary["by_site"].items()
+            if k.split(" ", 2)[2].startswith("core/cascade.py")}
+
+
+def beyond_scalars(sites) -> list:
+    """The sites of :func:`norm_sites` that carry more than all-reduces
+    of 0-dim tensors."""
+    return [k for k, (_, shapes) in sites.items()
+            if k.split(" ")[1] != "all-reduce" or shapes != [[]]]
+
+
+def mesh_turn(argv) -> int:
+    """One rank of a turn of ``--mesh-ranks D --against DIR``: ``RANK
+    WORLD STORE OUT DATA SRC``. On ``cuda:RANK`` in a WORLD-rank NCCL
+    group at the (DATA, WORLD / DATA) mesh, TF32 off, the package under
+    SRC (this checkout's or DIR's): one eager placed step at MESH_TRAIN's
+    depth under :func:`step_probe` (one rank's collective bytes a step;
+    the norms' sites with their NCCL kernels), then :func:`mesh_full_depth`
+    (ms a step, the busy share of a profiled replay, peak, losses).
+    Writes its readings to OUT (JSON)."""
+    import torch.distributed as dist
+    rank, world, store, out, data, src = (int(argv[0]), int(argv[1]),
+                                          argv[2], argv[3], int(argv[4]),
+                                          argv[5])
+    sys.path.insert(0, src)
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.configs import cut_depth, get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+    from repro_torch.utils import comms
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    shape = (data, world // data)
+    card = nvidia_smi()
+    res = dict(rank=rank, src=src)
+    t0 = time.perf_counter()
+    try:
+        mesh = DeviceMesh("cuda", torch.arange(world).reshape(shape),
+                          mesh_dim_names=("data", "model"))
+        counters = (flash_ops, rms_ops, ssd_ops)
+        cfg = cut_depth(get_config(MESH_TRAIN["arch"]), MESH_TRAIN["layers"])
+        probe = step_probe(mesh, cfg.padded_vocab)
+        mesh_run(cfg, mesh, counters, graph=False, within={0: probe},
+                 steps=1, batch=MESH_TRAIN["batch"], seq=MESH_TRAIN["seq"],
+                 use_reduced=False, log_every=1000)
+        summary = comms.summary(probe.records)
+        res.update(bytes=summary["by_kind"]["total"],
+                   norm_sites=norm_sites(summary),
+                   site_kernels=probe.site_kernels)
+        del probe
+        full = mesh_full_depth(mesh, card, counters,
+                               what=f"{src} at {shape}, rank {rank}",
+                               keep=True)
+        res.update({k: full[k] for k in ("ms", "busy", "peak", "losses",
+                                         "capture_s")})
+        del full
+    finally:
+        dist.destroy_process_group()
+    res["seconds"] = time.perf_counter() - t0
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def mesh_against(children, shape, against, tmp, card) -> list:
+    """``--against DIR``'s turns (MESH_TURNS): one process of
+    :func:`mesh_turn` a card on DIR's package and on this one in turns at
+    ``shape``, then this one at (1, 1) on one card. Logs each turn's ms a
+    step, busy share, peak, bytes a rank and the norms' sites with their
+    NCCL kernels; returns its failed gates: a rank's full-depth losses
+    not those of every rank of every turn at ``shape`` (bitwise), or a
+    norm site of this tree carrying more than 0-dim all-reduces."""
+    srcs = {"against": str(Path(against).resolve() / "src"),
+            "this": str(SRC)}
+    t0 = time.perf_counter()
+    # the other tree's kernels, built before its ranks import them
+    subprocess.run([sys.executable, "-c", "import sys; sys.path.insert(0, "
+                    f"{srcs['against']!r}); from repro_torch.kernels import "
+                    "_build; _build.build_all(['flash_attention', "
+                    "'rmsnorm'])"], check=True)
+    log(f"{AGAINST} {against}: its kernels built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    turns = [(name, shape) for name in MESH_TURNS] + [("this", (1, 1))]
+    failures, firsts = [], {}
+    for i, (name, (data, model)) in enumerate(turns):
+        t1 = time.perf_counter()
+        d = Path(tmp) / f"turn{i}"
+        d.mkdir()
+        what = f"turn {i} ({name}, ({data}, {model}))"
+        res = children.ranks(MESH_TURN, data * model, d, data, srcs[name],
+                             timeout=900, what=what)
+        r0 = res[0]
+        kernels = {k: v for k, v in r0["site_kernels"].items() if v}
+        log(f"{what} on {card}, {srcs[name]}: "
+            f"{time.perf_counter() - t1:.1f} s; full depth ms a step "
+            f"{[round(r['ms'], 3) for r in res]}, busy "
+            f"{[round(100 * r['busy'], 2) for r in res]}%, peak "
+            f"{[round(r['peak'] / 2**30, 2) for r in res]} GiB, capture "
+            f"{[r['capture_s'] for r in res]} s; losses {r0['losses']}")
+        log(f"{what}: one eager step at {MESH_TRAIN['layers']} layers, "
+            f"collective bytes a rank {[r['bytes'] for r in res]}; rank "
+            f"0's norm sites [bytes, operand shapes] {r0['norm_sites']}, "
+            f"their NCCL kernels "
+            f"{ {k: kernels.get(k) for k in r0['norm_sites']} }")
+        log(f"{what}: rank 0's NCCL kernels by site {kernels}")
+        first = firsts.setdefault((data, model), r0["losses"])
+        for r in res:
+            if r["losses"] != first:
+                failures.append(f"{what} rank {r['rank']}: full-depth "
+                                f"losses {r['losses']} against {first}")
+            bad = beyond_scalars(r["norm_sites"])
+            if name == "this" and bad:
+                failures.append(f"{what} rank {r['rank']}: norm sites "
+                                f"beyond 0-dim all-reduces {bad}")
+    return failures
+
+
 def _rank_line(shape, r) -> str:
     full = r.get("full", {})
     return (f"mesh {shape} rank {r['rank']} on {r['device']}: losses "
@@ -8394,7 +8582,7 @@ def _rank_line(shape, r) -> str:
             f"{r['graph']['nccl'] or 'none'}; {r['seconds']:.1f} s")
 
 
-def mesh_ranks(world: int) -> int:
+def mesh_ranks(world: int, against=None) -> int:
     """``python3 chip_smoke.py --mesh-ranks D``: ``train(mesh=)`` of
     Phi-3-mini across D cards, one NCCL rank a card (NCCL refuses two
     ranks on one GPU; this run needs D cards, the default run one), at
@@ -8414,7 +8602,14 @@ def mesh_ranks(world: int) -> int:
     collective on an axis of more than one rank; (7) the placed run saved
     and resumed bitwise, its checkpoint loaded unplaced bitwise; (8) at
     full depth the captured run bitwise its eager steps, its ms a step,
-    each rank's peak and rank 0's busy share logged."""
+    each rank's peak and rank 0's busy share logged; (9) every collective
+    at a line of ``core/cascade.py`` (the logged gradient norms, read
+    from the placed gradients) an all-reduce of 0-dim tensors, on every
+    rank and in the trace (the norms' sites, their bytes and rank 0's
+    NCCL kernels for them logged). ``against`` (``--against DIR``, a
+    checkout of another commit) then runs :func:`mesh_against`: DIR's
+    package and this one in turns at full depth on the last mesh, whose
+    losses must be bitwise equal."""
     import tempfile
     shapes = MESH_SHAPES.get(world)
     if shapes is None:
@@ -8457,7 +8652,8 @@ def mesh_ranks(world: int) -> int:
             log(f"mesh ({data}, {model}): {time.perf_counter() - t0:.1f} s")
         children.wait([trace], [trace_log], "the dry run's trace", 900)
         traced = json.loads(Path(trace_out).read_text())
-    failures = []
+        failures = [] if against is None else mesh_against(
+            children, shapes[-1], against, tmp, card)
     for (data, model), res in results.items():
         shape = (data, model)
         want = traced[f"{data}x{model}"]
@@ -8471,6 +8667,10 @@ def mesh_ranks(world: int) -> int:
                     failures.append(f"mesh {shape} rank {r['rank']}: "
                                     f"collectives {key} {got[key]} against "
                                     f"the dry run's {want[key]}")
+            bad = beyond_scalars(norm_sites(got))
+            if bad:
+                failures.append(f"mesh {shape} rank {r['rank']}: norm "
+                                f"sites beyond 0-dim all-reduces {bad}")
             moved = [a for a, n in got["by_axis"].items()
                      if n and sizes.get(a, 1) > 1]
             if moved and not r["graph"]["nccl"]:
@@ -8478,6 +8678,19 @@ def mesh_ranks(world: int) -> int:
                                 f"kernel in the graph, though the step "
                                 f"moves bytes over {moved}")
         r0 = res[0]
+        norms, bad = norm_sites(r0["comms"]), beyond_scalars(norm_sites(want))
+        if bad:
+            failures.append(f"mesh {shape}: the dry run's trace has norm "
+                            f"sites beyond 0-dim all-reduces {bad}")
+        log(f"mesh {shape}: one eager placed step's collectives at the "
+            f"norms' sites (core/cascade.py) on rank 0 [bytes, operand "
+            f"shapes] {norms}, their NCCL kernels "
+            f"{ {k: r0['site_kernels'].get(k) for k in norms} }; in the "
+            f"trace {norm_sites(want)}; collective bytes a rank a step "
+            f"{[r['comms']['by_kind']['total'] for r in res]} (the trace's "
+            f"{want['by_kind']['total']})")
+        log(f"mesh {shape}: rank 0's NCCL kernels by site "
+            f"{ {k: v for k, v in r0['site_kernels'].items() if v} }")
         sites = sorted(set(r0["comms"]["by_site"]) ^ set(want["by_site"]))
         site_diff = {k: (r0["comms"]["by_site"].get(k),
                          want["by_site"].get(k)) for k in sites} or "none"
@@ -8519,7 +8732,8 @@ def parse_phases(argv) -> set:
         return set(range(1, 16))
     if len(argv) != 2 or argv[0] != "--phases":
         raise SystemExit("usage: python3 chip_smoke.py [--phases N,N,...] "
-                         f"| {SHARDED_RANKS} D | {MESH_RANKS} D")
+                         f"| {SHARDED_RANKS} D | {MESH_RANKS} D "
+                         f"[{AGAINST} DIR]")
     return {1} | {int(n) for n in argv[1].split(",")}
 
 
@@ -8531,12 +8745,16 @@ def main() -> int:
         return sharded_rank(sys.argv[2:])
     if sys.argv[1:2] == [MESH_RANK]:
         return mesh_rank(sys.argv[2:])
+    if sys.argv[1:2] == [MESH_TURN]:
+        return mesh_turn(sys.argv[2:])
     ranks = {SHARDED_RANKS: sharded_ranks, MESH_RANKS: mesh_ranks}
-    if len(sys.argv) == 3 and sys.argv[1] in ranks:
+    if len(sys.argv) == 3 and sys.argv[1] in ranks or (
+            len(sys.argv) == 5 and sys.argv[1] == MESH_RANKS
+            and sys.argv[3] == AGAINST):
         if not torch.cuda.is_available():
             print("chip_smoke: no CUDA device", file=sys.stderr)
             return 1
-        return ranks[sys.argv[1]](int(sys.argv[2]))
+        return ranks[sys.argv[1]](int(sys.argv[2]), *sys.argv[4:])
     phases = parse_phases(sys.argv[1:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one "

@@ -29,6 +29,8 @@ comment: the gradient flows from the clean lane only).
 from __future__ import annotations
 
 import dataclasses
+import functools
+import operator
 from typing import Callable, Tuple
 
 import torch
@@ -90,9 +92,12 @@ def make_cascaded_step(loss_fn: Callable, client_keys: Tuple[str, ...],
     """Build the cascaded hybrid step.
 
     loss_fn(params, batch) -> (loss, aux).  optimizer: repro_torch.optim
-    object with ``init(params)`` / ``update(grads, state, params)``.
-    Returns step(params, opt_state, batch, t, draws) -> (params,
-    opt_state, StepOutput).
+    object with ``init(params)`` / ``update(grads, state, params)`` /
+    ``place(grads, params)``. Returns step(params, opt_state, batch, t,
+    draws) -> (params, opt_state, StepOutput). Each gradient tree is
+    placed once (``optimizer.place``: on a mesh, each gradient reduced to
+    its parameter's placement); the logged norms and the update both read
+    the placed trees.
 
     ``transport`` (a ``repro_torch.federation.Transport``) optionally
     noises the scalar losses the CLIENT receives over the downlink before
@@ -165,6 +170,8 @@ def make_cascaded_step(loss_fn: Callable, client_keys: Tuple[str, ...],
             g_client = tree_map(lambda *x: sum(x) / float(len(x)), *gs)
             loss_pert = lps[0]
 
+        g_client = optimizer.place(g_client, client)
+        g_server = optimizer.place(g_server, server)
         # ---- updates (separate lrs per party, paper §VI-A-d) -------------
         grads = merge_params(
             tree_map(lambda g: g * (vfl.lr_client / vfl.lr_server),
@@ -217,10 +224,11 @@ def make_foo_step(loss_fn, optimizer):
     nothing; ``t`` and ``draws`` are taken for the common signature."""
     def step(params, opt_state, batch, t, draws):
         loss, grads = _value_and_grad(loss_fn, params, batch, params.keys())
+        grads = optimizer.place(grads, params)
         new_params, new_opt_state = optimizer.update(grads, opt_state, params)
+        norm = _norm(grads)
         out = StepOutput(loss=loss, loss_perturbed=loss,
-                         grad_client_norm=_norm(grads),
-                         grad_server_norm=_norm(grads))
+                         grad_client_norm=norm, grad_server_norm=norm)
         return new_params, new_opt_state, out
     return step
 
@@ -264,6 +272,9 @@ def make_full_zoo_step(loss_fn, client_keys, vfl: VFLConfig, optimizer,
 
         g_client, loss_clean = _zoo_grad(raw_c, loss_of_client, client, vfl)
         g_server, _ = _zoo_grad(raw_s, loss_of_server, server, vfl)
+        # drawn as the parameters are placed: placing moves nothing
+        g_client = optimizer.place(g_client, client)
+        g_server = optimizer.place(g_server, server)
 
         grads = merge_params(
             tree_map(lambda g: g * (vfl.lr_client / vfl.lr_server),
@@ -278,5 +289,13 @@ def make_full_zoo_step(loss_fn, client_keys, vfl: VFLConfig, optimizer,
 
 
 def _norm(tree):
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+    """The f32 L2 norm of a gradient tree. Each leaf's squares are summed
+    where the leaf lies, so a placed leaf (a DTensor sharded or
+    replicated as its parameter) gives a partial or a local 0-dim sum;
+    the sums are added with no 0 to start from (DTensor would reduce
+    the first sum to add a number to it), and only their 0-dim total is
+    reduced, by the square root. A leaf still ``Partial`` is reduced
+    whole by its square: place the tree first (``Optimizer.place``)."""
+    return torch.sqrt(functools.reduce(
+        operator.add, (torch.sum(torch.square(x.float()))
+                       for x in tree_leaves(tree))))

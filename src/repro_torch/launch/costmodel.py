@@ -58,7 +58,7 @@ from repro_torch.optim import placed_like_params, sgd
 from repro_torch.sharding.rules import ACT_RULES, PARAM_RULES, use_mesh
 from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.utils.comms import by_axis_kind, bytes_by_axis, \
-    bytes_by_site, collective_bytes, nccl_alltoall
+    bytes_by_site, collective_bytes, nccl_alltoall, shapes_by_site
 
 # the counts a probe measures, each fitted on its own
 METRICS = ("flops", "bytes", "coll_bytes", "peak_bytes", "output_bytes")
@@ -161,9 +161,11 @@ def measure(cfg: ModelConfig, shape: ShapeConfig, mesh, *, window: int = 0,
     """Trace one step of ``cfg`` at ``shape`` on ``mesh`` (a CPU mesh on
     the dry run's fake group); returns one
     rank's {flops, bytes, coll_bytes, peak_bytes, output_bytes,
-    coll_by_kind, coll_by_axis, coll_by_site, coll_by_axis_kind, trace_s}
-    (``coll_by_axis_kind``: :func:`utils.comms.by_axis_kind`, the
-    collectives' count and bytes). A train step updates through
+    coll_by_kind, coll_by_axis, coll_by_site, coll_by_axis_kind,
+    coll_shapes_by_site, trace_s} (``coll_by_axis_kind``:
+    :func:`utils.comms.by_axis_kind`, the collectives' count and bytes;
+    ``coll_shapes_by_site``: :func:`utils.comms.shapes_by_site`, the
+    local operand shapes each site issued). A train step updates through
     ``placed_like_params(sgd(0.01))``, the optimizer as
     ``Federation.sync_step`` wraps it. ``peak_bytes`` is
     ``MemTracker``'s peak of the tensors the step makes beside its
@@ -230,6 +232,7 @@ def measure(cfg: ModelConfig, shape: ShapeConfig, mesh, *, window: int = 0,
             "coll_by_axis": bytes_by_axis(counter.records),
             "coll_by_site": bytes_by_site(counter.records),
             "coll_by_axis_kind": by_axis_kind(counter.records),
+            "coll_shapes_by_site": shapes_by_site(counter.records),
             "trace_s": trace_s}
 
 

@@ -30,6 +30,10 @@ from torch.profiler import record_function
 from repro_torch.tree import tree_leaves, tree_map
 
 
+def _as_given(grads, params):
+    return grads
+
+
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable      # params -> state
@@ -39,6 +43,11 @@ class Optimizer:
     # state), the new values written into the given trees; None:
     # ``in_place`` copies ``update``'s values in
     apply: Optional[Callable] = None
+    # (grads, params) -> grads as ``update`` takes them: a step factory
+    # places its gradient trees once, then reads its logged norms from
+    # them and hands them to ``update``; the identity but under
+    # ``placed_like_params``
+    place: Callable = _as_given
 
 
 def in_place(opt: Optimizer) -> Optimizer:
@@ -55,28 +64,24 @@ def in_place(opt: Optimizer) -> Optimizer:
 
 
 def placed_like_params(opt: Optimizer) -> Optimizer:
-    """``opt`` whose ``update`` and ``apply`` first bring each DTensor
-    gradient to its parameter's placement: a replicated parameter's
-    gradient over a sharded batch comes out of autograd a partial sum,
-    and this is the all-reduce the JAX driver's jitted step inserts there,
-    so every new leaf keeps its parameter's placement and the functional
-    and the in-place update agree bitwise. Plain tensors pass as they
-    are."""
+    """``opt`` whose ``place`` brings each DTensor gradient to its
+    parameter's placement: a parameter's gradient over a sharded batch
+    comes out of autograd a partial sum, and this is the reduction the
+    JAX driver's jitted step inserts there (a reduce-scatter to a sharded
+    parameter's shard, an all-reduce for a replicated one), in the
+    gradient's own dtype, so every new leaf keeps its parameter's
+    placement and the functional and the in-place update agree bitwise.
+    The step factories place each gradient tree once, before their norms
+    and the update. Plain tensors pass as they are."""
     def like(g, p):
         if (isinstance(p, DTensor) and isinstance(g, DTensor)
                 and g.placements != p.placements):
             return g.redistribute(p.device_mesh, p.placements)
         return g
 
-    def wrap(fn):
-        if fn is None:
-            return None
-
-        def placed(grads, state, params):
-            return fn(tree_map(like, grads, params), state, params)
-        return placed
-    return dataclasses.replace(opt, update=wrap(opt.update),
-                               apply=wrap(opt.apply))
+    def place(grads, params):
+        return tree_map(like, grads, params)
+    return dataclasses.replace(opt, place=place)
 
 
 def _tree_zeros_f32(params):

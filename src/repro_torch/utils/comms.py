@@ -22,9 +22,10 @@ chunk instead, unless :func:`nccl_alltoall` routes it as the card does.
 ``hlo.collective_bytes`` does;
 :func:`bytes_by_axis` sums them by the mesh axis whose group carried them,
 :func:`bytes_by_site` by axis, kind and the line of the port's code
-that issued them (HLO has no such line to give), and
+that issued them (HLO has no such line to give),
 :func:`by_axis_kind` counts them and sums their bytes by axis and kind
-(what a run on a real group is held to against the dry run's trace).
+(what a run on a real group is held to against the dry run's trace), and
+:func:`shapes_by_site` lists the local operand shapes each site issued.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ import contextlib
 import dataclasses
 import os
 import sys
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor
@@ -56,6 +57,7 @@ class CommRecord:
     output_bytes: int          # the local result
     axis: str                  # the mesh axis of the group ("?" unknown)
     site: str = ""             # the port's line that issued it (_site)
+    shape: Tuple[int, ...] = ()  # the local operand's shape
 
 
 def op_bytes(rec: CommRecord) -> int:
@@ -106,14 +108,26 @@ def by_axis_kind(records: Iterable[CommRecord]) -> Dict[str, List[int]]:
     return agg
 
 
+def shapes_by_site(records: Iterable[CommRecord]) -> Dict[str,
+                                                           List[List[int]]]:
+    """``{"axis kind site": the distinct local operand shapes, sorted}``
+    (lists, as JSON keeps them)."""
+    agg: Dict[str, set] = {}
+    for rec in records:
+        agg.setdefault(f"{rec.axis} {rec.kind} {rec.site}",
+                       set()).add(tuple(rec.shape))
+    return {k: [list(s) for s in sorted(v)] for k, v in agg.items()}
+
+
 def summary(records: List[CommRecord]) -> dict:
     """A step's collectives as a run on a real group is held to the dry
-    run's trace: ``by_axis_kind`` (count and bytes), and the bytes
-    ``by_kind``, ``by_axis`` and ``by_site``."""
+    run's trace: ``by_axis_kind`` (count and bytes), the bytes
+    ``by_kind``, ``by_axis`` and ``by_site``, and ``shapes_by_site``."""
     return {"by_axis_kind": by_axis_kind(records),
             "by_kind": collective_bytes(records),
             "by_axis": bytes_by_axis(records),
-            "by_site": bytes_by_site(records)}
+            "by_site": bytes_by_site(records),
+            "shapes_by_site": shapes_by_site(records)}
 
 
 @contextlib.contextmanager
@@ -191,8 +205,11 @@ class CommRecorder(CommDebugMode):
                                   func).__name__.split(".")[-1])
         if kind is not None:
             group = args[-1] if args and isinstance(args[-1], str) else None
+            operand = args[0] if args else None
             self.records.append(CommRecord(
-                kind, _nbytes(args[0]) if args else 0,
+                kind, _nbytes(operand),
                 sum(_nbytes(t) for t in torch.utils._pytree.tree_leaves(out)),
-                self._axes.get(group, "?"), _site()))
+                self._axes.get(group, "?"), _site(),
+                tuple(operand.shape) if isinstance(operand, torch.Tensor)
+                else ()))
         return out

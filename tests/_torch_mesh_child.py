@@ -9,11 +9,12 @@ here, never in a pytest worker.
 ``("data", "model")`` mesh, joined through the ``FileStore`` at STORE. For
 each case of :data:`CASES` it runs ``launch.train.train(cfg, mesh=)`` for
 1 and for 2 cascaded steps on the CPU, counts the ``shard_constraint``
-calls, and keeps every leaf's local shape and its full value
-(``full_tensor()``); then 2 steps of each case and of the DP case
-(:data:`DP_CASE`) through the compiled step ``train`` builds (a
-``graphs.GraphedFn``: its loop form on the CPU) and through that step's
-body called bare on the run's own trees; 2 steps of each case through
+calls, and keeps each step's ``StepOutput`` (losses, logged gradient
+norms), every leaf's local shape and its full value (``full_tensor()``);
+then 2 steps of each case and of the DP case (:data:`DP_CASE`) through
+the compiled step ``train`` builds (a ``graphs.GraphedFn``: its loop
+form on the CPU) and through that step's body called bare on the run's
+own trees; 2 steps of each case through
 the functional eager step (``fed.sync_step(opt)``), with every leaf's
 placement beside the one ``PARAM_RULES`` gives; and for
 :data:`RESUME_CASES` a run saved at step :data:`RESUME_AT` (its
@@ -35,10 +36,13 @@ both parameter rule sets on the (16, 16), (2, 16, 16) and (2, 2) meshes;
 with ``comms``, ``utils.comms``' records of known redistributes; with
 ``measure``, ``costmodel.measure``'s collectives (``comms.summary``'s
 keys) of the phi3 case's step at TRAIN's batch and sequence on a (2, 2)
-mesh of 4 fake ranks; with ``dryrun``, ``launch.dryrun.run_one`` of
-reduced phi3 at ``train_4k`` with the full depth traced beside the fit.
+mesh of 4 fake ranks, of its bf16 step traced with and without
+``placed_like_params``, and of its FOO step (``method="vafl"``); with
+``dryrun``, ``launch.dryrun.run_one`` of reduced phi3 at ``train_4k``
+with the full depth traced beside the fit.
 """
 import contextlib
+import dataclasses
 import json
 import os
 import sys
@@ -128,8 +132,11 @@ def train_rank(rank, world, store, out):
         cfg = case_cfg(arch, over)
         for steps in (1, 2):
             rules.reset_calls()
-            r = train(cfg, steps=steps, mesh=mesh, **TRAIN)
+            outputs = []
+            with recorded_losses(outputs):
+                r = train(cfg, steps=steps, mesh=mesh, **TRAIN)
             leaves = dict(_paths(r.pop("params")))
+            r["outputs"] = outputs
             r["calls"] = rules.calls["shard_constraint"]
             r["local_shapes"] = {p: tuple(t.to_local().shape)
                                  for p, t in leaves.items()}
@@ -212,9 +219,11 @@ def _rule_placements(cfg, mesh):
 
 
 @contextlib.contextmanager
-def recorded_losses():
+def recorded_losses(outputs=None):
     """Each step's loss (a float) of the steps ``Federation.sync_step``
-    builds inside, in order, in the yielded list."""
+    builds inside, in order, in the yielded list; with ``outputs`` (a
+    list), each step's ``StepOutput`` (its losses and logged gradient
+    norms) appended to it as well, as floats by field."""
     from repro_torch.federation import session
     from repro_torch.launch.train import _scalar
     inner, losses = session.Federation.sync_step, []
@@ -225,6 +234,9 @@ def recorded_losses():
         def recorded(*args):
             out = step(*args)
             losses.append(_scalar(out[2].loss))
+            if outputs is not None:
+                outputs.append({f.name: _scalar(getattr(out[2], f.name))
+                                for f in dataclasses.fields(out[2])})
             return out
         return recorded
     session.Federation.sync_step = sync_step
@@ -380,19 +392,27 @@ def measure_dump():
                             fused_dual=True)
     out = {"by_axis_kind": res["coll_by_axis_kind"],
            "by_kind": res["coll_by_kind"], "by_axis": res["coll_by_axis"],
-           "by_site": res["coll_by_site"]}
+           "by_site": res["coll_by_site"],
+           "shapes": res["coll_shapes_by_site"]}
     # the same step in the model's own bf16, traced as measure steps
-    # (placed_like_params over sgd) and through bare sgd: the bytes by
-    # site of each
+    # (placed_like_params over sgd) and through bare sgd: the bytes and
+    # the operand shapes by site of each
     inner = costmodel.placed_like_params
     for name, wrap in (("bf16", inner), ("bf16_bare", lambda opt: opt)):
         costmodel.placed_like_params = wrap
         try:
-            out[name] = costmodel.measure(
+            r = costmodel.measure(
                 reduced(get_config(CASES[0][1]), **CASES[0][2]), shape, mesh,
-                fused_dual=True)["coll_by_site"]
+                fused_dual=True)
         finally:
             costmodel.placed_like_params = inner
+        out[name] = r["coll_by_site"]
+        out[f"{name}_shapes"] = r["coll_shapes_by_site"]
+    # the FOO step (vafl) of the f32 case
+    r = costmodel.measure(case_cfg(*CASES[0][1:]), shape, mesh,
+                          method="vafl")
+    out["vafl"] = {"by_kind": r["coll_by_kind"], "by_site": r["coll_by_site"],
+                   "shapes": r["coll_shapes_by_site"]}
     return out
 
 

@@ -32,6 +32,11 @@
   (``costmodel.measure`` on a fake group of 4, a child started beside
   the ranks), and the trace's update reduce-scatters each gradient in its
   own dtype where bare sgd moved its f32 upcast;
+* each step factory reduces each gradient once and reads its logged
+  norms from the placed gradients: at the lines of ``core/cascade.py``
+  the trace (cascaded f32 and bf16, FOO) and the gloo rank carry 0-dim
+  all-reduces only, and the placed runs' norms agree with the unplaced
+  runs';
 * ``chip_smoke.py``'s f32 gate of the card's placed run holds each
   leaf's update, and fails on one dropped.
 The rules' placements and the no-mesh identity are
@@ -50,7 +55,7 @@ import pytest
 import torch
 
 from _torch_mesh_child import (CASES, DP_CASE, RESUME_AT, RESUME_CASES,
-                               TRAIN, case_cfg, case_noise)
+                               TRAIN, case_cfg, case_noise, recorded_losses)
 from repro import configs as j_configs
 from repro.federation import Federation as JFederation
 from repro.models import model_api as j_model_api
@@ -65,6 +70,11 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 CHILD = pathlib.Path(__file__).with_name("_torch_mesh_child.py")
 ENV = dict(os.environ, PYTHONPATH=os.pathsep.join(
     [str(ROOT / "src"), str(ROOT / "tests")]))
+# one rank's collective bytes a step of the phi3 case at (2, 2) outside
+# the lines of core/cascade.py, in the dry run's trace: the model's
+# forward and backward, and the update's reduction of each gradient to
+# its parameter's placement; the cascaded f32 step and the FOO step
+OUTSIDE_NORMS = {"f32": 5_143_584, "vafl": 3_968_000}
 MESHES = {"16x16": {"data": 16, "model": 16},
           "2x16x16": {"pod": 2, "data": 16, "model": 16},
           "2x2": {"data": 2, "model": 2}}
@@ -108,8 +118,11 @@ def unplaced():
     with torch_threads(1):
         for name, arch, over in CASES:
             for steps in (1, 2):
-                r = train(case_cfg(arch, over), steps=steps, **TRAIN)
+                outputs = []
+                with recorded_losses(outputs):
+                    r = train(case_cfg(arch, over), steps=steps, **TRAIN)
                 r["params"] = dict(_paths(r["params"]))
+                r["outputs"] = outputs
                 res[f"{name}/{steps}"] = r
         name, arch, over = DP_CASE
         r = train(case_cfg(arch, over), steps=2, noise=case_noise(name),
@@ -162,7 +175,8 @@ def _second_step_from(name, start, tmp_path):
     """The unplaced run's second step taken from ``start`` (the placed
     run's parameters after its first step, by path): an unplaced first
     step is checkpointed, its parameters are swapped for ``start``, and
-    the run resumes for the second."""
+    the run resumes for the second (its ``StepOutput`` under
+    ``outputs``)."""
     _, arch, over = _case(name)
     one, swapped = str(tmp_path / "one"), str(tmp_path / "swapped")
     with torch_threads(1):
@@ -172,8 +186,11 @@ def _second_step_from(name, start, tmp_path):
         fed.save(swapped, _unpaths(start), step=state.step,
                  opt_state=state.opt_state, ledger=state.ledger,
                  dp_releases=state.dp_releases, metadata=state.metadata)
-        r = train(steps=2, resume=swapped, **TRAIN)
+        outputs = []
+        with recorded_losses(outputs):
+            r = train(steps=2, resume=swapped, **TRAIN)
     r["params"] = dict(_paths(r["params"]))
+    r["outputs"] = outputs
     return r
 
 
@@ -349,8 +366,9 @@ def test_the_trace_reduce_scatters_each_gradient_in_its_dtype(placed):
     parameter's shard, so its reduce-scatter moved f32;
     ``placed_like_params`` reduce-scatters the bf16 gradient itself (half
     the bytes, as the JAX package's compiled step does) and adds the
-    all-reduce of the replicated parameters' gradients. Nothing else
-    moves."""
+    all-reduce of the replicated parameters' gradients. Beside that only
+    the logged norms' sites move: bare sgd's norms still reduce-scatter
+    each whole f32 gradient, the placed step's all-reduce 0-dim sums."""
     like, bare = placed["measure"]["bf16"], placed["measure"]["bf16_bare"]
     opt = "optim/optimizers.py"
 
@@ -362,8 +380,123 @@ def test_the_trace_reduce_scatters_each_gradient_in_its_dtype(placed):
     assert scatter.endswith(" like") and bare_scatter.endswith(" <lambda>")
     assert n_bare == 2 * n_like > 0
     assert at(like, "all-reduce") and not at(bare, "all-reduce")
-    assert {k: n for k, n in like.items() if opt not in k} == \
-        {k: n for k, n in bare.items() if opt not in k}
+    # nothing else moves but the logged norms: bare sgd places nothing
+    # (``Optimizer.place`` is the identity), so its norms square each
+    # server gradient still a partial sum and DTensor reduce-scatters its
+    # f32 upcast there; the placed step's norms sum the placed
+    # gradients' squares and reduce 0-dim sums only
+    assert {k: n for k, n in like.items()
+            if opt not in k and not _at_norms(k)} == \
+        {k: n for k, n in bare.items() if opt not in k and not _at_norms(k)}
+    (bare_norm, n_norm), = {k: n for k, n in bare.items()
+                            if _at_norms(k) and k.startswith(
+                                "data reduce-scatter ")}.items()
+    assert n_norm == n_bare
+    _only_scalars(like, placed["measure"]["bf16_shapes"], 2)
+
+
+def _at_norms(key) -> bool:
+    """Whether a ``comms.bytes_by_site`` key ("axis kind site") names a
+    line of ``core/cascade.py`` itself: the logged norms' sites. (A
+    backward collective's site reads "backward core/cascade.py ...
+    _value_and_grad", the frame autograd runs the model's backward
+    from: the model's.)"""
+    return key.split(" ", 2)[2].startswith("core/cascade.py")
+
+
+def _only_scalars(by_site, shapes, norms) -> int:
+    """Every collective at the norms' sites an all-reduce of 0-dim
+    tensors, one over each mesh axis for each of the ``norms`` norms a
+    step logs (a 0-dim f32 all-reduce moves 8 bytes); returns their
+    bytes."""
+    at = {k: n for k, n in by_site.items() if _at_norms(k)}
+    assert {k.split(" ")[0] for k in at} == {"data", "model"}, sorted(at)
+    for k in at:
+        assert k.split(" ")[1] == "all-reduce" and shapes[k] == [[]], \
+            (k, shapes[k])
+    assert sum(at.values()) == 8 * 2 * norms, at
+    return sum(at.values())
+
+
+@pytest.mark.parametrize("trace", ["f32", "bf16", "vafl"])
+def test_the_norms_reduce_only_scalars(placed, trace):
+    """Each step factory places its gradient trees once
+    (``Optimizer.place``: each gradient reduced to its parameter's
+    placement in its own dtype, at the update's site ``optim/optimizers.py
+    ... like``) and reads its logged norms from them: each leaf's squares
+    summed on its shard, only 0-dim sums reduced. In the dry run's trace
+    of the phi3 case at (2, 2) every collective at a line of
+    ``core/cascade.py`` is an all-reduce of a 0-dim sum, one an axis for
+    each norm (the cascaded step logs two, the FOO step one, computed
+    once), and the step moves the bytes outside those sites
+    (``OUTSIDE_NORMS``) and those scalars only: the cascaded f32 and bf16
+    steps and the f32 FOO step (``method="vafl"``). One eager placed
+    cascaded step on the four gloo ranks carries the same at those
+    sites."""
+    m = placed["measure"]
+    by_site, shapes, total, norms = {
+        "f32": (m["by_site"], m["shapes"], m["by_kind"]["total"], 2),
+        "bf16": (m["bf16"], m["bf16_shapes"], None, 2),
+        "vafl": (m["vafl"]["by_site"], m["vafl"]["shapes"],
+                 m["vafl"]["by_kind"]["total"], 1)}[trace]
+    scalars = _only_scalars(by_site, shapes, norms)
+    if total is not None:
+        assert total == OUTSIDE_NORMS[trace] + scalars
+    if trace == "f32":
+        got = placed["comms"]
+        _only_scalars(got["by_site"], got["shapes_by_site"], norms)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_placed_norms_match_the_unplaced_norms(placed, unplaced, name,
+                                               tmp_path):
+    """Each step's logged gradient norms of the placed f32 run, read from
+    its placed gradients, against the unplaced run's, at the first step
+    of the one- and the two-step runs (the same start) and at the second
+    step taken alone from the placed run's own first step. |g_s| differs
+    by the order of reduction alone: within 1e-5 relative. The client's
+    ZOO gradient (one query) is φ/μ (ĥ − h) u, the same u placed or not,
+    and ĥ − h is 51 to 323 f32 spacings of the loss in these steps, so a
+    spacing moves |g_c| by 0.3–2% (the client update's scalar of
+    ``test_two_placed_steps_match_the_unplaced_steps``): |g_c| is held to
+    the unplaced |g_c| scaled by the two steps' ĥ − h, within 2 spacings
+    of the placed ĥ − h."""
+    def first(n):
+        return (placed[f"{name}/{n}"]["outputs"][0],
+                unplaced[f"{name}/{n}"]["outputs"][0])
+    assert [len(placed[f"{name}/{n}"]["outputs"]) for n in (1, 2)] == [1, 2]
+    alone = _second_step_from(name, placed[f"{name}/1"]["params"], tmp_path)
+    pairs = [first(1), first(2),
+             (placed[f"{name}/2"]["outputs"][1], alone["outputs"][0])]
+    for got, want in pairs:
+        np.testing.assert_allclose(got["grad_server_norm"],
+                                   want["grad_server_norm"], rtol=1e-5)
+        dg, dw = (abs(o["loss_perturbed"] - o["loss"]) for o in (got, want))
+        # the placed |g_c| over the draw's φ/μ |u| (the unplaced run's
+        # |g_c| / |ĥ − h|): the placed step's own ĥ − h, which its ranks
+        # form from partial losses, each rounded, so within 2 spacings
+        spacing = float(np.spacing(np.float32(got["loss"])))
+        implied = got["grad_client_norm"] * dw / want["grad_client_norm"]
+        assert abs(implied - dg) <= 2 * spacing, (implied, dg, spacing)
+
+
+def test_card_norm_gate_reads_the_trace(placed):
+    """``chip_smoke.py --mesh-ranks D``'s norm gate (``norm_sites``,
+    ``beyond_scalars``) on the dry run's bf16 traces: it finds the norms'
+    sites at the lines of ``core/cascade.py`` only (not the backward's,
+    which autograd runs from ``_value_and_grad``), passes the placed
+    step's 0-dim all-reduces, and names bare sgd's f32 reduce-scatter
+    and all-reduce of whole gradients there."""
+    smoke = _smoke()
+    m = placed["measure"]
+    like = smoke.norm_sites({"by_site": m["bf16"],
+                             "shapes_by_site": m["bf16_shapes"]})
+    bare = smoke.norm_sites({"by_site": m["bf16_bare"],
+                             "shapes_by_site": m["bf16_bare_shapes"]})
+    assert like and all(" backward " not in k for k in like)
+    assert smoke.beyond_scalars(like) == []
+    assert sorted(k.split(" ")[:2] for k in smoke.beyond_scalars(bare)) \
+        == [["data", "all-reduce"], ["data", "reduce-scatter"]]
 
 
 def test_production_mesh_refuses_a_four_rank_group(placed):
